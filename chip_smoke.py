@@ -7,12 +7,21 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build   compile the port's CUDA extension from csrc/ (sm_90a) and print
            the build time and the card's name and power limit;
-2. kernels run each hand-written kernel against its plain PyTorch version
-           on the card at the serving shapes (B = 8 and 64, N = 1024), with
-           the tolerances below, and time kernel, plain version and, where
-           one PyTorch call computes the same function, that call (CUDA
-           events, median of 25 after 3 warm-up calls);
-3. serve   load checkpoints/pretrained/vcrnet_shapes_best.msgpack with the
+2. kernels run each hand-written forward kernel against its plain PyTorch
+           version on the card at the serving shapes (B = 8 and 64,
+           N = 1024), and each backward kernel at the training shapes (the
+           LPDNet blocks see 2B = 16 and 128 stacked clouds), with the
+           tolerances below, and time kernel, plain version and, where one
+           PyTorch call computes the same function, that call (CUDA events,
+           median of 25 after 3 warm-up calls);
+3. train   a Trainer at full width, bf16, from a seeded init on synthetic
+           shape pairs: the cosine of the kernel route's whole-model
+           gradient against the plain route's on one batch of 8 (>= 0.99,
+           and >= 0.98 for each parameter whose gradient is not zero in
+           exact arithmetic), the exact launches of every kernel in one step, the loss after
+           20 Adam steps on one batch below the first step's, and the
+           median step time at B = 8 and 64;
+4. serve   load checkpoints/pretrained/vcrnet_shapes_best.msgpack with the
            port's own reader, serve requests of 1, 8 and 64 synthetic shape
            pairs (N = 1024) through Registrar at full width, bf16, iter=1,
            check the launch counts of every kernel on that run, the rotation
@@ -179,11 +188,274 @@ def phase_kernels(dev):
             library_ms=cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(sef, tef, tgt, attn_mask=mask, scale=2.0)),
         ))
+    print_rows(rows)
+    return rows
+
+
+def print_rows(rows):
     for name, per_b in rows.items():
         for r in per_b:
             print(f"kernel {name} B={r['B']}: " + " ".join(
                 f"{key}={val}" for key, val in r.items() if key != "B"), flush=True)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    scale = want.float().abs().max().clamp_min(1e-30)
+    return ((got.float() - want.float()).abs().max() / scale).item()
+
+
+def phase_backward(dev):
+    """The four backward kernels at the training shapes (the LPDNet blocks
+    see the stacked batch 2B = 16 and 128, attention and VCP B = 8 and
+    64), each fed the same saved indices, winners and logsumexp as its
+    plain version. Tolerances: gather-max bwd 1e-5 absolute (f32 atomics
+    reorder sums of a few bf16 terms); edge conv bwd 2^-7 of the largest
+    value for da (dq is rounded to bf16 before the scatter, at f32 values
+    that differ in the last bits) and 1e-4 relative for dh, dW2, db2 (f32
+    sums in another order); attention and VCP 1e-2 relative (ds is rounded
+    to bf16 at f32 values that differ in the last bits); the VCP library
+    call 5e-2 relative against the plain version (it keeps ds and p in f32,
+    where the kernel and its plain version round them to bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcrnet_tpu_torch.ops import attention, edgeconv, vcp
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def timed(row, kernel, plain, library=None):
+        row["ms"] = cuda_time_ms(kernel)
+        row["plain_ms"] = cuda_time_ms(plain)
+        row["library_ms"] = cuda_time_ms(library) if library is not None else None
+        return row
+
+    bf16 = torch.bfloat16
+    rows = {}
+    for B in BATCHES:
+        B2 = 2 * B  # the embedding runs src and tgt stacked
+        # --- SN block backward: winners of the forward, then the scatter
+        x = torch.rand(B2, N, 3, generator=g, device=dev) * 2 - 1
+        values = randn(B2, N, 256, dtype=bf16)
+        _, idx, win = edgeconv.fused_knn_gather_max(x, values, K, winners=True)
+        _, _, ref_win = edgeconv.fused_knn_gather_max_ref(x, values, K, idx=idx, winners=True)
+        check(torch.equal(win, ref_win), f"knn_gather_max B={B2}: winners differ from plain")
+        ct = randn(B2, N, 256, dtype=bf16)
+        dv = edgeconv.gather_max_bwd(idx, win, ct)
+        torch.cuda.synchronize()
+        err = (dv - edgeconv.gather_max_bwd_ref(idx, win, ct)).abs().max().item()
+        check(err <= 1e-5, f"gather_max_bwd B={B2}: max abs err {err} > 1e-5")
+        b, by = bound_ms(nbytes(idx, win, ct, dv), B2 * N * 256, F32_FLOPS)
+        rows.setdefault("gather_max_bwd", []).append(timed(
+            dict(B=B2, max_abs_err=err, bound_ms=b, bound_by=by),
+            lambda: edgeconv.gather_max_bwd(idx, win, ct),
+            lambda: edgeconv.gather_max_bwd_ref(idx, win, ct)))
+
+        # --- DG block backward from the forward's idx and winners
+        xf = randn(B2, N, 64, dtype=bf16)
+        a = randn(B2, N, 128, scale=0.5, dtype=bf16)
+        h = randn(B2, N, 128, scale=0.5, dtype=bf16)
+        w2 = randn(128, 128, scale=128 ** -0.5, dtype=bf16)
+        b2 = randn(128, scale=0.1, dtype=bf16)
+        _, x2, idx, win1, win2 = edgeconv.fused_edge_conv(xf, a, h, w2, b2, K, winners=True)
+        _, _, _, rw1, rw2 = edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K, idx=idx,
+                                                         winners=True)
+        check(torch.equal(win1, rw1), f"edge_conv B={B2}: x1 winners differ from plain")
+        w2_agree = (win2 == rw2).float().mean().item()  # y sums in another order
+        check(w2_agree >= 0.99, f"edge_conv B={B2}: x2 winners agree on {w2_agree}")
+        ct1, ct2 = randn(B2, N, 128, dtype=bf16), randn(B2, N, 128, dtype=bf16)
+        args = (idx, win1, win2, a, h, w2, x2, ct1, ct2)
+        got = edgeconv.edge_conv_bwd(*args)
+        torch.cuda.synchronize()
+        want = edgeconv.edge_conv_bwd_ref(*args)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(errs[0] <= 2 ** -7 and max(errs[1:]) <= 1e-4,
+              f"edge_conv_bwd B={B2}: relative errors (da, dh, dW2, db2) {errs}")
+        err = max((gv - wv).abs().max().item() for gv, wv in zip(got, want))
+        flops = B2 * N * (4 * 128 * 128 + 4 * K * 128)
+        b, by = bound_ms(nbytes(*args, *got), flops, F32_FLOPS)
+        rows.setdefault("edge_conv_bwd", []).append(timed(
+            dict(B=B2, rel_errs=errs, x2_winners_agree=w2_agree, max_abs_err=err,
+                 bound_ms=b, bound_by=by),
+            lambda: edgeconv.edge_conv_bwd(*args),
+            lambda: edgeconv.edge_conv_bwd_ref(*args)))
+
+        # --- attention backward from the forward's output and logsumexp
+        q, k, v = (randn(B, N, 512, dtype=bf16) for _ in range(3))
+        scale = 128 ** -0.5
+        o, lse = attention.flash_mha_packed(q, k, v, scale, 4, return_lse=True)
+        _, ref_lse = attention.flash_mha_packed_ref(q, k, v, scale, 4, return_lse=True)
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"flash_packed B={B}: lse max abs err {lse_err} > 1e-3")
+        do = randn(B, N, 512, dtype=bf16)
+        got = attention.flash_bwd(q, k, v, o, lse, do, scale, 4)
+        torch.cuda.synchronize()
+        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, 4)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(max(errs) <= 1e-2, f"flash_bwd B={B}: relative errors (dq, dk, dv) {errs}")
+        err = max((gv.float() - wv.float()).abs().max().item() for gv, wv in zip(got, want))
+        q4, k4, v4 = (t.reshape(B, N, 4, 128).transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        do4 = do.reshape(B, N, 4, 128).transpose(1, 2).contiguous()
+        b, by = bound_ms(nbytes(q, k, v, o, lse, do, *got), 10 * B * 4 * N * N * 128,
+                         BF16_TENSOR_FLOPS)
+        rows.setdefault("flash_bwd", []).append(timed(
+            dict(B=B, rel_errs=errs, lse_err=lse_err, max_abs_err=err, bound_ms=b, bound_by=by),
+            lambda: attention.flash_bwd(q, k, v, o, lse, do, scale, 4),
+            lambda: attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, 4),
+            lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)))
+
+        # --- soft correspondence backward from the forward's corr and lse
+        se = randn(B, N, 512, scale=512 ** -0.5, dtype=bf16)
+        te = randn(B, N, 512, scale=512 ** -0.5, dtype=bf16)
+        tgt = torch.rand(B, N, 3, generator=g, device=dev) * 2 - 1
+        corr, lse = vcp.streaming_soft_correspondence(se, te, tgt, return_lse=True)
+        _, ref_lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"vcp_stream B={B}: lse max abs err {lse_err} > 1e-3")
+        dcorr = randn(B, N, 3)
+        vargs = (se, te, tgt, corr, lse, dcorr)
+        got = vcp.vcp_bwd(*vargs)
+        torch.cuda.synchronize()
+        want = vcp.vcp_bwd_ref(*vargs)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(max(errs) <= 1e-2, f"vcp_bwd B={B}: relative errors (de, df, dtgt) {errs}")
+        err = max((gv - wv).abs().max().item() for gv, wv in zip(got, want))
+        # the library's counterpart: SDPA with the -|f|^2 mask built from a
+        # tgt_emb inside the graph, so its backward adds the -2 colsum(ds) f
+        # term; it keeps ds and p in f32, where the kernel rounds them to
+        # bf16, hence the looser agreement
+        sef, tef, tgtg = (t.float().requires_grad_() for t in (se, te, tgt))
+        mask = -(tef * tef).sum(-1)[:, None, :].expand(B, N, N)
+        c_lib = F.scaled_dot_product_attention(sef, tef, tgtg, attn_mask=mask, scale=2.0)
+        lib = torch.autograd.grad(c_lib, (sef, tef, tgtg), dcorr, retain_graph=True)
+        lib_errs = [rel_err(lv, wv) for lv, wv in zip(lib, want)]
+        check(max(lib_errs) <= 5e-2, f"vcp_bwd B={B}: library relative errors {lib_errs}")
+        b, by = bound_ms(nbytes(*vargs, *got), 6 * B * N * N * 512, BF16_TENSOR_FLOPS)
+        rows.setdefault("vcp_bwd", []).append(timed(
+            dict(B=B, rel_errs=errs, lib_rel_errs=lib_errs, lse_err=lse_err, max_abs_err=err,
+                 bound_ms=b, bound_by=by),
+            lambda: vcp.vcp_bwd(*vargs), lambda: vcp.vcp_bwd_ref(*vargs),
+            lambda: torch.autograd.grad(c_lib, (sef, tef, tgtg), dcorr, retain_graph=True)))
+    print_rows(rows)
     return rows
+
+
+# kernel launches in one training step: the forward embeds src and tgt
+# stacked (1 edge conv, 1 gather-max), the pointer runs 6 attentions, the
+# head 1 soft correspondence; the backward launches one backward kernel each
+TRAIN_LAUNCHES = {"knn_gather_max": 1, "edge_conv": 1, "flash_packed": 6, "vcp_stream": 1,
+                  "gather_max_bwd": 1, "edge_conv_bwd": 1, "flash_bwd": 6, "vcp_bwd": 1}
+GRAD_COSINE_MIN = 0.99
+LEAF_COSINE_MIN = 0.98
+# leaves whose gradient is zero in exact arithmetic, so both routes give
+# rounding noise there and their cosine means nothing: the key
+# projections' biases (q . b_k is one constant along a softmax row) and the
+# decoder's final LayerNorm shift (it moves both clouds' embeddings alike,
+# which shifts each VCP score row by a constant)
+ZERO_GRAD_LEAVES = ("linear_k.bias", "pointer.dec_norm.b_2")
+TRAIN_STEPS = 20
+
+
+def _train_batch(cfg, b: int, seed: int) -> dict:
+    import numpy as np
+
+    from vcrnet_tpu_torch.data.synthetic import Loader, SyntheticDataset
+
+    np.random.seed(seed)  # training pairs draw from the global generator
+    ds = SyntheticDataset(cfg, "train", n_items=b, cloud_points=2 * N, seed=seed, kind="shapes")
+    return next(iter(Loader(ds, b)))
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double(), b.double()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+
+
+def phase_train():
+    """The training step at full width, bf16, N = 1024, from a seeded init
+    on synthetic shape pairs: kernel-route vs plain-route gradients on one
+    batch of 8, the launches of one step, 20 Adam steps on one batch, and
+    the step time at B = 8 and 64."""
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.train import Trainer
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N)
+    check((cfg.emb_dims, cfg.ff_dims, cfg.n_heads, cfg.n_blocks, cfg.loss, cfg.cycle,
+           cfg.dropout, cfg.streaming_vcp_train) == (512, 1024, 4, 1, "point", False, 0.0, True),
+          "train phase must run the default configuration")
+    batch8 = _train_batch(cfg, 8, seed=1)
+    kern = Trainer(cfg, seed=0)
+    plain = Trainer(cfg, seed=0, use_kernels=False)
+    check(kern.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+
+    # gradients of the two routes on one batch of 8, from the same init
+    loss_k, _ = kern.compute_grads(batch8)
+    loss_p, _ = plain.compute_grads(batch8)
+    names, gk, gp = [], [], []
+    for (name, pk), (_, pp) in zip(kern.model.named_parameters(), plain.model.named_parameters()):
+        names.append(name)
+        gk.append(pk.grad.reshape(-1))
+        gp.append(pp.grad.reshape(-1))
+    low = []
+    for name, a, b in zip(names, gk, gp):
+        leaf_cos = _cosine(a, b)
+        print(f"train grad cosine {name}: {leaf_cos}", flush=True)
+        if not name.endswith(ZERO_GRAD_LEAVES) and not leaf_cos >= LEAF_COSINE_MIN:
+            low.append((name, leaf_cos))
+    cos = _cosine(torch.cat(gk), torch.cat(gp))
+    print(f"train loss at init: kernels {loss_k.item()} plain {loss_p.item()}; "
+          f"whole-model grad cosine {cos}", flush=True)
+    check(math.isfinite(loss_k.item()), "non-finite training loss")
+    check(cos >= GRAD_COSINE_MIN, f"kernel vs plain gradient cosine {cos} < {GRAD_COSINE_MIN}")
+    check(not low, f"kernel vs plain gradient cosine below {LEAF_COSINE_MIN}: {low}")
+    exempt = [n for n in names if n.endswith(ZERO_GRAD_LEAVES)]
+    check(len(exempt) == 4, f"zero-gradient leaves {exempt}: expected 3 key biases + 1 shift")
+    del plain
+
+    # launches of one training step on the main path (after a warm-up step)
+    kern.train_step(batch8)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    kern.train_step(batch8)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"train launches in one step: {launches}", flush=True)
+    for name, n in TRAIN_LAUNCHES.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches in one step, expected {n}")
+
+    # Adam on one fixed batch: the loss must fall
+    tr = Trainer(cfg, seed=0)
+    losses = []
+    for _ in range(TRAIN_STEPS + 1):
+        sums = tr.train_step(batch8)
+        losses.append((sums["loss"] / sums["count"]).item())
+    print(f"train losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
+    check(all(math.isfinite(v) for v in losses), "non-finite loss in the Adam steps")
+    check(losses[-1] < losses[0],
+          f"loss after {TRAIN_STEPS} steps {losses[-1]} >= first {losses[0]}")
+
+    step_ms = {}
+    for b in BATCHES:
+        batch = tr.to_device(_train_batch(cfg, b, seed=2))
+        tr.train_step(batch)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[b] = statistics.median(times)
+        print(f"train step at B={b}: median {step_ms[b]} ms (5 steps: {times})", flush=True)
+    return launches, step_ms
 
 
 def rot_rmse_deg(R_pred, euler_gt):
@@ -228,7 +500,8 @@ def phase_serve():
     # per request at iter=1: embed tgt + src (1 edge conv + 1 gather-max
     # each), 6 attentions (target encoder 1, source encoder 1, two decoders
     # 2 each), 1 soft correspondence
-    per_request = {"knn_gather_max": 2, "edge_conv": 2, "flash_packed": 6, "vcp_stream": 1}
+    per_request = {"knn_gather_max": 2, "edge_conv": 2, "flash_packed": 6, "vcp_stream": 1,
+                   "gather_max_bwd": 0, "edge_conv_bwd": 0, "flash_bwd": 0, "vcp_bwd": 0}
     for name, n in per_request.items():
         check(launches[name] == n * len(requests),
               f"{name}: {launches[name]} launches on the main path, expected {n * len(requests)}")
@@ -282,7 +555,9 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
 
     rows = phase_kernels(dev)
-    launches = phase_serve()
+    rows.update(phase_backward(dev))
+    train_launches, _ = phase_train()
+    serve_launches = phase_serve()
 
     sources = {
         "knn_gather_max": ("vcrnet_tpu_torch/csrc/knn_gather_max.cu",
@@ -293,13 +568,23 @@ def main() -> int:
                          "vcrnet_tpu/ops/pallas_attention.py:239"),
         "vcp_stream": ("vcrnet_tpu_torch/csrc/vcp_stream.cu",
                        "vcrnet_tpu/ops/pallas_vcp.py:29"),
+        "gather_max_bwd": ("vcrnet_tpu_torch/csrc/gather_max_bwd.cu",
+                           "vcrnet_tpu/ops/pallas_edgeconv.py:714"),
+        "edge_conv_bwd": ("vcrnet_tpu_torch/csrc/edge_conv_bwd.cu",
+                          "vcrnet_tpu/ops/pallas_edgeconv.py:485"),
+        "flash_bwd": ("vcrnet_tpu_torch/csrc/flash_bwd.cu",
+                      "vcrnet_tpu/ops/pallas_attention.py:76"),
+        "vcp_bwd": ("vcrnet_tpu_torch/csrc/vcp_bwd.cu",
+                    "vcrnet_tpu/ops/pallas_vcp.py:174"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        top = rows[name][-1]  # B = 64, the largest serving bucket
+        top = rows[name][-1]  # the largest batch: B = 64 pairs (2B = 128 in the LPDNet blocks)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": train_launches[name] + serve_launches[name],
+            "launches_train_step": train_launches[name],
+            "launches_serve": serve_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

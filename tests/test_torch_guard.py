@@ -14,6 +14,7 @@ from vcrnet_tpu_torch import ops
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.ops import _build, attention, edgeconv, vcp
 from vcrnet_tpu_torch.serve import Registrar
+from vcrnet_tpu_torch.train import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vcrnet_tpu")
@@ -65,6 +66,36 @@ def test_registrar_without_device_raises_when_there_is_no_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Registrar(Config(num_points=64, emb_dims=64, ff_dims=128), {})
+
+
+def test_trainer_without_device_raises_when_there_is_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(Config(num_points=64, emb_dims=64, ff_dims=128))
+
+
+def test_cpu_backward_wrappers_run_plain_versions_without_building(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA extension must not be built for CPU tensors")
+
+    monkeypatch.setattr(_build, "extension", refuse)
+    ops.reset_launch_counts()
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(1, 64, 3, generator=g)
+    v = torch.rand(1, 64, 16, generator=g)
+    _, idx, win = edgeconv.fused_knn_gather_max(x, v, 4, winners=True)
+    edgeconv.gather_max_bwd(idx, win, v)
+    f = torch.rand(1, 64, 32, generator=g)
+    w2 = torch.rand(32, 32, generator=g)
+    _, x2, idx, w1, w2w = edgeconv.fused_edge_conv(f, f, f, w2, torch.rand(32), 4, winners=True)
+    edgeconv.edge_conv_bwd(idx, w1, w2w, f, f, w2, x2, f, f)
+    q = torch.rand(1, 64, 256, generator=g)
+    o, lse = attention.flash_mha_packed(q, q, q, 0.1, 2, return_lse=True)
+    attention.flash_bwd(q, q, q, o, lse, q, 0.1, 2)
+    corr, lse = vcp.streaming_soft_correspondence(q, q, x, return_lse=True)
+    vcp.vcp_bwd(q, q, x, corr, lse, x)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
 def test_cpu_tensors_run_plain_versions_without_building(monkeypatch):

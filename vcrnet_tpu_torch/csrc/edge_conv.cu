@@ -20,7 +20,15 @@
 // tensor reaches device memory. Each query's k = 20 edge rows are padded
 // to 32 by repeating its first neighbour, which leaves both maxima
 // unchanged and gives the product whole 16-row tiles.
+//
+// Training: with non-null ``win1``/``win2`` the kernel also writes, per
+// output channel of x1 and x2, the k-position that won the max (uint8,
+// the first position on ties, as the Pallas kernel's emit_winners; the
+// padding rows repeat position 0 and so never win). edge_conv_bwd.cu
+// routes the gradient by them.
 #include <mma.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -61,6 +69,8 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
                  __nv_bfloat16* __restrict__ x1,        // [B, N, F]
                  __nv_bfloat16* __restrict__ x2,        // [B, N, F]
                  int* __restrict__ idx,                 // [B, N, k]
+                 uint8_t* __restrict__ win1,            // [B, N, F] or null
+                 uint8_t* __restrict__ win2,            // [B, N, F] or null
                  int n, int k, float slope) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(n, C);
@@ -132,6 +142,7 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
     const float2 h01 = __bfloat1622float2(h2[0]), h23 = __bfloat1622float2(h2[1]);
     const float hv[4] = {h01.x, h01.y, h23.x, h23.y};
     float m1[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+    uint8_t w1[4] = {0, 0, 0, 0};
     for (int r = 0; r < kRows; ++r) {
       const uint2 araw =
           *reinterpret_cast<const uint2*>(ab + static_cast<size_t>(qsel[r]) * kF + c);
@@ -142,7 +153,10 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         z[t] = vcr::leaky(av[t] + hv[t], slope);
-        m1[t] = fmaxf(m1[t], z[t]);
+        if (z[t] > m1[t]) {
+          m1[t] = z[t];
+          w1[t] = static_cast<uint8_t>(r);
+        }
       }
       uint2 zraw;
       __nv_bfloat162* z2 = reinterpret_cast<__nv_bfloat162*>(&zraw);
@@ -155,6 +169,13 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
     o12[0] = __floats2bfloat162_rn(m1[0], m1[1]);
     o12[1] = __floats2bfloat162_rn(m1[2], m1[3]);
     *reinterpret_cast<uint2*>(x1 + row_i * kF + c) = o1;
+    if (win1 != nullptr) {
+      uint32_t wp;
+      uint8_t* wb = reinterpret_cast<uint8_t*>(&wp);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) wb[t] = w1[t];
+      *reinterpret_cast<uint32_t*>(win1 + row_i * kF + c) = wp;
+    }
     __syncwarp();
 
     // [32, F] x [F, F] on the tensor cores, one 16-column block at a time;
@@ -166,6 +187,7 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
     for (int nb16 = 0; nb16 < kF / 16; ++nb16) {
       const float bias = __bfloat162float(b2[nb16 * 16 + col]);
       float m2 = -CUDART_INF_F;
+      int win_r = 0;
       for (int mb = 0; mb < kRows / 16; ++mb) {
         wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -177,12 +199,26 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
         wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
         __syncwarp();
 #pragma unroll
-        for (int rr = 0; rr < 8; ++rr)
-          m2 = fmaxf(m2, vcr::leaky(stage[(half * 8 + rr) * 16 + col] + bias, slope));
+        for (int rr = 0; rr < 8; ++rr) {
+          const float y = vcr::leaky(stage[(half * 8 + rr) * 16 + col] + bias, slope);
+          if (y > m2) {  // rows ascend within a lane: the first row wins ties
+            m2 = y;
+            win_r = mb * 16 + half * 8 + rr;
+          }
+        }
         __syncwarp();
       }
-      m2 = fmaxf(m2, __shfl_xor_sync(vcr::kFullMask, m2, 16));
-      if (half == 0) x2[row_i * kF + nb16 * 16 + col] = __float2bfloat16_rn(m2);
+      // the two halves interleave rows: keep the larger, the smaller row on ties
+      const float om2 = __shfl_xor_sync(vcr::kFullMask, m2, 16);
+      const int owin = __shfl_xor_sync(vcr::kFullMask, win_r, 16);
+      if (om2 > m2 || (om2 == m2 && owin < win_r)) {
+        m2 = om2;
+        win_r = owin;
+      }
+      if (half == 0) {
+        x2[row_i * kF + nb16 * 16 + col] = __float2bfloat16_rn(m2);
+        if (win2 != nullptr) win2[row_i * kF + nb16 * 16 + col] = static_cast<uint8_t>(win_r);
+      }
     }
     __syncwarp();
   }
@@ -191,7 +227,8 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
 template <int C>
 cudaError_t launch(const void* x, const float* norms, const void* a, const void* h,
                    const void* w2, const void* b2, void* x1, void* x2, int* idx,
-                   int batch, int n, int k, float slope, cudaStream_t stream) {
+                   void* win1, void* win2, int batch, int n, int k, float slope,
+                   cudaStream_t stream) {
   const Layout L(n, C);
   cudaError_t err = cudaFuncSetAttribute(
       edge_conv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -202,8 +239,8 @@ cudaError_t launch(const void* x, const float* norms, const void* a, const void*
       static_cast<const __nv_bfloat16*>(x), norms,
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(h),
       static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
-      static_cast<__nv_bfloat16*>(x1), static_cast<__nv_bfloat16*>(x2), idx, n, k,
-      slope);
+      static_cast<__nv_bfloat16*>(x1), static_cast<__nv_bfloat16*>(x2), idx,
+      static_cast<uint8_t*>(win1), static_cast<uint8_t*>(win2), n, k, slope);
   return cudaGetLastError();
 }
 
@@ -211,16 +248,17 @@ cudaError_t launch(const void* x, const float* norms, const void* a, const void*
 
 // x bf16 [B,N,C] (C in {32, 64, 128}), norms f32 [B,N], a/h bf16 [B,N,128],
 // w2 bf16 [128,128] (in, out), b2 bf16 [128] -> x1/x2 bf16 [B,N,128],
-// idx int32 [B,N,k]. Requires N % 16 == 0, k <= 32, k < N, 32-byte aligned
-// pointers. Returns the launch status (cudaErrorInvalidValue for another C).
+// idx int32 [B,N,k], and with non-null win1/win2 the winners uint8 [B,N,128].
+// Requires N % 16 == 0, k <= 32, k < N, 32-byte aligned pointers. Returns
+// the launch status (cudaErrorInvalidValue for another C).
 cudaError_t vcr_edge_conv(const void* x, const float* norms, const void* a,
                           const void* h, const void* w2, const void* b2, void* x1,
-                          void* x2, int* idx, int batch, int n, int c, int k,
-                          float slope, cudaStream_t stream) {
+                          void* x2, int* idx, void* win1, void* win2, int batch, int n,
+                          int c, int k, float slope, cudaStream_t stream) {
   switch (c) {
-    case 32: return launch<32>(x, norms, a, h, w2, b2, x1, x2, idx, batch, n, k, slope, stream);
-    case 64: return launch<64>(x, norms, a, h, w2, b2, x1, x2, idx, batch, n, k, slope, stream);
-    case 128: return launch<128>(x, norms, a, h, w2, b2, x1, x2, idx, batch, n, k, slope, stream);
+    case 32: return launch<32>(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, batch, n, k, slope, stream);
+    case 64: return launch<64>(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, batch, n, k, slope, stream);
+    case 128: return launch<128>(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, batch, n, k, slope, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,6 +16,10 @@
 // memory. The TPU kernel saw the whole key range at once; here the
 // probabilities are rounded to bf16 against the running max, and the
 // accumulator is rescaled when the max moves.
+//
+// Training: with a non-null ``lse`` the kernel also writes each row's
+// logsumexp m + log(l) of the scaled scores ([B, H, Nq] f32), from which
+// flash_bwd.cu recomputes the probabilities.
 #include <mma.h>
 
 #include "common.cuh"
@@ -41,8 +45,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int nq, int nk, int d_model,
-                    float sm_scale) {
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse,  // [B, H, Nq] or null
+                    int nq, int nk, int d_model, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + kKvBytes);
@@ -141,15 +146,19 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = e / kDk, c = e % kDk;
     ob[static_cast<size_t>(row) * d_model + c] = __float2bfloat16_rn(os[e] / l_s[row]);
   }
+  if (lse != nullptr && lane < 16)
+    lse[(static_cast<size_t>(b) * gridDim.y + head) * nq + row0 + lane] =
+        m_s[lane] + logf(l_s[lane]);
 }
 
 }  // namespace
 
-// q bf16 [B,Nq,H*128], k/v bf16 [B,Nk,H*128] -> out bf16 [B,Nq,H*128].
-// Requires Nq % 64 == 0, Nk % 64 == 0, 32-byte aligned pointers.
+// q bf16 [B,Nq,H*128], k/v bf16 [B,Nk,H*128] -> out bf16 [B,Nq,H*128], and
+// with a non-null lse the row logsumexp f32 [B,H,Nq]. Requires Nq % 64 == 0,
+// Nk % 64 == 0, 32-byte aligned pointers.
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
-                             int batch, int nq, int nk, int n_heads, float sm_scale,
-                             cudaStream_t stream) {
+                             float* lse, int batch, int nq, int nk, int n_heads,
+                             float sm_scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -157,7 +166,7 @@ cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* 
   const dim3 grid(nq / kTileQ, n_heads, batch);
   flash_packed_kernel<<<grid, kWarps * 32, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), nq, nk,
-      n_heads * kDk, sm_scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, nq,
+      nk, n_heads * kDk, sm_scale);
   return cudaGetLastError();
 }

@@ -16,6 +16,13 @@
 // its k value rows with 16-byte indexed loads. The TPU's one-hot matmul
 // gather and its int8 table are not carried over: a plain indexed load is
 // exact and cheap here.
+//
+// Training: with a non-null ``win`` the kernel also writes, per output
+// channel, the k-position of the neighbour that won the max (uint8, the
+// first position on ties: strict > in selection order, as the Pallas
+// kernel's emit_winners). gather_max_bwd.cu routes the gradient by it.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -28,6 +35,7 @@ knn_gather_max_kernel(const float* __restrict__ x,       // [B, N, 3]
                       const __nv_bfloat16* __restrict__ values,  // [B, N, F]
                       __nv_bfloat16* __restrict__ out,   // [B, N, F]
                       int* __restrict__ idx,             // [B, N, k]
+                      uint8_t* __restrict__ win,         // [B, N, F] or null
                       int n, int f, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
@@ -60,8 +68,12 @@ knn_gather_max_kernel(const float* __restrict__ x,       // [B, N, 3]
   __nv_bfloat16* ob = out + (static_cast<size_t>(b) * n + i) * f;
   for (int c = lane * 8; c < f; c += 32 * 8) {
     float m[8];
+    uint8_t w[8];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) m[t] = -CUDART_INF_F;
+    for (int t = 0; t < 8; ++t) {
+      m[t] = -CUDART_INF_F;
+      w[t] = 0;
+    }
     for (int r = 0; r < k; ++r) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
           vb + static_cast<size_t>(sel[r]) * f + c);
@@ -69,9 +81,22 @@ knn_gather_max_kernel(const float* __restrict__ x,       // [B, N, 3]
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const float2 v = __bfloat1622float2(v2[t]);
-        m[2 * t] = fmaxf(m[2 * t], v.x);
-        m[2 * t + 1] = fmaxf(m[2 * t + 1], v.y);
+        if (v.x > m[2 * t]) {
+          m[2 * t] = v.x;
+          w[2 * t] = static_cast<uint8_t>(r);
+        }
+        if (v.y > m[2 * t + 1]) {
+          m[2 * t + 1] = v.y;
+          w[2 * t + 1] = static_cast<uint8_t>(r);
+        }
       }
+    }
+    if (win != nullptr) {
+      uint2 wp;
+      uint8_t* wb = reinterpret_cast<uint8_t*>(&wp);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) wb[t] = w[t];
+      *reinterpret_cast<uint2*>(win + (static_cast<size_t>(b) * n + i) * f + c) = wp;
     }
     uint4 packed;
     __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
@@ -84,10 +109,11 @@ knn_gather_max_kernel(const float* __restrict__ x,       // [B, N, 3]
 }  // namespace
 
 // x f32 [B,N,3], norms f32 [B,N], values bf16 [B,N,F] -> out bf16 [B,N,F],
-// idx int32 [B,N,k]. Requires F % 8 == 0, 16-byte aligned values/out, k <= 32,
-// k < N. Returns the launch status.
+// idx int32 [B,N,k], and with a non-null win the winners uint8 [B,N,F].
+// Requires F % 8 == 0, 16-byte aligned values/out, 8-byte aligned win,
+// k <= 32, k < N. Returns the launch status.
 cudaError_t vcr_knn_gather_max(const float* x, const float* norms,
-                               const void* values, void* out, int* idx,
+                               const void* values, void* out, int* idx, void* win,
                                int batch, int n, int f, int k,
                                cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarps * n + sizeof(int) * kWarps * 32;
@@ -98,6 +124,6 @@ cudaError_t vcr_knn_gather_max(const float* x, const float* norms,
   const dim3 grid((n + kWarps - 1) / kWarps, batch);
   knn_gather_max_kernel<<<grid, kWarps * 32, smem, stream>>>(
       x, norms, static_cast<const __nv_bfloat16*>(values),
-      static_cast<__nv_bfloat16*>(out), idx, n, f, k);
+      static_cast<__nv_bfloat16*>(out), idx, static_cast<uint8_t*>(win), n, f, k);
   return cudaGetLastError();
 }

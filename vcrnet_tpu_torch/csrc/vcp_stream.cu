@@ -15,6 +15,10 @@
 // [Ns, Nt] tensor reaches device memory. The TPU kernel's hi/lo bf16 split
 // of the target xyz (an MXU trick, pallas_vcp.py:105-109) is not needed:
 // the weighted xyz sum stays in f32 on the CUDA cores.
+//
+// Training: with a non-null ``lse`` the kernel also writes each source
+// row's logsumexp m + log(l) of the scores ([B, Ns] f32, the Pallas
+// kernel's save_lse), from which vcp_bwd.cu recomputes the probabilities.
 #include <mma.h>
 
 #include "common.cuh"
@@ -33,6 +37,7 @@ vcp_stream_kernel(const __nv_bfloat16* __restrict__ src_emb,  // [B, Ns, E]
                   const float* __restrict__ norms,            // [B, Nt]
                   const float* __restrict__ tgt,              // [B, Nt, 3]
                   float* __restrict__ out,                    // [B, Ns, 3]
+                  float* __restrict__ lse,                    // [B, Ns] or null
                   int ns, int nt, int e) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -108,17 +113,19 @@ vcp_stream_kernel(const __nv_bfloat16* __restrict__ src_emb,  // [B, Ns, E]
     o[0] = ax / l;
     o[1] = ay / l;
     o[2] = az / l;
+    if (lse != nullptr) lse[static_cast<size_t>(b) * ns + row0 + r] = m + logf(l);
   }
 }
 
 }  // namespace
 
 // src_emb bf16 [B,Ns,E], tgt_emb bf16 [B,Nt,E], norms f32 [B,Nt] (|tgt_emb|^2),
-// tgt f32 [B,Nt,3] -> out f32 [B,Ns,3]. Requires Ns % 64 == 0, Nt % 64 == 0,
-// E % 16 == 0, 32-byte aligned embeddings.
+// tgt f32 [B,Nt,3] -> out f32 [B,Ns,3], and with a non-null lse the row
+// logsumexp f32 [B,Ns]. Requires Ns % 64 == 0, Nt % 64 == 0, E % 16 == 0,
+// 32-byte aligned embeddings.
 cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float* norms,
-                           const float* tgt, float* out, int batch, int ns, int nt, int e,
-                           cudaStream_t stream) {
+                           const float* tgt, float* out, float* lse, int batch, int ns,
+                           int nt, int e, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * kTileK * e + sizeof(float) * kTileK * 4 +
                       sizeof(float) * kWarps * 16 * kTileK;
   cudaError_t err = cudaFuncSetAttribute(
@@ -128,6 +135,6 @@ cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float
   const dim3 grid(ns / kTileQ, batch);
   vcp_stream_kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(src_emb), static_cast<const __nv_bfloat16*>(tgt_emb),
-      norms, tgt, out, ns, nt, e);
+      norms, tgt, out, lse, ns, nt, e);
   return cudaGetLastError();
 }

@@ -1,15 +1,23 @@
-"""Synthetic registration pairs with known ground truth (numpy).
+"""Synthetic registration pairs with known ground truth (numpy), and a
+plain batching loader.
 
-Copies of vcrnet_tpu/data/synthetic.py:random_shape_cloud and the
-whole-cloud part of vcrnet_tpu/data/augment.py:make_pair_from_cloud, with
-the same RNG draw order: for an eval item the JAX package seeds numpy's
-global generator with the item index, and ``make_pair`` draws the same
-numbers from ``np.random.RandomState(item)``.
+Copies of vcrnet_tpu/data/synthetic.py (``random_shape_cloud``,
+``SyntheticDataset``) and of the batching of vcrnet_tpu/data/pipeline.py
+(``collate``, ``Loader``). Pairs come from ``augment.make_pair_from_cloud``
+with the JAX package's draw order, so a dataset built from the same seed
+gives the same pairs.
 """
 
 from __future__ import annotations
 
+from typing import Iterator
+
 import numpy as np
+
+from vcrnet_tpu_torch.config import Config
+from vcrnet_tpu_torch.data.augment import RegistrationPair, make_pair_from_cloud
+
+PAIR_KEYS = ("src", "tgt", "R_ab", "t_ab", "R_ba", "t_ba", "euler_ab", "euler_ba")
 
 
 def random_shape_cloud(rng: np.random.RandomState, n_points: int) -> np.ndarray:
@@ -58,50 +66,79 @@ def random_shape_cloud(rng: np.random.RandomState, n_points: int) -> np.ndarray:
     return cloud
 
 
-def _euler_zyx_mat(anglez, angley, anglex):
-    """R = Rx @ Ry @ Rz."""
-    cosx, cosy, cosz = np.cos(anglex), np.cos(angley), np.cos(anglez)
-    sinx, siny, sinz = np.sin(anglex), np.sin(angley), np.sin(anglez)
-    Rx = np.array([[1, 0, 0], [0, cosx, -sinx], [0, sinx, cosx]])
-    Ry = np.array([[cosy, 0, siny], [0, 1, 0], [-siny, 0, cosy]])
-    Rz = np.array([[cosz, -sinz, 0], [sinz, cosz, 0], [0, 0, 1]])
-    return Rx.dot(Ry).dot(Rz)
+class SyntheticDataset:
+    """Map-style dataset of synthetic clouds through ``make_pair_from_cloud``.
+    kind='uniform': unit-cube noise; kind='shapes': random primitive
+    compositions with real local geometry. The clouds come from
+    ``RandomState(seed)`` (train) or ``RandomState(seed + 1)`` (test)."""
+
+    def __init__(self, cfg: Config, partition: str = "train", n_items: int = 256,
+                 cloud_points: int = 2048, seed: int = 7, kind: str = "uniform"):
+        if kind not in ("uniform", "shapes"):
+            raise ValueError(f"unknown synthetic kind {kind!r}")
+        self.cfg = cfg
+        self.partition = partition
+        rng = np.random.RandomState(seed if partition == "train" else seed + 1)
+        if kind == "shapes":
+            self.data = np.stack([random_shape_cloud(rng, cloud_points) for _ in range(n_items)])
+        else:
+            self.data = rng.rand(n_items, cloud_points, 3).astype(np.float32) - 0.5
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, item: int) -> RegistrationPair:
+        return make_pair_from_cloud(self.data[item], item, self.cfg, self.partition)
 
 
-def make_pair(cloud: np.ndarray, rng: np.random.RandomState, num_points: int,
-              factor: float = 4.0) -> dict:
-    """A whole-cloud registration pair from a raw cloud [M, 3], M >=
-    num_points: rotation angles from [0, pi/factor), translation from
-    [-0.5, 0.5)^3, subsample, transform, and permute both clouds. Returns
-    numpy ``src``, ``tgt`` [num_points, 3], ``R_ab`` [3, 3], ``t_ab`` [3]
-    and ``euler_ab`` [3] (radians, z-y-x), with tgt = src @ R_ab^T + t_ab
-    up to the permutation."""
-    cloud = np.array(cloud, dtype=np.float32)
-    anglex = rng.uniform() * np.pi / factor
-    angley = rng.uniform() * np.pi / factor
-    anglez = rng.uniform() * np.pi / factor
-    R_ab = _euler_zyx_mat(anglez, angley, anglex)
-    t_ab = np.array([rng.uniform(-0.5, 0.5) for _ in range(3)])
-    pc1 = rng.permutation(cloud)[:num_points]
-    pc2 = pc1 @ R_ab.T + t_ab
-    pc1 = rng.permutation(pc1)
-    pc2 = rng.permutation(pc2)
-    return {
-        "src": pc1.astype(np.float32),
-        "tgt": pc2.astype(np.float32),
-        "R_ab": R_ab.astype(np.float32),
-        "t_ab": t_ab.astype(np.float32),
-        "euler_ab": np.asarray([anglez, angley, anglex], np.float32),
-    }
+def collate(pairs) -> dict:
+    """Stack pairs into a dict of [B, ...] float32 arrays (no labels)."""
+    return {key: np.stack([getattr(p, key) for p in pairs]) for key in PAIR_KEYS}
+
+
+class Loader:
+    """Batches of a map-style dataset as dicts of numpy arrays. Train:
+    shuffle (seeded) and drop the ragged tail; eval: in order, the last
+    batch padded by repeating its last pair, with a 'valid' mask [B]
+    (1 = real pair) that the metric sums weight by."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict]:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        stop = (n // bs) * bs if self.drop_last else n
+        for start in range(0, stop, bs):
+            idx = order[start:start + bs]
+            batch = collate([self.dataset[int(i)] for i in idx])
+            valid = np.ones(len(idx), np.float32)
+            if len(idx) < bs:
+                pad = bs - len(idx)
+                batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                         for k, v in batch.items()}
+                valid = np.concatenate([valid, np.zeros(pad, np.float32)])
+            batch["valid"] = valid
+            yield batch
 
 
 def shapes_eval_set(n_items: int, num_points: int = 1024, cloud_points: int = 2048,
                     seed: int = 7) -> dict:
     """The JAX package's synthetic 'shapes' eval set
-    (``SyntheticDataset(cfg, 'test', kind='shapes')``): clouds from
-    ``RandomState(seed + 1)``, item i paired with ``RandomState(i)``.
-    Returns stacked numpy arrays keyed as :func:`make_pair`."""
-    rng = np.random.RandomState(seed + 1)
-    clouds = [random_shape_cloud(rng, cloud_points) for _ in range(n_items)]
-    pairs = [make_pair(c, np.random.RandomState(i), num_points) for i, c in enumerate(clouds)]
-    return {key: np.stack([p[key] for p in pairs]) for key in pairs[0]}
+    (``SyntheticDataset(cfg, 'test', kind='shapes')``) as stacked numpy
+    arrays keyed as :data:`PAIR_KEYS`."""
+    ds = SyntheticDataset(Config(num_points=num_points), "test", n_items, cloud_points,
+                          seed, kind="shapes")
+    return collate([ds[i] for i in range(n_items)])

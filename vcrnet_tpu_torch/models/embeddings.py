@@ -3,9 +3,10 @@
 Channels-last [B, N, C]; every kernel-size-1 conv is a Linear whose
 parameter names match the flax tree (see utils/params.py). Two routes:
 
-  * fused: the DG block runs ``ops.edgeconv.fused_edge_conv`` and the SN
-    block ``ops.edgeconv.fused_knn_gather_max`` (on a CUDA tensor, the
-    Hopper kernels) — the JAX package's TPU bf16 route;
+  * fused: the DG block runs ``ops.edgeconv.edge_conv`` and the SN block
+    ``ops.edgeconv.knn_gather_max`` (on a CUDA tensor, the Hopper kernels,
+    with their backward kernels when a gradient is wanted) — the JAX
+    package's TPU bf16 route, for eval and training alike;
   * plain: ``graph.knn`` + gathers, the JAX package's XLA route, which
     also takes a precomputed ``spatial_idx`` (refinement iterations 2+).
 
@@ -21,7 +22,7 @@ from torch import nn
 
 from vcrnet_tpu_torch.models._common import dense
 from vcrnet_tpu_torch.ops._common import leaky
-from vcrnet_tpu_torch.ops.edgeconv import fused_edge_conv, fused_knn_gather_max
+from vcrnet_tpu_torch.ops.edgeconv import edge_conv, knn_gather_max
 from vcrnet_tpu_torch.ops.graph import gather_max_neighbors, gather_neighbors, knn
 
 
@@ -81,7 +82,7 @@ class LPDNet(nn.Module):
                     "the fused route with a given spatial_idx needs the "
                     "gather_max_from_idx kernel, which is not ported yet"
                 )
-            x1, x2, feature_idx = fused_edge_conv(
+            x1, x2, feature_idx = edge_conv(
                 x, a, h, w2.contiguous(), b2, k=k, negative_slope=self.slope
             )
         else:
@@ -92,7 +93,7 @@ class LPDNet(nn.Module):
 
         a2, h2 = self.convSN1.split(x2, dt)
         if fused:
-            gm, spatial_idx = fused_knn_gather_max(x_xyz, a2, k=k)
+            gm, spatial_idx = knn_gather_max(x_xyz, a2, k=k)
         else:
             if spatial_idx is None:
                 spatial_idx = knn(x_xyz, k)

@@ -1,4 +1,4 @@
-"""Transformer pointer, whole mode, eval (counterpart of
+"""Transformer pointer, whole mode (counterpart of
 vcrnet_tpu/models/transformer.py).
 
 One encoder-decoder shared by both directions, pre-norm residual
@@ -7,8 +7,9 @@ torch-style LayerNorm (unbiased std, eps added to the std). No dropout
 and no partial-overlap re-mask: both belong to later slices.
 
 With ``flash=True`` (the CUDA bf16 route) attention runs the packed-head
-kernel ``ops.attention.flash_mha_packed`` (which raises on shapes it does
-not take); otherwise the plain f32-softmax path of transformer.py:287-310.
+kernels through ``ops.attention.attention`` (forward, and the backward
+kernel when a gradient is wanted; both raise on shapes they do not take);
+otherwise the plain f32-softmax path of transformer.py:287-310.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from vcrnet_tpu_torch.models._common import dense
-from vcrnet_tpu_torch.ops.attention import flash_mha_packed
+from vcrnet_tpu_torch.ops.attention import attention
 from vcrnet_tpu_torch.ops.layernorm import layer_norm_torch
 
 
@@ -55,7 +56,7 @@ class MultiHeadAttention(nn.Module):
         k = dense(self.linear_k, key, self.dtype)
         v = dense(self.linear_v, value, self.dtype)
         if self.flash:
-            x = flash_mha_packed(q, k, v, 1.0 / math.sqrt(dk), h)
+            x = attention(q, k, v, 1.0 / math.sqrt(dk), h)
         else:
             def heads(y):
                 return y.reshape(B, -1, h, dk).transpose(1, 2).float()

@@ -1,5 +1,5 @@
 """VCR-Net assembly and the eval-time refinement loop (counterpart of
-vcrnet_tpu/models/vcrnet.py:81-371).
+vcrnet_tpu/models/vcrnet.py:81-371), for eval and training.
 
 embed -> transformer pointer (residual) -> VCP head -> Procrustes SVD.
 The port covers the default configuration: LPDNet embedding, transformer
@@ -8,8 +8,11 @@ or identity pointer, whole-mode topK head.
 Routes: with ``use_kernels`` (default: a CUDA device and
 ``compute_dtype="bfloat16"``, where the JAX package runs its Pallas
 kernels) the embedding, attention and VCP head go through the ``ops``
-kernel wrappers; otherwise through the plain PyTorch formulation of the
-JAX package's XLA path.
+kernel wrappers, whose backward kernels carry the gradient in training;
+otherwise through the plain PyTorch formulation of the JAX package's XLA
+path. In training mode (``model.train()``) the kernel route's head is
+the differentiable streaming one when ``cfg.streaming_vcp_train`` is
+set, as in the JAX package, and the plain formulation otherwise.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def _check_supported(cfg: Config) -> None:
         "tfea": cfg.tfea,
         "reuse_feature_knn": cfg.reuse_feature_knn,
         "refine_subsample": cfg.refine_subsample > 0,
+        "dropout": cfg.dropout > 0,
+        "remat": cfg.remat,
     }
     bad = [name for name, is_bad in unsupported.items() if is_bad]
     if bad:
@@ -79,16 +84,18 @@ class VCRNet(nn.Module):
             src_delta, tgt_delta = self.pointer(src_emb, tgt_emb, tgt_memory=tgt_memory)
             src_emb = src_emb + src_delta
             tgt_emb = tgt_emb + tgt_delta
-        src_k, src_corr_k = vcp_top_k_whole(src_emb, tgt_emb, src, tgt, fused=self.use_kernels)
+        src_k, src_corr_k = self._vcp(src_emb, tgt_emb, src, tgt)
         R_ab, t_ab = geometry.procrustes(src_k, src_corr_k)
         if self.cfg.cycle:
-            tgt_k, tgt_corr_k = vcp_top_k_whole(
-                tgt_emb, src_emb, tgt, src, fused=self.use_kernels
-            )
+            tgt_k, tgt_corr_k = self._vcp(tgt_emb, src_emb, tgt, src)
             R_ba, t_ba = geometry.procrustes(tgt_k, tgt_corr_k)
         else:
             R_ba, t_ba = geometry.invert_transform(R_ab, t_ab)
         return src_k, src_corr_k, R_ab, t_ab, R_ba, t_ba
+
+    def _vcp(self, src_emb, tgt_emb, src, tgt):
+        fused = self.use_kernels and (not self.training or self.cfg.streaming_vcp_train)
+        return vcp_top_k_whole(src_emb, tgt_emb, src, tgt, fused=fused)
 
     def forward(self, src, tgt):
         # both clouds embedded in one call, stacked on the batch axis

@@ -1,8 +1,10 @@
 """Graph ops, LayerNorm and the Hopper kernels with their plain versions."""
 
-from vcrnet_tpu_torch.ops.attention import flash_mha_packed
-from vcrnet_tpu_torch.ops.edgeconv import fused_edge_conv, fused_knn_gather_max
-from vcrnet_tpu_torch.ops.vcp import streaming_soft_correspondence
+from vcrnet_tpu_torch.ops.attention import flash_bwd, flash_mha_packed
+from vcrnet_tpu_torch.ops.edgeconv import (
+    edge_conv_bwd, fused_edge_conv, fused_knn_gather_max, gather_max_bwd,
+)
+from vcrnet_tpu_torch.ops.vcp import streaming_soft_correspondence, vcp_bwd
 
 # every kernel wrapper of the port; each counts its launches in .launches
 KERNELS = {
@@ -10,6 +12,10 @@ KERNELS = {
     "edge_conv": fused_edge_conv,
     "flash_packed": flash_mha_packed,
     "vcp_stream": streaming_soft_correspondence,
+    "gather_max_bwd": gather_max_bwd,
+    "edge_conv_bwd": edge_conv_bwd,
+    "flash_bwd": flash_bwd,
+    "vcp_bwd": vcp_bwd,
 }
 
 

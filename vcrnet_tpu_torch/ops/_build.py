@@ -26,6 +26,10 @@ SOURCES = (
     "edge_conv.cu",
     "flash_packed.cu",
     "vcp_stream.cu",
+    "gather_max_bwd.cu",
+    "edge_conv_bwd.cu",
+    "flash_bwd.cu",
+    "vcp_bwd.cu",
 )
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

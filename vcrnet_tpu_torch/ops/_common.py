@@ -57,5 +57,11 @@ def select_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
     return order[..., :k].to(torch.int32)
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or as it is when it is f64: the plain versions compute
+    in f32 and keep f64 inputs in f64 (so gradcheck can probe them)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(v >= 0, v, v * slope)
