@@ -12,7 +12,7 @@ import torch
 
 from vcrnet_tpu_torch import ops
 from vcrnet_tpu_torch.config import Config
-from vcrnet_tpu_torch.ops import _build, attention, edgeconv, vcp
+from vcrnet_tpu_torch.ops import _build, attention, colmass, edgeconv, vcp
 from vcrnet_tpu_torch.serve import Registrar
 from vcrnet_tpu_torch.train import Trainer
 
@@ -111,7 +111,14 @@ def test_cpu_tensors_run_plain_versions_without_building(monkeypatch):
     edgeconv.fused_edge_conv(f, f, f, torch.rand(32, 32, generator=g), torch.rand(32), 4)
     q = torch.rand(1, 64, 256, generator=g)
     attention.flash_mha_packed(q, q, q, 0.1, 2)
+    attention.flash_mha_packed(q, q, q, 0.1, 2, nk_valid=40)
     vcp.streaming_soft_correspondence(q, q, x)
+    # the eval protocol's three: given selections and the column masses
+    idx = torch.randint(0, 64, (1, 64, 4), generator=g, dtype=torch.int32)
+    edgeconv.gather_max_from_idx(idx, f)
+    edgeconv.fused_gather_max_from_idx(idx, f, winners=True)
+    edgeconv.edge_conv_from_idx(idx, f, f, torch.rand(32, 32, generator=g), torch.rand(32))
+    colmass.softmax_colmass(q, q, 0.1, 2)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
@@ -121,3 +128,13 @@ def test_wrappers_refuse_other_and_mixed_devices():
         edgeconv.fused_knn_gather_max(meta, torch.empty(1, 64, 8, device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         vcp.streaming_soft_correspondence(torch.zeros(1, 64, 16), meta, meta)
+    idx = torch.zeros(1, 64, 4, dtype=torch.int32)
+    cpu, meta8 = torch.zeros(1, 64, 8), torch.empty(1, 64, 8, device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        edgeconv.gather_max_from_idx(idx, meta8)
+    with pytest.raises(ValueError, match="several devices"):
+        edgeconv.edge_conv_from_idx(idx, cpu, meta8, torch.zeros(8, 8), torch.zeros(8))
+    with pytest.raises(ValueError, match="several devices"):
+        colmass.softmax_colmass(cpu, meta8, 0.1, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        colmass.softmax_colmass(meta8, meta8, 0.1, 1)

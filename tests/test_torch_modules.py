@@ -153,10 +153,12 @@ def test_lpdnet_plain_route_reuses_given_spatial_idx():
     with torch.no_grad():
         emb, sp_idx, _ = net(x)
         emb2, sp_idx2, _ = net(x, spatial_idx=sp_idx)
-        with pytest.raises(NotImplementedError, match="gather_max_from_idx"):
-            net(x, spatial_idx=sp_idx, fused=True)
-    assert sp_idx2 is sp_idx
-    assert torch.equal(emb, emb2)
+        # the fused route takes it too (gather_max_from_idx): given its own
+        # selection back, it repeats its own embedding
+        femb, fsp_idx, _ = net(x, fused=True)
+        femb2, fsp_idx2, _ = net(x, spatial_idx=fsp_idx, fused=True)
+    assert sp_idx2 is sp_idx and fsp_idx2 is fsp_idx
+    assert torch.equal(emb, emb2) and torch.equal(femb, femb2)
 
 
 @pytest.mark.parametrize("flash", [False, True])

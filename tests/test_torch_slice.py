@@ -84,15 +84,6 @@ def test_vcrnet_iter_matches_jax(dtype, n_iter):
         _close(got[i], want[i], dtype)
 
 
-def test_kernel_route_refuses_refinement_iterations():
-    _, _, model = _models("bfloat16", use_kernels=True)
-    src, tgt = (torch.from_numpy(a) for a in _pair(4, 1))
-    with torch.no_grad():
-        vcrnet_iter(model, src, tgt, 1)
-        with pytest.raises(NotImplementedError, match="gather_max_from_idx"):
-            vcrnet_iter(model, src, tgt, 2)
-
-
 def _rot_deg(Ra, Rb):
     cos = (np.einsum("bij,bij->b", Ra, Rb) - 1.0) / 2.0
     return np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))

@@ -29,7 +29,7 @@ from vcrnet_tpu.train import Trainer as JTrainer
 from vcrnet_tpu.train import optim as joptim
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.data.augment import make_pair_from_cloud
-from vcrnet_tpu_torch.data.synthetic import Loader, SyntheticDataset
+from vcrnet_tpu_torch.data.synthetic import Loader, SyntheticDataset, collate
 from vcrnet_tpu_torch.train import Trainer, optim
 from vcrnet_tpu_torch.utils.params import from_jax_params
 
@@ -172,9 +172,10 @@ def test_synthetic_loader_matches_jax_batches():
 
 
 def test_partial_dropout_and_remat_are_refused():
+    cfg = Config(**NARROW, partial=True, overlap=0.575)
+    pair = make_pair_from_cloud(np.zeros((80, 3), np.float32), 0, cfg)
     with pytest.raises(NotImplementedError, match="partial"):
-        make_pair_from_cloud(np.zeros((80, 3), np.float32), 0, Config(num_points=64,
-                                                                     partial=True))
+        Trainer(cfg, device="cpu").train_step(collate([pair]))
     for kw in (dict(dropout=0.1), dict(remat=True)):
         with pytest.raises(NotImplementedError):
             Trainer(Config(**NARROW, **kw), device="cpu")

@@ -22,8 +22,8 @@ cudaError_t vcr_edge_conv(const void* x, const float* norms, const void* a, cons
                           void* win1, void* win2, int batch, int n, int c, int k, float slope,
                           cudaStream_t stream);
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
-                             float* lse, int batch, int nq, int nk, int n_heads,
-                             float sm_scale, cudaStream_t stream);
+                             float* lse, int batch, int nq, int nk, int nk_valid,
+                             int n_heads, float sm_scale, cudaStream_t stream);
 cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float* norms,
                            const float* tgt, float* out, float* lse, int batch, int ns, int nt,
                            int e, cudaStream_t stream);
@@ -43,6 +43,16 @@ cudaError_t vcr_vcp_bwd(const void* src_emb, const void* tgt_emb, const float* n
                         const float* tgt, const float* corr, const float* dcorr,
                         const float* lse, float* d_src, float* d_tgt_emb, float* d_tgt,
                         int batch, int ns, int nt, int e, cudaStream_t stream);
+
+cudaError_t vcr_gather_max_from_idx(const int* idx, const void* values, void* out, void* win,
+                                    int batch, int n, int f, int k, cudaStream_t stream);
+cudaError_t vcr_edge_conv_from_idx(const int* idx, const void* a, const void* h,
+                                   const void* w2, const void* b2, void* x1, void* x2,
+                                   int batch, int n, int k, float slope,
+                                   cudaStream_t stream);
+cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
+                                int batch, int nq, int nk, int n_heads, float sm_scale,
+                                cudaStream_t stream);
 
 namespace {
 
@@ -79,11 +89,12 @@ void edge_conv(torch::Tensor x, torch::Tensor norms, torch::Tensor a, torch::Ten
 }
 
 void flash_packed(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tensor out,
-                  c10::optional<torch::Tensor> lse, int64_t n_heads, double sm_scale) {
+                  c10::optional<torch::Tensor> lse, int64_t nk_valid, int64_t n_heads,
+                  double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(vcr_flash_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                   static_cast<float*>(optional_ptr(lse)), q.size(0), q.size(1),
-                                  k.size(1), n_heads, static_cast<float>(sm_scale),
+                                  k.size(1), nk_valid, n_heads, static_cast<float>(sm_scale),
                                   stream_of(q)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -150,6 +161,35 @@ void vcp_bwd(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor norms,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void gather_max_from_idx(torch::Tensor idx, torch::Tensor values, torch::Tensor out,
+                         c10::optional<torch::Tensor> win) {
+  const c10::cuda::CUDAGuard guard(idx.device());
+  C10_CUDA_CHECK(vcr_gather_max_from_idx(idx.data_ptr<int>(), values.data_ptr(),
+                                         out.data_ptr(), optional_ptr(win), values.size(0),
+                                         values.size(1), values.size(2), idx.size(2),
+                                         stream_of(idx)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void edge_conv_from_idx(torch::Tensor idx, torch::Tensor a, torch::Tensor h, torch::Tensor w2,
+                        torch::Tensor b2, torch::Tensor x1, torch::Tensor x2, double slope) {
+  const c10::cuda::CUDAGuard guard(idx.device());
+  C10_CUDA_CHECK(vcr_edge_conv_from_idx(idx.data_ptr<int>(), a.data_ptr(), h.data_ptr(),
+                                        w2.data_ptr(), b2.data_ptr(), x1.data_ptr(),
+                                        x2.data_ptr(), a.size(0), a.size(1), idx.size(2),
+                                        static_cast<float>(slope), stream_of(idx)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void softmax_colmass(torch::Tensor q, torch::Tensor k, torch::Tensor lse, torch::Tensor out,
+                     int64_t n_heads, double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(vcr_softmax_colmass(q.data_ptr(), k.data_ptr(), lse.data_ptr<float>(),
+                                     out.data_ptr<float>(), q.size(0), q.size(1), k.size(1),
+                                     n_heads, static_cast<float>(sm_scale), stream_of(q)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -161,4 +201,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("edge_conv_bwd", &edge_conv_bwd);
   m.def("flash_bwd", &flash_bwd);
   m.def("vcp_bwd", &vcp_bwd);
+  m.def("gather_max_from_idx", &gather_max_from_idx);
+  m.def("edge_conv_from_idx", &edge_conv_from_idx);
+  m.def("softmax_colmass", &softmax_colmass);
 }

@@ -8,6 +8,8 @@
 #pragma once
 
 #include <climits>
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -56,6 +58,55 @@ __device__ __forceinline__ void warp_select_topk(const float* row, int n, int k,
     prev_j = bj;
   }
   __syncwarp();
+}
+
+// One warp reduces k gathered rows of a bf16 table channel by channel:
+// out_row[c] = max_r table[sel[r] * f + c], by 16-byte indexed loads with the
+// running max in registers. With a non-null win_row it also writes the
+// position r that won each channel (the first on ties: strict > in the
+// order of sel). Requires f % 8 == 0 and 16-byte aligned rows.
+__device__ __forceinline__ void warp_gather_max(const __nv_bfloat16* table, const int* sel,
+                                                int k, int f, __nv_bfloat16* out_row,
+                                                uint8_t* win_row) {
+  const int lane = threadIdx.x & 31;
+  for (int c = lane * 8; c < f; c += 32 * 8) {
+    float m[8];
+    uint8_t w[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      m[t] = -CUDART_INF_F;
+      w[t] = 0;
+    }
+    for (int r = 0; r < k; ++r) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          table + static_cast<size_t>(sel[r]) * f + c);
+      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float2 v = __bfloat1622float2(v2[t]);
+        if (v.x > m[2 * t]) {
+          m[2 * t] = v.x;
+          w[2 * t] = static_cast<uint8_t>(r);
+        }
+        if (v.y > m[2 * t + 1]) {
+          m[2 * t + 1] = v.y;
+          w[2 * t + 1] = static_cast<uint8_t>(r);
+        }
+      }
+    }
+    if (win_row != nullptr) {
+      uint2 wp;
+      uint8_t* wb = reinterpret_cast<uint8_t*>(&wp);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) wb[t] = w[t];
+      *reinterpret_cast<uint2*>(win_row + c) = wp;
+    }
+    uint4 packed;
+    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) p2[t] = __floats2bfloat162_rn(m[2 * t], m[2 * t + 1]);
+    *reinterpret_cast<uint4*>(out_row + c) = packed;
+  }
 }
 
 // Score fix-up shared by the kNN kernels: NaN scores never win.

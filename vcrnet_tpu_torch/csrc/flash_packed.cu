@@ -17,6 +17,12 @@
 // probabilities are rounded to bf16 against the running max, and the
 // accumulator is rescaled when the max moves.
 //
+// ``nk_valid`` <= Nk is the count of real keys: keys at or beyond it are
+// padding (the wrapper pads K and V with zero rows up to a multiple of 64)
+// and are masked out of the row max and sum (the counterpart of nk_valid in
+// pallas_attention.py:_fwd_packed_kernel); whole tiles of padding are not
+// visited.
+//
 // Training: with a non-null ``lse`` the kernel also writes each row's
 // logsumexp m + log(l) of the scaled scores ([B, H, Nq] f32), from which
 // flash_bwd.cu recomputes the probabilities.
@@ -47,7 +53,7 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse,  // [B, H, Nq] or null
-                    int nq, int nk, int d_model, float sm_scale) {
+                    int nq, int nk, int nk_valid, int d_model, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + kKvBytes);
@@ -79,7 +85,7 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
   __syncwarp();
 
   const int r = lane >> 1, c0 = (lane & 1) * (kTileK / 2);
-  for (int t0 = 0; t0 < nk; t0 += kTileK) {
+  for (int t0 = 0; t0 < nk_valid; t0 += kTileK) {
     __syncthreads();  // every warp is done with the previous k/v tile
     for (int t = threadIdx.x; t < kTileK * kDk / 8; t += blockDim.x) {
       const int row = t / (kDk / 8), c8 = (t % (kDk / 8)) * 8;
@@ -102,18 +108,23 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncwarp();
 
-    // online softmax: two lanes per row, 32 columns each
+    // online softmax: two lanes per row, 32 columns each, of which the
+    // first ``valid`` are real keys (all of them but in the last tile)
+    const int valid = min(kTileK / 2, max(0, nk_valid - t0 - c0));
+    const float* srow = sp + r * kTileK + c0;
+    __nv_bfloat16* prow = ps + r * kTileK + c0;
     float tmax = -CUDART_INF_F;
-    for (int c = 0; c < kTileK / 2; ++c) tmax = fmaxf(tmax, sp[r * kTileK + c0 + c] * sm_scale);
+    for (int c = 0; c < valid; ++c) tmax = fmaxf(tmax, srow[c] * sm_scale);
     tmax = fmaxf(tmax, __shfl_xor_sync(vcr::kFullMask, tmax, 1));
     const float m_old = m_s[r];
     const float m_new = fmaxf(m_old, tmax);
     float lsum = 0.f;
-    for (int c = 0; c < kTileK / 2; ++c) {
-      const float p = expf(sp[r * kTileK + c0 + c] * sm_scale - m_new);
+    for (int c = 0; c < valid; ++c) {
+      const float p = expf(srow[c] * sm_scale - m_new);
       lsum += p;
-      ps[r * kTileK + c0 + c] = __float2bfloat16_rn(p);
+      prow[c] = __float2bfloat16_rn(p);
     }
+    for (int c = valid; c < kTileK / 2; ++c) prow[c] = __float2bfloat16_rn(0.f);
     lsum += __shfl_xor_sync(vcr::kFullMask, lsum, 1);
     __syncwarp();
     if ((lane & 1) == 0) {
@@ -154,11 +165,12 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // q bf16 [B,Nq,H*128], k/v bf16 [B,Nk,H*128] -> out bf16 [B,Nq,H*128], and
-// with a non-null lse the row logsumexp f32 [B,H,Nq]. Requires Nq % 64 == 0,
-// Nk % 64 == 0, 32-byte aligned pointers.
+// with a non-null lse the row logsumexp f32 [B,H,Nq], over the first
+// nk_valid keys (1 <= nk_valid <= Nk; finite K and V rows beyond it).
+// Requires Nq % 64 == 0, Nk % 64 == 0, 32-byte aligned pointers.
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
-                             float* lse, int batch, int nq, int nk, int n_heads,
-                             float sm_scale, cudaStream_t stream) {
+                             float* lse, int batch, int nq, int nk, int nk_valid,
+                             int n_heads, float sm_scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -167,6 +179,6 @@ cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* 
   flash_packed_kernel<<<grid, kWarps * 32, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, nq,
-      nk, n_heads * kDk, sm_scale);
+      nk, nk_valid, n_heads * kDk, sm_scale);
   return cudaGetLastError();
 }

@@ -13,7 +13,8 @@
 // rate, so it runs on the CUDA cores. The design keeps the [N, N] scores
 // out of device memory: one warp owns one query, builds its score row in
 // shared memory, selects by exact f32 comparison (common.cuh), and gathers
-// its k value rows with 16-byte indexed loads. The TPU's one-hot matmul
+// its k value rows with 16-byte indexed loads (common.cuh:warp_gather_max,
+// shared with gather_max_from_idx.cu). The TPU's one-hot matmul
 // gather and its int8 table are not carried over: a plain indexed load is
 // exact and cheap here.
 //
@@ -21,8 +22,6 @@
 // channel, the k-position of the neighbour that won the max (uint8, the
 // first position on ties: strict > in selection order, as the Pallas
 // kernel's emit_winners). gather_max_bwd.cu routes the gradient by it.
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
@@ -64,46 +63,9 @@ knn_gather_max_kernel(const float* __restrict__ x,       // [B, N, 3]
   int* qidx = idx + (static_cast<size_t>(b) * n + i) * k;
   if (lane < k) qidx[lane] = sel[lane];
 
-  const __nv_bfloat16* vb = values + static_cast<size_t>(b) * n * f;
-  __nv_bfloat16* ob = out + (static_cast<size_t>(b) * n + i) * f;
-  for (int c = lane * 8; c < f; c += 32 * 8) {
-    float m[8];
-    uint8_t w[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      m[t] = -CUDART_INF_F;
-      w[t] = 0;
-    }
-    for (int r = 0; r < k; ++r) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          vb + static_cast<size_t>(sel[r]) * f + c);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float2 v = __bfloat1622float2(v2[t]);
-        if (v.x > m[2 * t]) {
-          m[2 * t] = v.x;
-          w[2 * t] = static_cast<uint8_t>(r);
-        }
-        if (v.y > m[2 * t + 1]) {
-          m[2 * t + 1] = v.y;
-          w[2 * t + 1] = static_cast<uint8_t>(r);
-        }
-      }
-    }
-    if (win != nullptr) {
-      uint2 wp;
-      uint8_t* wb = reinterpret_cast<uint8_t*>(&wp);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) wb[t] = w[t];
-      *reinterpret_cast<uint2*>(win + (static_cast<size_t>(b) * n + i) * f + c) = wp;
-    }
-    uint4 packed;
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) p2[t] = __floats2bfloat162_rn(m[2 * t], m[2 * t + 1]);
-    *reinterpret_cast<uint4*>(ob + c) = packed;
-  }
+  const size_t out_row = (static_cast<size_t>(b) * n + i) * f;
+  vcr::warp_gather_max(values + static_cast<size_t>(b) * n * f, sel, k, f, out + out_row,
+                       win != nullptr ? win + out_row : nullptr);
 }
 
 }  // namespace

@@ -1,10 +1,10 @@
 """Registration-pair augmentation on the host (numpy).
 
-Copy of vcrnet_tpu/data/augment.py:make_pair_from_cloud, whole clouds
-only: the GLOBAL numpy generator in the JAX package's draw order, test
-items reseeded with their index first, so the pairs are bit-equal to the
-JAX package's for the same seed. The partial-overlap crop and the
-on-device batch augmentation (``device_augment_batch``) are not ported.
+Copy of vcrnet_tpu/data/augment.py:make_pair_from_cloud and nn_crop: the
+GLOBAL numpy generator in the JAX package's draw order, test items
+reseeded with their index first, so the pairs (whole and partial-overlap)
+are bit-equal to the JAX package's for the same seed. The on-device batch
+augmentation (``device_augment_batch``) is not ported.
 """
 
 from __future__ import annotations
@@ -47,14 +47,23 @@ def euler_zyx_mat(anglez, angley, anglex) -> np.ndarray:
     return Rx.dot(Ry).dot(Rz)
 
 
+def nn_crop(points: np.ndarray, reserve: float) -> np.ndarray:
+    """Keep the ``int(N * reserve)`` nearest neighbours of the LAST point,
+    sorted by distance: a contiguous missing chunk. [N, 3] ->
+    [int(N * reserve), 3]."""
+    n_keep = int(points.shape[0] * reserve)
+    d = ((points - points[-1]) ** 2).sum(-1)
+    return points[np.argsort(d, kind="stable")[:n_keep]]
+
+
 def make_pair_from_cloud(pointcloud: np.ndarray, item: int, cfg: Config,
                          partition: str = "train", label: int = 0) -> RegistrationPair:
     """A registration pair from a raw cloud [M, 3], M >= cfg.num_points:
     optional jitter, rotation angles from [0, pi/factor), translation from
-    [-0.5, 0.5)^3, subsample, transform, permute. Draws from the global
-    numpy generator; a test item seeds it with ``item`` first."""
-    if cfg.partial:
-        raise NotImplementedError("the partial-overlap crop is not ported yet")
+    [-0.5, 0.5)^3, subsample, transform, permute and, with ``cfg.partial``,
+    crop each cloud to its ``cfg.n_cropped`` points nearest a point of its
+    own. Draws from the global numpy generator; a test item seeds it with
+    ``item`` first."""
     pointcloud = np.array(pointcloud, dtype=np.float32)
     if cfg.gaussian_noise:
         n, c = pointcloud.shape
@@ -76,7 +85,11 @@ def make_pair_from_cloud(pointcloud: np.ndarray, item: int, cfg: Config,
     euler_ba = -euler_ab[::-1]
     if cfg.model != "lpd":
         pc1 = np.random.permutation(pc1)
+        if cfg.partial:
+            pc1 = nn_crop(pc1, cfg.reserve)
         pc2 = np.random.permutation(pc2)
+        if cfg.partial:
+            pc2 = nn_crop(pc2, cfg.reserve)
     else:  # LPD keeps the correspondence: one joint permutation
         both = np.random.permutation(np.concatenate([pc1, pc2], axis=1))
         pc1, pc2 = both[:, :3], both[:, 3:]

@@ -134,11 +134,19 @@ class Loader:
             yield batch
 
 
+EVAL_OVERLAP = 0.575  # the partial eval protocol's expected overlap of the two crops
+
+
 def shapes_eval_set(n_items: int, num_points: int = 1024, cloud_points: int = 2048,
-                    seed: int = 7) -> dict:
+                    seed: int = 7, partial: bool = False) -> dict:
     """The JAX package's synthetic 'shapes' eval set
     (``SyntheticDataset(cfg, 'test', kind='shapes')``) as stacked numpy
-    arrays keyed as :data:`PAIR_KEYS`."""
-    ds = SyntheticDataset(Config(num_points=num_points), "test", n_items, cloud_points,
+    arrays keyed as :data:`PAIR_KEYS`. ``partial`` crops each cloud to the
+    ``Config(partial=True, overlap=EVAL_OVERLAP).n_cropped`` points around one
+    of its own; ``cloud_points`` must be at least ``num_points``."""
+    if cloud_points < num_points:
+        raise ValueError(f"cloud_points={cloud_points} < num_points={num_points}")
+    kw = dict(partial=True, overlap=EVAL_OVERLAP) if partial else {}
+    ds = SyntheticDataset(Config(num_points=num_points, **kw), "test", n_items, cloud_points,
                           seed, kind="shapes")
     return collate([ds[i] for i in range(n_items)])

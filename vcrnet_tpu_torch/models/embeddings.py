@@ -6,9 +6,11 @@ parameter names match the flax tree (see utils/params.py). Two routes:
   * fused: the DG block runs ``ops.edgeconv.edge_conv`` and the SN block
     ``ops.edgeconv.knn_gather_max`` (on a CUDA tensor, the Hopper kernels,
     with their backward kernels when a gradient is wanted) — the JAX
-    package's TPU bf16 route, for eval and training alike;
+    package's TPU bf16 route, for eval and training alike. Given a
+    selection (refinement iterations 2+) they run ``edge_conv_from_idx``
+    and ``gather_max_from_idx`` instead;
   * plain: ``graph.knn`` + gathers, the JAX package's XLA route, which
-    also takes a precomputed ``spatial_idx`` (refinement iterations 2+).
+    takes the same precomputed selections.
 
 Both use the decomposed edge conv: W @ [n_j ; c_i] + b = n_j @ A + (c_i @ B
 + b), so matmuls run per point, and the SN block reduces to a gather-max
@@ -22,7 +24,9 @@ from torch import nn
 
 from vcrnet_tpu_torch.models._common import dense
 from vcrnet_tpu_torch.ops._common import leaky
-from vcrnet_tpu_torch.ops.edgeconv import edge_conv, knn_gather_max
+from vcrnet_tpu_torch.ops.edgeconv import (
+    edge_conv, edge_conv_from_idx, gather_max_from_idx, knn_gather_max,
+)
 from vcrnet_tpu_torch.ops.graph import gather_max_neighbors, gather_neighbors, knn
 
 
@@ -60,13 +64,15 @@ class LPDNet(nn.Module):
         self.conv3_lpd = nn.Linear(512, emb_dims)
 
     def forward(self, x: torch.Tensor, spatial_idx: torch.Tensor | None = None,
-                fused: bool = False):
+                feature_idx: torch.Tensor | None = None, fused: bool = False):
         """Returns (embedding, spatial_idx, feature_idx): the xyz-kNN
-        selection (rigid-invariant, so refinement loops may pass it back)
-        and the feature-space selection. ``fused`` selects the kernel
-        route; it computes its own spatial selection, so it refuses a
-        passed-in ``spatial_idx`` (that needs gather_max_from_idx, not
-        ported yet)."""
+        selection and the feature-space selection of the DG block, each
+        computed here unless passed in. A passed ``spatial_idx`` is exact
+        (rigid transforms keep distances, so refinement loops pass it
+        back); a passed ``feature_idx`` is an approximation once the cloud
+        has moved (Config.reuse_feature_knn), and is eval only on the
+        fused route. ``fused`` selects the kernel route, whose selections
+        are the kernels' own."""
         dt, k = self.dtype, self.k
         x_xyz = x
         x = leaky(dense(self.conv1_lpd, x, dt), self.slope)
@@ -76,23 +82,25 @@ class LPDNet(nn.Module):
         w2, b2 = self.convDG2.weight.t(), self.convDG2.bias
         if dt is not None:
             w2, b2 = w2.to(dt), b2.to(dt)
-        if fused:
-            if spatial_idx is not None:
-                raise NotImplementedError(
-                    "the fused route with a given spatial_idx needs the "
-                    "gather_max_from_idx kernel, which is not ported yet"
-                )
+        if fused and feature_idx is not None:
+            x1, x2 = edge_conv_from_idx(
+                feature_idx, a, h, w2.contiguous(), b2, negative_slope=self.slope
+            )
+        elif fused:
             x1, x2, feature_idx = edge_conv(
                 x, a, h, w2.contiguous(), b2, k=k, negative_slope=self.slope
             )
         else:
-            feature_idx = knn(x, k)
+            if feature_idx is None:
+                feature_idx = knn(x, k)
             z = leaky(gather_neighbors(a, feature_idx) + h[:, :, None], self.slope)
             x1 = z.amax(dim=2)
             x2 = leaky(torch.matmul(z, w2) + b2, self.slope).amax(dim=2)
 
         a2, h2 = self.convSN1.split(x2, dt)
-        if fused:
+        if fused and spatial_idx is not None:
+            gm = gather_max_from_idx(spatial_idx, a2)
+        elif fused:
             gm, spatial_idx = knn_gather_max(x_xyz, a2, k=k)
         else:
             if spatial_idx is None:

@@ -2,8 +2,10 @@
 vcrnet_tpu/models/vcrnet.py:81-371), for eval and training.
 
 embed -> transformer pointer (residual) -> VCP head -> Procrustes SVD.
-The port covers the default configuration: LPDNet embedding, transformer
-or identity pointer, whole-mode topK head.
+The port covers the LPDNet embedding, the transformer or identity pointer
+and the topK head, whole and partial-overlap (``cfg.partial``: the
+decoder's cross attention re-masks its keys and the head selects the
+likely-overlap points), and the refinement loop with all its caches.
 
 Routes: with ``use_kernels`` (default: a CUDA device and
 ``compute_dtype="bfloat16"``, where the JAX package runs its Pallas
@@ -23,7 +25,7 @@ from torch import nn
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models.embeddings import LPDNet
-from vcrnet_tpu_torch.models.heads import vcp_top_k_whole
+from vcrnet_tpu_torch.models.heads import vcp_top_k_partial, vcp_top_k_whole
 from vcrnet_tpu_torch.models.transformer import TransformerPointer
 from vcrnet_tpu_torch.utils.device import resolve_device
 
@@ -33,11 +35,8 @@ def _check_supported(cfg: Config) -> None:
         "emb_nn": cfg.emb_nn != "lpdnet",
         "pointer": cfg.pointer not in ("transformer", "identity"),
         "vcp_nn": cfg.vcp_nn != "topK",
-        "partial": cfg.partial,
         "t3d": cfg.t3d,
         "tfea": cfg.tfea,
-        "reuse_feature_knn": cfg.reuse_feature_knn,
-        "refine_subsample": cfg.refine_subsample > 0,
         "dropout": cfg.dropout > 0,
         "remat": cfg.remat,
     }
@@ -64,14 +63,16 @@ class VCRNet(nn.Module):
         if cfg.pointer == "transformer":
             self.pointer = TransformerPointer(
                 cfg.emb_dims, cfg.n_blocks, cfg.n_heads, cfg.ff_dims, dtype=dtype,
-                flash=use_kernels,
+                flash=use_kernels, partial=cfg.partial, overlap2=cfg.overlap2,
             )
         self.to(self.device)
 
-    def embed(self, x, spatial_idx=None):
+    def embed(self, x, spatial_idx=None, feature_idx=None):
         """Embedding only -> (emb, spatial_idx, feature_idx), so refinement
-        loops can cache the target embedding and the source's xyz kNN."""
-        return self.emb_nn(x, spatial_idx=spatial_idx, fused=self.use_kernels)
+        loops can cache the target embedding and pass the source's kNN
+        selections back."""
+        return self.emb_nn(x, spatial_idx=spatial_idx, feature_idx=feature_idx,
+                           fused=self.use_kernels)
 
     def encode_target(self, tgt_emb):
         """The pointer's encoder pass over the target embedding."""
@@ -94,6 +95,8 @@ class VCRNet(nn.Module):
         return src_k, src_corr_k, R_ab, t_ab, R_ba, t_ba
 
     def _vcp(self, src_emb, tgt_emb, src, tgt):
+        if self.cfg.partial:
+            return vcp_top_k_partial(src_emb, tgt_emb, src, tgt, self.cfg.overlap2)
         fused = self.use_kernels and (not self.training or self.cfg.streaming_vcp_train)
         return vcp_top_k_whole(src_emb, tgt_emb, src, tgt, fused=fused)
 
@@ -106,22 +109,55 @@ class VCRNet(nn.Module):
 
 def vcrnet_iter(model: VCRNet, src, tgt, n_iter: int):
     """Eval refinement: run the net on the transformed source n_iter times
-    and compose the transforms. The target embedding, its encoder pass and
-    the source's xyz kNN (rigid transforms keep distances) are computed
-    once. Returns (srcK, src_corrK, R_ab, t_ab, R_ba, t_ba)."""
-    if model.use_kernels and n_iter > 1:
-        raise NotImplementedError(
-            "n_iter > 1 on the kernel route reuses the cached spatial kNN "
-            "through gather_max_from_idx, which is not ported yet"
-        )
-    tgt_emb = model.embed(tgt)[0]
-    tgt_memory = model.encode_target(tgt_emb) if model.pointer is not None else None
+    and compose the transforms. Returns (srcK, src_corrK, R_ab, t_ab, R_ba,
+    t_ba).
+
+    Computed once: the target embedding, its encoder pass, and the
+    source's xyz kNN (rigid transforms keep distances, so the selection
+    of the transformed source equals the original's). All three are exact.
+
+    With ``cfg.reuse_feature_knn`` the source's feature-space selection
+    (the DG block's graph) is reused too, an approximation: the leading
+    ``cfg.feature_knn_refresh`` iterations compute a fresh graph, later
+    ones reuse the last. With ``cfg.refine_subsample = M`` (whole mode)
+    iterations 2+ run on the first M points of each cloud, with their own
+    target embedding, encoder pass and selections, computed on the first
+    subsampled iteration; M >= N is the exact path."""
+    cfg = model.cfg
+    reuse_feat = cfg.reuse_feature_knn
+    refresh = max(1, cfg.feature_knn_refresh) if reuse_feat else 1
+    sub = 0
+    if not cfg.partial and n_iter > 1:
+        sub = min(max(0, cfg.refine_subsample), src.shape[1])
+
+    def target_cache(cloud):
+        emb = model.embed(cloud)[0]
+        return cloud, emb, model.encode_target(emb) if model.pointer is not None else None
+
+    # per-size caches: [0] the full clouds (iteration 1), [1] the subsample
+    sp_idx = [None, None]
+    ft_idx = [None, None]
+    tgt_cache = [target_cache(tgt), None]
     transformed = src
-    spatial_idx = None
     R_final = t_final = out = None
-    for _ in range(n_iter):
-        src_emb, spatial_idx, _ = model.embed(transformed, spatial_idx=spatial_idx)
-        out = model.register_embedded(transformed, tgt, src_emb, tgt_emb, tgt_memory=tgt_memory)
+    for i in range(n_iter):
+        use_sub = 0 < sub < tgt.shape[1] and i >= 1
+        if use_sub and tgt_cache[1] is None:
+            tgt_cache[1] = target_cache(tgt[:, :sub].contiguous())
+        c = 1 if use_sub else 0
+        cur_src = transformed[:, :sub].contiguous() if use_sub else transformed
+        # a fresh feature graph on the first pass at this size, and on the
+        # leading `refresh` iterations when reuse is on
+        fresh = sp_idx[c] is None or (reuse_feat and i < refresh)
+        src_emb, spatial, feature = model.embed(
+            cur_src, spatial_idx=sp_idx[c], feature_idx=None if fresh else ft_idx[c])
+        if fresh:
+            sp_idx[c] = spatial
+            if reuse_feat:
+                ft_idx[c] = feature
+        cur_tgt, cur_tgt_emb, cur_tgt_mem = tgt_cache[c]
+        out = model.register_embedded(cur_src, cur_tgt, src_emb, cur_tgt_emb,
+                                      tgt_memory=cur_tgt_mem)
         R_ab, t_ab = out[2], out[3]
         transformed = geometry.transform_points(transformed, R_ab, t_ab)
         if R_final is None:

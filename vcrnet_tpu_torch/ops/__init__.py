@@ -1,8 +1,10 @@
 """Graph ops, LayerNorm and the Hopper kernels with their plain versions."""
 
 from vcrnet_tpu_torch.ops.attention import flash_bwd, flash_mha_packed
+from vcrnet_tpu_torch.ops.colmass import softmax_colmass
 from vcrnet_tpu_torch.ops.edgeconv import (
-    edge_conv_bwd, fused_edge_conv, fused_knn_gather_max, gather_max_bwd,
+    edge_conv_bwd, edge_conv_from_idx, fused_edge_conv, fused_gather_max_from_idx,
+    fused_knn_gather_max, gather_max_bwd,
 )
 from vcrnet_tpu_torch.ops.vcp import streaming_soft_correspondence, vcp_bwd
 
@@ -16,6 +18,9 @@ KERNELS = {
     "edge_conv_bwd": edge_conv_bwd,
     "flash_bwd": flash_bwd,
     "vcp_bwd": vcp_bwd,
+    "gather_max_from_idx": fused_gather_max_from_idx,
+    "edge_conv_from_idx": edge_conv_from_idx,
+    "softmax_colmass": softmax_colmass,
 }
 
 

@@ -30,6 +30,9 @@ SOURCES = (
     "edge_conv_bwd.cu",
     "flash_bwd.cu",
     "vcp_bwd.cu",
+    "gather_max_from_idx.cu",
+    "edge_conv_from_idx.cu",
+    "colmass.cu",
 )
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

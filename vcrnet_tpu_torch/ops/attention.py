@@ -9,11 +9,21 @@ A CUDA tensor launches ``csrc/flash_packed.cu`` / ``csrc/flash_bwd.cu``
 (or raises); a CPU tensor runs the ``*_ref`` plain version. Each wrapper
 counts its launches in ``.launches``; ``attention`` is the differentiable
 entry point, which the model calls in eval and in training.
+
+``nk_valid`` is the count of real keys when k and v carry padding rows
+behind them (the counterpart of ``nk_valid`` in pallas_attention.py:
+_fwd_packed_kernel): keys at or beyond it are masked out of the softmax.
+``attention`` pads a key count that is no multiple of 64 itself and passes
+the count; padding without the mask would change the row sums. Eval only:
+``flash_bwd`` knows no valid-key count, so where a gradient is wanted k and
+v go to the kernels as they are, which raise on a key count that is no
+multiple of 64.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vcrnet_tpu_torch.ops import _build
 from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route, upcast
@@ -46,12 +56,22 @@ def _scores(q, k, sm_scale, n_heads):
                         upcast(_split(k, n_heads)).transpose(-1, -2)) * sm_scale
 
 
-def flash_mha_packed_ref(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = False):
+def _check_nk_valid(nk_valid, nk: int) -> None:
+    if nk_valid is not None and not 0 < nk_valid <= nk:
+        raise ValueError(f"nk_valid={nk_valid} must be in [1, Nk={nk}]")
+
+
+def flash_mha_packed_ref(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = False,
+                         nk_valid: int | None = None):
     """Plain version: f32 scores, softmax statistics against the row max,
     probabilities rounded to v's dtype before the product and divided by
     the f32 row sum afterwards (_fwd_packed_kernel's rounding points).
-    ``return_lse`` adds the row logsumexp [B, H, Nq] f32."""
+    ``return_lse`` adds the row logsumexp [B, H, Nq] f32; keys at or beyond
+    ``nk_valid`` are masked out."""
+    _check_nk_valid(nk_valid, k.shape[1])
     s = _scores(q, k, sm_scale, n_heads)
+    if nk_valid is not None:
+        s[..., nk_valid:] = float("-inf")
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
@@ -60,13 +80,16 @@ def flash_mha_packed_ref(q, k, v, sm_scale: float, n_heads: int, return_lse: boo
     return (o, (m + torch.log(l))[..., 0]) if return_lse else o
 
 
-def flash_mha_packed(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = False):
+def flash_mha_packed(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = False,
+                     nk_valid: int | None = None):
     """Packed-head attention; see the module docstring. The kernel takes
-    bf16 with :func:`flash_packed_supported` shapes."""
+    bf16 with :func:`flash_packed_supported` shapes; with ``nk_valid`` the
+    rows of k and v at or beyond it must be finite (zeros)."""
     if not kernel_route(q, k, v):
-        return flash_mha_packed_ref(q, k, v, sm_scale, n_heads, return_lse)
+        return flash_mha_packed_ref(q, k, v, sm_scale, n_heads, return_lse, nk_valid)
     B, nq, d = q.shape
     nk = k.shape[1]
+    _check_nk_valid(nk_valid, nk)
     if not flash_packed_supported(nq, nk, d, n_heads):
         raise ValueError(
             f"flash_mha_packed kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
@@ -77,7 +100,8 @@ def flash_mha_packed(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = 
     out = torch.empty_like(q)
     lse = (torch.empty((B, n_heads, nq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    _build.extension().flash_packed(q, k, v, out, lse, n_heads, float(sm_scale))
+    _build.extension().flash_packed(q, k, v, out, lse, nk if nk_valid is None else nk_valid,
+                                    n_heads, float(sm_scale))
     flash_mha_packed.launches += 1
     return (out, lse) if return_lse else out
 
@@ -135,8 +159,13 @@ flash_bwd.launches = 0
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, n_heads, grad_enabled):
+        nk = k.shape[1]
         if not (grad_enabled and any(ctx.needs_input_grad[:3])):
-            return flash_mha_packed(q, k, v, sm_scale, n_heads)
+            pad = -nk % 64
+            if not pad:
+                return flash_mha_packed(q, k, v, sm_scale, n_heads)
+            return flash_mha_packed(q, F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
+                                    sm_scale, n_heads, nk_valid=nk)
         o, lse = flash_mha_packed(q, k, v, sm_scale, n_heads, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (sm_scale, n_heads)
@@ -152,5 +181,7 @@ class _Attention(torch.autograd.Function):
 def attention(q, k, v, sm_scale: float, n_heads: int):
     """Differentiable :func:`flash_mha_packed`, for eval and training: the
     forward saves its logsumexp only when a gradient is wanted, and the
-    backward is :func:`flash_bwd`."""
+    backward is :func:`flash_bwd`. Without a gradient, a key count that is
+    no multiple of 64 is padded with zero rows and masked by ``nk_valid``;
+    with one, the kernels take multiples of 64 only."""
     return _Attention.apply(q, k, v, sm_scale, n_heads, torch.is_grad_enabled())

@@ -9,6 +9,10 @@
                   (pallas_edgeconv.py:_gather_max_bwd_from_winners)
   edge_conv_bwd         (da, dh, dW2, db2) from the saved idx and winners
                   (pallas_edgeconv.py:_fused_edge_conv_bwd)
+  fused_gather_max_from_idx  the SN block over a GIVEN selection
+                  (pallas_edgeconv.py:gather_max_from_idx)
+  edge_conv_from_idx    the DG block over a GIVEN selection, eval only
+                  (pallas_edgeconv.py:edge_conv_from_idx)
 
 A CUDA tensor launches the kernel in ``csrc/`` (or raises); a CPU tensor
 runs the ``*_ref`` plain version. Both select by exact f32 comparison with
@@ -16,8 +20,13 @@ ties to the smaller column and mask the diagonal, and both gather the
 exact values: the TPU's int8 one-hot gather (``int8_gather=True`` there)
 is not reproduced. Each wrapper counts its launches in ``.launches``.
 
-``knn_gather_max`` and ``edge_conv`` are the differentiable entry points
-(the JAX custom VJPs), which the model calls in eval and in training:
+The from-idx pair serves the refinement loop, which computes a selection
+once and passes it back: given the fused kernels' own idx they return the
+fused kernels' outputs bit for bit (one device function each).
+
+``knn_gather_max``, ``gather_max_from_idx`` and ``edge_conv`` are the
+differentiable entry points (the JAX custom VJPs), which the model calls
+in eval and in training:
 where a gradient is wanted, the forward also emits each output channel's
 max winner (its k-position, uint8, the first on ties) and the backward
 kernel routes the gradient by it; x gets no gradient (the JAX VJP's
@@ -33,6 +42,9 @@ from vcrnet_tpu_torch.ops._common import (
     check_tensor, kernel_route, knn_scores, leaky, select_topk,
 )
 from vcrnet_tpu_torch.ops.graph import gather_neighbors
+
+
+EDGE_CONV_MAX_N = 3408  # the [16, N] f32 score tile must fit a block's shared memory
 
 
 def _check_k(k: int, n: int) -> None:
@@ -138,6 +150,62 @@ def knn_gather_max(x: torch.Tensor, values: torch.Tensor, k: int = 20):
     return _KnnGatherMax.apply(x, values, k, torch.is_grad_enabled())
 
 
+def fused_gather_max_from_idx(idx: torch.Tensor, values: torch.Tensor, winners: bool = False):
+    """idx [B, N, k] int32 with entries in [0, N), values [B, N, F] -> out
+    [B, N, F] (or (out, win [B, N, F] uint8) with ``winners``): out[b, i] =
+    channel-wise max of values[b, idx[b, i, :]]. The kernel takes bf16
+    values with F % 8 == 0 and k <= 32."""
+    if not kernel_route(idx, values):
+        out, _, *win = fused_knn_gather_max_ref(None, values, idx=idx, winners=winners)
+        return (out, *win) if winners else out
+    B, N, F = values.shape
+    k = idx.shape[-1]
+    check_tensor("idx", idx, torch.int32, (B, N, k))
+    check_tensor("values", values, torch.bfloat16, (B, N, F))
+    if not 0 < k <= 32 or F % 8:
+        raise ValueError(
+            f"gather_max_from_idx kernel takes k in [1, 32] and F % 8 == 0, got k={k} F={F}"
+        )
+    out = torch.empty_like(values)
+    win = torch.empty((B, N, F), dtype=torch.uint8, device=idx.device) if winners else None
+    _build.extension().gather_max_from_idx(idx, values, out, win)
+    fused_gather_max_from_idx.launches += 1
+    return (out, win) if winners else out
+
+
+fused_gather_max_from_idx.launches = 0
+
+
+def gather_max_from_idx_ref(idx, values):
+    """Plain version of :func:`gather_max_from_idx`."""
+    return fused_knn_gather_max_ref(None, values, idx=idx)[0]
+
+
+class _GatherMaxFromIdx(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, idx, values, grad_enabled):
+        winners = grad_enabled and ctx.needs_input_grad[1]
+        if not winners:
+            return fused_gather_max_from_idx(idx, values)
+        out, win = fused_gather_max_from_idx(idx, values, winners=True)
+        ctx.save_for_backward(idx, win)
+        ctx.dtype = values.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        idx, win = ctx.saved_tensors
+        return None, gather_max_bwd(idx, win, d_out.contiguous()).to(ctx.dtype), None
+
+
+def gather_max_from_idx(idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`fused_gather_max_from_idx` -> out, for eval and
+    training: the forward emits the winners only when a gradient is wanted
+    for ``values``, and the backward is :func:`gather_max_bwd` on them (idx
+    carries none)."""
+    return _GatherMaxFromIdx.apply(idx, values, torch.is_grad_enabled())
+
+
 def fused_edge_conv_ref(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
                         idx=None, winners: bool = False):
     """Plain version of :func:`fused_edge_conv`; ``idx`` [B, N, k] skips the
@@ -157,14 +225,16 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     """x [B, N, C] (the kNN space), a/h [B, N, F], w2 [F, F] (in, out),
     b2 [F] -> (x1, x2 [B, N, F] in a's dtype, idx [B, N, k] int32[, win1,
     win2 [B, N, F] uint8 with ``winners``]). The kernel takes bf16
-    throughout, C in {32, 64, 128}, F = 128 and N % 16 == 0."""
+    throughout, C in {32, 64, 128}, F = 128, N % 16 == 0 and N <=
+    :data:`EDGE_CONV_MAX_N`."""
     if not kernel_route(x, a, h, w2, b2):
         return fused_edge_conv_ref(x, a, h, w2, b2, k, negative_slope, winners=winners)
     B, N, C = x.shape
     bf16 = torch.bfloat16
-    if C not in (32, 64, 128) or N % 16:
+    if C not in (32, 64, 128) or N % 16 or N > EDGE_CONV_MAX_N:
         raise ValueError(
-            f"edge_conv kernel takes C in (32, 64, 128) and N % 16 == 0, got C={C} N={N}"
+            f"edge_conv kernel takes C in (32, 64, 128), N % 16 == 0 and "
+            f"N <= {EDGE_CONV_MAX_N}, got C={C} N={N}"
         )
     check_tensor("x", x, bf16, (B, N, C))
     for name, t in (("a", a), ("h", h)):
@@ -188,6 +258,42 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
 
 
 fused_edge_conv.launches = 0
+
+
+def edge_conv_from_idx_ref(idx, a, h, w2, b2, negative_slope: float = 0.0):
+    """Plain version of :func:`edge_conv_from_idx`."""
+    return fused_edge_conv_ref(None, a, h, w2, b2, negative_slope=negative_slope, idx=idx)[:2]
+
+
+def edge_conv_from_idx(idx, a, h, w2, b2, negative_slope: float = 0.0):
+    """idx [B, N, k] int32 with entries in [0, N), a/h [B, N, F], w2 [F, F]
+    (in, out), b2 [F] -> (x1, x2 [B, N, F] in a's dtype): the DG block over
+    the given selection. Eval only: it has no backward and raises where a
+    gradient is wanted. The kernel takes bf16 throughout, F = 128,
+    N % 16 == 0 and k <= 32."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, h, w2, b2)):
+        raise RuntimeError("edge_conv_from_idx has no backward; call it under torch.no_grad()")
+    if not kernel_route(idx, a, h, w2, b2):
+        return edge_conv_from_idx_ref(idx, a, h, w2, b2, negative_slope)
+    B, N, k = idx.shape
+    bf16 = torch.bfloat16
+    if N % 16 or not 0 < k <= 32:
+        raise ValueError(
+            f"edge_conv_from_idx kernel takes N % 16 == 0 and k in [1, 32], got N={N} k={k}"
+        )
+    check_tensor("idx", idx, torch.int32, (B, N, k))
+    for name, t in (("a", a), ("h", h)):
+        check_tensor(name, t, bf16, (B, N, 128))
+    check_tensor("w2", w2, bf16, (128, 128))
+    check_tensor("b2", b2, bf16, (128,))
+    x1 = torch.empty_like(a)
+    x2 = torch.empty_like(a)
+    _build.extension().edge_conv_from_idx(idx, a, h, w2, b2, x1, x2, float(negative_slope))
+    edge_conv_from_idx.launches += 1
+    return x1, x2
+
+
+edge_conv_from_idx.launches = 0
 
 
 def _dleaky(post: torch.Tensor, slope: float) -> torch.Tensor:

@@ -5,7 +5,8 @@ Numpy in, numpy out. Request batches are padded up a ladder of bucket
 sizes by repeating their first pair (the JAX package compiles one program
 per bucket; here the ladder keeps the kernels' batch shapes to a small
 set), oversized clouds are subsampled deterministically to
-``cfg.num_points``, and batches above the top bucket are split. Padding
+``cfg.n_cropped`` points (``cfg.num_points``, or its partial-overlap crop),
+the request runs ``cfg.iter`` refinement passes, and batches above the top bucket are split. Padding
 rows never reach the results: registration has no cross-pair coupling.
 """
 

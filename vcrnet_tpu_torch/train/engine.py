@@ -5,7 +5,10 @@ One step is the JAX package's ``Trainer._train_step_impl``: forward (the
 model in training mode, both clouds embedded in one stacked call), loss,
 gradients (on the kernel route the backward kernels of ``ops``), and the
 optimizer update; the metric sums of the batch stay on the device and are
-added up per epoch. Eval runs ``vcrnet_iter`` at ``cfg.iter``.
+added up per epoch. Eval runs ``vcrnet_iter`` at ``cfg.iter``, whole or
+partial-overlap; training in partial-overlap mode is not ported (its hard
+selections need the JAX package's zero-gradient handling), so the
+training step refuses ``cfg.partial``.
 
 Losses (reference vcrnet_model.py:711-720):
   pose:  MSE(R_pred^T R_gt, I) + MSE(t_pred, t_gt)
@@ -159,6 +162,8 @@ class Trainer:
     def compute_grads(self, batch: dict):
         """Forward in training mode, loss, backward: leaves the gradients
         in the parameters' ``.grad`` and returns (loss, sums)."""
+        if self.cfg.partial:
+            raise NotImplementedError("training in partial-overlap mode is not ported yet")
         b = self.to_device(batch)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
