@@ -40,9 +40,26 @@ Phases (any failure raises and the script exits non-zero):
            decoder's re-mask streams (column-mass kernels, gather of the
            kept keys, attention with a valid-key count), against the same
            route with the scores written out and against the plain route,
-           with the share of kept keys on which the two re-masks agree.
+           with the share of kept keys on which the two re-masks agree;
+7. dgcnn   the DGCNN / DCP family: a DCP Trainer on the DGCNN embedding
+           (bf16, full width) takes 20 Adam steps on one batch (the loss
+           falls, the launches of one step, step time at B = 8 and 64), its
+           eval step on the kernel route (kNN kernel, fused eval chain on the
+           trained running statistics) against the plain route, then VCR-Net
+           on DGCNN served with those weights at iter=1 and iter=3 (launches
+           of a 1-pair request, kernel route against plain route, latency);
+8. fused   the default VCR-Net with VCRNET_FUSED_POINTER=1 for this phase
+   pointer only: launches of a 1-pair request at iter=1 and iter=3, rot RMSE
+           over the 73 pairs against the unfused kernel route (0.25 / 0.1
+           deg), the rotation between the two routes' results pair by pair
+           (median <= 0.05, max <= 0.5 deg), latency beside the unfused
+           route's.
 
-The last lines are a JSON object with one entry per kernel, the card's
+The kernels phase also holds the four kernels of phases 7 and 8 (knn,
+dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
+64, N = 1024 and at N = 768.
+
+The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports nothing of
 JAX.
@@ -567,9 +584,9 @@ def phase_backward(dev):
 # kernel launches in one training step: the forward embeds src and tgt
 # stacked (1 edge conv, 1 gather-max), the pointer runs 6 attentions, the
 # head 1 soft correspondence; the backward launches one backward kernel each
+# (check_launches holds every kernel not named here to zero launches)
 TRAIN_LAUNCHES = {"knn_gather_max": 1, "edge_conv": 1, "flash_packed": 6, "vcp_stream": 1,
-                  "gather_max_bwd": 1, "edge_conv_bwd": 1, "flash_bwd": 6, "vcp_bwd": 1,
-                  "gather_max_from_idx": 0, "edge_conv_from_idx": 0, "softmax_colmass": 0}
+                  "gather_max_bwd": 1, "edge_conv_bwd": 1, "flash_bwd": 6, "vcp_bwd": 1}
 GRAD_COSINE_MIN = 0.99
 LEAF_COSINE_MIN = 0.98
 # leaves whose gradient is zero in exact arithmetic, so both routes give
@@ -648,8 +665,7 @@ def phase_train():
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     print(f"train launches in one step: {launches}", flush=True)
-    for name, n in TRAIN_LAUNCHES.items():
-        check(launches[name] == n, f"{name}: {launches[name]} launches in one step, expected {n}")
+    check_launches(launches, TRAIN_LAUNCHES, "train step")
 
     # Adam on one fixed batch: the loss must fall
     tr = Trainer(cfg, seed=0)
@@ -664,15 +680,7 @@ def phase_train():
 
     step_ms = {}
     for b in BATCHES:
-        batch = tr.to_device(_train_batch(cfg, b, seed=2))
-        tr.train_step(batch)
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.train_step(batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = timed_steps_ms(tr, tr.to_device(_train_batch(cfg, b, seed=2)))
         step_ms[b] = statistics.median(times)
         print(f"train step at B={b}: median {step_ms[b]} ms (5 steps: {times})", flush=True)
     return launches, step_ms
@@ -717,15 +725,8 @@ def phase_serve():
     outs = [reg.register(src, tgt) for src, tgt in requests]
     launches = ops.launch_counts()
     print(f"serve launches on the main path: {launches}", flush=True)
-    # per request at iter=1: embed tgt + src (1 edge conv + 1 gather-max
-    # each), 6 attentions (target encoder 1, source encoder 1, two decoders
-    # 2 each), 1 soft correspondence
-    per_request = {"knn_gather_max": 2, "edge_conv": 2, "flash_packed": 6, "vcp_stream": 1,
-                   "gather_max_from_idx": 0, "edge_conv_from_idx": 0, "softmax_colmass": 0,
-                   **ZERO_LAUNCHES}
-    for name, n in per_request.items():
-        check(launches[name] == n * len(requests),
-              f"{name}: {launches[name]} launches on the main path, expected {n * len(requests)}")
+    check_launches(launches, {name: n * len(requests) for name, n in LAUNCHES_ITER1.items()},
+                   "serve, all requests")
 
     R = np.concatenate([o["R"] for o in outs])
     t = np.concatenate([o["t"] for o in outs])
@@ -756,15 +757,17 @@ def phase_serve():
 
 ROT_LIMIT_ITER3_DEG = 1.0  # the JAX package's whole_iter3 reference is 0.3946 / 0.2825 deg
 ROT_LIMIT_PARTIAL_DEG = 12.0  # its partial_iter3 reference is 9.209 / 8.678 deg
-ZERO_LAUNCHES = {"gather_max_bwd": 0, "edge_conv_bwd": 0, "flash_bwd": 0, "vcp_bwd": 0}
+# Launches of a request at iter=1: embed tgt + src (1 edge conv + 1 gather-max
+# each), 6 attentions (target encoder 1, source encoder 1, two decoders 2
+# each), 1 soft correspondence
+LAUNCHES_ITER1 = {"knn_gather_max": 2, "edge_conv": 2, "flash_packed": 6, "vcp_stream": 1}
 # Launches of a 1-pair request at iter=3. Exact: the target is embedded and
 # encoded once (1 kNN gather-max, 1 edge conv, 1 attention); the source runs
 # the fused kNN gather-max in iteration 1 and gather_max_from_idx after, a
 # fresh edge conv each iteration, 5 attentions (its encoder, two decoders of
 # 2) and 1 soft correspondence per iteration.
 LAUNCHES_ITER3 = {"knn_gather_max": 2, "edge_conv": 4, "gather_max_from_idx": 2,
-                  "edge_conv_from_idx": 0, "flash_packed": 16, "vcp_stream": 3,
-                  "softmax_colmass": 0}
+                  "flash_packed": 16, "vcp_stream": 3}
 REFINE_CONFIGS = {
     # name: (Config fields, launches that differ from LAUNCHES_ITER3)
     "exact": ({}, {}),
@@ -833,8 +836,7 @@ def one_request_launches(reg, src, tgt, expected: dict, what: str) -> dict:
     reg.register(src, tgt)
     launches = ops.launch_counts()
     print(f"{what}: launches of one request: {launches}", flush=True)
-    for name, n in {**expected, **ZERO_LAUNCHES}.items():
-        check(launches[name] == n, f"{what}: {name} launched {launches[name]} times, expected {n}")
+    check_launches(launches, expected, what)
     return launches
 
 
@@ -1040,7 +1042,476 @@ def phase_partial():
     return total
 
 
-PHASES = ("kernels", "backward", "train", "serve", "refine", "partial")
+# ---------------------------------------------------------------------------
+# the DGCNN / DCP family and the fused pointer
+# ---------------------------------------------------------------------------
+
+EDGE_FLOPS = 2 * (6 * 64 + 64 * 64 + 64 * 128 + 128 * 256)  # per edge, stages 1-4
+# (N, B) at which the four kernels of this family are held and timed; the
+# last entry is the one the kernels line reports
+FAMILY_SHAPES = ((768, 64), (N, 8), (N, 64))
+
+
+def param_bytes(*tensors) -> int:
+    """Bytes of weights the kernels read as bf16 (matrices) and of biases as
+    they are stored."""
+    return sum(t.numel() * (2 if t.dim() == 2 else t.element_size()) for t in tensors)
+
+
+def phase_family_kernels(dev):
+    """knn, dgcnn_eval, fused_mha and fused_ff against their plain versions
+    at B = 8 and 64, N = 1024, and at N = 768, full width (k = 20, emb 512, D
+    512, 4 heads, F 1024). Tolerances: the selection of ``knn`` on f32 xyz
+    equals ``knn_gather_max``'s bit for bit and agrees with the plain
+    version's on >= 99.5% of the rows (f32 sums in another order at
+    near-ties); on its general path (C = 64, bf16 and f32) it agrees on
+    >= 99.5% of the rows with the plain version and, on bf16, with
+    ``edge_conv``'s own selection (tensor-core sums in another order);
+    ``dgcnn_eval`` within 2e-2 of the output's largest value (bf16
+    roundings of four chained stages at f32 sums that differ in their last
+    bits); ``fused_mha`` and ``fused_ff`` within 2^-6 of the output's
+    largest value (two bf16 ulps: the output and one rounded intermediate).
+    Then ``knn`` at N = 8192 and on its general path at N = 4096, and the
+    refusals of what the kernels do not take, by the wrappers and by the
+    DGCNN module on its kernel route."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcrnet_tpu_torch.models.embeddings import DGCNN
+    from vcrnet_tpu_torch.ops import _build, dgcnn, edgeconv, graph, knn, pointer
+
+    ext = _build.extension()
+    check(ext.dgcnn_eval_smem(K) == dgcnn.dgcnn_eval_smem_bytes(K),
+          "dgcnn_eval: the wrapper's shared-memory formula is not the kernel's")
+    check(ext.pointer_mha_smem(512) == pointer.pointer_mha_smem_bytes(512),
+          "fused_mha: the wrapper's shared-memory formula is not the kernel's")
+    check(ext.pointer_ff_smem(512, 1024) == pointer.pointer_ff_smem_bytes(512, 1024),
+          "fused_ff: the wrapper's shared-memory formula is not the kernel's")
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    bf16 = torch.bfloat16
+    emb, D, H, FF = 512, 512, 4, 1024
+    folded = [(randn(i, o, scale=i ** -0.5), randn(o, scale=0.1))
+              for i, o in dgcnn.STAGE_WIDTHS + ((512, emb),)]
+    mha_w = [t for _ in range(4) for t in (randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))]
+    ff_w = (randn(D, FF, scale=D ** -0.5), randn(FF, scale=0.1),
+            randn(FF, D, scale=FF ** -0.5), randn(D, scale=0.1))
+    # the library's layout of the same sublayer: [out, in] weights, packed q/k/v
+    wq, bq, wk, bk, wv, bv, wo, bo = (t.to(bf16) for t in mha_w)
+    in_w = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
+    in_b = torch.cat([bq, bk, bv])
+    out_w = wo.t().contiguous()
+
+    rows = {}
+    for n, B in FAMILY_SHAPES:
+        # --- knn on f32 xyz: the selection of knn_gather_max, bit for bit
+        x = torch.rand(B, n, 3, generator=g, device=dev) * 2 - 1
+        idx = knn.fused_knn(x, K)
+        torch.cuda.synchronize()
+        _, fused_idx = edgeconv.fused_knn_gather_max(x, randn(B, n, 8, dtype=bf16), K)
+        check(torch.equal(idx, fused_idx), f"knn N={n} B={B}: differs from knn_gather_max's idx")
+        agree = same_rows(idx, knn.fused_knn_ref(x, K))
+        check(agree >= KNN_ROW_AGREEMENT, f"knn N={n} B={B}: rows agree {agree}")
+        # the general path on bf16 features, C = 64: edge_conv's input
+        xf = randn(B, n, 64, dtype=bf16)
+        idx64 = knn.fused_knn(xf, K)
+        a = randn(B, n, 128, scale=0.5, dtype=bf16)
+        _, _, edge_idx = edgeconv.fused_edge_conv(xf, a, a, randn(128, 128, dtype=bf16),
+                                                  randn(128, dtype=bf16), K)
+        agree_edge = same_rows(idx64, edge_idx)
+        check(agree_edge >= KNN_ROW_AGREEMENT,
+              f"knn C=64 N={n} B={B}: rows agree with edge_conv's idx {agree_edge}")
+        agree64 = same_rows(idx64, knn.fused_knn_ref(xf, K))
+        check(agree64 >= KNN_ROW_AGREEMENT, f"knn C=64 N={n} B={B}: rows agree {agree64}")
+        # and on f32 features
+        xg = xf[:8].float().contiguous()
+        agree_g = same_rows(knn.fused_knn(xg, K), knn.fused_knn_ref(xg, K))
+        check(agree_g >= KNN_ROW_AGREEMENT, f"knn general N={n}: rows agree {agree_g}")
+        b, by = bound_ms(nbytes(x, idx), B * n * n * (2 * 3 + 2), F32_FLOPS)
+        rows.setdefault("knn", []).append(dict(
+            B=B, N=n, rows_agree=agree, rows_agree_c64=agree64, rows_agree_edge_conv=agree_edge,
+            rows_agree_general=agree_g, equals_knn_gather_max=True, max_abs_err=0.0, bound_ms=b, bound_by=by,
+            ms=cuda_time_ms(lambda: knn.fused_knn(x, K)),
+            ms_c64=cuda_time_ms(lambda: knn.fused_knn(xf, K)),
+            plain_ms=cuda_time_ms(lambda: knn.fused_knn_ref(x, K)), library_ms=None))
+
+        # --- dgcnn_eval on that selection
+        out = dgcnn.fused_dgcnn_eval(x, idx, folded, emb)
+        torch.cuda.synchronize()
+        want = dgcnn.fused_dgcnn_eval_ref(x, idx, folded, emb)
+        err, rel = (out - want).abs().max().item(), rel_err(out, want)
+        check(out.shape == (B, n, emb) and bool(torch.isfinite(out).all()), "dgcnn_eval output")
+        check(rel <= 2e-2, f"dgcnn_eval N={n} B={B}: relative err {rel} > 2e-2")
+        flops = B * n * (K * EDGE_FLOPS + 2 * 512 * emb)
+        b, by = bound_ms(nbytes(x, idx, out) + param_bytes(*(t for p in folded for t in p)),
+                         flops, BF16_TENSOR_FLOPS)
+        rows.setdefault("dgcnn_eval", []).append(dict(
+            B=B, N=n, max_abs_err=err, rel_err=rel, bound_ms=b, bound_by=by,
+            ms=cuda_time_ms(lambda: dgcnn.fused_dgcnn_eval(x, idx, folded, emb)),
+            plain_ms=cuda_time_ms(lambda: dgcnn.fused_dgcnn_eval_ref(x, idx, folded, emb), reps=5),
+            library_ms=None))
+        del want, out
+
+        # --- fused_mha: self attention and cross attention share the shapes
+        yq, ykv = randn(B, n, D, dtype=bf16), randn(B, n, D, dtype=bf16)
+        out = pointer.fused_mha(yq, ykv, *mha_w, H)
+        torch.cuda.synchronize()
+        want = pointer.fused_mha_ref(yq, ykv, *mha_w, H)
+        err, rel = (out.float() - want.float()).abs().max().item(), rel_err(out, want)
+        check(rel <= 2 ** -6, f"fused_mha N={n} B={B}: relative err {rel} > 2^-6")
+        self_out = pointer.fused_mha(yq, yq, *mha_w, H)
+        rel_self = rel_err(self_out, pointer.fused_mha_ref(yq, yq, *mha_w, H))
+        check(rel_self <= 2 ** -6, f"fused_mha self N={n} B={B}: relative err {rel_self} > 2^-6")
+
+        def library_mha():
+            return F.multi_head_attention_forward(
+                yq.transpose(0, 1), ykv.transpose(0, 1), ykv.transpose(0, 1), D, H, in_w, in_b,
+                None, None, False, 0.0, out_w, bo, training=False, need_weights=False)[0]
+
+        lib_rel = rel_err(library_mha().transpose(0, 1), want)
+        check(lib_rel <= 5e-2, f"fused_mha N={n} B={B}: the library call is another function "
+                               f"({lib_rel})")
+        flops = B * (2 * n * D * D * 2 + 2 * n * D * D * 2 + 4 * n * n * D)
+        b, by = bound_ms(nbytes(yq, ykv, out) + param_bytes(*mha_w), flops, BF16_TENSOR_FLOPS)
+        rows.setdefault("fused_mha", []).append(dict(
+            B=B, N=n, max_abs_err=err, rel_err=rel, rel_err_self=rel_self,
+            library_rel_err=lib_rel, bound_ms=b, bound_by=by,
+            ms=cuda_time_ms(lambda: pointer.fused_mha(yq, ykv, *mha_w, H)),
+            plain_ms=cuda_time_ms(lambda: pointer.fused_mha_ref(yq, ykv, *mha_w, H), reps=5),
+            library_ms=cuda_time_ms(library_mha)))
+        del want, out, self_out
+
+        # --- fused_ff
+        out = pointer.fused_ff(yq, *ff_w)
+        torch.cuda.synchronize()
+        want = pointer.fused_ff_ref(yq, *ff_w)
+        err, rel = (out.float() - want.float()).abs().max().item(), rel_err(out, want)
+        check(rel <= 2 ** -6, f"fused_ff N={n} B={B}: relative err {rel} > 2^-6")
+        b, by = bound_ms(nbytes(yq, out) + param_bytes(*ff_w), 4 * B * n * D * FF,
+                         BF16_TENSOR_FLOPS)
+        rows.setdefault("fused_ff", []).append(dict(
+            B=B, N=n, max_abs_err=err, rel_err=rel, bound_ms=b, bound_by=by,
+            ms=cuda_time_ms(lambda: pointer.fused_ff(yq, *ff_w)),
+            plain_ms=cuda_time_ms(lambda: pointer.fused_ff_ref(yq, *ff_w)), library_ms=None))
+        del want, out
+    # knn beyond the shapes above: N = 8192 on xyz and N = 4096 on bf16
+    # features (fewer queries per block, so that their score rows fit shared
+    # memory)
+    x = torch.rand(2, 8192, 3, generator=g, device=dev) * 2 - 1
+    agree = same_rows(knn.fused_knn(x, K), knn.fused_knn_ref(x, K))
+    xf = randn(2, 4096, 64, dtype=bf16)
+    agree_bf = same_rows(knn.fused_knn(xf, K), knn.fused_knn_ref(xf, K))
+    torch.cuda.synchronize()
+    print(f"kernel knn large: rows agree {agree} at N=8192 (f32 xyz), {agree_bf} at N=4096 "
+          f"(bf16, C=64)", flush=True)
+    check(min(agree, agree_bf) >= KNN_ROW_AGREEMENT, "knn at large N: rows disagree")
+
+    # on the card nothing gives way to the plain formulation: graph.knn's
+    # "auto" launches the kernel on a ragged N too, a wrapper raises on what
+    # its kernel does not take, and so does the DGCNN module on its kernel route
+    ragged = x[:, :1001].contiguous()
+    before = knn.fused_knn.launches
+    agree = same_rows(graph.knn(ragged, K), knn.fused_knn_ref(ragged, K))
+    check(knn.fused_knn.launches == before + 1, "graph.knn on the card did not launch the kernel")
+    check(agree >= KNN_ROW_AGREEMENT, f"knn at N=1001: rows agree {agree}")
+    module = DGCNN(emb, k=K, dtype=bf16).to(dev).eval()
+
+    def module_on_ragged():
+        with torch.no_grad():
+            module(x[:, :1000].contiguous(), fused=True)
+
+    idx = knn.fused_knn(x[:, :1024].contiguous(), K)
+    refused = {
+        "knn k > 32": lambda: knn.fused_knn(x, 33),
+        "DGCNN module, kernel route, N % 16": module_on_ragged,
+        "dgcnn_eval N % 16": lambda: dgcnn.fused_dgcnn_eval(
+            x[:, :1000].contiguous(), idx[:, :1000].contiguous(), folded, emb),
+        "fused_mha dk = 64": lambda: pointer.fused_mha(yq, yq, *mha_w, 8),
+        "fused_ff hidden tile": lambda: pointer.fused_ff(
+            yq, randn(D, 2 * FF), randn(2 * FF), randn(2 * FF, D), randn(D)),
+    }
+    for what, call in refused.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise RuntimeError(f"{what}: the wrapper did not raise")
+    print_rows(rows)
+    return rows
+
+
+# launches of one DCP training step on the DGCNN embedding: the two clouds
+# are embedded one after the other through the plain formulation (BatchNorm
+# on batch statistics), each behind one kNN launch; the pointer runs its 6
+# attentions forward and backward; DCP's SVD head is plain PyTorch
+DCP_TRAIN_LAUNCHES = {"knn": 2, "dgcnn_eval": 0, "flash_packed": 6, "flash_bwd": 6}
+# its eval step: one pass, each cloud through the kNN and the fused eval chain
+DCP_EVAL_LAUNCHES = {"knn": 2, "dgcnn_eval": 2, "flash_packed": 6}
+# VCR-Net on DGCNN, 1-pair request: the target is embedded once (1 kNN, 1
+# eval chain), the source once per iteration with its kNN cached after the
+# first; attention and the head as in LAUNCHES_ITER3
+DGCNN_SERVE_LAUNCHES = {1: {"knn": 2, "dgcnn_eval": 2, "flash_packed": 6, "vcp_stream": 1},
+                        3: {"knn": 2, "dgcnn_eval": 4, "flash_packed": 16, "vcp_stream": 3}}
+DGCNN_EMB_REL = 5e-2  # kernel vs plain embedding, of the largest value: the plain route rounds
+# each conv output to bf16 before its BatchNorm, the fused chain rounds the folded weights instead
+DGCNN_ROUTE_ROT_DEG = 0.5  # kernel vs plain route, median rotation between results per pair
+DGCNN_ROUTE_TRANS = 0.01
+
+
+def check_launches(launches: dict, expected: dict, what: str) -> None:
+    """``launches`` equals ``expected``, with every kernel of the port that
+    ``expected`` does not name at zero."""
+    from vcrnet_tpu_torch import ops
+
+    for name, n in {**dict.fromkeys(ops.KERNELS, 0), **expected}.items():
+        check(launches[name] == n, f"{what}: {name} launched {launches[name]} times, expected {n}")
+
+
+def timed_steps_ms(trainer, batch, reps: int = 5) -> list:
+    import torch
+
+    trainer.train_step(batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_dgcnn():
+    """The DGCNN / DCP family at full width, bf16, N = 1024: a DCP Trainer
+    on the DGCNN embedding takes 20 Adam steps on one synthetic batch (the
+    loss falls; launches of one step; step time at B = 8 and at the largest of
+    64 / 32 that fits the card), its eval step on the kernel route against the
+    plain route on the trained running statistics, then VCR-Net on DGCNN served
+    through Registrar with those weights at iter=1 and iter=3 (launches of a
+    1-pair request, kernel route against plain route, latency)."""
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.train import Trainer
+
+    cfg = Config(model="dcp", emb_nn="dgcnn", compute_dtype="bfloat16", num_points=N)
+    check((cfg.emb_dims, cfg.ff_dims, cfg.n_heads, cfg.n_blocks, cfg.head, cfg.pointer,
+           cfg.loss, cfg.cycle) == (512, 1024, 4, 1, "svd", "transformer", "point", False),
+          "dgcnn phase must run DCP's default configuration")
+    batch8 = _train_batch(cfg, 8, seed=1)
+    tr = Trainer(cfg, seed=0)
+    check(tr.model.use_kernels, "route not as asked")
+    losses = []
+    for _ in range(TRAIN_STEPS + 1):
+        sums = tr.train_step(batch8)
+        losses.append((sums["loss"] / sums["count"]).item())
+    print(f"dgcnn: DCP losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
+    check(all(math.isfinite(v) for v in losses), "dgcnn: non-finite loss in the Adam steps")
+    check(losses[-1] < losses[0],
+          f"dgcnn: loss after {TRAIN_STEPS} steps {losses[-1]} >= first {losses[0]}")
+    stats = [(name, buf) for name, buf in tr.model.named_buffers() if "running_" in name]
+    moved = min((buf - (1.0 if name.endswith("var") else 0.0)).abs().max().item()
+                for name, buf in stats)
+    check(len(stats) == 10 and moved > 1e-4, f"dgcnn: running statistics still at init ({moved})")
+
+    total = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tr.train_step(batch8)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"dgcnn: launches of one DCP training step: {launches}", flush=True)
+    check_launches(launches, DCP_TRAIN_LAUNCHES, "dgcnn train step")
+    add_launches(total, launches)
+
+    # eval on the trained statistics: kernel route against plain route
+    plain = Trainer(cfg, seed=0, use_kernels=False)
+    plain.model.load_state_dict(tr.model.state_dict())
+    check(not plain.model.use_kernels, "route not as asked")
+    b8 = tr.to_device(batch8)
+    tr.model.eval()
+    plain.model.eval()
+    with torch.no_grad():
+        emb_k, idx_k, _ = tr.model.emb_nn(b8["src"], fused=True)
+        emb_p, idx_p, _ = plain.model.emb_nn(b8["src"], fused=False)
+    emb_rel = rel_err(emb_k, emb_p)
+    rows_agree = same_rows(idx_k, idx_p)
+    print(f"dgcnn: embedding on the trained statistics, kernel vs plain route: relative err "
+          f"{emb_rel}, kNN rows agree {rows_agree}, largest value {emb_p.abs().max().item()}",
+          flush=True)
+    check(emb_rel <= DGCNN_EMB_REL, f"dgcnn: kernel vs plain embedding {emb_rel} > {DGCNN_EMB_REL}")
+    check(rows_agree >= KNN_ROW_AGREEMENT, f"dgcnn: kNN rows agree {rows_agree}")
+    ops.reset_launch_counts()
+    sums_k = tr.eval_step(batch8)
+    launches = ops.launch_counts()
+    print(f"dgcnn: launches of one DCP eval step: {launches}", flush=True)
+    check_launches(launches, DCP_EVAL_LAUNCHES, "dgcnn eval step")
+    add_launches(total, launches)
+    sums_p = plain.eval_step(batch8)
+    eval_k = {k: (v / sums_k["count"]).item() for k, v in sums_k.items() if k in ("loss", "r_se_ab")}
+    eval_p = {k: (v / sums_p["count"]).item() for k, v in sums_p.items() if k in ("loss", "r_se_ab")}
+    print(f"dgcnn: DCP eval step per pair: kernels {eval_k} plain {eval_p}", flush=True)
+    check(all(math.isfinite(v) for v in eval_k.values()), "dgcnn: non-finite eval sums")
+    check(abs(eval_k["loss"] - eval_p["loss"]) <= 0.05 * abs(eval_p["loss"]) + 1e-4,
+          "dgcnn: DCP eval loss of the kernel route more than 5% from the plain route")
+
+    timed_at = []
+    for b in (8, 64, 32):
+        try:
+            batch = tr.to_device(_train_batch(cfg, b, seed=2))
+            torch.cuda.reset_peak_memory_stats()
+            times = timed_steps_ms(tr, batch)
+        except torch.cuda.OutOfMemoryError:
+            print(f"dgcnn: DCP train step at B={b} does not fit the card", flush=True)
+            del batch
+            tr.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            continue
+        print(f"dgcnn: DCP train step at B={b}: median {statistics.median(times)} ms "
+              f"(5 steps: {times}), peak device memory {torch.cuda.max_memory_allocated()} B",
+              flush=True)
+        timed_at.append(b)
+        if b == 64:
+            break
+    check(max(timed_at, default=0) >= 32, f"dgcnn: no DCP step at B >= 32 was timed ({timed_at})")
+    weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    del tr, plain, batch
+    torch.cuda.empty_cache()
+
+    # VCR-Net trains on the same DGCNN module: its head streams through the
+    # soft-correspondence kernels (forward and backward) on the f32 embedding
+    vtr = Trainer(Config(emb_nn="dgcnn", compute_dtype="bfloat16", num_points=N), seed=0)
+    first = vtr.train_step(batch8)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    second = vtr.train_step(batch8)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    v_losses = [(s["loss"] / s["count"]).item() for s in (first, second)]
+    print(f"dgcnn: VCR-Net on DGCNN, two training steps: losses {v_losses}; launches of one "
+          f"step: {launches}", flush=True)
+    check(all(math.isfinite(v) for v in v_losses), "dgcnn: non-finite VCR-Net training loss")
+    check_launches(launches, {**DCP_TRAIN_LAUNCHES, "vcp_stream": 1, "vcp_bwd": 1},
+                   "dgcnn VCR-Net train step")
+    add_launches(total, launches)
+    del vtr
+    torch.cuda.empty_cache()
+
+    # VCR-Net on DGCNN with those weights (DCP's SVD head has no parameters)
+    data = shapes_eval_set(sum(REQUESTS), num_points=N)
+    requests = split_requests(data, REQUESTS)
+    for n_iter in (1, 3):
+        scfg = Config(emb_nn="dgcnn", compute_dtype="bfloat16", iter=n_iter, num_points=N)
+        reg = Registrar(scfg, weights)
+        plain = Registrar(scfg, weights, use_kernels=False)
+        check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+        serve_all(reg, requests)  # warm-up
+        add_launches(total, one_request_launches(
+            reg, *requests[0], DGCNN_SERVE_LAUNCHES[n_iter], f"dgcnn serve iter={n_iter}"))
+        R, t = serve_all(reg, requests)
+        R_p, t_p = serve_all(plain, requests)
+        check(R.shape == (len(data["src"]), 3, 3), "dgcnn serve: bad result shapes")
+        ortho = float(np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max())
+        between = pair_rot_errors_deg(R, R_p.astype(np.float64))
+        dt = float(np.abs(t - t_p).max())
+        print(f"dgcnn serve iter={n_iter}: rotation between the routes' results per pair: median "
+              f"{float(np.median(between))} max {float(between.max())} deg; max |dt| {dt}; "
+              f"|R R^T - I| {ortho}; vs ground truth (weights barely trained) "
+              f"{accuracy(R, t, data)}", flush=True)
+        check(ortho <= 1e-4, f"dgcnn serve: R not orthonormal ({ortho})")
+        check(float(np.median(between)) <= DGCNN_ROUTE_ROT_DEG,
+              f"dgcnn serve iter={n_iter}: routes differ by more than {DGCNN_ROUTE_ROT_DEG} deg "
+              f"(median)")
+        check(float(np.median(np.abs(t - t_p).max(axis=1))) <= DGCNN_ROUTE_TRANS,
+              f"dgcnn serve iter={n_iter}: translations differ by more than {DGCNN_ROUTE_TRANS}")
+        print_latency(reg, requests, f"dgcnn serve iter={n_iter}")
+        print_latency(plain, requests[-1:], f"dgcnn serve iter={n_iter} plain route")
+        del reg, plain
+    return total
+
+
+# the default VCR-Net with the fused pointer on: every attention that is not
+# re-masked and every feed-forward is one fused launch, flash_packed none;
+# the embedding and the head as on the default route
+FUSED_LAUNCHES = {
+    1: {"knn_gather_max": 2, "edge_conv": 2, "vcp_stream": 1, "fused_mha": 6, "fused_ff": 4},
+    3: {"knn_gather_max": 2, "edge_conv": 4, "gather_max_from_idx": 2, "vcp_stream": 3,
+        "fused_mha": 16, "fused_ff": 10},
+}
+FUSED_AGREEMENT_DEG = {1: 0.25, 3: 0.1}
+# fused vs unfused result of the same pair: rotation between them (median and
+# max over the pairs) and the largest translation difference
+FUSED_PAIR_ROT_DEG = {"median": 0.05, "max": 0.5}
+FUSED_PAIR_TRANS = 0.005
+
+
+def phase_fused_pointer():
+    """The default VCR-Net with the committed checkpoint and
+    VCRNET_FUSED_POINTER=1 (set for this phase only): launches of a 1-pair
+    request, rot RMSE over the 73 pairs against the unfused kernel route,
+    the two routes' results pair by pair, latency beside the unfused
+    route's."""
+    import numpy as np
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    state_dict = load_checkpoint(CHECKPOINT)
+    data = shapes_eval_set(sum(REQUESTS), num_points=N)
+    requests = split_requests(data, REQUESTS)
+    total = {}
+    check("VCRNET_FUSED_POINTER" not in os.environ, "VCRNET_FUSED_POINTER is set outside the phase")
+    for n_iter in (1, 3):
+        reg = Registrar(Config(compute_dtype="bfloat16", iter=n_iter, num_points=N), state_dict)
+        check(reg.model.use_kernels, "route not as asked")
+        serve_all(reg, requests)  # warm-up, unfused
+        R_u, t_u = serve_all(reg, requests)
+        acc_unfused = accuracy(R_u, t_u, data)
+        print_latency(reg, requests, f"fused pointer iter={n_iter}: unfused route")
+        os.environ["VCRNET_FUSED_POINTER"] = "1"
+        try:
+            serve_all(reg, requests)  # warm-up, fused
+            add_launches(total, one_request_launches(
+                reg, *requests[0], FUSED_LAUNCHES[n_iter], f"fused pointer iter={n_iter}"))
+            R_f, t_f = serve_all(reg, requests)
+            acc = accuracy(R_f, t_f, data)
+            print_latency(reg, requests, f"fused pointer iter={n_iter}: fused route")
+        finally:
+            del os.environ["VCRNET_FUSED_POINTER"]
+        print(f"fused pointer iter={n_iter}: fused {acc} unfused {acc_unfused} over "
+              f"{len(data['src'])} pairs", flush=True)
+        gap = abs(acc["rot_rmse_deg"] - acc_unfused["rot_rmse_deg"])
+        check(gap <= FUSED_AGREEMENT_DEG[n_iter],
+              f"fused pointer iter={n_iter}: rot RMSE {gap} deg from the unfused route")
+        between = pair_rot_errors_deg(R_f, R_u.astype(np.float64))
+        dt = float(np.abs(t_f - t_u).max())
+        print(f"fused pointer iter={n_iter}: rotation between the fused and unfused results per "
+              f"pair: median {float(np.median(between))} max {float(between.max())} deg; "
+              f"max |dt| {dt}", flush=True)
+        check(float(np.median(between)) <= FUSED_PAIR_ROT_DEG["median"]
+              and float(between.max()) <= FUSED_PAIR_ROT_DEG["max"],
+              f"fused pointer iter={n_iter}: a pair's fused and unfused rotations differ by "
+              f"median {float(np.median(between))} max {float(between.max())} deg")
+        check(dt <= FUSED_PAIR_TRANS,
+              f"fused pointer iter={n_iter}: translations differ by {dt} > {FUSED_PAIR_TRANS}")
+        # with the variable gone the same Registrar is back on the unfused kernels
+        one_request_launches(reg, *requests[0], LAUNCHES_ITER3 if n_iter == 3 else LAUNCHES_ITER1,
+                             f"fused pointer iter={n_iter}: variable unset")
+    return total
+
+
+PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "dgcnn",
+          "fused_pointer")
 
 
 def main() -> int:
@@ -1057,6 +1528,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    from vcrnet_tpu_torch import ops
     from vcrnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1074,6 +1546,7 @@ def main() -> int:
         if name == "kernels":
             rows.update(phase_kernels(dev))
             rows.update(phase_eval_kernels(dev))
+            rows.update(phase_family_kernels(dev))
         elif name == "backward":
             rows.update(phase_backward(dev))
         elif name == "train":
@@ -1084,6 +1557,10 @@ def main() -> int:
             launches[name] = phase_refine()
         elif name == "partial":
             launches[name] = phase_partial()
+        elif name == "dgcnn":
+            launches[name] = phase_dgcnn()
+        elif name == "fused_pointer":
+            launches[name] = phase_fused_pointer()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -1109,7 +1586,16 @@ def main() -> int:
                                "vcrnet_tpu/ops/pallas_edgeconv.py:620"),
         "softmax_colmass": ("vcrnet_tpu_torch/csrc/colmass.cu",
                             "vcrnet_tpu/ops/pallas_colmass.py:31"),
+        "knn": ("vcrnet_tpu_torch/csrc/knn.cu", "vcrnet_tpu/ops/pallas_knn.py:31"),
+        "dgcnn_eval": ("vcrnet_tpu_torch/csrc/dgcnn_eval.cu",
+                       "vcrnet_tpu/ops/pallas_dgcnn.py:102"),
+        "fused_mha": ("vcrnet_tpu_torch/csrc/pointer_mha.cu",
+                      "vcrnet_tpu/ops/pallas_pointer.py:98"),
+        "fused_ff": ("vcrnet_tpu_torch/csrc/pointer_ff.cu",
+                     "vcrnet_tpu/ops/pallas_pointer.py:197"),
     }
+    check(set(sources) == set(ops.KERNELS) and len(sources) == 15,
+          "the kernels line must list every kernel of the port")
     kernels = []
     for name, (source, replaces) in sources.items():
         # the largest batch: B = 64 pairs (2B = 128 in the LPDNet blocks of the
@@ -1126,6 +1612,8 @@ def main() -> int:
             "launches_serve": launches["serve"][name],
             "launches_refine": launches["refine"][name],
             "launches_partial": launches["partial"][name],
+            "launches_dgcnn": launches["dgcnn"][name],
+            "launches_fused_pointer": launches["fused_pointer"][name],
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

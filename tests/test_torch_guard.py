@@ -12,7 +12,7 @@ import torch
 
 from vcrnet_tpu_torch import ops
 from vcrnet_tpu_torch.config import Config
-from vcrnet_tpu_torch.ops import _build, attention, colmass, edgeconv, vcp
+from vcrnet_tpu_torch.ops import _build, attention, colmass, dgcnn, edgeconv, knn, pointer, vcp
 from vcrnet_tpu_torch.serve import Registrar
 from vcrnet_tpu_torch.train import Trainer
 
@@ -120,6 +120,64 @@ def test_cpu_tensors_run_plain_versions_without_building(monkeypatch):
     edgeconv.edge_conv_from_idx(idx, f, f, torch.rand(32, 32, generator=g), torch.rand(32))
     colmass.softmax_colmass(q, q, 0.1, 2)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_cpu_tensors_run_the_dgcnn_and_pointer_plain_versions_without_building(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA extension must not be built for CPU tensors")
+
+    monkeypatch.setattr(_build, "extension", refuse)
+    assert len(ops.KERNELS) == 15
+    assert {"knn", "dgcnn_eval", "fused_mha", "fused_ff"} <= set(ops.KERNELS)
+    ops.reset_launch_counts()
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(1, 32, 3, generator=g)
+    idx = knn.fused_knn(x, 4)
+    knn.fused_knn(torch.rand(1, 32, 16, generator=g).to(torch.bfloat16), 4)
+    folded = [(torch.rand(i, o, generator=g), torch.rand(o, generator=g))
+              for i, o in dgcnn.STAGE_WIDTHS + ((512, 128),)]
+    assert dgcnn.fused_dgcnn_eval(x, idx, folded, 128).shape == (1, 32, 128)
+    y = torch.rand(1, 32, 128, generator=g)
+    w = [t for _ in range(4) for t in (torch.rand(128, 128, generator=g), torch.rand(128))]
+    assert pointer.fused_mha(y, y, *w, 1).dtype == torch.bfloat16
+    assert pointer.fused_ff(y, w[0], w[1], w[2], w[3]).shape == (1, 32, 128)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_dgcnn_and_pointer_wrappers_refuse_other_and_mixed_devices():
+    meta = torch.empty(1, 32, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        knn.fused_knn(meta, 4)
+    idx = torch.zeros(1, 32, 4, dtype=torch.int32)
+    folded = [(torch.zeros(i, o), torch.zeros(o)) for i, o in dgcnn.STAGE_WIDTHS + ((512, 128),)]
+    with pytest.raises(ValueError, match="several devices"):
+        dgcnn.fused_dgcnn_eval(meta, idx, folded, 128)
+    with pytest.raises(ValueError, match="no kernel"):
+        dgcnn.fused_dgcnn_eval(meta, idx.to("meta"), [(w.to("meta"), b.to("meta"))
+                                                      for w, b in folded], 128)
+    y, ym = torch.zeros(1, 32, 128), torch.empty(1, 32, 128, device="meta")
+    w = [t for _ in range(4) for t in (torch.zeros(128, 128), torch.zeros(128))]
+    with pytest.raises(ValueError, match="several devices"):
+        pointer.fused_mha(y, ym, *w, 1)
+    with pytest.raises(ValueError, match="several devices"):
+        pointer.fused_ff(ym, w[0], w[1], w[2], w[3])
+    wm = [t.to("meta") for t in w]
+    with pytest.raises(ValueError, match="no kernel"):
+        pointer.fused_mha(ym, ym, *wm, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        pointer.fused_ff(ym, wm[0], wm[1], wm[2], wm[3])
+
+
+@pytest.mark.parametrize("kw", [dict(model="dcp", emb_nn="dgcnn"), dict(emb_nn="dgcnn")])
+def test_dgcnn_entry_points_without_device_raise_when_there_is_no_gpu(kw):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = Config(num_points=64, emb_dims=64, ff_dims=128, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    if cfg.model == "vcrnet":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Registrar(cfg, {})
 
 
 def test_wrappers_refuse_other_and_mixed_devices():

@@ -76,8 +76,58 @@ def test_from_jax_params_maps_all_58_leaves_into_vcrnet():
 
 def test_from_jax_params_raises_on_unknown_leaf():
     params = {"emb_nn": {"conv1_lpd": {"kernel": np.zeros((3, 64), np.float32),
-                                       "scale": np.ones(64, np.float32)}}}
-    with pytest.raises(KeyError, match="conv1_lpd.scale"):
+                                       "gain": np.ones(64, np.float32)}}}
+    with pytest.raises(KeyError, match="conv1_lpd.gain"):
         from_jax_params(params)
     with pytest.raises(KeyError, match="kernel"):
         from_jax_params({"x": {"kernel": np.zeros((3, 3, 3), np.float32)}})
+    # a BatchNorm scale maps to ``weight``: beside a kernel it would collide
+    params["emb_nn"]["conv1_lpd"] = {"kernel": np.zeros((3, 64), np.float32),
+                                     "scale": np.ones(64, np.float32)}
+    with pytest.raises(KeyError, match="two leaves map to emb_nn.conv1_lpd.weight"):
+        from_jax_params(params)
+    with pytest.raises(KeyError, match="batch_stats leaf bn1.count"):
+        from_jax_params({}, {"bn1": {"count": np.zeros(4, np.float32)}})
+
+
+def test_from_jax_params_maps_batchnorm_variables_into_dgcnn_vcrnet():
+    """flax variables of a BatchNorm model: ``scale`` -> ``weight``, and the
+    ``batch_stats`` collection -> the running_mean / running_var buffers."""
+    import jax.numpy as jnp
+
+    from vcrnet_tpu.config import Config as JConfig
+    from vcrnet_tpu.models.vcrnet import VCRNet as JVCRNet
+
+    kw = dict(num_points=32, emb_dims=64, ff_dims=64, n_heads=2, emb_nn="dgcnn")
+    x = jnp.zeros((1, 32, 3))
+    variables = jax.device_get(JVCRNet(cfg=JConfig(**kw)).init(jax.random.PRNGKey(0), x, x))
+    stats = jax.tree_util.tree_map(lambda a: a + 0.25, variables["batch_stats"])
+    state_dict = from_jax_params(variables["params"], stats)
+    model = VCRNet(Config(**kw), device="cpu")
+    model.load_state_dict(state_dict)  # strict: parameters and buffers map both ways
+    np.testing.assert_array_equal(model.emb_nn.bn3.weight.detach().numpy(),
+                                  variables["params"]["emb_nn"]["bn3"]["scale"])
+    np.testing.assert_array_equal(model.emb_nn.bn3.running_var.numpy(),
+                                  stats["emb_nn"]["bn3"]["var"])
+    np.testing.assert_array_equal(model.emb_nn.bn5.running_mean.numpy(),
+                                  stats["emb_nn"]["bn5"]["mean"])
+    np.testing.assert_array_equal(model.emb_nn.conv4.weight.detach().numpy(),
+                                  variables["params"]["emb_nn"]["conv4"]["kernel"].T)
+    assert len(state_dict) == len(model.state_dict())
+    assert sum("running_" in k for k in state_dict) == 10
+
+
+def test_load_checkpoint_keeps_batch_stats(tmp_path):
+    tree = {"params": {"bn1": {"scale": np.full(4, 2.0, np.float32),
+                               "bias": np.zeros(4, np.float32)}},
+            "batch_stats": {"bn1": {"mean": np.arange(4, dtype=np.float32),
+                                    "var": np.full(4, 3.0, np.float32)}},
+            "step": 7}
+    path = tmp_path / "state.msgpack"
+    path.write_bytes(serialization.msgpack_serialize(tree))
+    state_dict = load_checkpoint(str(path))
+    assert sorted(state_dict) == ["bn1.bias", "bn1.running_mean", "bn1.running_var", "bn1.weight"]
+    np.testing.assert_array_equal(state_dict["bn1.running_mean"].numpy(), np.arange(4))
+    bare = tmp_path / "bare.msgpack"
+    bare.write_bytes(serialization.msgpack_serialize(tree["params"]))
+    assert sorted(load_checkpoint(str(bare))) == ["bn1.bias", "bn1.weight"]

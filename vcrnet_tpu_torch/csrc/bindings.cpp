@@ -54,6 +54,25 @@ cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float*
                                 int batch, int nq, int nk, int n_heads, float sm_scale,
                                 cudaStream_t stream);
 
+cudaError_t vcr_knn(const void* x, const float* norms, int* idx, int batch, int n, int c, int k,
+                    int is_bf16, cudaStream_t stream);
+size_t vcr_dgcnn_eval_smem(int k);
+cudaError_t vcr_dgcnn_eval(const float* x, const int* idx, const void* w1, const float* b1,
+                           const void* w2, const float* b2, const void* w3, const float* b3,
+                           const void* w4, const float* b4, const void* w5, const float* b5,
+                           void* cat, float* out, int batch, int n, int k, int emb,
+                           cudaStream_t stream);
+size_t vcr_pointer_mha_smem(int d);
+cudaError_t vcr_pointer_mha(const void* yq, const void* ykv, const void* wq, const void* bq,
+                            const void* wk, const void* bk, const void* wv, const void* bv,
+                            const void* wo, const void* bo, void* kscr, void* vscr, void* out,
+                            int batch, int nq, int nk, int d, int n_heads,
+                            cudaStream_t stream);
+size_t vcr_pointer_ff_smem(int d, int f);
+cudaError_t vcr_pointer_ff(const void* y, const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* out, long long rows, int d, int f,
+                           cudaStream_t stream);
+
 namespace {
 
 cudaStream_t stream_of(const torch::Tensor& t) {
@@ -190,6 +209,60 @@ void softmax_colmass(torch::Tensor q, torch::Tensor k, torch::Tensor lse, torch:
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void knn(torch::Tensor x, torch::Tensor norms, torch::Tensor idx) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(vcr_knn(x.data_ptr(), norms.data_ptr<float>(), idx.data_ptr<int>(), x.size(0),
+                         x.size(1), x.size(2), idx.size(2),
+                         x.scalar_type() == torch::kBFloat16 ? 1 : 0, stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// folded: w1, b1, ..., w5, b5 (weights bf16 [in, out], biases f32)
+void dgcnn_eval(torch::Tensor x, torch::Tensor idx, std::vector<torch::Tensor> folded,
+                torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  TORCH_CHECK(folded.size() == 10, "dgcnn_eval: expected five (weight, bias) pairs");
+  const auto cat = torch::empty({x.size(0), x.size(1), 512},
+                                x.options().dtype(torch::kBFloat16));
+  C10_CUDA_CHECK(vcr_dgcnn_eval(
+      x.data_ptr<float>(), idx.data_ptr<int>(), folded[0].data_ptr(),
+      folded[1].data_ptr<float>(), folded[2].data_ptr(), folded[3].data_ptr<float>(),
+      folded[4].data_ptr(), folded[5].data_ptr<float>(), folded[6].data_ptr(),
+      folded[7].data_ptr<float>(), folded[8].data_ptr(), folded[9].data_ptr<float>(),
+      cat.data_ptr(), out.data_ptr<float>(), x.size(0), x.size(1), idx.size(2), out.size(2),
+      stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The K and V projections of every batch item go to a scratch in device
+// memory (2 x [B, Nk, D] bf16), written by the first kernel, read by the second.
+void pointer_mha(torch::Tensor yq, torch::Tensor ykv, torch::Tensor wq, torch::Tensor bq,
+                 torch::Tensor wk, torch::Tensor bk, torch::Tensor wv, torch::Tensor bv,
+                 torch::Tensor wo, torch::Tensor bo, torch::Tensor out, int64_t n_heads) {
+  const c10::cuda::CUDAGuard guard(yq.device());
+  const auto kscr = torch::empty_like(ykv);
+  const auto vscr = torch::empty_like(ykv);
+  C10_CUDA_CHECK(vcr_pointer_mha(
+      yq.data_ptr(), ykv.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+      wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), kscr.data_ptr(),
+      vscr.data_ptr(), out.data_ptr(), yq.size(0), yq.size(1), ykv.size(1), yq.size(2), n_heads,
+      stream_of(yq)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void pointer_ff(torch::Tensor y, torch::Tensor w1, torch::Tensor b1, torch::Tensor w2,
+                torch::Tensor b2, torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(y.device());
+  C10_CUDA_CHECK(vcr_pointer_ff(y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                b2.data_ptr(), out.data_ptr(), y.size(0) * y.size(1), y.size(2),
+                                w1.size(1), stream_of(y)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t dgcnn_eval_smem(int64_t k) { return vcr_dgcnn_eval_smem(k); }
+int64_t pointer_mha_smem(int64_t d) { return vcr_pointer_mha_smem(d); }
+int64_t pointer_ff_smem(int64_t d, int64_t f) { return vcr_pointer_ff_smem(d, f); }
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -204,4 +277,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gather_max_from_idx", &gather_max_from_idx);
   m.def("edge_conv_from_idx", &edge_conv_from_idx);
   m.def("softmax_colmass", &softmax_colmass);
+  m.def("knn", &knn);
+  m.def("dgcnn_eval", &dgcnn_eval);
+  m.def("pointer_mha", &pointer_mha);
+  m.def("pointer_ff", &pointer_ff);
+  m.def("dgcnn_eval_smem", &dgcnn_eval_smem);
+  m.def("pointer_mha_smem", &pointer_mha_smem);
+  m.def("pointer_ff_smem", &pointer_ff_smem);
 }

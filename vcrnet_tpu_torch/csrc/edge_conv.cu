@@ -14,8 +14,8 @@
 // row and a [k, F] x [F, F] product (2*N*C + 2*k*F*F flops); the bytes it
 // must move are the four [B, N, *] activations. Both products run on the
 // tensor cores through warp-level mma (nvcuda::wmma, bf16 in, f32
-// accumulate). A block owns 16 queries: its [16, N] score tile and then
-// its per-warp [32, F] edge tiles and W2 (32 KB, staged once per block)
+// accumulate). A block owns 16 queries: its [16, N] score tile
+// (knn_scores.cuh) and then its per-warp [32, F] edge tiles and W2 (32 KB, staged once per block)
 // live in one shared-memory region, and no [B, N, N] or [B, N, k, F]
 // tensor reaches device memory. The edge phase (gather, act, the padded
 // 20 -> 32 row product with W2, the two maxima) is edge_tile.cuh, shared
@@ -27,6 +27,7 @@
 // padding rows repeat position 0 and so never win). edge_conv_bwd.cu
 // routes the gradient by them.
 #include "edge_tile.cuh"
+#include "knn_scores.cuh"
 
 namespace {
 
@@ -82,37 +83,7 @@ edge_conv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, N, C]
   const int q0 = blockIdx.x * kTileQ;
   const __nv_bfloat16* xb = x + static_cast<size_t>(b) * n * C;
 
-  // stage this block's query rows (16-byte copies)
-  for (int t = threadIdx.x; t < kTileQ * C / 8; t += blockDim.x)
-    reinterpret_cast<uint4*>(qs)[t] =
-        reinterpret_cast<const uint4*>(xb + static_cast<size_t>(q0) * C)[t];
-  __syncthreads();
-
-  // [16, N] raw inner products, 16 keys per mma tile, tiles split by warp
-  {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa[C / 16];
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk) wmma::load_matrix_sync(qa[kk], qs + kk * 16, C);
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    for (int tile = warp; tile < n / 16; tile += kWarps) {
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < C / 16; ++kk) {
-        wmma::load_matrix_sync(kb, xb + static_cast<size_t>(tile) * 16 * C + kk * 16, C);
-        wmma::mma_sync(acc, qa[kk], kb, acc);
-      }
-      wmma::store_matrix_sync(scores + tile * 16, acc, n, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  const float* nb = norms + static_cast<size_t>(b) * n;
-  for (int t = threadIdx.x; t < kTileQ * n; t += blockDim.x) {
-    const int q = t / n, j = t - q * n;
-    const float s = 2.f * scores[t] - nb[j];
-    scores[t] = q0 + q == j ? -CUDART_INF_F : vcr::finite_or_neg_inf(s);
-  }
-  __syncthreads();
+  vcr::knn::block_bf16_score_tile<C>(xb, norms + static_cast<size_t>(b) * n, q0, n, qs, scores);
 
   for (int q = warp; q < kTileQ; q += kWarps) {
     int* qsel = sel + q * kRows;

@@ -12,7 +12,8 @@
 // the C=3 score product is ~6N flops per query, far below the tensor-core
 // rate, so it runs on the CUDA cores. The design keeps the [N, N] scores
 // out of device memory: one warp owns one query, builds its score row in
-// shared memory, selects by exact f32 comparison (common.cuh), and gathers
+// shared memory (knn_scores.cuh, shared with knn.cu), selects by exact f32
+// comparison (common.cuh), and gathers
 // its k value rows with 16-byte indexed loads (common.cuh:warp_gather_max,
 // shared with gather_max_from_idx.cu). The TPU's one-hot matmul
 // gather and its int8 table are not carried over: a plain indexed load is
@@ -22,7 +23,7 @@
 // channel, the k-position of the neighbour that won the max (uint8, the
 // first position on ties: strict > in selection order, as the Pallas
 // kernel's emit_winners). gather_max_bwd.cu routes the gradient by it.
-#include "common.cuh"
+#include "knn_scores.cuh"
 
 namespace {
 
@@ -46,18 +47,8 @@ knn_gather_max_kernel(const float* __restrict__ x,       // [B, N, 3]
   float* row = reinterpret_cast<float*>(smem) + warp * n;
   int* sel = reinterpret_cast<int*>(smem + sizeof(float) * kWarps * n) + warp * 32;
 
-  const float* xb = x + static_cast<size_t>(b) * n * 3;
-  const float* nb = norms + static_cast<size_t>(b) * n;
-  const float qx = xb[3 * i], qy = xb[3 * i + 1], qz = xb[3 * i + 2];
-  for (int j = lane; j < n; j += 32) {
-    // fixed evaluation order, no contraction into FMAs
-    const float d = __fadd_rn(__fadd_rn(__fmul_rn(qx, xb[3 * j]),
-                                        __fmul_rn(qy, xb[3 * j + 1])),
-                              __fmul_rn(qz, xb[3 * j + 2]));
-    const float s = __fsub_rn(__fmul_rn(2.f, d), nb[j]);
-    row[j] = j == i ? -CUDART_INF_F : vcr::finite_or_neg_inf(s);
-  }
-  __syncwarp();
+  vcr::knn::warp_xyz_score_row(x + static_cast<size_t>(b) * n * 3,
+                               norms + static_cast<size_t>(b) * n, i, n, row);
   vcr::warp_select_topk(row, n, k, sel);
 
   int* qidx = idx + (static_cast<size_t>(b) * n + i) * k;

@@ -10,6 +10,21 @@ from __future__ import annotations
 import torch
 
 
+def quat2mat(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternion [B, 4] in (x, y, z, w) order, normalised by the caller ->
+    rotation matrix [B, 3, 3] (the DCP MLP head's)."""
+    x, y, z, w = quat[:, 0], quat[:, 1], quat[:, 2], quat[:, 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    rot = torch.stack([
+        w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+        2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+        2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
+    ], dim=1)
+    return rot.reshape(-1, 3, 3)
+
+
 def transform_points(points: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[B, N, 3] x [B, 3, 3] x [B, 3] -> [B, N, 3]."""
     return torch.einsum("bij,bnj->bni", R, points) + t[:, None, :]

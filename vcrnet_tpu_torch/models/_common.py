@@ -12,5 +12,42 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None) -> torch
     and are cast per call, as flax's ``Dense(dtype=...)`` does)."""
     w, b = layer.weight, layer.bias
     if dtype is not None:
-        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        x, w = x.to(dtype), w.to(dtype)
+        b = None if b is None else b.to(dtype)
     return F.linear(x, w, b)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last
+    axis of a channels-last tensor, statistics over every other axis.
+
+    Not ``nn.BatchNorm*d``: flax updates the running variance with the
+    BIASED batch variance (torch takes the unbiased one), computes it as
+    ``mean(x^2) - mean(x)^2`` clipped at 0, and keeps ``momentum`` as the
+    share of the old value (0.9 here is torch's 0.1). Statistics are taken
+    in f32 whatever the input, and the result is f32 (the parameters' type).
+    In training mode each call updates ``running_mean`` / ``running_var``
+    in place, so two calls in one step compound, as they do in flax.
+    Parameters keep torch's names (flax ``scale`` is ``weight``)."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias

@@ -1,7 +1,9 @@
-"""LPDNet point embedding (counterpart of vcrnet_tpu/models/embeddings.py).
+"""Point embeddings: LPDNet, DGCNN and PointNet (counterpart of
+vcrnet_tpu/models/embeddings.py).
 
 Channels-last [B, N, C]; every kernel-size-1 conv is a Linear whose
-parameter names match the flax tree (see utils/params.py). Two routes:
+parameter names match the flax tree (see utils/params.py). LPDNet's two
+routes:
 
   * fused: the DG block runs ``ops.edgeconv.edge_conv`` and the SN block
     ``ops.edgeconv.knn_gather_max`` (on a CUDA tensor, the Hopper kernels,
@@ -22,12 +24,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vcrnet_tpu_torch.models._common import dense
+from vcrnet_tpu_torch.models._common import FlaxBatchNorm, dense
 from vcrnet_tpu_torch.ops._common import leaky
+from vcrnet_tpu_torch.ops.dgcnn import (
+    CAT_WIDTH, STAGE_WIDTHS, fold_dgcnn_eval_params, fused_dgcnn_eval,
+)
 from vcrnet_tpu_torch.ops.edgeconv import (
     edge_conv, edge_conv_from_idx, gather_max_from_idx, knn_gather_max,
 )
-from vcrnet_tpu_torch.ops.graph import gather_max_neighbors, gather_neighbors, knn
+from vcrnet_tpu_torch.ops.graph import (
+    gather_max_neighbors, gather_neighbors, graph_feature, knn,
+)
 
 
 class SplitEdgeDense(nn.Linear):
@@ -92,7 +99,7 @@ class LPDNet(nn.Module):
             )
         else:
             if feature_idx is None:
-                feature_idx = knn(x, k)
+                feature_idx = knn(x, k, method="exact")
             z = leaky(gather_neighbors(a, feature_idx) + h[:, :, None], self.slope)
             x1 = z.amax(dim=2)
             x2 = leaky(torch.matmul(z, w2) + b2, self.slope).amax(dim=2)
@@ -104,9 +111,67 @@ class LPDNet(nn.Module):
             gm, spatial_idx = knn_gather_max(x_xyz, a2, k=k)
         else:
             if spatial_idx is None:
-                spatial_idx = knn(x_xyz, k)
+                spatial_idx = knn(x_xyz, k, method="exact")
             gm = gather_max_neighbors(a2, spatial_idx)
         x3 = leaky(gm + h2, self.slope)
 
         x = torch.cat([x1, x2, x3], dim=-1)
         return leaky(dense(self.conv3_lpd, x, dt), self.slope), spatial_idx, feature_idx
+
+
+class DGCNN(nn.Module):
+    """[B, N, 3] -> [B, N, emb_dims]: four edge-conv blocks on the xyz kNN
+    graph, multi-scale concat, projection (vcrnet_tpu/models/embeddings.py:
+    DGCNN). Bias-free convs, each followed by BatchNorm and ReLU."""
+
+    def __init__(self, emb_dims: int = 512, k: int = 20, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.emb_dims = emb_dims
+        self.k = k
+        self.dtype = dtype
+        for i, (c_in, c_out) in enumerate(STAGE_WIDTHS + ((CAT_WIDTH, emb_dims),), start=1):
+            setattr(self, f"conv{i}", nn.Linear(c_in, c_out, bias=False))
+            setattr(self, f"bn{i}", FlaxBatchNorm(c_out))
+
+    def forward(self, x: torch.Tensor, spatial_idx: torch.Tensor | None = None,
+                feature_idx: torch.Tensor | None = None, fused: bool = False):
+        """Returns (embedding, spatial_idx, None): the xyz-kNN selection is
+        computed here unless passed in (exact under rigid transforms, so
+        refinement loops pass it back); DGCNN has no feature-space graph.
+        ``fused`` selects the kernel route: the kNN kernel, and in eval
+        mode in bf16, where no gradient is being recorded, the fused eval
+        chain (it has no backward). On the card both raise on a shape they
+        do not take: pass ``fused=False`` for the plain formulation."""
+        if feature_idx is not None:
+            raise ValueError("DGCNN has no feature-space graph to reuse")
+        if spatial_idx is None:
+            spatial_idx = knn(x, self.k, method="auto" if fused else "exact")
+        if (fused and not self.training and not torch.is_grad_enabled()
+                and self.dtype == torch.bfloat16):
+            folded = fold_dgcnn_eval_params(self)
+            return fused_dgcnn_eval(x, spatial_idx, folded, self.emb_dims), spatial_idx, None
+        h = graph_feature(x, idx=spatial_idx)  # [B, N, k, 6]
+        pooled = []
+        for i in range(1, 5):
+            h = torch.relu(getattr(self, f"bn{i}")(dense(getattr(self, f"conv{i}"), h, self.dtype)))
+            pooled.append(h.amax(dim=2))
+        h = torch.cat(pooled, dim=-1)  # [B, N, 512]
+        return torch.relu(self.bn5(dense(self.conv5, h, self.dtype))), spatial_idx, None
+
+
+class PointNet(nn.Module):
+    """[B, N, 3] -> [B, N, emb_dims]: five pointwise Dense + BatchNorm + ReLU
+    stages, f32 throughout (vcrnet_tpu/models/embeddings.py:PointNet)."""
+
+    def __init__(self, emb_dims: int = 512):
+        super().__init__()
+        widths = (3, 64, 64, 64, 128, emb_dims)
+        for i, (c_in, c_out) in enumerate(zip(widths[:-1], widths[1:]), start=1):
+            setattr(self, f"conv{i}", nn.Linear(c_in, c_out, bias=False))
+            setattr(self, f"bn{i}", FlaxBatchNorm(c_out))
+
+    def forward(self, x: torch.Tensor, spatial_idx=None, feature_idx=None, fused: bool = False):
+        """Returns (embedding, None, None): PointNet has no graph."""
+        for i in range(1, 6):
+            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x.float())))
+        return x, None, None

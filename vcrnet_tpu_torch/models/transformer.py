@@ -9,6 +9,14 @@ kernels through ``ops.attention.attention`` (forward, and the backward
 kernel when a gradient is wanted; both raise on shapes they do not take);
 otherwise the plain f32-softmax path of transformer.py:287-310.
 
+With ``VCRNET_FUSED_POINTER=1`` in the environment (read at each call, off
+by default, as in the JAX package) the ``flash`` route runs whole sublayers
+as single kernels where the JAX package does (transformer.py:176-194,
+328-336): attention that is not re-masked and whose key is its value
+through ``ops.pointer.fused_mha``, the feed-forward through
+``ops.pointer.fused_ff``. Eval only: the module in eval mode and no gradient
+being recorded (the kernels have no backward).
+
 Partial-overlap mode re-masks the decoder's cross attention only: after
 the first softmax the keys are ranked by their attention mass summed over
 heads and queries, the top ``int(Nk * overlap2)`` stay, and the softmax is
@@ -31,6 +39,9 @@ from vcrnet_tpu_torch.models._common import dense
 from vcrnet_tpu_torch.ops.attention import attention
 from vcrnet_tpu_torch.ops.colmass import softmax_colmass
 from vcrnet_tpu_torch.ops.layernorm import layer_norm_torch
+from vcrnet_tpu_torch.ops.pointer import (
+    fused_ff, fused_ff_supported, fused_mha, fused_mha_supported,
+)
 
 STREAM_REMASK_ABOVE = 2048  # keys; the JAX package's gate (transformer.py:262)
 
@@ -54,6 +65,11 @@ class TorchLayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm_torch(x, self.a_2, self.b_2, self.eps)
+
+
+def _eval_only(module: nn.Module) -> bool:
+    """Where the eval-only kernels may run: eval mode, no gradient recorded."""
+    return not module.training and not torch.is_grad_enabled()
 
 
 class MultiHeadAttention(nn.Module):
@@ -83,6 +99,13 @@ class MultiHeadAttention(nn.Module):
         h = self.n_heads
         dk = d // h
         sm_scale = 1.0 / math.sqrt(dk)
+        if (self.flash and not self.remask and _eval_only(self) and key is value
+                and fused_mha_supported(nq, nk, d, h)):
+            # the whole sublayer (projections, attention, out projection)
+            # as one kernel call
+            params = [t for lin in (self.linear_q, self.linear_k, self.linear_v, self.linear_out)
+                      for t in (lin.weight.t(), lin.bias)]
+            return fused_mha(query, key, *params, n_heads=h)
         q = dense(self.linear_q, query, self.dtype)
         k = dense(self.linear_k, key, self.dtype)
         v = dense(self.linear_v, value, self.dtype)
@@ -108,15 +131,21 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """w_2(relu(w_1(x)))."""
+    """w_2(relu(w_1(x))); with ``flash`` the fused eval kernel where
+    ``fused_ff_supported`` allows it."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype=None):
+    def __init__(self, d_model: int, d_ff: int, dtype=None, flash: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.flash = flash
         self.w_1 = nn.Linear(d_model, d_ff)
         self.w_2 = nn.Linear(d_ff, d_model)
 
     def forward(self, x):
+        if (self.flash and _eval_only(self)
+                and fused_ff_supported(x.shape[1], self.w_1.in_features, self.w_1.out_features)):
+            return fused_ff(x, self.w_1.weight.t(), self.w_1.bias, self.w_2.weight.t(),
+                            self.w_2.bias)
         return dense(self.w_2, torch.relu(dense(self.w_1, x, self.dtype)), self.dtype)
 
 
@@ -124,7 +153,7 @@ class EncoderLayer(nn.Module):
     def __init__(self, d_model, n_heads, d_ff, dtype=None, flash=False):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, flash)
-        self.ff = FeedForward(d_model, d_ff, dtype)
+        self.ff = FeedForward(d_model, d_ff, dtype, flash)
         self.norm0 = TorchLayerNorm(d_model)
         self.norm1 = TorchLayerNorm(d_model)
 
@@ -141,7 +170,7 @@ class DecoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, flash)
         self.src_attn = MultiHeadAttention(d_model, n_heads, dtype, flash, remask=partial,
                                            overlap2=overlap2)
-        self.ff = FeedForward(d_model, d_ff, dtype)
+        self.ff = FeedForward(d_model, d_ff, dtype, flash)
         self.norm0 = TorchLayerNorm(d_model)
         self.norm1 = TorchLayerNorm(d_model)
         self.norm2 = TorchLayerNorm(d_model)

@@ -2,7 +2,8 @@
 vcrnet_tpu/models/vcrnet.py:81-371), for eval and training.
 
 embed -> transformer pointer (residual) -> VCP head -> Procrustes SVD.
-The port covers the LPDNet embedding, the transformer or identity pointer
+The port covers the LPDNet, DGCNN and PointNet embeddings (without
+LPDNet's T-Nets), the transformer or identity pointer
 and the topK head, whole and partial-overlap (``cfg.partial``: the
 decoder's cross attention re-masks its keys and the head selects the
 likely-overlap points), and the refinement loop with all its caches.
@@ -24,15 +25,31 @@ from torch import nn
 
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
-from vcrnet_tpu_torch.models.embeddings import LPDNet
+from vcrnet_tpu_torch.models.embeddings import DGCNN, LPDNet, PointNet
 from vcrnet_tpu_torch.models.heads import vcp_top_k_partial, vcp_top_k_whole
 from vcrnet_tpu_torch.models.transformer import TransformerPointer
 from vcrnet_tpu_torch.utils.device import resolve_device
 
 
-def _check_supported(cfg: Config) -> None:
+def compute_dtype(cfg: Config) -> torch.dtype | None:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def make_embedding(cfg: Config) -> nn.Module:
+    """The embedding ``cfg.emb_nn`` names (vcrnet_tpu/models/vcrnet.py:
+    make_embedding). Each returns (embedding, spatial_idx, feature_idx) and
+    takes the selections back, where it has them."""
+    if cfg.emb_nn == "pointnet":
+        return PointNet(cfg.emb_dims)
+    if cfg.emb_nn == "dgcnn":
+        return DGCNN(cfg.emb_dims, dtype=compute_dtype(cfg))
+    if cfg.emb_nn == "lpdnet":
+        return LPDNet(cfg.emb_dims, negative_slope=0.0, dtype=compute_dtype(cfg))
+    raise ValueError(f"unknown emb_nn: {cfg.emb_nn}")
+
+
+def check_supported(cfg: Config) -> None:
     unsupported = {
-        "emb_nn": cfg.emb_nn != "lpdnet",
         "pointer": cfg.pointer not in ("transformer", "identity"),
         "vcp_nn": cfg.vcp_nn != "topK",
         "t3d": cfg.t3d,
@@ -51,14 +68,14 @@ class VCRNet(nn.Module):
 
     def __init__(self, cfg: Config, device=None, use_kernels: bool | None = None):
         super().__init__()
-        _check_supported(cfg)
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+        dtype = compute_dtype(cfg)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda" and dtype is not None
         self.use_kernels = use_kernels
-        self.emb_nn = LPDNet(cfg.emb_dims, negative_slope=0.0, dtype=dtype)
+        self.emb_nn = make_embedding(cfg)
         self.pointer = None
         if cfg.pointer == "transformer":
             self.pointer = TransformerPointer(
@@ -98,12 +115,25 @@ class VCRNet(nn.Module):
         if self.cfg.partial:
             return vcp_top_k_partial(src_emb, tgt_emb, src, tgt, self.cfg.overlap2)
         fused = self.use_kernels and (not self.training or self.cfg.streaming_vcp_train)
+        dtype = compute_dtype(self.cfg)
+        if fused and dtype is not None:
+            # the kernels take the compute dtype: a BatchNorm embedding's f32
+            # output is rounded for them, as the TPU kernel's default-precision
+            # product rounds it (LPDNet's is in that dtype already)
+            src_emb, tgt_emb = src_emb.to(dtype), tgt_emb.to(dtype)
         return vcp_top_k_whole(src_emb, tgt_emb, src, tgt, fused=fused)
 
     def forward(self, src, tgt):
-        # both clouds embedded in one call, stacked on the batch axis
-        emb = self.embed(torch.cat([src, tgt], dim=0))[0]
-        src_emb, tgt_emb = emb.chunk(2, dim=0)
+        # both clouds embedded in one call, stacked on the batch axis; not
+        # when a BatchNorm embedding trains: stacking would pool the two
+        # clouds' batch statistics (LPDNet has none; in eval the running
+        # statistics make stacking exact)
+        if self.cfg.emb_nn == "lpdnet" or not self.training:
+            emb = self.embed(torch.cat([src, tgt], dim=0))[0]
+            src_emb, tgt_emb = emb.chunk(2, dim=0)
+        else:
+            src_emb = self.embed(src)[0]
+            tgt_emb = self.embed(tgt)[0]
         return self.register_embedded(src, tgt, src_emb, tgt_emb)
 
 
@@ -113,8 +143,9 @@ def vcrnet_iter(model: VCRNet, src, tgt, n_iter: int):
     t_ba).
 
     Computed once: the target embedding, its encoder pass, and the
-    source's xyz kNN (rigid transforms keep distances, so the selection
-    of the transformed source equals the original's). All three are exact.
+    source's xyz kNN (LPDNet and DGCNN; rigid transforms keep distances, so
+    the selection of the transformed source equals the original's). All
+    three are exact. PointNet has no graph to cache.
 
     With ``cfg.reuse_feature_knn`` the source's feature-space selection
     (the DG block's graph) is reused too, an approximation: the leading

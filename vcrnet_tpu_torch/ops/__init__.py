@@ -2,10 +2,13 @@
 
 from vcrnet_tpu_torch.ops.attention import flash_bwd, flash_mha_packed
 from vcrnet_tpu_torch.ops.colmass import softmax_colmass
+from vcrnet_tpu_torch.ops.dgcnn import fused_dgcnn_eval
 from vcrnet_tpu_torch.ops.edgeconv import (
     edge_conv_bwd, edge_conv_from_idx, fused_edge_conv, fused_gather_max_from_idx,
     fused_knn_gather_max, gather_max_bwd,
 )
+from vcrnet_tpu_torch.ops.knn import fused_knn
+from vcrnet_tpu_torch.ops.pointer import fused_ff, fused_mha
 from vcrnet_tpu_torch.ops.vcp import streaming_soft_correspondence, vcp_bwd
 
 # every kernel wrapper of the port; each counts its launches in .launches
@@ -21,6 +24,10 @@ KERNELS = {
     "gather_max_from_idx": fused_gather_max_from_idx,
     "edge_conv_from_idx": edge_conv_from_idx,
     "softmax_colmass": softmax_colmass,
+    "knn": fused_knn,
+    "dgcnn_eval": fused_dgcnn_eval,
+    "fused_mha": fused_mha,
+    "fused_ff": fused_ff,
 }
 
 

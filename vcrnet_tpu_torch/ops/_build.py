@@ -33,6 +33,10 @@ SOURCES = (
     "gather_max_from_idx.cu",
     "edge_conv_from_idx.cu",
     "colmass.cu",
+    "knn.cu",
+    "dgcnn_eval.cu",
+    "pointer_mha.cu",
+    "pointer_ff.cu",
 )
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90 (227 KB)
+
 
 def kernel_route(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel),

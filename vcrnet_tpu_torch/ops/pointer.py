@@ -1,0 +1,175 @@
+"""The transformer pointer's sublayers as single kernels, beside their plain
+versions. Off unless ``VCRNET_FUSED_POINTER=1`` (read at call time), as in the
+JAX package, where they are kept as a measured negative result on the TPU.
+
+  fused_mha  q/k/v projections, per-head softmax(q k^T / sqrt(dk)) v, out
+             projection (vcrnet_tpu/ops/pallas_pointer.py:fused_mha)
+  fused_ff   w2(relu(w1 y)) with the hidden tile kept on chip
+             (vcrnet_tpu/ops/pallas_pointer.py:fused_ff)
+
+Both cast activations, weights and biases to bf16, accumulate in f32 and
+return bf16, with the Pallas kernels' rounding points: q, k, v, the hidden
+tile and the per-head outputs rounded to bf16; scores and softmax in f32;
+``exp(s - m)`` rounded to bf16 before its product with v and divided by the
+f32 row sum afterwards. A CUDA tensor launches ``csrc/pointer_mha.cu`` /
+``csrc/pointer_ff.cu`` (or raises); a CPU tensor runs the ``*_ref`` plain
+version. Eval only: no backward, and the wrappers raise where a gradient is
+wanted. Weights are [in, out] (a Linear's ``weight.t()``).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from vcrnet_tpu_torch.ops import _build
+from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_tensor, kernel_route
+
+HEAD_DIM = 128  # the attention kernel's dk
+MAX_D_MODEL = 512  # its yq/O and Q tiles, [64, D] bf16 each, must fit shared memory
+
+
+def fused_pointer_enabled() -> bool:
+    return os.environ.get("VCRNET_FUSED_POINTER", "0") == "1"
+
+
+def _tile_bytes(width: int) -> int:
+    return 2 * 64 * (width + 8)  # a [64, width] bf16 tile with 8 elements of row padding
+
+
+def pointer_ff_smem_bytes(d: int, f: int) -> int:
+    """Shared memory of the feed-forward kernel (csrc/pointer_ff.cu): the y
+    tile, the hidden tile, one [64, 128] tile of weights and the warps'
+    staging tiles."""
+    return _tile_bytes(d) + _tile_bytes(f) + 2 * 64 * 136 + 4 * 8 * 256
+
+
+def pointer_mha_smem_bytes(d: int) -> int:
+    """Shared memory of the attention kernel (csrc/pointer_mha.cu): the
+    yq/O tile, the Q tile, and the larger of the projections' scratch and
+    the attention's K and V tiles with the warps' score tiles."""
+    attend = 2 * (2 * 32 * 264) + 8 * (4 * 16 * 40 + 2 * 16 * 40 + 4 * 32)
+    return 2 * _tile_bytes(d) + max(attend, 2 * 64 * 136 + 4 * 8 * 256)
+
+
+def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
+    """Whether the model takes the fused attention branch: the environment
+    variable, then the CUDA kernel's own limits (dk == 128, D <= 512, whole
+    64-query and 32-key tiles). On dk == 128 and D <= 512 this takes every
+    shape the JAX gate takes (pallas_pointer.py:fused_mha_supported, lengths
+    in 128s) and more: the JAX package's on-chip budget for a batch item's K
+    and V does not bind here, where they live in device memory."""
+    if not fused_pointer_enabled():
+        return False
+    return (d % n_heads == 0 and d // n_heads == HEAD_DIM and d <= MAX_D_MODEL
+            and nq % 64 == 0 and nk % 32 == 0 and pointer_mha_smem_bytes(d) <= SMEM_LIMIT)
+
+
+def fused_ff_supported(n: int, d: int, f: int) -> bool:
+    """Whether the model takes the fused feed-forward branch: the
+    environment variable, then the CUDA kernel's own limits (widths in 128s
+    whose tiles fit a block's shared memory: D = 512 with F = 1024 does; any
+    number of rows)."""
+    if not fused_pointer_enabled():
+        return False
+    return d % 128 == 0 and f % 128 == 0 and pointer_ff_smem_bytes(d, f) <= SMEM_LIMIT
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16)
+
+
+def _dense_bf16(y, w, b):
+    """bf16(y @ w + b) with bf16 operands, f32 accumulation and bias add."""
+    return _bf(torch.matmul(_bf(y).float(), _bf(w).float()) + _bf(b).float())
+
+
+def fused_mha_ref(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int) -> torch.Tensor:
+    """Plain version of :func:`fused_mha`."""
+    B, nq, d = yq.shape
+    dk = d // n_heads
+
+    def heads(t):
+        return t.reshape(B, -1, n_heads, dk).transpose(1, 2).float()
+
+    q, k, v = _dense_bf16(yq, wq, bq), _dense_bf16(ykv, wk, bk), _dense_bf16(ykv, wv, bv)
+    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * (1.0 / dk ** 0.5)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(_bf(e).float(), heads(v)) / e.sum(dim=-1, keepdim=True)
+    o = _bf(o).transpose(1, 2).reshape(B, nq, d)
+    return _dense_bf16(o, wo, bo)
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; call it under torch.no_grad()")
+
+
+def fused_mha(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int) -> torch.Tensor:
+    """yq [B, Nq, D], ykv [B, Nk, D] (pass yq for self-attention), weights
+    [D, D] (in, out) and biases [D] in any float dtype -> [B, Nq, D] bf16:
+    the whole sublayer before the residual. The kernel takes dk == 128,
+    D <= 512, Nq % 64 == 0 and Nk % 32 == 0."""
+    tensors = (yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo)
+    _refuse_grad("fused_mha", tensors)
+    if not kernel_route(*tensors):
+        return fused_mha_ref(*tensors, n_heads)
+    B, nq, d = yq.shape
+    nk = ykv.shape[1]
+    if (d % n_heads or d // n_heads != HEAD_DIM or d > MAX_D_MODEL or nq % 64 or nk % 32
+            or pointer_mha_smem_bytes(d) > SMEM_LIMIT):
+        raise ValueError(
+            f"fused_mha kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
+        )
+    yq_b = _bf(yq).contiguous()
+    ykv_b = yq_b if ykv is yq else _bf(ykv).contiguous()
+    check_tensor("yq", yq_b, torch.bfloat16, (B, nq, d))
+    check_tensor("ykv", ykv_b, torch.bfloat16, (B, nk, d))
+    params = []
+    for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv), ("o", wo, bo)):
+        w, b = _bf(w).contiguous(), _bf(b).contiguous()
+        check_tensor(f"w{name}", w, torch.bfloat16, (d, d))
+        check_tensor(f"b{name}", b, torch.bfloat16, (d,))
+        params += [w, b]
+    out = torch.empty_like(yq_b)
+    _build.extension().pointer_mha(yq_b, ykv_b, *params, out, n_heads)
+    fused_mha.launches += 1
+    return out
+
+
+fused_mha.launches = 0
+
+
+def fused_ff_ref(y, w1, b1, w2, b2) -> torch.Tensor:
+    """Plain version of :func:`fused_ff`."""
+    h = _bf(torch.relu(torch.matmul(_bf(y).float(), _bf(w1).float()) + _bf(b1).float()))
+    return _dense_bf16(h, w2, b2)
+
+
+def fused_ff(y, w1, b1, w2, b2) -> torch.Tensor:
+    """y [B, N, D], w1 [D, F], b1 [F], w2 [F, D], b2 [D] in any float dtype
+    -> [B, N, D] bf16. The kernel takes D % 128 == 0, F % 128 == 0 and widths
+    whose tiles fit a block's shared memory (D = 512, F = 1024 does)."""
+    tensors = (y, w1, b1, w2, b2)
+    _refuse_grad("fused_ff", tensors)
+    if not kernel_route(*tensors):
+        return fused_ff_ref(*tensors)
+    B, n, d = y.shape
+    f = w1.shape[1]
+    if d % 128 or f % 128 or pointer_ff_smem_bytes(d, f) > SMEM_LIMIT:
+        raise ValueError(f"fused_ff kernel does not take d_model={d} d_ff={f}")
+    y_b = _bf(y).contiguous()
+    w1, b1, w2, b2 = (_bf(t).contiguous() for t in (w1, b1, w2, b2))
+    check_tensor("y", y_b, torch.bfloat16, (B, n, d))
+    check_tensor("w1", w1, torch.bfloat16, (d, f))
+    check_tensor("b1", b1, torch.bfloat16, (f,))
+    check_tensor("w2", w2, torch.bfloat16, (f, d))
+    check_tensor("b2", b2, torch.bfloat16, (d,))
+    out = torch.empty_like(y_b)
+    _build.extension().pointer_ff(y_b, w1, b1, w2, b2, out)
+    fused_ff.launches += 1
+    return out
+
+
+fused_ff.launches = 0

@@ -26,6 +26,8 @@ class Registrar:
     >>> out = reg.register(src, tgt)                  # numpy [b, n, 3] x2
     >>> out["R"], out["t"]                            # numpy [b, 3, 3], [b, 3]
 
+    ``cfg.emb_nn`` picks the embedding (``lpdnet``, ``dgcnn``, ``pointnet``;
+    a BatchNorm embedding's ``state_dict`` carries its running statistics).
     ``device`` defaults to ``"cuda"`` and raises where there is none;
     ``use_kernels`` is passed to :class:`VCRNet`."""
 

@@ -1,27 +1,35 @@
-"""Training engine for VCR-Net (counterpart of vcrnet_tpu/train/engine.py,
-``model="vcrnet"``).
+"""Training engine for VCR-Net and DCP (counterpart of
+vcrnet_tpu/train/engine.py, ``model="vcrnet"`` and ``model="dcp"``).
 
 One step is the JAX package's ``Trainer._train_step_impl``: forward (the
-model in training mode, both clouds embedded in one stacked call), loss,
-gradients (on the kernel route the backward kernels of ``ops``), and the
-optimizer update; the metric sums of the batch stay on the device and are
-added up per epoch. Eval runs ``vcrnet_iter`` at ``cfg.iter``, whole or
-partial-overlap; training in partial-overlap mode is not ported (its hard
-selections need the JAX package's zero-gradient handling), so the
-training step refuses ``cfg.partial``.
+model in training mode; LPDNet embeds both clouds in one stacked call, a
+BatchNorm embedding one after the other, updating its running statistics
+twice), loss, gradients (on the kernel route the backward kernels of
+``ops``), and the optimizer update; the metric sums of the batch stay on
+the device and are added up per epoch. VCR-Net's eval runs ``vcrnet_iter``
+at ``cfg.iter``, whole or partial-overlap; DCP's is one pass. Training in
+partial-overlap mode is not ported (its hard selections need the JAX
+package's zero-gradient handling), so the training step refuses
+``cfg.partial``.
 
-Losses (reference vcrnet_model.py:711-720):
+VCR-Net losses (reference vcrnet_model.py:711-720):
   pose:  MSE(R_pred^T R_gt, I) + MSE(t_pred, t_gt)
   point: MSE(R_gt srcK + t_gt, src_corrK)
   mixed: pose + 0.1 * MSE(R_pred src + t_pred, tgt)
 The cycle-consistency term (x0.1) is a metric only.
 
+DCP losses (reference dcp_model.py:405-416):
+  pose:  as above
+  point: MSE(R_pred src + t_pred, src_corr)
+with the cycle term (x0.1) INSIDE the loss that is differentiated.
+
 Parameters are initialised from the JAX package's distributions (the
 same distributions, not the same bits): kaiming-uniform at the LPDNet
-slope with zero bias in the embedding, lecun-normal (truncated) with zero
-bias in the pointer, LayerNorm scale one and shift zero. Checkpoint
-save/resume, the raw-cloud on-device augmentation and the DCP/LPD/ICP
-families are not ported.
+slope with zero bias in LPDNet, lecun-normal (truncated) with zero bias
+everywhere else (the pointer, DGCNN's and PointNet's bias-free convs, the
+MLP head), LayerNorm and BatchNorm scale one and shift zero. Checkpoint
+save/resume, the raw-cloud on-device augmentation and the LPD/ICP families
+are not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from torch import nn
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.data.synthetic import PAIR_KEYS
+from vcrnet_tpu_torch.models.dcp import DCP
+from vcrnet_tpu_torch.models.embeddings import LPDNet
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_iter
 from vcrnet_tpu_torch.train import metrics as M
 from vcrnet_tpu_torch.train.optim import (
@@ -44,17 +54,20 @@ from vcrnet_tpu_torch.train.optim import (
 LPDNET_SLOPE = 0.0  # the embedding's leaky slope inside VCR-Net
 
 
-def init_like_jax(model: VCRNet, seed: int) -> None:
-    """Draw every parameter of ``model`` from the JAX package's init
-    distributions with a torch generator seeded by ``seed``."""
+def init_like_jax(model: nn.Module, seed: int) -> None:
+    """Draw every Linear of ``model`` (a VCRNet or a DCP) from the JAX
+    package's init distributions with a torch generator seeded by
+    ``seed``. Norm layers keep their construction values (scale 1, shift
+    0; running mean 0, variance 1)."""
     g = torch.Generator().manual_seed(seed)
     gain = math.sqrt(2.0 / (1.0 + LPDNET_SLOPE ** 2))
+    lpdnet = isinstance(model.emb_nn, LPDNet)
     with torch.no_grad():
         for name, mod in model.named_modules():
             if not isinstance(mod, nn.Linear):
                 continue
             fan_in = mod.weight.shape[1]
-            if name.startswith("emb_nn."):
+            if lpdnet and name.startswith("emb_nn."):
                 bound = gain * math.sqrt(3.0 / fan_in)
                 w = torch.empty(mod.weight.shape).uniform_(-bound, bound, generator=g)
             else:  # lecun_normal: N(0, 1/fan_in) truncated at 2 std, rescaled
@@ -62,7 +75,8 @@ def init_like_jax(model: VCRNet, seed: int) -> None:
                 w = torch.empty(mod.weight.shape)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
             mod.weight.copy_(w)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
 
 
 def _weighted_mean(per_sample, valid):
@@ -86,16 +100,18 @@ class Trainer:
     >>> sums = trainer.train_step(batch)            # numpy batch from a Loader
     >>> history = trainer.fit(train_loader, test_loader, epochs=2)
 
-    ``device`` defaults to ``"cuda"`` and raises where there is none;
-    ``use_kernels`` is passed to :class:`VCRNet`; ``seed`` (default
-    ``cfg.seed``) draws the initial parameters."""
+    ``cfg.model`` picks :class:`VCRNet` or :class:`DCP`. ``device``
+    defaults to ``"cuda"`` and raises where there is none; ``use_kernels``
+    is passed to the model; ``seed`` (default ``cfg.seed``) draws the
+    initial parameters."""
 
     def __init__(self, cfg: Config, device=None, use_kernels: bool | None = None,
                  seed: int | None = None):
-        if cfg.model != "vcrnet":
+        if cfg.model not in ("vcrnet", "dcp"):
             raise NotImplementedError(f"model={cfg.model!r} is not ported yet")
         self.cfg = cfg
-        self.model = VCRNet(cfg, device=device, use_kernels=use_kernels)
+        model_cls = DCP if cfg.model == "dcp" else VCRNet
+        self.model = model_cls(cfg, device=device, use_kernels=use_kernels)
         self.device = self.model.device
         init_like_jax(self.model, cfg.seed if seed is None else seed)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
@@ -107,7 +123,50 @@ class Trainer:
 
     def loss_and_sums(self, out, batch: dict):
         """(loss, sums): the batch loss (differentiable) and the metric
-        sums of the batch (detached), weighted by ``batch['valid']``."""
+        sums of the batch (detached), weighted by ``batch['valid']``, from
+        the model's output tuple."""
+        if self.cfg.model == "dcp":
+            return self._dcp_loss_and_sums(out, batch)
+        return self._vcrnet_loss_and_sums(out, batch)
+
+    def _pose_sums(self, out_rt, batch: dict) -> dict:
+        """The rotation / translation error sums of both directions."""
+        R_ab, t_ab, R_ba, t_ba = out_rt
+        valid = batch["valid"]
+        rt_ab = M.rotation_translation_sums(R_ab, t_ab, batch["euler_ab"], batch["t_ab"],
+                                            valid, "zyx")
+        rt_ba = M.rotation_translation_sums(R_ba, t_ba, batch["euler_ba"], batch["t_ba"],
+                                            valid, "xyz")
+        sums = {f"{k}_ab": v for k, v in rt_ab.items() if k != "count3"}
+        sums.update({f"{k}_ba": v for k, v in rt_ba.items() if k != "count3"})
+        sums["count3"] = rt_ab["count3"]
+        return sums
+
+    def _dcp_loss_and_sums(self, out, batch: dict):
+        cfg = self.cfg
+        valid = batch["valid"]
+        R_ab, t_ab, R_ba, t_ba, src_out, src_corr = out
+        moved = geometry.transform_points(src_out, R_ab, t_ab)
+        if cfg.loss == "pose":
+            loss_ps = _pose_loss_per_sample(R_ab, t_ab, batch["R_ab"], batch["t_ab"])
+        else:  # point
+            loss_ps = ((moved - src_corr) ** 2).mean(dim=(1, 2))
+        loss = _weighted_mean(loss_ps, valid)
+        sums = {"loss": (loss_ps * valid).sum()}
+        if cfg.cycle:
+            cyc = _cycle_loss(R_ab, t_ab, R_ba, t_ba)
+            loss = loss + 0.1 * cyc  # inside the DCP gradient
+            sums["cycle_loss"] = 0.1 * cyc * valid.sum()
+        with torch.no_grad():
+            back = geometry.transform_points(batch["tgt"], R_ba, t_ba)
+            ps_ab = M.point_sums(moved, batch["tgt"], valid)
+            ps_ba = M.point_sums(back, batch["src"], valid)
+            sums.update(p_se_ab=ps_ab["p_se"], p_ae_ab=ps_ab["p_ae"],
+                        p_se_ba=ps_ba["p_se"], p_ae_ba=ps_ba["p_ae"], count=ps_ab["count"])
+            sums.update(self._pose_sums((R_ab, t_ab, R_ba, t_ba), batch))
+        return loss, {k: v.detach() for k, v in sums.items()}
+
+    def _vcrnet_loss_and_sums(self, out, batch: dict):
         cfg = self.cfg
         valid = batch["valid"]
         src_k, src_corr_k, R_ab, t_ab, R_ba, t_ba = out
@@ -136,13 +195,7 @@ class Trainer:
             ps_ba = M.point_sums(back, batch["src"], valid)
             sums.update(p_se_ab=ps_ab["p_se"], p_ae_ab=ps_ab["p_ae"],
                         p_se_ba=ps_ba["p_se"], p_ae_ba=ps_ba["p_ae"], count=ps_ab["count"])
-            rt_ab = M.rotation_translation_sums(R_ab, t_ab, batch["euler_ab"], batch["t_ab"],
-                                                valid, "zyx")
-            rt_ba = M.rotation_translation_sums(R_ba, t_ba, batch["euler_ba"], batch["t_ba"],
-                                                valid, "xyz")
-            sums.update({f"{k}_ab": v for k, v in rt_ab.items() if k != "count3"})
-            sums.update({f"{k}_ba": v for k, v in rt_ba.items() if k != "count3"})
-            sums["count3"] = rt_ab["count3"]
+            sums.update(self._pose_sums((R_ab, t_ab, R_ba, t_ba), batch))
         return loss, {k: v.detach() for k, v in sums.items()}
 
     # ------------------------------------------------------------------
@@ -181,11 +234,15 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
-        """Metric sums of ``batch`` through ``vcrnet_iter`` at ``cfg.iter``."""
-        if self.cfg.iter < 1:
-            raise NotImplementedError("cfg.iter == 0 (net + ICP) is not ported yet")
+        """Metric sums of ``batch`` in eval mode (running statistics
+        frozen): VCR-Net through ``vcrnet_iter`` at ``cfg.iter``, DCP in
+        one pass."""
         b = self.to_device(batch)
         self.model.eval()
+        if self.cfg.model == "dcp":
+            return self.loss_and_sums(self.model(b["src"], b["tgt"]), b)[1]
+        if self.cfg.iter < 1:
+            raise NotImplementedError("cfg.iter == 0 (net + ICP) is not ported yet")
         out = vcrnet_iter(self.model, b["src"], b["tgt"], self.cfg.iter)
         return self.loss_and_sums(out, b)[1]
 
@@ -208,16 +265,18 @@ class Trainer:
     def fit(self, train_loader, test_loader, epochs: Optional[int] = None,
             log: Callable[[str], None] = print) -> list:
         """Epochs of training and eval with the plateau scheduler stepped on
-        the best test ``loss_pose`` and the early stop at lr <= 1.1e-6.
-        Returns the per-epoch history."""
+        the best test loss (VCR-Net: ``loss_pose``, patience 10; DCP:
+        ``loss``, patience 5) and the early stop at lr <= 1.1e-6. Returns
+        the per-epoch history."""
         epochs = self.cfg.epochs if epochs is None else epochs
-        sched = ReduceLROnPlateau(initial_lr(self.cfg), patience=10)
+        dcp = self.cfg.model == "dcp"
+        sched = ReduceLROnPlateau(initial_lr(self.cfg), patience=5 if dcp else 10)
         best_loss = float("inf")
         history = []
         for epoch in range(epochs):
             train_sum = self.train_epoch(train_loader)
             test_sum = self.eval_epoch(test_loader)
-            test_loss = test_sum.get("loss_pose", test_sum.get("loss", 0.0))
+            test_loss = test_sum.get("loss" if dcp else "loss_pose", test_sum.get("loss", 0.0))
             best_loss = min(best_loss, test_loss)
             lr = sched.step(best_loss)
             set_lr(self.optimizer, lr)

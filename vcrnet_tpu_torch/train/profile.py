@@ -1,10 +1,11 @@
 """Where the time of one training step, or of one served request, goes on
 the card.
 
-    python3 -m vcrnet_tpu_torch.train.profile [--batch 64 8] [--top 25]
-    python3 -m vcrnet_tpu_torch.train.profile --serve iter3 partial partial3072
+    python3 -m vcrnet_tpu_torch.train.profile [--batch 64 8] [--top 25] [--model dcp]
+    python3 -m vcrnet_tpu_torch.train.profile --serve iter3 partial partial3072 dgcnn
 
-Builds a full-width bf16 Trainer (``Config`` defaults, N = 1024) from a
+Builds a full-width bf16 Trainer (``Config`` defaults, N = 1024; with
+``--model dcp`` DCP on the DGCNN embedding) from a
 seeded init on synthetic shape pairs and takes two warm-up steps. Then it
 times 5 steps on the host clock (each ending in a synchronise; median),
 traces 3 more with ``torch.profiler`` (CPU and CUDA activities), and
@@ -19,6 +20,11 @@ time per kernel, largest first. The first line is the card's
 step: ``iter3`` (whole clouds of 1024 points, three refinement passes),
 ``partial`` (overlap 0.575, 1024 -> 768 points, iter=3) and ``partial3072``
 (4093 -> 3072 points, where the re-mask streams; at most 8 pairs).
+``dgcnn`` serves VCR-Net on the DGCNN embedding at iter=3; the repository
+holds no DGCNN weights, so they are a seeded init after a few DCP training
+steps (which move the BatchNorm statistics off their initial values). With
+``VCRNET_FUSED_POINTER=1`` in the environment the served requests run the
+fused pointer sublayers.
 """
 
 from __future__ import annotations
@@ -44,7 +50,9 @@ SERVE_CONFIGS = {  # name: (Config fields, largest request)
     "iter3": (dict(num_points=1024), 64),
     "partial": (dict(num_points=1024, partial=True, overlap=0.575), 64),
     "partial3072": (dict(num_points=4093, partial=True, overlap=0.575), 8),
+    "dgcnn": (dict(num_points=1024, emb_nn="dgcnn"), 64),
 }
+DGCNN_WARM_STEPS = 5
 
 
 def _is_kernel(event) -> bool:
@@ -96,20 +104,38 @@ def profile_call(what: str, call, top: int) -> None:
 
 
 def profile_step(trainer: Trainer, cfg: Config, b: int, top: int) -> None:
+    batch = trainer.to_device(_train_batch(cfg, b))
+    profile_call(f"train step {cfg.model}/{cfg.emb_nn} B={b}",
+                 lambda: trainer.train_step(batch), top)
+
+
+def _train_batch(cfg: Config, b: int) -> dict:
     np.random.seed(0)
     ds = SyntheticDataset(cfg, "train", n_items=b, cloud_points=2 * cfg.num_points,
                           kind="shapes")
-    batch = trainer.to_device(next(iter(Loader(ds, b))))
-    profile_call(f"train step B={b}", lambda: trainer.train_step(batch), top)
+    return next(iter(Loader(ds, b)))
+
+
+def trained_dgcnn_weights(steps: int = DGCNN_WARM_STEPS) -> dict:
+    """Weights for VCR-Net on the DGCNN embedding: a seeded DCP trainer's
+    state after ``steps`` Adam steps on one synthetic batch of 8 (DCP with
+    the SVD head has VCR-Net's parameter tree)."""
+    cfg = Config(model="dcp", emb_nn="dgcnn", compute_dtype="bfloat16")
+    trainer = Trainer(cfg, seed=0)
+    batch = trainer.to_device(_train_batch(cfg, 8))
+    for _ in range(steps):
+        trainer.train_step(batch)
+    return trainer.model.state_dict()
 
 
 def profile_request(name: str, b: int, top: int) -> None:
     fields, largest = SERVE_CONFIGS[name]
     b = min(b, largest)
     cfg = Config(compute_dtype="bfloat16", iter=3, **fields)
-    reg = Registrar(cfg, load_checkpoint(CHECKPOINT))
+    weights = trained_dgcnn_weights() if name == "dgcnn" else load_checkpoint(CHECKPOINT)
+    reg = Registrar(cfg, weights)
     data = shapes_eval_set(b, num_points=cfg.num_points, cloud_points=max(2048, cfg.num_points),
-                           partial=cfg.partial, overlap=cfg.overlap)
+                           partial=cfg.partial)
     profile_call(f"request {name} of {b} pairs", lambda: reg.register(data["src"], data["tgt"]),
                  top)
 
@@ -118,6 +144,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[64])
     ap.add_argument("--top", type=int, default=25, help="kernels to list per batch size")
+    ap.add_argument("--model", choices=("vcrnet", "dcp"), default="vcrnet",
+                    help="the training step to profile: default VCR-Net, or DCP on DGCNN")
     ap.add_argument("--serve", nargs="+", choices=sorted(SERVE_CONFIGS), default=[],
                     help="profile served requests of these configurations instead of training")
     args = ap.parse_args(argv)
@@ -134,6 +162,8 @@ def main(argv=None) -> int:
                 profile_request(name, b, args.top)
         return 0
     cfg = Config(compute_dtype="bfloat16")
+    if args.model == "dcp":
+        cfg = Config(compute_dtype="bfloat16", model="dcp", emb_nn="dgcnn")
     trainer = Trainer(cfg, seed=0)
     for b in args.batch:
         profile_step(trainer, cfg, b, args.top)

@@ -3,8 +3,9 @@
 ``read_msgpack`` decodes flax's msgpack checkpoint format in pure Python
 (what ``flax.serialization.msgpack_restore`` returns: nested dicts of str
 keys with numpy leaves), so loading a checkpoint needs neither flax nor
-the ``msgpack`` package. ``from_jax_params`` turns a flax param tree into
-a ``state_dict`` of the port's modules.
+the ``msgpack`` package. ``from_jax_params`` turns flax variables (the
+param tree and, for models with BatchNorm, the ``batch_stats`` tree) into a
+``state_dict`` of the port's modules.
 """
 
 from __future__ import annotations
@@ -136,35 +137,56 @@ def read_msgpack(path: str):
 _LIST_MODULES = re.compile(r"^(enc_layers|dec_layers)_(\d+)$")
 
 
-def from_jax_params(params: dict) -> dict:
-    """flax param tree -> ``state_dict`` (float32 tensors) of the port's
+def _walk(tree: dict, path: list, leaf) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            m = _LIST_MODULES.match(key)
+            _walk(val, path + ([m.group(1), m.group(2)] if m else [key]), leaf)
+        else:
+            leaf(".".join(path), key, np.asarray(val, dtype=np.float32))
+
+
+def from_jax_params(params: dict, batch_stats: dict | None = None) -> dict:
+    """flax variables -> ``state_dict`` (float32 tensors) of the port's
     modules. Module paths keep their flax names (``enc_layers_0`` becomes
     ``enc_layers.0``); a Dense ``kernel`` [in, out] becomes ``weight``
-    [out, in]; ``bias``, and LayerNorm's ``a_2``/``b_2``, keep their names.
-    Raises on any leaf it cannot map."""
+    [out, in]; BatchNorm's ``scale`` becomes ``weight``; ``bias``, and
+    LayerNorm's ``a_2``/``b_2``, keep their names. ``batch_stats`` leaves
+    ``mean`` / ``var`` become the ``running_mean`` / ``running_var``
+    buffers. Raises on any leaf it cannot map and on two leaves that map to
+    one name."""
     out = {}
 
-    def walk(tree, path):
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                m = _LIST_MODULES.match(key)
-                walk(val, path + ([m.group(1), m.group(2)] if m else [key]))
-                continue
-            arr = np.asarray(val, dtype=np.float32)
-            name = ".".join(path)
-            if key == "kernel" and arr.ndim == 2:
-                out[f"{name}.weight"] = torch.from_numpy(arr.T.copy())
-            elif key in ("bias", "a_2", "b_2") and arr.ndim == 1:
-                out[f"{name}.{key}"] = torch.from_numpy(arr.copy())
-            else:
-                raise KeyError(f"cannot map param leaf {name}.{key} {arr.shape}")
+    def put(name: str, arr: np.ndarray) -> None:
+        if name in out:
+            raise KeyError(f"two leaves map to {name}")
+        out[name] = torch.from_numpy(arr.copy())
 
-    walk(params, [])
+    def param(name: str, key: str, arr: np.ndarray) -> None:
+        if key == "kernel" and arr.ndim == 2:
+            put(f"{name}.weight", arr.T)
+        elif key == "scale" and arr.ndim == 1:
+            put(f"{name}.weight", arr)
+        elif key in ("bias", "a_2", "b_2") and arr.ndim == 1:
+            put(f"{name}.{key}", arr)
+        else:
+            raise KeyError(f"cannot map param leaf {name}.{key} {arr.shape}")
+
+    def stat(name: str, key: str, arr: np.ndarray) -> None:
+        if key not in ("mean", "var") or arr.ndim != 1:
+            raise KeyError(f"cannot map batch_stats leaf {name}.{key} {arr.shape}")
+        put(f"{name}.running_{key}", arr)
+
+    _walk(params, [], param)
+    _walk(batch_stats or {}, [], stat)
     return out
 
 
 def load_checkpoint(path: str) -> dict:
-    """A flax checkpoint (a full TrainState with a ``params`` entry, or a
-    bare param tree) -> ``state_dict`` for :class:`VCRNet`."""
+    """A flax checkpoint (a full TrainState with a ``params`` entry and,
+    for models with BatchNorm, ``batch_stats``; or a bare param tree) ->
+    ``state_dict`` for the port's model."""
     raw = read_msgpack(path)
-    return from_jax_params(raw.get("params", raw))
+    if "params" in raw:
+        return from_jax_params(raw["params"], raw.get("batch_stats"))
+    return from_jax_params(raw)
