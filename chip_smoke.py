@@ -57,7 +57,10 @@ Phases (any failure raises and the script exits non-zero):
 
 The kernels phase also holds the four kernels of phases 7 and 8 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
-64, N = 1024 and at N = 768.
+64, N = 1024 and at N = 768, and the attention kernels at the edges of
+their tiling: the forward (output and logsumexp) at Nq % 128 == 64, one key
+tile, one valid key, valid keys ending at and inside a tile, B = 1; the
+backward at Nq != Nk and at Nq = Nk = 320.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -219,8 +222,37 @@ def phase_kernels(dev):
             library_ms=cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(sef, tef, tgt, attn_mask=mask, scale=2.0)),
         ))
+
+    # --- packed-head attention at the edges of its tiling (128-row query
+    # blocks of two 64-row warpgroups, 64-key tiles): output 2e-2 absolute,
+    # lse 1e-3, as above
+    for B, nq, nk, nk_valid in FLASH_EDGE_SHAPES:
+        q, k, v = randn(B, nq, 512, dtype=bf16), randn(B, nk, 512, dtype=bf16), randn(B, nk, 512, dtype=bf16)
+        if nk_valid is not None:  # the wrapper's padding: zero rows behind the real keys
+            k[:, nk_valid:] = 0
+            v[:, nk_valid:] = 0
+        o, lse = attention.flash_mha_packed(q, k, v, scale, 4, return_lse=True, nk_valid=nk_valid)
+        torch.cuda.synchronize()
+        want, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, 4, return_lse=True,
+                                                        nk_valid=nk_valid)
+        err = (o.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        what = f"flash_packed B={B} Nq={nq} Nk={nk} nk_valid={nk_valid}"
+        check(err <= 2e-2, f"{what}: max abs err {err} > 2e-2")
+        check(lse_err <= 1e-3, f"{what}: lse max abs err {lse_err} > 1e-3")
+        rows.setdefault("flash_packed_edge", []).append(dict(
+            B=B, Nq=nq, Nk=nk, nk_valid=nk_valid, max_abs_err=err, lse_err=lse_err))
     print_rows(rows)
     return rows
+
+
+# (B, Nq, Nk, nk_valid): Nq % 128 == 64 (the second warpgroup of the last
+# query block owns no rows), a single 64-key tile, one valid key, valid keys
+# ending at a tile boundary and inside a tile, and one batch item
+FLASH_EDGE_SHAPES = ((2, 320, 320, None), (2, 128, 64, None), (2, 192, 192, 1),
+                     (2, 192, 192, 128), (2, 192, 192, 100), (1, N, N, None))
+# (B, Nq, Nk) of the backward's edge cases: Nq != Nk, and both % 128 == 64
+FLASH_BWD_EDGE_SHAPES = ((8, 1024, 768), (2, 320, 320))
 
 
 NUM_POINTS_LARGE = 4093  # the large partial configuration: crops to 3072, a multiple of 128
@@ -577,6 +609,22 @@ def phase_backward(dev):
                  bound_ms=b, bound_by=by),
             lambda: vcp.vcp_bwd(*vargs), lambda: vcp.vcp_bwd_ref(*vargs),
             lambda: torch.autograd.grad(c_lib, (sef, tef, tgtg), dcorr, retain_graph=True)))
+
+    # --- attention backward where the key and query counts differ, and where
+    # both leave the last block's second warpgroup without rows (1e-2 relative)
+    for B, nq, nk in FLASH_BWD_EDGE_SHAPES:
+        q, do = randn(B, nq, 512, dtype=bf16), randn(B, nq, 512, dtype=bf16)
+        k, v = randn(B, nk, 512, dtype=bf16), randn(B, nk, 512, dtype=bf16)
+        o, lse = attention.flash_mha_packed(q, k, v, scale, 4, return_lse=True)
+        got = attention.flash_bwd(q, k, v, o, lse, do, scale, 4)
+        torch.cuda.synchronize()
+        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, 4)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(max(errs) <= 1e-2, f"flash_bwd B={B} Nq={nq} Nk={nk}: relative errors {errs}")
+        err = max((gv.float() - wv.float()).abs().max().item() for gv, wv in zip(got, want))
+        rows.setdefault("flash_bwd_edge", []).append(dict(
+            B=B, Nq=nq, Nk=nk, rel_errs=errs, max_abs_err=err,
+            ms=cuda_time_ms(lambda: attention.flash_bwd(q, k, v, o, lse, do, scale, 4))))
     print_rows(rows)
     return rows
 
@@ -1603,6 +1651,7 @@ def main() -> int:
         top = rows[name][-1]
         errs = [r["max_abs_err"] for r in rows[name]]
         errs += [r["max_abs_err"] for r in rows.get(name + "_path_shapes", ())]
+        errs += [r["max_abs_err"] for r in rows.get(name + "_edge", ())]
         if name == "flash_packed":
             errs += [r["max_abs_err"] for r in rows["flash_packed_nk_valid"]]
         kernels.append({
