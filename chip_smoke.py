@@ -6,7 +6,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. build   compile the port's CUDA extension from csrc/ (sm_90a) and print
-           the build time and the card's name and power limit;
+           the build time, the registers and spills of the soft-correspondence
+           kernels (nvcc -Xptxas -v; a spill fails) and the card's name and
+           power limit;
 2. kernels run each hand-written forward kernel against its plain PyTorch
            version on the card at the serving shapes (B = 8 and 64,
            N = 1024; the column masses and attention with a valid-key count
@@ -60,7 +62,9 @@ dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
 64, N = 1024 and at N = 768, and the attention kernels at the edges of
 their tiling: the forward (output and logsumexp) at Nq % 128 == 64, one key
 tile, one valid key, valid keys ending at and inside a tile, B = 1; the
-backward at Nq != Nk and at Nq = Nk = 320.
+backward at Nq != Nk and at Nq = Nk = 320; and the soft-correspondence
+kernels (forward with lse, then backward) at B = 1, at Ns = Nt = 320 and
+at Ns != Nt (512 and 1024 both ways).
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -73,6 +77,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -253,6 +258,10 @@ FLASH_EDGE_SHAPES = ((2, 320, 320, None), (2, 128, 64, None), (2, 192, 192, 1),
                      (2, 192, 192, 128), (2, 192, 192, 100), (1, N, N, None))
 # (B, Nq, Nk) of the backward's edge cases: Nq != Nk, and both % 128 == 64
 FLASH_BWD_EDGE_SHAPES = ((8, 1024, 768), (2, 320, 320))
+# (B, Ns, Nt) of the soft-correspondence kernels' edge cases: one batch item,
+# Ns % 128 == 64 (the forward's last block has a warpgroup without rows),
+# and Ns != Nt both ways
+VCP_EDGE_SHAPES = ((1, N, N), (2, 320, 320), (8, 512, N), (8, N, 512))
 
 
 NUM_POINTS_LARGE = 4093  # the large partial configuration: crops to 3072, a multiple of 128
@@ -625,6 +634,32 @@ def phase_backward(dev):
         rows.setdefault("flash_bwd_edge", []).append(dict(
             B=B, Nq=nq, Nk=nk, rel_errs=errs, max_abs_err=err,
             ms=cuda_time_ms(lambda: attention.flash_bwd(q, k, v, o, lse, do, scale, 4))))
+
+    # --- soft correspondence at the edges of its tiling, forward with lse
+    # (1e-3 absolute each) and backward from them (1e-2 relative)
+    for B, ns, nt in VCP_EDGE_SHAPES:
+        se = randn(B, ns, 512, scale=512 ** -0.5, dtype=bf16)
+        te = randn(B, nt, 512, scale=512 ** -0.5, dtype=bf16)
+        tgt = torch.rand(B, nt, 3, generator=g, device=dev) * 2 - 1
+        corr, lse = vcp.streaming_soft_correspondence(se, te, tgt, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+        err = (corr - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        what = f"B={B} Ns={ns} Nt={nt}"
+        check(err <= 1e-3, f"vcp_stream {what}: max abs err {err} > 1e-3")
+        check(lse_err <= 1e-3, f"vcp_stream {what}: lse max abs err {lse_err} > 1e-3")
+        rows.setdefault("vcp_stream_edge", []).append(dict(
+            B=B, Ns=ns, Nt=nt, max_abs_err=err, lse_err=lse_err))
+        vargs = (se, te, tgt, corr, lse, randn(B, ns, 3))
+        got = vcp.vcp_bwd(*vargs)
+        torch.cuda.synchronize()
+        want = vcp.vcp_bwd_ref(*vargs)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(max(errs) <= 1e-2, f"vcp_bwd {what}: relative errors (de, df, dtgt) {errs}")
+        rows.setdefault("vcp_bwd_edge", []).append(dict(
+            B=B, Ns=ns, Nt=nt, rel_errs=errs,
+            max_abs_err=max((gv - wv).abs().max().item() for gv, wv in zip(got, want))))
     print_rows(rows)
     return rows
 
@@ -1558,6 +1593,41 @@ def phase_fused_pointer():
     return total
 
 
+# sources whose registers and spills the script prints (nvcc -Xptxas -v,
+# started beside the extension's build); a spill fails the run
+PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu")
+
+
+def start_ptxas_reports() -> dict:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from vcrnet_tpu_torch.ops import _build
+
+    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    return {src: subprocess.Popen(
+        [nvcc, "-c", *_build.CUDA_FLAGS, "-Xptxas", "-v", "-o", os.devnull,
+         os.path.join(_build.CSRC_DIR, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in PTXAS_REPORTED}
+
+
+def print_ptxas_reports(procs: dict) -> None:
+    """One line a source: each kernel's registers and spill bytes (stores /
+    loads), and how many wgmma fences ptxas added on its own (C7519: it
+    could not prove a register safe while a product was in flight)."""
+    for src, proc in procs.items():
+        out, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed:\n{out}")
+        kernels = re.findall(r"Compiling entry function '[^']*?\d+([a-z][a-z_]*_kernel)[^']*'.*?"
+                             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                             r"Used (\d+) registers", out, re.S)
+        report = "; ".join(f"{name} {regs} registers, spills {st}/{ld} bytes"
+                           for name, st, ld, regs in kernels)
+        print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}",
+              flush=True)
+        spills = [int(n) for _, st, ld, _ in kernels for n in (st, ld)]
+        check(kernels and not any(spills), f"{src}: the kernels spill registers ({spills} bytes)")
+
+
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "dgcnn",
           "fused_pointer")
 
@@ -1580,8 +1650,10 @@ def main() -> int:
     from vcrnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas_reports()
     _build.extension()
     print(f"build: {time.perf_counter() - t0} s", flush=True)
+    print_ptxas_reports(ptxas)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

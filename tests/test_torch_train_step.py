@@ -181,6 +181,19 @@ def test_partial_dropout_and_remat_are_refused():
             Trainer(Config(**NARROW, **kw), device="cpu")
 
 
+@pytest.mark.parametrize("model", ["vcrnet", "dcp"])
+def test_int8_eval_is_refused_where_jax_would_quantize(model):
+    """The JAX package quantizes the pointer projections when int8_eval
+    meets bf16 (models/vcrnet.py:_use_int8); the port has no int8 path yet,
+    so it refuses that pair, and takes the flag with f32, where it is a
+    no-op in both packages."""
+    with pytest.raises(NotImplementedError, match="int8_eval"):
+        Trainer(Config(**NARROW, model=model, int8_eval=True, compute_dtype="bfloat16"),
+                device="cpu")
+    tr = Trainer(Config(**NARROW, model=model, int8_eval=True), device="cpu")
+    assert tr.model.cfg.int8_eval
+
+
 def test_fit_lowers_the_train_loss():
     cfg = Config(**NARROW, epochs=4)
     tr = Trainer(cfg, device="cpu", use_kernels=True, seed=0)

@@ -100,62 +100,42 @@ class Config:
     exp_name: str = "exp"
     model_path: str = ""
 
-    # TPU-specific (no reference equivalent)
+    # beyond the reference CLI (the JAX package's own knobs)
     compute_dtype: str = "float32"  # float32 | bfloat16 for matmul-heavy paths
-    approx_knn: bool = False  # TPU approx_max_k for the [B,N,N] kNN top-k
-    int8_eval: bool = False  # dynamic-int8 pointer projections at eval
-    # (ops/int8_linear.py). OFF by default: A/B'd SLOWER in context —
-    # isolated 512x512 int8 matmul is 2.45x bf16 (0.081 vs 0.199 ms,
-    # benchmarks/int8_matmul_probe.py) but the full pointer measured
-    # 12.63 vs 8.17 ms and whole_iter3 630 vs 686 pairs/s: the quant/
-    # dequant HBM passes break XLA's fusion around the already-MXU-bound
-    # projections. Kept as a tested option (tests/test_int8.py); see
-    # docs/KERNELS.md.
-    int8_train_gathers: bool = True  # run the Pallas edge-conv/gather-max
-    # one-hot gathers int8 DURING TRAINING too (they are always int8 at
-    # eval). The custom backward recomputes from the same quantized table,
-    # giving the straight-through gradient of the quantized forward
-    # (tests/test_ops.py::test_int8_*_straight_through). Round-2 A/B read
-    # NEUTRAL (139.3 vs 140.0 ms/step @ B=64) because the pre-winner-index
-    # backwards re-ran the full selection either way; after the
-    # winner-index backward kernels landed, the round-4 same-session A/B
-    # measures 126.7 -> 115.8 ms/step @ B=64 (505 -> 553 pairs/s/chip,
-    # +9.5%), and training convergence was re-validated with the flag ON
-    # (see STATUS.md round-4). Set False for the exact-f32 gather path.
+    approx_knn: bool = False  # ignored: every kNN selection of the port is
+    # exact (ROADMAP C, "Exact f32 selection")
+    int8_eval: bool = False  # dynamic-int8 pointer projections at eval in the
+    # JAX package; not ported yet (ROADMAP A10): the models refuse it with
+    # compute_dtype="bfloat16", where the JAX package would act on it, and
+    # accept it with float32, where it changes nothing there either
+    int8_train_gathers: bool = True  # ignored: the edge-conv and gather-max
+    # kernels gather the exact bf16 rows by index in training and eval alike
+    # (ROADMAP C, "Exact gathers")
     reuse_feature_knn: bool = False  # eval refinement: reuse a previous
     # iteration's FEATURE-space kNN selection in later iterations
     # (vcrnet_iter). Unlike the always-on spatial-kNN reuse (exact: rigid
-    # transforms preserve distances) this is an APPROXIMATION — pointwise
-    # features are not rigid-invariant — so it stays opt-in pending the
-    # accuracy/throughput A/B (bench.py --accuracy).
+    # transforms preserve distances) this is an APPROXIMATION: pointwise
+    # features are not rigid-invariant, so it stays opt-in.
     feature_knn_refresh: int = 1  # with reuse_feature_knn: how many leading
     # refinement iterations compute a FRESH feature graph; later iterations
-    # reuse the last one. 1 = reuse iteration 1's graph everywhere (max
-    # speed); 2 = recompute once more on the near-aligned iteration-2 cloud
-    # (measurably closer to exact — the iteration-1 cloud is still far from
-    # the target pose) and reuse only for iterations 3+.
+    # reuse the last one. 1 = reuse iteration 1's graph everywhere; 2 =
+    # recompute once more on the near-aligned iteration-2 cloud and reuse
+    # only for iterations 3+.
     refine_subsample: int = 0  # eval refinement (whole mode only): run
     # iterations 2+ on the first `refine_subsample` points of each cloud.
-    # NEGATIVE RESULT — keep OFF: LPDNet is density-sensitive (its k=20
-    # kNN neighborhoods widen when the cloud shrinks), so the subsampled
-    # iterations run the embedding out-of-distribution and corrupt the
-    # refinement (0.44° -> 5.25° rot RMSE at M=N/2 on the trained
-    # checkpoint; benchmarks/refine_subsample_probe.py, docs/KERNELS.md).
-    # Kept implemented+tested for a future density-conditioned embedding.
-    # 0 = off; values >= num_points are clamped to exact.
-    streaming_vcp_train: bool = True  # training (whole mode, bf16 TPU):
-    # route the soft correspondence through the O(N)-memory custom-VJP
-    # Pallas kernel pair (ops/pallas_vcp.py) instead of the XLA
-    # formulation that materialises [B, Ns, Nt] probabilities in HBM
-    # twice. Same math (interpret-mode VJP tests match XLA grads); knob
-    # exists as the A/B control arm and escape hatch.
-    remat: bool = False  # training: jax.checkpoint (rematerialize) the
-    # embedding and pointer forward activations instead of storing them
-    # — EXACT (same math, recompute in backward), trades ~1 extra forward
-    # of FLOPs for most of the activation HBM. Off by default at B=64
-    # (fits comfortably); the lever for larger train batches (reuse_ab.py
-    # trainb sweep) or larger N.
-    mesh_shape: Optional[int] = None  # data-parallel devices; None = all
+    # Keep OFF: LPDNet is density-sensitive (its k=20 kNN neighbourhoods
+    # widen when the cloud shrinks), so the subsampled iterations run the
+    # embedding out of distribution. 0 = off; values >= num_points are
+    # clamped to exact.
+    streaming_vcp_train: bool = True  # training with the kernels: route the
+    # soft correspondence through the streaming pair csrc/vcp_stream.cu
+    # (forward, with the row logsumexp) and csrc/vcp_bwd.cu (backward)
+    # instead of the plain formulation that writes the [B, Ns, Nt]
+    # probabilities out; the same math, kept as the control arm
+    remat: bool = False  # training: recompute the embedding and pointer
+    # activations in the backward; not ported yet (the models refuse it)
+    mesh_shape: Optional[int] = None  # data-parallel devices; ignored: the
+    # port runs on one device (ROADMAP A9)
 
     # ---- derived (computed in __post_init__) ----
     reserve: float = dataclasses.field(init=False, default=1.0)

@@ -24,9 +24,9 @@ cudaError_t vcr_edge_conv(const void* x, const float* norms, const void* a, cons
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
                              float* lse, int batch, int nq, int nk, int nk_valid,
                              int n_heads, float sm_scale, cudaStream_t stream);
-cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float* norms,
-                           const float* tgt, float* out, float* lse, int batch, int ns, int nt,
-                           int e, cudaStream_t stream);
+cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float* tgt,
+                           float* keys, float* out, float* lse, int batch, int ns, int nt, int e,
+                           cudaStream_t stream);
 cudaError_t vcr_gather_max_bwd(const int* idx, const void* win, const void* ct, float* dv,
                                int batch, int n, int f, int k, cudaStream_t stream);
 cudaError_t vcr_edge_conv_bwd_grid(int rows, int* blocks, int64_t* scratch_floats);
@@ -39,10 +39,10 @@ cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const voi
                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
                           void* dv, int batch, int nq, int nk, int n_heads, float sm_scale,
                           cudaStream_t stream);
-cudaError_t vcr_vcp_bwd(const void* src_emb, const void* tgt_emb, const float* norms,
-                        const float* tgt, const float* corr, const float* dcorr,
-                        const float* lse, float* d_src, float* d_tgt_emb, float* d_tgt,
-                        int batch, int ns, int nt, int e, cudaStream_t stream);
+cudaError_t vcr_vcp_bwd(const void* src_emb, const void* tgt_emb, const float* tgt,
+                        const float* corr, const float* dcorr, const float* lse, float* keys,
+                        float* rows, float* d_src, float* d_tgt_emb, float* d_tgt, int batch,
+                        int ns, int nt, int e, cudaStream_t stream);
 
 cudaError_t vcr_gather_max_from_idx(const int* idx, const void* values, void* out, void* win,
                                     int batch, int n, int f, int k, cudaStream_t stream);
@@ -118,14 +118,14 @@ void flash_packed(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tens
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void vcp_stream(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor norms,
-                torch::Tensor tgt, torch::Tensor out, c10::optional<torch::Tensor> lse) {
+void vcp_stream(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor tgt,
+                torch::Tensor keys, torch::Tensor out, c10::optional<torch::Tensor> lse) {
   const c10::cuda::CUDAGuard guard(src_emb.device());
-  C10_CUDA_CHECK(vcr_vcp_stream(src_emb.data_ptr(), tgt_emb.data_ptr(),
-                                norms.data_ptr<float>(), tgt.data_ptr<float>(),
-                                out.data_ptr<float>(), static_cast<float*>(optional_ptr(lse)),
-                                src_emb.size(0), src_emb.size(1), tgt_emb.size(1),
-                                src_emb.size(2), stream_of(src_emb)));
+  C10_CUDA_CHECK(vcr_vcp_stream(src_emb.data_ptr(), tgt_emb.data_ptr(), tgt.data_ptr<float>(),
+                                keys.data_ptr<float>(), out.data_ptr<float>(),
+                                static_cast<float*>(optional_ptr(lse)), src_emb.size(0),
+                                src_emb.size(1), tgt_emb.size(1), src_emb.size(2),
+                                stream_of(src_emb)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -167,16 +167,18 @@ void flash_bwd(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tensor 
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void vcp_bwd(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor norms,
-             torch::Tensor tgt, torch::Tensor corr, torch::Tensor dcorr, torch::Tensor lse,
-             torch::Tensor d_src, torch::Tensor d_tgt_emb, torch::Tensor d_tgt) {
+void vcp_bwd(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor tgt,
+             torch::Tensor corr, torch::Tensor dcorr, torch::Tensor lse, torch::Tensor keys,
+             torch::Tensor rows, torch::Tensor d_src, torch::Tensor d_tgt_emb,
+             torch::Tensor d_tgt) {
   const c10::cuda::CUDAGuard guard(src_emb.device());
-  C10_CUDA_CHECK(vcr_vcp_bwd(src_emb.data_ptr(), tgt_emb.data_ptr(), norms.data_ptr<float>(),
-                             tgt.data_ptr<float>(), corr.data_ptr<float>(),
-                             dcorr.data_ptr<float>(), lse.data_ptr<float>(),
-                             d_src.data_ptr<float>(), d_tgt_emb.data_ptr<float>(),
-                             d_tgt.data_ptr<float>(), src_emb.size(0), src_emb.size(1),
-                             tgt_emb.size(1), src_emb.size(2), stream_of(src_emb)));
+  C10_CUDA_CHECK(vcr_vcp_bwd(src_emb.data_ptr(), tgt_emb.data_ptr(), tgt.data_ptr<float>(),
+                             corr.data_ptr<float>(), dcorr.data_ptr<float>(),
+                             lse.data_ptr<float>(), keys.data_ptr<float>(),
+                             rows.data_ptr<float>(), d_src.data_ptr<float>(),
+                             d_tgt_emb.data_ptr<float>(), d_tgt.data_ptr<float>(),
+                             src_emb.size(0), src_emb.size(1), tgt_emb.size(1),
+                             src_emb.size(2), stream_of(src_emb)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the attention kernels (flash_packed.cu,
-// flash_bwd.cu): TMA tensor maps and loads, mbarriers, register
-// rebalancing, wgmma descriptors, the two wgmma shapes they use and the
-// fences around them, and the two tile products built from those shapes.
+// flash_bwd.cu) and the soft-correspondence kernels (vcp_stream.cu,
+// vcp_bwd.cu): TMA tensor maps and loads, mbarriers, named barriers,
+// register rebalancing, wgmma descriptors, the wgmma shapes they use and
+// the fences around them, the two tile products built from those shapes,
+// and the stores of an accumulator's rows.
 //
 // Tiles. Every operand tile is a TMA box of [64 rows, 64 bf16 columns]
 // (128 bytes a row) loaded with the 128-byte swizzle, so one head's 128
@@ -141,6 +143,12 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, 
       : "memory");
 }
 
+// Orders this thread's ordinary shared-memory writes before later reads by
+// the asynchronous proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // A contiguous copy of ``bytes`` (a multiple of 16; both ends 16-byte aligned).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
@@ -161,7 +169,9 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes
          static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
-// k16 step ``kk`` (0..7) of a K-major [64, 128] operand held as two boxes.
+// k16 step ``kk`` of a K-major operand of 64 rows held as consecutive
+// boxes, four steps a box: 0..7 for one head's [64, 128] (two boxes),
+// 0..31 for a [64, 512] embedding tile (eight boxes).
 __device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* tile, int kk) {
   return desc_sw128(tile + (kk >> 2) * kBox * kBox + (kk & 3) * 16, 0, 1024);
 }
@@ -170,6 +180,13 @@ __device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* tile, int 
 // two boxes: 16 rows a step, the halves of n one box apart.
 __device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* tile, int kk) {
   return desc_sw128(tile + kk * 16 * kBox, kBoxBytes, 1024);
+}
+
+// Barrier ``id`` (1..15; 0 is __syncthreads) over the first ``threads``
+// threads of the block to reach it (a multiple of 32). bar.sync also
+// orders the shared-memory reads and writes of the threads it joins.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Register rebalancing between warpgroups (all 128 threads execute it): the
@@ -207,6 +224,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+// The same for packed A fragments: their conversions must be done before
+// the wgmma.fence that opens the batch reading them.
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory, both
 // K-major, f32 accumulate; ``accumulate`` = 0 overwrites d.
@@ -227,6 +251,29 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A from registers (a bf16x2
+// fragment, as below), B from shared memory read K-major (trans-b = 0);
+// f32 accumulate; ``accumulate`` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
 // d[64 x 128] += A[64 x 16] . B[16 x 128]: A from registers (a bf16x2
@@ -317,6 +364,20 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* row_g, __nv_bfloa
     if (row_g8 != nullptr)
       *reinterpret_cast<uint32_t*>(row_g8 + c) =
           pack_bf16(d[4 * j + 2] * scale_g8, d[4 * j + 3] * scale_g8);
+  }
+}
+
+// A thread's part of a [64, 128] f32 accumulator, scaled by ``scale``, to
+// the f32 rows ``row_g`` and ``row_g8`` at their columns ``col0`` + 0..127;
+// columns at or beyond ``cols`` are skipped.
+__device__ __forceinline__ void store_rows_f32(float* row_g, float* row_g8, const float (&d)[64],
+                                               float scale, int col0, int cols, int q) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = col0 + 8 * j + 2 * q;
+    if (c >= cols) continue;
+    *reinterpret_cast<float2*>(row_g + c) = make_float2(d[4 * j] * scale, d[4 * j + 1] * scale);
+    *reinterpret_cast<float2*>(row_g8 + c) = make_float2(d[4 * j + 2] * scale, d[4 * j + 3] * scale);
   }
 }
 

@@ -73,6 +73,8 @@ class DCP(nn.Module):
             raise ValueError(f"unknown head: {cfg.head}")
         if cfg.dropout > 0 or cfg.remat or cfg.t3d or cfg.tfea:
             raise NotImplementedError("not ported yet: dropout, remat, t3d, tfea")
+        if cfg.int8_eval and cfg.compute_dtype == "bfloat16":
+            raise NotImplementedError("not ported yet: int8_eval")
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = compute_dtype(cfg)

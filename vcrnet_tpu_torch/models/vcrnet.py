@@ -56,6 +56,8 @@ def check_supported(cfg: Config) -> None:
         "tfea": cfg.tfea,
         "dropout": cfg.dropout > 0,
         "remat": cfg.remat,
+        # the JAX package quantizes the pointer projections only in bf16
+        "int8_eval": cfg.int8_eval and cfg.compute_dtype == "bfloat16",
     }
     bad = [name for name, is_bad in unsupported.items() if is_bad]
     if bad:

@@ -35,8 +35,15 @@ def streaming_soft_correspondence_ref(src_emb, tgt_emb, tgt, return_lse: bool = 
     return (corr, torch.logsumexp(s, dim=-1)) if return_lse else corr
 
 
+# Both kernels cut their rows and tiles into eight [64, 64] boxes at most,
+# and the backward splits its [64, E] f32 accumulator between two
+# warpgroups' registers: E <= 512 (ROADMAP C, "VCP kernels' gate").
+MAX_E = 512
+
+
 def streaming_supported(ns: int, nt: int, e: int) -> bool:
-    return ns % 64 == 0 and nt % 64 == 0 and e % 16 == 0
+    """Shapes the forward kernel takes: 64-row tiles, whole k16 steps."""
+    return ns % 64 == 0 and nt % 64 == 0 and e % 16 == 0 and e <= MAX_E
 
 
 def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = False):
@@ -52,23 +59,22 @@ def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = Fals
     check_tensor("src_emb", src_emb, torch.bfloat16, (B, ns, e))
     check_tensor("tgt_emb", tgt_emb, torch.bfloat16, (B, nt, e))
     check_tensor("tgt", tgt, torch.float32, (B, nt, 3))
-    norms = upcast(tgt_emb).square().sum(-1)
-    out = torch.empty((B, ns, 3), dtype=torch.float32, device=tgt.device)
-    lse = torch.empty((B, ns), dtype=torch.float32, device=tgt.device) if return_lse else None
-    _build.extension().vcp_stream(src_emb, tgt_emb, norms, tgt, out, lse)
+    f32 = torch.float32
+    keys = torch.empty((B, nt, 4), dtype=f32, device=tgt.device)  # x, y, z, |f|^2
+    out = torch.empty((B, ns, 3), dtype=f32, device=tgt.device)
+    lse = torch.empty((B, ns), dtype=f32, device=tgt.device) if return_lse else None
+    _build.extension().vcp_stream(src_emb, tgt_emb, tgt, keys, out, lse)
     streaming_soft_correspondence.launches += 1
     return (out, lse) if return_lse else out
 
 
 streaming_soft_correspondence.launches = 0
 
-VJP_MAX_E = 512  # vcp_bwd.cu keeps a [16, E] f32 accumulator per warp in shared memory
-
 
 def streaming_vjp_supported(ns: int, nt: int, e: int) -> bool:
     """Shapes the backward kernel takes (the counterpart of the TPU's VMEM
-    gate pallas_vcp.py:streaming_vjp_supported)."""
-    return streaming_supported(ns, nt, e) and e <= VJP_MAX_E
+    gate pallas_vcp.py:streaming_vjp_supported): the forward's."""
+    return streaming_supported(ns, nt, e)
 
 
 def vcp_bwd_ref(src_emb, tgt_emb, tgt, corr, lse, dcorr):
@@ -105,11 +111,12 @@ def vcp_bwd(src_emb, tgt_emb, tgt, corr, lse, dcorr):
         check_tensor(name, t, torch.float32, (B, ns, 3))
     check_tensor("lse", lse, torch.float32, (B, ns))
     f32 = torch.float32
-    norms = upcast(tgt_emb).square().sum(-1)
+    keys = torch.empty((B, nt, 4), dtype=f32, device=tgt.device)  # x, y, z, |f|^2
+    rows = torch.empty((B, ns, 4), dtype=f32, device=tgt.device)  # g, g . corr
     d_src = torch.empty((B, ns, e), dtype=f32, device=tgt.device)
     d_tgt_emb = torch.empty((B, nt, e), dtype=f32, device=tgt.device)
     d_tgt = torch.empty((B, nt, 3), dtype=f32, device=tgt.device)
-    _build.extension().vcp_bwd(src_emb, tgt_emb, norms, tgt, corr, dcorr, lse, d_src,
+    _build.extension().vcp_bwd(src_emb, tgt_emb, tgt, corr, dcorr, lse, keys, rows, d_src,
                                d_tgt_emb, d_tgt)
     vcp_bwd.launches += 1
     return d_src, d_tgt_emb, d_tgt
