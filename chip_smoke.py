@@ -7,8 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build   compile the port's CUDA extension from csrc/ (sm_90a) and print
            the build time, the registers and spills of the soft-correspondence
-           kernels (nvcc -Xptxas -v; a spill fails) and the card's name and
-           power limit;
+           and edge-conv kernels (nvcc -Xptxas -v; a spill fails) and the
+           card's name and power limit;
 2. kernels run each hand-written forward kernel against its plain PyTorch
            version on the card at the serving shapes (B = 8 and 64,
            N = 1024; the column masses and attention with a valid-key count
@@ -64,7 +64,10 @@ their tiling: the forward (output and logsumexp) at Nq % 128 == 64, one key
 tile, one valid key, valid keys ending at and inside a tile, B = 1; the
 backward at Nq != Nk and at Nq = Nk = 320; and the soft-correspondence
 kernels (forward with lse, then backward) at B = 1, at Ns = Nt = 320 and
-at Ns != Nt (512 and 1024 both ways).
+at Ns != Nt (512 and 1024 both ways); and the edge-conv kernels (the
+forward with and without winners, edge_conv_from_idx on its idx, the
+backward from them) at B = 1, at N = 512, 768 and 3072, at C = 32 and 128
+and with the slope 0.2.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -119,9 +122,15 @@ def cuda_time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float):
+def bound_ms(nbytes: float, flops, peak_flops: float | None = None):
+    """The larger of the bytes' and the operations' least times, in ms.
+
+    ``flops`` is a count of operations at ``peak_flops``, or, without it,
+    pairs (count, peak) of work done at different rates.
+    """
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    work = flops if peak_flops is None else [(flops, peak_flops)]
+    t_ops = sum(f / p for f, p in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -258,6 +267,11 @@ FLASH_EDGE_SHAPES = ((2, 320, 320, None), (2, 128, 64, None), (2, 192, 192, 1),
                      (2, 192, 192, 128), (2, 192, 192, 100), (1, N, N, None))
 # (B, Nq, Nk) of the backward's edge cases: Nq != Nk, and both % 128 == 64
 FLASH_BWD_EDGE_SHAPES = ((8, 1024, 768), (2, 320, 320))
+# (B, N, C, slope) of the edge-conv kernels' edge cases: one batch item, the
+# other point counts of the served paths (512, 768, 3072), the other kNN
+# widths the wrapper takes (32, 128), and the LPD pretraining slope
+EDGE_CONV_EDGE_SHAPES = ((1, N, 64, 0.0), (8, 512, 32, 0.0), (8, 768, 128, 0.0),
+                         (2, 3072, 64, 0.2))
 # (B, Ns, Nt) of the soft-correspondence kernels' edge cases: one batch item,
 # Ns % 128 == 64 (the forward's last block has a warpgroup without rows),
 # and Ns != Nt both ways
@@ -340,8 +354,7 @@ def phase_eval_kernels(dev):
 
     # every kernel again at the other sizes the served paths give it: 512
     # points (iterations 2+ on a subsample), 768 (the partial crop of 1024)
-    # and 3072 (of 4093, where the edge conv's score tile takes 192 KB of its
-    # block's shared memory), with the tolerances above
+    # and 3072 (of 4093), with the tolerances above
     for n, B in PATH_SHAPES:
         x = torch.rand(B, n, 3, generator=g, device=dev) * 2 - 1
         values = randn(B, n, 256, dtype=bf16)
@@ -552,8 +565,11 @@ def phase_backward(dev):
         check(errs[0] <= 2 ** -7 and max(errs[1:]) <= 1e-4,
               f"edge_conv_bwd B={B2}: relative errors (da, dh, dW2, db2) {errs}")
         err = max((gv - wv).abs().max().item() for gv, wv in zip(got, want))
-        flops = B2 * N * (4 * 128 * 128 + 4 * K * 128)
-        b, by = bound_ms(nbytes(*args, *got), flops, F32_FLOPS)
+        # dz = bf16(dp) W2^T runs on the tensor cores at the bf16 rate; dW2,
+        # db2 and the elementwise work stay in f32
+        work = [(B2 * N * 2 * 128 * 128, BF16_TENSOR_FLOPS),
+                (B2 * N * (2 * 128 * 128 + 4 * K * 128), F32_FLOPS)]
+        b, by = bound_ms(nbytes(*args, *got), work)
         rows.setdefault("edge_conv_bwd", []).append(timed(
             dict(B=B2, rel_errs=errs, x2_winners_agree=w2_agree, max_abs_err=err,
                  bound_ms=b, bound_by=by),
@@ -659,6 +675,55 @@ def phase_backward(dev):
         check(max(errs) <= 1e-2, f"vcp_bwd {what}: relative errors (de, df, dtgt) {errs}")
         rows.setdefault("vcp_bwd_edge", []).append(dict(
             B=B, Ns=ns, Nt=nt, rel_errs=errs,
+            max_abs_err=max((gv - wv).abs().max().item() for gv, wv in zip(got, want))))
+    # --- the edge-conv kernels at the edges of their tiling: the forward
+    # with and without winners against the plain version, edge_conv_from_idx
+    # on its idx, and the backward from them, with the tolerances above
+    for B, n, c, slope in EDGE_CONV_EDGE_SHAPES:
+        xf = randn(B, n, c, dtype=bf16)
+        a = randn(B, n, 128, scale=0.5, dtype=bf16)
+        h = randn(B, n, 128, scale=0.5, dtype=bf16)
+        w2 = randn(128, 128, scale=128 ** -0.5, dtype=bf16)
+        b2 = randn(128, scale=0.1, dtype=bf16)
+        what = f"B={B} N={n} C={c} slope={slope}"
+        x1, x2, idx = edgeconv.fused_edge_conv(xf, a, h, w2, b2, K, slope)
+        t1, t2, t_idx, win1, win2 = edgeconv.fused_edge_conv(xf, a, h, w2, b2, K, slope,
+                                                             winners=True)
+        f1, f2 = edgeconv.edge_conv_from_idx(idx, a, h, w2, b2, slope)
+        torch.cuda.synchronize()
+        _, _, ref_idx = edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K, slope)
+        r1, r2, _, rw1, rw2 = edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K, slope, idx=idx,
+                                                           winners=True)
+        agree = same_rows(idx, ref_idx)
+        err = max((x1.float() - r1.float()).abs().max().item(),
+                  (x2.float() - r2.float()).abs().max().item())
+        check(agree >= KNN_ROW_AGREEMENT, f"edge_conv {what}: rows agree {agree}")
+        check(err <= 2e-2, f"edge_conv {what}: max abs err {err} > 2e-2")
+        check(torch.equal(t_idx, idx) and torch.equal(t1, x1) and torch.equal(t2, x2),
+              f"edge_conv {what}: the forward with winners differs from the one without")
+        check(torch.equal(win1, rw1), f"edge_conv {what}: x1 winners differ from plain")
+        w2_agree = (win2 == rw2).float().mean().item()
+        check(w2_agree >= 0.99, f"edge_conv {what}: x2 winners agree on {w2_agree}")
+        f2_rel = rel_err(f2, x2)
+        check(torch.equal(f1, x1) and f2_rel <= 2 ** -7,
+              f"edge_conv_from_idx {what}: differs from edge_conv on its idx (x2 {f2_rel})")
+        rows.setdefault("edge_conv_edge", []).append(dict(
+            B=B, N=n, C=c, slope=slope, rows_agree=agree, x2_winners_agree=w2_agree,
+            max_abs_err=err))
+        rows.setdefault("edge_conv_from_idx_edge", []).append(dict(
+            B=B, N=n, C=c, slope=slope, x2_rel_vs_fused=f2_rel,
+            max_abs_err=max((f1.float() - r1.float()).abs().max().item(),
+                            (f2.float() - r2.float()).abs().max().item())))
+        ct1, ct2 = randn(B, n, 128, dtype=bf16), randn(B, n, 128, dtype=bf16)
+        args = (idx, win1, win2, a, h, w2, x2, ct1, ct2, slope)
+        got = edgeconv.edge_conv_bwd(*args)
+        torch.cuda.synchronize()
+        want = edgeconv.edge_conv_bwd_ref(*args)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(errs[0] <= 2 ** -7 and max(errs[1:]) <= 1e-4,
+              f"edge_conv_bwd {what}: relative errors (da, dh, dW2, db2) {errs}")
+        rows.setdefault("edge_conv_bwd_edge", []).append(dict(
+            B=B, N=n, slope=slope, rel_errs=errs,
             max_abs_err=max((gv - wv).abs().max().item() for gv, wv in zip(got, want))))
     print_rows(rows)
     return rows
@@ -1595,7 +1660,8 @@ def phase_fused_pointer():
 
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
-PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu")
+PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
+                  "edge_conv_bwd.cu")
 
 
 def start_ptxas_reports() -> dict:
@@ -1617,14 +1683,16 @@ def print_ptxas_reports(procs: dict) -> None:
     for src, proc in procs.items():
         out, _ = proc.communicate(timeout=900)
         check(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed:\n{out}")
-        kernels = re.findall(r"Compiling entry function '[^']*?\d+([a-z][a-z_]*_kernel)[^']*'.*?"
-                             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        kernels = re.findall(r"Compiling entry function '[^']*?\d+([a-z][a-z_]*_kernel)(I[^']*?E)?E"
+                             r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
                              r"Used (\d+) registers", out, re.S)
-        report = "; ".join(f"{name} {regs} registers, spills {st}/{ld} bytes"
-                           for name, st, ld, regs in kernels)
+        # a template's arguments as they are mangled (ILi64ELb1E: <64, true>)
+        report = "; ".join(f"{name}{args.replace('ILi', '<').replace('ELb', ',').rstrip('E')}"
+                           f"{'>' if args else ''} {regs} registers, spills {st}/{ld} bytes"
+                           for name, args, st, ld, regs in kernels)
         print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}",
               flush=True)
-        spills = [int(n) for _, st, ld, _ in kernels for n in (st, ld)]
+        spills = [int(n) for _, _, st, ld, _ in kernels for n in (st, ld)]
         check(kernels and not any(spills), f"{src}: the kernels spill registers ({spills} bytes)")
 
 

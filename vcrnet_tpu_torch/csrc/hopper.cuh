@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the attention kernels (flash_packed.cu,
-// flash_bwd.cu) and the soft-correspondence kernels (vcp_stream.cu,
-// vcp_bwd.cu): TMA tensor maps and loads, mbarriers, named barriers,
-// register rebalancing, wgmma descriptors, the wgmma shapes they use and
-// the fences around them, the two tile products built from those shapes,
-// and the stores of an accumulator's rows.
+// flash_bwd.cu), the soft-correspondence kernels (vcp_stream.cu,
+// vcp_bwd.cu) and the edge-conv kernels (edge_conv.cu, edge_conv_from_idx.cu
+// through edge_tile.cuh, edge_conv_bwd.cu): TMA tensor maps and loads,
+// cp.async copies into swizzled boxes, mbarriers, named barriers, register
+// rebalancing, wgmma descriptors, the wgmma shapes they use and the fences
+// around them, the two tile products built from those shapes, the stores of
+// an accumulator's rows and a vector reduction into device memory.
 //
 // Tiles. Every operand tile is a TMA box of [64 rows, 64 bf16 columns]
 // (128 bytes a row) loaded with the 128-byte swizzle, so one head's 128
@@ -143,6 +145,54 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, 
       : "memory");
 }
 
+// Byte offset of 16-byte chunk ``chunk`` (0..7) of row ``row`` inside a
+// 128-byte-swizzled region whose rows are 128 bytes: the layout a TMA box
+// with the 128-byte swizzle has, for kernels that fill boxes themselves.
+__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers (cp.async, L2 only); a group of them completes by
+// cp_async_wait<n> (all but the newest n committed groups). Its writes are
+// ordinary ones: fence_proxy_async before wgmma reads them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// The same for 4 bytes (cp.async.ca: through L1).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (ldmatrix .x4): lanes 8m ..
+// 8m + 7 give the 16-byte rows of matrix m, and register m of lane (g, q)
+// receives row g, columns 2q and 2q + 1 of it. With matrices (rows 0-7,
+// k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) of
+// a warp's 16 rows this is the A fragment of an m64 k16 step.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// p[0..3] += v, as one vector reduction (sm_90; p 16-byte aligned). The
+// additions of concurrent reductions to one address land in no set order.
+__device__ __forceinline__ void red_add_v4(float* p, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(a), "f"(b), "f"(c),
+               "f"(d)
+               : "memory");
+}
+
 // Orders this thread's ordinary shared-memory writes before later reads by
 // the asynchronous proxy (wgmma operands, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -174,6 +224,13 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes
 // 0..31 for a [64, 512] embedding tile (eight boxes).
 __device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* tile, int kk) {
   return desc_sw128(tile + (kk >> 2) * kBox * kBox + (kk & 3) * 16, 0, 1024);
+}
+
+// k16 step ``kk`` of a K-major operand of ``rows`` rows (a multiple of 8)
+// held as [rows, 64] regions one after the other, four steps a region: the
+// B operand of an n = rows product (desc_k_major is rows = 64).
+__device__ __forceinline__ uint64_t desc_k_major_rows(const __nv_bfloat16* tile, int kk, int rows) {
+  return desc_sw128(tile + (kk >> 2) * rows * kBox + (kk & 3) * 16, 0, 1024);
 }
 
 // k16 step ``kk`` (0..3) of an MN-major [64 (k), 128 (n)] B operand held as
@@ -276,11 +333,15 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
-// d[64 x 128] += A[64 x 16] . B[16 x 128]: A from registers (a bf16x2
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128]: A from registers (a bf16x2
 // fragment, a[0..3]: rows g and g + 8, k columns 2q.. and 2q + 8..), B from
-// shared memory read MN-major (trans-b = 1); f32 accumulate.
+// shared memory read MN-major (kTransB = 1) or K-major (kTransB = 0: B's 128
+// columns are the rows of the operand tile, the contraction runs along
+// them); f32 accumulate; ``accumulate`` = 0 overwrites d.
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, uint32_t a1,
-                                                 uint32_t a2, uint32_t a3, uint64_t desc_b) {
+                                                 uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -290,7 +351,7 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, ui
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
       "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "
-      "1, 1, 1;\n"
+      "1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -303,7 +364,8 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
 }
 
 // Two f32 values as one bf16x2 register, the first in the low half (the
@@ -311,6 +373,11 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0, ui
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The inverse: a bf16x2 register as two f32 values (low half first).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // ---- the accumulator layout of wgmma m64nN (f32), per thread of the

@@ -44,12 +44,28 @@ from vcrnet_tpu_torch.ops._common import (
 from vcrnet_tpu_torch.ops.graph import gather_neighbors
 
 
-EDGE_CONV_MAX_N = 3408  # the [16, N] f32 score tile must fit a block's shared memory
-
-
 def _check_k(k: int, n: int) -> None:
     if not 0 < k <= 32 or k >= n:
         raise ValueError(f"k={k} must be in [1, 32] and below N={n}")
+
+
+def edge_conv_supported(n: int, c: int, k: int) -> bool:
+    """The gate of the ``edge_conv`` kernel: blocks of 64 queries of one
+    cloud over 64-key tiles (N % 64 == 0; shared memory does not grow with
+    N), kNN width C in (32, 64, 128), 0 < k <= 32 and k < N."""
+    return c in (32, 64, 128) and n % 64 == 0 and 0 < k <= 32 and k < n
+
+
+def edge_conv_from_idx_supported(n: int, k: int) -> bool:
+    """The gate of the ``edge_conv_from_idx`` kernel: tiles of two query
+    rows of the flattened [B*N] (N % 16 == 0) and 0 < k <= 32."""
+    return n % 16 == 0 and 0 < k <= 32
+
+
+def edge_conv_bwd_supported(n: int, k: int) -> bool:
+    """The gate of the ``edge_conv_bwd`` kernel: rounds of four query rows
+    of the flattened [B*N] (N % 16 == 0), 0 < k <= 32 and k < N."""
+    return n % 16 == 0 and 0 < k <= 32 and k < n
 
 
 def _max_and_winner(v: torch.Tensor):
@@ -225,23 +241,21 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     """x [B, N, C] (the kNN space), a/h [B, N, F], w2 [F, F] (in, out),
     b2 [F] -> (x1, x2 [B, N, F] in a's dtype, idx [B, N, k] int32[, win1,
     win2 [B, N, F] uint8 with ``winners``]). The kernel takes bf16
-    throughout, C in {32, 64, 128}, F = 128, N % 16 == 0 and N <=
-    :data:`EDGE_CONV_MAX_N`."""
+    throughout, F = 128 and the shapes :func:`edge_conv_supported` takes."""
     if not kernel_route(x, a, h, w2, b2):
         return fused_edge_conv_ref(x, a, h, w2, b2, k, negative_slope, winners=winners)
     B, N, C = x.shape
     bf16 = torch.bfloat16
-    if C not in (32, 64, 128) or N % 16 or N > EDGE_CONV_MAX_N:
+    if not edge_conv_supported(N, C, k):
         raise ValueError(
-            f"edge_conv kernel takes C in (32, 64, 128), N % 16 == 0 and "
-            f"N <= {EDGE_CONV_MAX_N}, got C={C} N={N}"
+            f"edge_conv kernel takes C in (32, 64, 128), N % 64 == 0 and k in [1, 32] "
+            f"below N, got C={C} N={N} k={k}"
         )
     check_tensor("x", x, bf16, (B, N, C))
     for name, t in (("a", a), ("h", h)):
         check_tensor(name, t, bf16, (B, N, 128))
     check_tensor("w2", w2, bf16, (128, 128))
     check_tensor("b2", b2, bf16, (128,))
-    _check_k(k, N)
     norms = x.float().square().sum(-1)
     x1 = torch.empty_like(a)
     x2 = torch.empty_like(a)
@@ -269,15 +283,15 @@ def edge_conv_from_idx(idx, a, h, w2, b2, negative_slope: float = 0.0):
     """idx [B, N, k] int32 with entries in [0, N), a/h [B, N, F], w2 [F, F]
     (in, out), b2 [F] -> (x1, x2 [B, N, F] in a's dtype): the DG block over
     the given selection. Eval only: it has no backward and raises where a
-    gradient is wanted. The kernel takes bf16 throughout, F = 128,
-    N % 16 == 0 and k <= 32."""
+    gradient is wanted. The kernel takes bf16 throughout, F = 128 and the
+    shapes :func:`edge_conv_from_idx_supported` takes."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a, h, w2, b2)):
         raise RuntimeError("edge_conv_from_idx has no backward; call it under torch.no_grad()")
     if not kernel_route(idx, a, h, w2, b2):
         return edge_conv_from_idx_ref(idx, a, h, w2, b2, negative_slope)
     B, N, k = idx.shape
     bf16 = torch.bfloat16
-    if N % 16 or not 0 < k <= 32:
+    if not edge_conv_from_idx_supported(N, k):
         raise ValueError(
             f"edge_conv_from_idx kernel takes N % 16 == 0 and k in [1, 32], got N={N} k={k}"
         )
@@ -326,7 +340,8 @@ def edge_conv_bwd(idx, win1, win2, a, h, w2, x2, ct1, ct2, negative_slope: float
     """Backward of the DG block from the forward's saved idx and winners:
     idx [B, N, k] int32, win1/win2 [B, N, F] uint8, a/h/x2/ct1/ct2 [B, N, F],
     w2 [F, F] -> (da, dh [B, N, F], dW2 [F, F], db2 [F]), all f32. The kernel
-    takes bf16 with F = 128 and k <= 32."""
+    takes bf16 with F = 128 and the shapes :func:`edge_conv_bwd_supported`
+    takes."""
     if not kernel_route(idx, win1, win2, a, h, w2, x2, ct1, ct2):
         return edge_conv_bwd_ref(idx, win1, win2, a, h, w2, x2, ct1, ct2, negative_slope)
     B, N, k = idx.shape
@@ -337,7 +352,10 @@ def edge_conv_bwd(idx, win1, win2, a, h, w2, x2, ct1, ct2, negative_slope: float
     for name, t in (("a", a), ("h", h), ("x2", x2), ("ct1", ct1), ("ct2", ct2)):
         check_tensor(name, t, bf16, (B, N, 128))
     check_tensor("w2", w2, bf16, (128, 128))
-    _check_k(k, N)
+    if not edge_conv_bwd_supported(N, k):
+        raise ValueError(
+            f"edge_conv_bwd kernel takes N % 16 == 0 and k in [1, 32] below N, got N={N} k={k}"
+        )
     dev = idx.device
     f32 = torch.float32
     da = torch.zeros((B, N, 128), dtype=f32, device=dev)
