@@ -6,9 +6,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. build   compile the port's CUDA extension from csrc/ (sm_90a) and print
-           the build time, the registers and spills of the soft-correspondence
-           and edge-conv kernels (nvcc -Xptxas -v; a spill fails) and the
-           card's name and power limit;
+           the build time, the registers and spills of the soft-correspondence,
+           edge-conv and SN-block kernels (nvcc -Xptxas -v; a spill fails) and
+           the card's name and power limit;
 2. kernels run each hand-written forward kernel against its plain PyTorch
            version on the card at the serving shapes (B = 8 and 64,
            N = 1024; the column masses and attention with a valid-key count
@@ -67,7 +67,11 @@ kernels (forward with lse, then backward) at B = 1, at Ns = Nt = 320 and
 at Ns != Nt (512 and 1024 both ways); and the edge-conv kernels (the
 forward with and without winners, edge_conv_from_idx on its idx, the
 backward from them) at B = 1, at N = 512, 768 and 3072, at C = 32 and 128
-and with the slope 0.2.
+and with the slope 0.2; and the SN-block kernels (knn_gather_max with knn
+on the same xyz, whose idx must equal it bit for bit, and
+gather_max_from_idx) at N = 512, 768, 1024 and 3072 and on a cloud of
+duplicate points, and gather_max_bwd at N = 1024 and 3072 into a dv filled
+with NaN.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -147,7 +151,7 @@ def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
 
-    from vcrnet_tpu_torch.ops import attention, edgeconv, vcp
+    from vcrnet_tpu_torch.ops import attention, edgeconv, knn, vcp
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -161,6 +165,7 @@ def phase_kernels(dev):
         x = torch.rand(B, N, 3, generator=g, device=dev) * 2 - 1
         values = randn(B, N, 256, dtype=bf16)
         out, idx = edgeconv.fused_knn_gather_max(x, values, K)
+        knn_idx = knn.fused_knn(x, K)
         torch.cuda.synchronize()
         _, ref_idx = edgeconv.fused_knn_gather_max_ref(x, values, K)
         ref_out, _ = edgeconv.fused_knn_gather_max_ref(x, values, K, idx=idx)
@@ -168,6 +173,7 @@ def phase_kernels(dev):
         err = (out.float() - ref_out.float()).abs().max().item()
         check(agree >= KNN_ROW_AGREEMENT, f"knn_gather_max B={B}: rows agree {agree}")
         check(err == 0.0, f"knn_gather_max B={B}: gather-max not exact ({err})")
+        check(torch.equal(knn_idx, idx), f"knn B={B}: differs from knn_gather_max's idx")
         b, by = bound_ms(nbytes(x, values, out, idx), B * N * N * (2 * 3 + 2), F32_FLOPS)
         rows.setdefault("knn_gather_max", []).append(dict(
             B=B, rows_agree=agree, max_abs_err=err, bound_ms=b, bound_by=by,
@@ -299,7 +305,7 @@ def phase_eval_kernels(dev):
     with the same tolerances."""
     import torch
 
-    from vcrnet_tpu_torch.ops import attention, colmass, edgeconv, vcp
+    from vcrnet_tpu_torch.ops import attention, colmass, edgeconv, knn, vcp
 
     g = torch.Generator(device=dev).manual_seed(2)
 
@@ -360,6 +366,7 @@ def phase_eval_kernels(dev):
         values = randn(B, n, 256, dtype=bf16)
         fused_out, idx = edgeconv.fused_knn_gather_max(x, values, K)
         out, win = edgeconv.fused_gather_max_from_idx(idx, values, winners=True)
+        knn_idx = knn.fused_knn(x, K)
         torch.cuda.synchronize()
         agree = same_rows(idx, edgeconv.fused_knn_gather_max_ref(x, values, K)[1])
         ref_out, _, ref_win = edgeconv.fused_knn_gather_max_ref(None, values, idx=idx, winners=True)
@@ -367,9 +374,13 @@ def phase_eval_kernels(dev):
         check(torch.equal(fused_out, ref_out), f"knn_gather_max N={n}: gather-max not exact")
         check(torch.equal(out, ref_out) and torch.equal(win, ref_win),
               f"gather_max_from_idx N={n}: differs from plain")
+        check(torch.equal(knn_idx, idx), f"knn N={n}: differs from knn_gather_max's idx")
         rows.setdefault("knn_gather_max_path_shapes", []).append(dict(
-            B=B, N=n, rows_agree=agree, max_abs_err=0.0,
+            B=B, N=n, rows_agree=agree, max_abs_err=0.0, equals_knn=True,
             ms=cuda_time_ms(lambda: edgeconv.fused_knn_gather_max(x, values, K))))
+        rows.setdefault("knn_path_shapes", []).append(dict(
+            B=B, N=n, max_abs_err=0.0, equals_knn_gather_max=True,
+            ms=cuda_time_ms(lambda: knn.fused_knn(x, K))))
         rows.setdefault("gather_max_from_idx_path_shapes", []).append(dict(
             B=B, N=n, max_abs_err=0.0, equals_fused=True,
             ms=cuda_time_ms(lambda: edgeconv.fused_gather_max_from_idx(idx, values))))
@@ -493,6 +504,62 @@ def rel_err(got, want) -> float:
     """max |got - want| over max |want|."""
     scale = want.float().abs().max().clamp_min(1e-30)
     return ((got.float() - want.float()).abs().max() / scale).item()
+
+
+def phase_sn_kernels(dev):
+    """The SN-block kernels where their selection and scatter are hardest:
+    a cloud of duplicate points (every point twice: exact ties of score, and
+    each point's twin its nearest neighbour) at B = 8, N = 1024, where
+    knn_gather_max's gather-max and winners equal the plain version's on its
+    idx, its rows agree with the plain selection on >= 99.5%, each row
+    starts with the twin, and knn's idx equals it bit for bit; and
+    gather_max_bwd at 2B = 128, N = 1024 (slices of 32 channels) and at
+    2B = 16, N = 3072 (slices of 16), within 1e-5 of the plain version
+    (shared-memory atomics reorder sums of a few bf16 terms), written by the
+    kernel into a dv filled with NaN first: it must write every element."""
+    import torch
+
+    from vcrnet_tpu_torch.ops import _build, edgeconv, knn
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf16 = torch.bfloat16
+    rows = {}
+    B = 8
+    half = torch.rand(B, N // 2, 3, generator=g, device=dev) * 2 - 1
+    x = half.repeat_interleave(2, dim=1).contiguous()
+    values = torch.randn(B, N, 256, generator=g, device=dev).to(bf16)
+    out, idx, win = edgeconv.fused_knn_gather_max(x, values, K, winners=True)
+    knn_idx = knn.fused_knn(x, K)
+    torch.cuda.synchronize()
+    ref_out, _, ref_win = edgeconv.fused_knn_gather_max_ref(None, values, idx=idx, winners=True)
+    agree = same_rows(idx, edgeconv.fused_knn_gather_max_ref(x, values, K)[1])
+    twin_first = (idx[..., 0] == torch.arange(N, device=dev) ^ 1).float().mean().item()
+    check(torch.equal(out, ref_out) and torch.equal(win, ref_win),
+          "knn_gather_max on duplicate points: differs from the plain version on its idx")
+    check(agree >= KNN_ROW_AGREEMENT, f"knn_gather_max on duplicate points: rows agree {agree}")
+    check(twin_first == 1.0, f"knn_gather_max on duplicate points: twin first in {twin_first}")
+    check(torch.equal(knn_idx, idx), "knn on duplicate points: differs from knn_gather_max's idx")
+    rows["knn_gather_max_edge"] = [dict(B=B, N=N, duplicates=True, rows_agree=agree,
+                                        twin_first=twin_first, max_abs_err=0.0)]
+    rows["knn_edge"] = [dict(B=B, N=N, duplicates=True, equals_knn_gather_max=True,
+                             max_abs_err=0.0)]
+
+    for B2, n in ((2 * BATCHES[-1], N), (2 * LARGE_BATCHES[-1], N_LARGE)):
+        x = torch.rand(B2, n, 3, generator=g, device=dev) * 2 - 1
+        values = torch.randn(B2, n, 256, generator=g, device=dev).to(bf16)
+        _, idx, win = edgeconv.fused_knn_gather_max(x, values, K, winners=True)
+        ct = torch.randn(B2, n, 256, generator=g, device=dev).to(bf16)
+        dv = torch.full((B2, n, 256), float("nan"), device=dev)
+        _build.extension().gather_max_bwd(idx, win, ct, dv)
+        torch.cuda.synchronize()
+        err = (dv - edgeconv.gather_max_bwd_ref(idx, win, ct)).abs().max().item()
+        check(err <= 1e-5, f"gather_max_bwd B={B2} N={n}: max abs err {err} > 1e-5 "
+                           "(NaN: an element left unwritten)")
+        rows.setdefault("gather_max_bwd_edge", []).append(dict(
+            B=B2, N=n, max_abs_err=err, nan_filled=True,
+            ms=cuda_time_ms(lambda: edgeconv.gather_max_bwd(idx, win, ct))))
+    print_rows(rows)
+    return rows
 
 
 def phase_backward(dev):
@@ -1375,6 +1442,11 @@ def phase_family_kernels(dev):
     idx = knn.fused_knn(x[:, :1024].contiguous(), K)
     refused = {
         "knn k > 32": lambda: knn.fused_knn(x, 33),
+        "knn_gather_max F % 8": lambda: edgeconv.fused_knn_gather_max(
+            x[:, :1024].contiguous(), randn(2, 1024, 12, dtype=bf16), K),
+        "gather_max_bwd N > 7264": lambda: edgeconv.gather_max_bwd(
+            idx.new_zeros(1, 8192, K), torch.zeros(1, 8192, 8, dtype=torch.uint8, device=dev),
+            torch.zeros(1, 8192, 8, dtype=bf16, device=dev)),
         "DGCNN module, kernel route, N % 16": module_on_ragged,
         "dgcnn_eval N % 16": lambda: dgcnn.fused_dgcnn_eval(
             x[:, :1000].contiguous(), idx[:, :1000].contiguous(), folded, emb),
@@ -1661,7 +1733,10 @@ def phase_fused_pointer():
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
-                  "edge_conv_bwd.cu")
+                  "edge_conv_bwd.cu", "knn_gather_max.cu", "knn.cu", "gather_max_from_idx.cu",
+                  "gather_max_bwd.cu")
+# template arguments of the kernels as ptxas names them, mangled
+TEMPLATE_ARGS = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>"}
 
 
 def start_ptxas_reports() -> dict:
@@ -1687,9 +1762,10 @@ def print_ptxas_reports(procs: dict) -> None:
                              r"[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
                              r"Used (\d+) registers", out, re.S)
         # a template's arguments as they are mangled (ILi64ELb1E: <64, true>)
-        report = "; ".join(f"{name}{args.replace('ILi', '<').replace('ELb', ',').rstrip('E')}"
-                           f"{'>' if args else ''} {regs} registers, spills {st}/{ld} bytes"
-                           for name, args, st, ld, regs in kernels)
+        report = "; ".join(
+            f"{name}{TEMPLATE_ARGS.get(args) or args.replace('ILi', '<').replace('ELb', ',').rstrip('E')}"
+            f"{'>' if args and args not in TEMPLATE_ARGS else ''} {regs} registers, "
+            f"spills {st}/{ld} bytes" for name, args, st, ld, regs in kernels)
         print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}",
               flush=True)
         spills = [int(n) for _, _, st, ld, _ in kernels for n in (st, ld)]
@@ -1734,6 +1810,7 @@ def main() -> int:
         if name == "kernels":
             rows.update(phase_kernels(dev))
             rows.update(phase_eval_kernels(dev))
+            rows.update(phase_sn_kernels(dev))
             rows.update(phase_family_kernels(dev))
         elif name == "backward":
             rows.update(phase_backward(dev))

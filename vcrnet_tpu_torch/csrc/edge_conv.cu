@@ -26,21 +26,12 @@
 //     staging area.
 //   * Selection, in two passes over the key tiles (the scores of the
 //     second are computed again: at C = 64 a tile's product is four
-//     wgmma steps) with the state in registers. A key is the order-
-//     preserving uint32 of the f32 score (zero made +0; NaN is already
-//     -inf) above the complement of the column, so one 64-bit comparison
-//     orders by score and then by the smaller column, as
-//     common.cuh:warp_select_topk compares, and the -inf diagonal stays
-//     selectable in its own order. Lane l of a warp sees columns l and
-//     l + 32 of every tile of its 16 queries. Pass 1 keeps each lane's two
-//     best keys per query; the k-th best of the warp's 64 is a threshold
-//     with at least k keys at or above it, so the row's k best are among
-//     them (a bitonic sort of the two runs and one merge find it). Pass 2
-//     inserts every key at or above the threshold into a list sorted
-//     across the lanes (lane r holds rank r): rank by a ballot, shift by
-//     one shuffle. Random rows insert about k + 1 keys a query (the
-//     threshold sits near the k-th key), and no pass scans a score row k
-//     times as warp_select_topk does.
+//     wgmma steps) with the state in registers, by topk.cuh (shared with
+//     knn_gather_max.cu and knn.cu): 64-bit keys of score and column, each
+//     lane's two best keys in pass 1, the k-th of the warp's 64 as the
+//     threshold, and insertion of the keys at or above it into a list
+//     ranked across the lanes in pass 2. Lane l of a warp sees columns l
+//     and l + 32 of every tile of its 16 queries.
 //   * The edge phase (edge_tile.cuh, shared with edge_conv_from_idx.cu):
 //     wgmma m64n128 on tiles of two queries, z in registers.
 // Shared memory per block (1024-aligned): the query rows 16384, the key
@@ -62,11 +53,13 @@
 // the first position on ties, as the Pallas kernel's emit_winners).
 // edge_conv_bwd.cu routes the gradient by them.
 #include "edge_tile.cuh"
+#include "topk.cuh"
 
 namespace {
 
 using namespace vcr::hopper;
 using namespace vcr::edge;
+using namespace vcr::topk;
 
 constexpr int kKeyTile = 64;
 constexpr int kStgStride = 72;  // floats a staged score row: 64 and 8 of padding
@@ -92,69 +85,6 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* __restrict__
   for (int t = threadIdx.x; t < 64 * kChunks; t += kThreads) {
     const int r = t / kChunks, c = t % kChunks;
     cp_async16(dst + (c >> 3) * kBoxBytes + sw128_offset(r, c & 7), src + r * C + c * 8);
-  }
-}
-
-// The selection key of score s at column j: larger key = ranks first.
-__device__ __forceinline__ uint64_t rank_key(float s, int j) {
-  if (s == 0.f) s = 0.f;  // -0 and +0 compare equal as floats
-  uint32_t u = __float_as_uint(s);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return static_cast<uint64_t>(u) << 32 | static_cast<uint32_t>(~j);
-}
-
-// Sort one key a lane across the warp (bitonic), descending (lane r gets
-// rank r) or ascending.
-__device__ __forceinline__ uint64_t warp_sort(uint64_t key, bool descending) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const uint64_t other = __shfl_xor_sync(vcr::kFullMask, key, stride);
-      const bool block_desc = size == 32 ? descending : (lane & size) == 0;
-      const bool keep_max = ((lane & stride) == 0) == block_desc;
-      key = keep_max ? (other > key ? other : key) : (other < key ? other : key);
-    }
-  return key;
-}
-
-// The k-th largest (k <= 32) of the warp's 64 keys m1, m2 (one pair a lane):
-// the top 32 of a descending and an ascending sorted run are their
-// lane-wise maxima, a bitonic sequence, which five steps sort.
-__device__ __forceinline__ uint64_t warp_kth_of_64(uint64_t m1, uint64_t m2, int k) {
-  const int lane = threadIdx.x & 31;
-  uint64_t key = warp_sort(m1, true);
-  const uint64_t asc = warp_sort(m2, false);
-  key = key > asc ? key : asc;
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    const uint64_t other = __shfl_xor_sync(vcr::kFullMask, key, stride);
-    key = ((lane & stride) == 0) == (other > key) ? other : key;
-  }
-  return __shfl_sync(vcr::kFullMask, key, k - 1);
-}
-
-// The lane's two best keys so far.
-__device__ __forceinline__ void keep_top2(uint64_t& m1, uint64_t& m2, uint64_t key) {
-  const bool first = key > m1;
-  m2 = first ? m1 : (key > m2 ? key : m2);
-  m1 = first ? key : m1;
-}
-
-// Insert each lane's key that is at least ``thr`` into the warp's sorted
-// list (lane r holds rank r), one at a time: rank by a ballot, shift by one
-// shuffle.
-__device__ __forceinline__ void insert_from(uint64_t& list, uint64_t key, uint64_t thr) {
-  const int lane = threadIdx.x & 31;
-  unsigned cand = __ballot_sync(vcr::kFullMask, key >= thr);
-  while (cand) {
-    const int src = __ffs(cand) - 1;
-    cand &= cand - 1;
-    const uint64_t x = __shfl_sync(vcr::kFullMask, key, src);
-    const int pos = __popc(__ballot_sync(vcr::kFullMask, list > x));
-    const uint64_t up = __shfl_up_sync(vcr::kFullMask, list, 1);
-    list = lane > pos ? up : (lane == pos ? x : list);
   }
 }
 

@@ -9,15 +9,16 @@
 //
 // Bound on the H100: operations (2 N (C + 1) f32 flops per query on the CUDA
 // cores against 4 C + 4k bytes per point). The design keeps the [N, N]
-// scores out of device memory: one warp per query builds the query's score
-// row in shared memory and selects from it by exact f32 comparison
-// (common.cuh:warp_select_topk). On f32 xyz (DGCNN's graph, the only input
-// the models send) the score stage is knn_scores.cuh:warp_xyz_score_row,
-// the device code knn_gather_max.cu runs, so this kernel returns that
-// kernel's selection bit for bit. Any other input (f32 or bf16, C <= 512)
-// takes a general path: the query row in shared memory, an f32
-// fused-multiply-add chain over C per key. The TPU kernel's packed-int32
-// selection is not copied.
+// scores out of device memory. On f32 xyz (DGCNN's graph, the only input
+// the models send) the kernel is knn_scores.cuh:block_xyz_topk, the scores
+// and two-pass selection that knn_gather_max.cu runs, without the gather,
+// so it returns that kernel's selection bit for bit; its shared memory
+// does not grow past 48 KB, so it takes any N. Any other input (f32 or
+// bf16, C <= 512) takes a general path: one warp per query writes the
+// query's score row to shared memory (an f32 fused-multiply-add chain over
+// C per key, the query row staged) and selects from it in k passes by
+// exact f32 comparison (common.cuh:warp_select_topk). The TPU kernel's
+// packed-int32 selection is not copied.
 #include "knn_scores.cuh"
 
 namespace {
@@ -37,21 +38,23 @@ __device__ __forceinline__ void select_and_store(const float* row, int n, int k,
   if (lane < k) qidx[lane] = sel[lane];
 }
 
-__global__ void knn_xyz_kernel(const float* __restrict__ x,      // [B, N, 3]
-                               const float* __restrict__ norms,  // [B, N]
-                               int* __restrict__ idx,            // [B, N, k]
-                               int n, int k) {
+__global__ void __launch_bounds__(vcr::knn::kThreads)
+knn_xyz_kernel(const float* __restrict__ x,      // [B, N, 3]
+               const float* __restrict__ norms,  // [B, N]
+               int* __restrict__ idx,            // [B, N, k]
+               int n, int k) {
+  using namespace vcr::knn;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * warps + warp;
-  if (i >= n) return;  // no block-wide barrier below
-  float* row = reinterpret_cast<float*>(smem) + static_cast<size_t>(warp) * n;
-  int* sel = reinterpret_cast<int*>(smem + sizeof(float) * warps * n) + warp * 32;
-  vcr::knn::warp_xyz_score_row(x + static_cast<size_t>(b) * n * 3,
-                               norms + static_cast<size_t>(b) * n, i, n, row);
-  select_and_store(row, n, k, sel, idx + (static_cast<size_t>(b) * n + i) * k);
+  const int i0 = blockIdx.x * kQueriesPerBlock + warp * kQueriesPerWarp;
+  uint64_t list[kQueriesPerWarp];
+  block_xyz_topk(x + static_cast<size_t>(b) * n * 3, norms + static_cast<size_t>(b) * n, n, k,
+                 i0, reinterpret_cast<float4*>(smem), list);
+#pragma unroll
+  for (int u = 0; u < kQueriesPerWarp; ++u)
+    if (i0 + u < n && lane < k)
+      idx[(static_cast<size_t>(b) * n + i0 + u) * k + lane] = vcr::topk::key_column(list[u]);
 }
 
 template <typename T>
@@ -106,15 +109,20 @@ cudaError_t launch_rows(Kernel kernel, int warps, size_t smem, int batch, int n,
 }  // namespace
 
 // x [B,N,C] f32 (is_bf16 == 0) or bf16, norms f32 [B,N] -> idx int32 [B,N,k].
-// Requires k <= 32, k < N, C <= 512. Returns the launch status (cudaErrorInvalidValue when a score row does not
-// fit a block's shared memory).
+// Requires 0 < k <= 32, k < N, C <= 512. Returns the launch status
+// (cudaErrorInvalidValue for another k, or when a score row of the general
+// path does not fit a block's shared memory).
 cudaError_t vcr_knn(const void* x, const float* norms, int* idx, int batch, int n, int c, int k,
                     int is_bf16, cudaStream_t stream) {
+  if (k < 1 || k > 32 || k >= n) return cudaErrorInvalidValue;
   if (!is_bf16 && c == 3) {
-    const int warps = warps_that_fit(n, 0);
-    const size_t smem = (sizeof(float) * n + kSelBytes) * (warps > 0 ? warps : 1);
-    return launch_rows(knn_xyz_kernel, warps, smem, batch, n, stream,
-                       static_cast<const float*>(x), norms, idx, n, k);
+    const size_t smem = vcr::knn::staged_bytes(n);
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_xyz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    knn_xyz_kernel<<<vcr::knn::grid(n, batch), vcr::knn::kThreads, smem, stream>>>(
+        static_cast<const float*>(x), norms, idx, n, k);
+    return cudaGetLastError();
   }
   const int warps = warps_that_fit(n, c);
   const size_t smem = (sizeof(float) * (n + c) + kSelBytes) * (warps > 0 ? warps : 1);

@@ -39,14 +39,23 @@ import torch
 
 from vcrnet_tpu_torch.ops import _build
 from vcrnet_tpu_torch.ops._common import (
-    check_tensor, kernel_route, knn_scores, leaky, select_topk,
+    SMEM_LIMIT, check_tensor, kernel_route, knn_scores, leaky, select_topk,
 )
 from vcrnet_tpu_torch.ops.graph import gather_neighbors
 
 
-def _check_k(k: int, n: int) -> None:
-    if not 0 < k <= 32 or k >= n:
-        raise ValueError(f"k={k} must be in [1, 32] and below N={n}")
+def knn_gather_max_supported(n: int, f: int, k: int) -> bool:
+    """The gate of the ``knn_gather_max`` kernel: table rows of 16-byte
+    loads (F % 8 == 0), 0 < k <= 32 and k < N. Any N: the cloud is staged in
+    tiles of at most 3072 points."""
+    return f % 8 == 0 and 0 < k <= 32 and k < n
+
+
+def gather_max_bwd_supported(n: int, f: int, k: int) -> bool:
+    """The gate of the ``gather_max_bwd`` kernel: a block keeps one cloud's
+    dv for a slice of at least 8 channels in shared memory (N <= 7264 on
+    sm_90), F % 8 == 0, 0 < k <= 32 and k < N."""
+    return f % 8 == 0 and 0 < k <= 32 and k < n and 4 * 8 * n <= SMEM_LIMIT
 
 
 def edge_conv_supported(n: int, c: int, k: int) -> bool:
@@ -87,16 +96,19 @@ def fused_knn_gather_max(x: torch.Tensor, values: torch.Tensor, k: int = 20,
     """x [B, N, 3] f32, values [B, N, F] -> (out [B, N, F], idx [B, N, k]
     int32[, win [B, N, F] uint8 with ``winners``]): per point, the
     channel-wise max of ``values`` over its k nearest neighbours in x (self
-    excluded). The kernel takes bf16 values with F % 8 == 0."""
+    excluded). The kernel takes bf16 values and the shapes
+    :func:`knn_gather_max_supported` takes."""
     if not kernel_route(x, values):
         return fused_knn_gather_max_ref(x, values, k, winners=winners)
     B, N, _ = x.shape
     F = values.shape[-1]
     check_tensor("x", x, torch.float32, (B, N, 3))
     check_tensor("values", values, torch.bfloat16, (B, N, F))
-    _check_k(k, N)
-    if F % 8:
-        raise ValueError(f"values width {F} must be a multiple of 8")
+    if not knn_gather_max_supported(N, F, k):
+        raise ValueError(
+            f"knn_gather_max kernel takes F % 8 == 0 and k in [1, 32] below N, "
+            f"got F={F} k={k} N={N}"
+        )
     norms = (x * x).sum(-1)
     out = torch.empty_like(values)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)
@@ -120,7 +132,7 @@ def gather_max_bwd_ref(idx, win, ct):
 def gather_max_bwd(idx: torch.Tensor, win: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     """idx [B, N, k] int32, win [B, N, F] uint8, ct [B, N, F] -> dv [B, N, F]
     f32 with dv[b, idx[b, i, win[b, i, c]], c] += ct[b, i, c]. The kernel
-    takes bf16 ct with F % 8 == 0."""
+    takes bf16 ct and the shapes :func:`gather_max_bwd_supported` takes."""
     if not kernel_route(idx, win, ct):
         return gather_max_bwd_ref(idx, win, ct)
     B, N, F = ct.shape
@@ -128,10 +140,12 @@ def gather_max_bwd(idx: torch.Tensor, win: torch.Tensor, ct: torch.Tensor) -> to
     check_tensor("idx", idx, torch.int32, (B, N, k))
     check_tensor("win", win, torch.uint8, (B, N, F))
     check_tensor("ct", ct, torch.bfloat16, (B, N, F))
-    _check_k(k, N)
-    if F % 8:
-        raise ValueError(f"gather_max_bwd width {F} must be a multiple of 8")
-    dv = torch.zeros((B, N, F), dtype=torch.float32, device=ct.device)
+    if not gather_max_bwd_supported(N, F, k):
+        raise ValueError(
+            f"gather_max_bwd kernel takes F % 8 == 0, k in [1, 32] below N and "
+            f"N <= {SMEM_LIMIT // 32}, got F={F} k={k} N={N}"
+        )
+    dv = torch.empty((B, N, F), dtype=torch.float32, device=ct.device)  # every element written
     _build.extension().gather_max_bwd(idx, win, ct, dv)
     gather_max_bwd.launches += 1
     return dv

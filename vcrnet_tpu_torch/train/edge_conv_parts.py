@@ -85,31 +85,32 @@ extern "C" int shim(const int* idx, const void* win1, const void* win2, const vo
 }
 
 
-def _source(csrc: str, src: str, cuts) -> str | None:
+def _source(csrc: str, src: str, cuts, shims: dict = _SHIMS) -> str | None:
     with open(os.path.join(csrc, src)) as fh:
         text = fh.read()
     for old, new in cuts:
         if old not in text:
             return None
         text = text.replace(old, new, 1)
-    return text + _SHIMS[src]
+    return text + shims[src]
 
 
-def build(csrc: str, jobs: dict) -> dict:
+def build(csrc: str, jobs: dict, shims: dict = _SHIMS, build_dir: str = BUILD_DIR) -> dict:
     """{name: (source file, cuts)} -> {name: loaded library or None where a
-    cut does not apply}, compiled in parallel."""
+    cut does not apply}, each source with its C shim from ``shims``,
+    compiled in parallel into ``build_dir``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
 
     def one(name):
         src, cuts = jobs[name]
-        text = _source(csrc, src, cuts)
+        text = _source(csrc, src, cuts, shims)
         if text is None:
             return name, None
-        cu = os.path.join(BUILD_DIR, f"{name}.cu")
-        lib = os.path.join(BUILD_DIR, f"{name}.so")
+        cu = os.path.join(build_dir, f"{name}.cu")
+        lib = os.path.join(build_dir, f"{name}.so")
         with open(cu, "w") as fh:
             fh.write(text)
         r = subprocess.run([nvcc, *_build.CUDA_FLAGS, "-shared", "-Xcompiler", "-fPIC",
