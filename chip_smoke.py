@@ -7,8 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build   compile the port's CUDA extension from csrc/ (sm_90a) and print
            the build time, the registers and spills of the soft-correspondence,
-           edge-conv and SN-block kernels (nvcc -Xptxas -v; a spill fails) and
-           the card's name and power limit;
+           edge-conv, SN-block, attention forward, column-mass and fused
+           attention kernels (nvcc -Xptxas -v; a spill fails) and the card's
+           name and power limit;
 2. kernels run each hand-written forward kernel against its plain PyTorch
            version on the card at the serving shapes (B = 8 and 64,
            N = 1024; the column masses and attention with a valid-key count
@@ -71,7 +72,11 @@ and with the slope 0.2; and the SN-block kernels (knn_gather_max with knn
 on the same xyz, whose idx must equal it bit for bit, and
 gather_max_from_idx) at N = 512, 768, 1024 and 3072 and on a cloud of
 duplicate points, and gather_max_bwd at N = 1024 and 3072 into a dv filled
-with NaN.
+with NaN; and softmax_colmass at Nq != Nk (1024 and 3072 both ways), B = 1,
+Nq = Nk = 128 and lengths whose last block of 128 keys holds 64 (each run
+twice: the results must be equal), and fused_mha at B = 1 and 8 with
+N = 768 and 1024, self and cross attention, and over 992 keys, each beside
+the library call.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -288,6 +293,9 @@ NUM_POINTS_LARGE = 4093  # the large partial configuration: crops to 3072, a mul
 N_LARGE = 3072       # its model input
 KEEP_LARGE = 2353    # keys its re-mask keeps: int(3072 * overlap2)
 LARGE_BATCHES = (2, 8)
+# softmax_colmass at the edges of its tiling: (B, Nq, Nk)
+COLMASS_EDGES = ((2, 1024, 3072), (2, 3072, 1024), (1, 3072, 3072), (2, 128, 128),
+                 (2, 192, 320))
 # (N, B) of the served paths beside N = 1024: the subsample and the partial
 # crop of 1024 at the largest request, the large partial crop at its batch
 PATH_SHAPES = ((512, 64), (768, 64), (N_LARGE, 8))
@@ -477,6 +485,23 @@ def phase_eval_kernels(dev):
                 q, kk, vv, scale, 4, nk_valid=KEEP_LARGE), reps=5),
         ))
         del want, o, unmasked
+
+    # the column masses at the edges of their tiling: Nq != Nk both ways, one
+    # batch item, one key block of 128, and lengths whose last block of 128
+    # holds 64 (the second warpgroup of that block owns nothing), with the
+    # tolerance above and the two-runs check
+    for B, nq, nk in COLMASS_EDGES:
+        q, k = randn(B, nq, 512, dtype=bf16), randn(B, nk, 512, dtype=bf16)
+        cm = colmass.softmax_colmass(q, k, scale, 4)
+        torch.cuda.synchronize()
+        want = colmass.softmax_colmass_ref(q, k, scale, 4)
+        rel, err = rel_err(cm, want), (cm - want).abs().max().item()
+        check(rel <= 1e-3, f"softmax_colmass B={B} Nq={nq} Nk={nk}: relative err {rel} > 1e-3")
+        check(torch.equal(cm, colmass.softmax_colmass(q, k, scale, 4)),
+              f"softmax_colmass B={B} Nq={nq} Nk={nk}: two runs differ")
+        rows.setdefault("softmax_colmass_edge", []).append(dict(
+            B=B, Nq=nq, Nk=nk, max_abs_err=err, rel_err=rel,
+            ms=cuda_time_ms(lambda: colmass.softmax_colmass(q, k, scale, 4))))
     print_rows(rows)
     return rows
 
@@ -1265,6 +1290,8 @@ EDGE_FLOPS = 2 * (6 * 64 + 64 * 64 + 64 * 128 + 128 * 256)  # per edge, stages 1
 # (N, B) at which the four kernels of this family are held and timed; the
 # last entry is the one the kernels line reports
 FAMILY_SHAPES = ((768, 64), (N, 8), (N, 64))
+# fused_mha beyond them: (Nq, Nk, B)
+MHA_EDGES = ((768, 768, 1), (768, 768, 8), (N, N, 1), (N, 992, 8))
 
 
 def param_bytes(*tensors) -> int:
@@ -1413,6 +1440,34 @@ def phase_family_kernels(dev):
             ms=cuda_time_ms(lambda: pointer.fused_ff(yq, *ff_w)),
             plain_ms=cuda_time_ms(lambda: pointer.fused_ff_ref(yq, *ff_w)), library_ms=None))
         del want, out
+    # fused_mha at the other batches and lengths of the served paths, self and
+    # cross attention, beside the library call; cross attention also over
+    # keys in 32s (the attention's last 64-key tile reaches into the next
+    # batch item's keys, which are masked out)
+    for nq, nk, B in MHA_EDGES:
+        yq, ykv = randn(B, nq, D, dtype=bf16), randn(B, nk, D, dtype=bf16)
+        for kind, kv in (("cross", ykv), ("self", yq)):
+            if kind == "self" and nq != nk:
+                continue
+            out = pointer.fused_mha(yq, kv, *mha_w, H)
+            torch.cuda.synchronize()
+            want = pointer.fused_mha_ref(yq, kv, *mha_w, H)
+            err, rel = (out.float() - want.float()).abs().max().item(), rel_err(out, want)
+            check(rel <= 2 ** -6,
+                  f"fused_mha {kind} Nq={nq} Nk={nk} B={B}: relative err {rel} > 2^-6")
+
+            def library_mha(yq=yq, kv=kv):
+                return F.multi_head_attention_forward(
+                    yq.transpose(0, 1), kv.transpose(0, 1), kv.transpose(0, 1), D, H, in_w,
+                    in_b, None, None, False, 0.0, out_w, bo, training=False,
+                    need_weights=False)[0]
+
+            rows.setdefault("fused_mha_edge", []).append(dict(
+                B=B, Nq=nq, Nk=nk, kind=kind, max_abs_err=err, rel_err=rel,
+                ms=cuda_time_ms(lambda: pointer.fused_mha(yq, kv, *mha_w, H)),
+                library_ms=cuda_time_ms(library_mha)))
+            del want, out
+
     # knn beyond the shapes above: N = 8192 on xyz and N = 4096 on bf16
     # features (fewer queries per block, so that their score rows fit shared
     # memory)
@@ -1734,7 +1789,7 @@ def phase_fused_pointer():
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
                   "edge_conv_bwd.cu", "knn_gather_max.cu", "knn.cu", "gather_max_from_idx.cu",
-                  "gather_max_bwd.cu")
+                  "gather_max_bwd.cu", "flash_packed.cu", "colmass.cu", "pointer_mha.cu")
 # template arguments of the kernels as ptxas names them, mangled
 TEMPLATE_ARGS = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>"}
 

@@ -123,7 +123,7 @@ def test_the_cuda_kernels_own_limits_narrow_the_gate(monkeypatch):
     monkeypatch.setenv("VCRNET_FUSED_POINTER", "1")
     assert pp.fused_mha_supported(256, 256, 512, 2)  # dk = 256
     assert not pointer.fused_mha_supported(256, 256, 512, 2)
-    assert pointer.pointer_mha_smem_bytes(512) == 198656
+    assert pointer.pointer_mha_smem_bytes(512) == 214064
     assert pointer.pointer_ff_smem_bytes(512, 1024) == 224256 <= pointer.SMEM_LIMIT
     assert pointer.pointer_ff_smem_bytes(512, 2048) > pointer.SMEM_LIMIT
     assert not pointer.fused_ff_supported(1024, 512, 2048)

@@ -65,9 +65,9 @@ cudaError_t vcr_dgcnn_eval(const float* x, const int* idx, const void* w1, const
 size_t vcr_pointer_mha_smem(int d);
 cudaError_t vcr_pointer_mha(const void* yq, const void* ykv, const void* wq, const void* bq,
                             const void* wk, const void* bk, const void* wv, const void* bv,
-                            const void* wo, const void* bo, void* kscr, void* vscr, void* out,
-                            int batch, int nq, int nk, int d, int n_heads,
-                            cudaStream_t stream);
+                            const void* wo, const void* bo, void* qscr, void* kscr,
+                            void* vscr, void* out, int batch, int nq, int nk, int d,
+                            int n_heads, cudaStream_t stream);
 size_t vcr_pointer_ff_smem(int d, int f);
 cudaError_t vcr_pointer_ff(const void* y, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* out, long long rows, int d, int f,
@@ -236,19 +236,20 @@ void dgcnn_eval(torch::Tensor x, torch::Tensor idx, std::vector<torch::Tensor> f
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// The K and V projections of every batch item go to a scratch in device
-// memory (2 x [B, Nk, D] bf16), written by the first kernel, read by the second.
+// The projections go to a scratch in device memory: Q ([B, Nq, D] bf16, which
+// the attention overwrites with O) and K and V (2 x [B, Nk, D] bf16).
 void pointer_mha(torch::Tensor yq, torch::Tensor ykv, torch::Tensor wq, torch::Tensor bq,
                  torch::Tensor wk, torch::Tensor bk, torch::Tensor wv, torch::Tensor bv,
                  torch::Tensor wo, torch::Tensor bo, torch::Tensor out, int64_t n_heads) {
   const c10::cuda::CUDAGuard guard(yq.device());
+  const auto qscr = torch::empty_like(yq);
   const auto kscr = torch::empty_like(ykv);
   const auto vscr = torch::empty_like(ykv);
   C10_CUDA_CHECK(vcr_pointer_mha(
       yq.data_ptr(), ykv.data_ptr(), wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-      wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), kscr.data_ptr(),
-      vscr.data_ptr(), out.data_ptr(), yq.size(0), yq.size(1), ykv.size(1), yq.size(2), n_heads,
-      stream_of(yq)));
+      wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), qscr.data_ptr(),
+      kscr.data_ptr(), vscr.data_ptr(), out.data_ptr(), yq.size(0), yq.size(1), ykv.size(1),
+      yq.size(2), n_heads, stream_of(yq)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -13,187 +13,172 @@
 // Two kernels, as on the TPU, but with other owners. The TPU kernels
 // carried (m, l) and the column sums in scratch across a sequential grid
 // axis; here
-//   1. row_lse_kernel: a block owns 64 query rows of one head (16 per
-//      warp), streams 64-key tiles through shared memory and keeps each
-//      row's running max and sum in registers; it writes one logsumexp per
-//      row (m + log l serves as well as the pair);
-//   2. colmass_kernel: a block owns 64 keys of one head, keeps them in
-//      shared memory, loops over all query tiles in ascending order and
-//      adds exp(s - lse_i) into per-lane column sums in registers; the four
-//      warps' sums are added in warp order at the end. No atomics: the
+//   1. the row logsumexps: flash_fwd.cuh's lse_kernel, the attention
+//      forward's loop without its P . V product (the same producer and
+//      online softmax of a tile in registers; a stage holds only a K tile).
+//      A block owns 128 query rows of one head and writes one base-2
+//      logsumexp a row, lse2_i = log2 sum_j exp2(s_ij * sm_scale * log2(e));
+//   2. colmass_kernel: a block owns 128 keys of one head, 64 for each of
+//      two consumer warpgroups, and a producer warp streams 64-query tiles
+//      of Q, with their lse2, through a TMA ring. Each warpgroup computes
+//      S^T = K . Q^T (wgmma m64n64k16, keys as the M rows, both operands
+//      K-major in shared memory), so a key's column mass is a row sum of
+//      the accumulator: each lane adds exp2(s * sm_scale * log2(e) - lse2_i)
+//      over its 16 columns in registers, across all query tiles in
+//      ascending order, and the quad's four sums are added by two shuffles
+//      at the end. No score tile in shared memory and no atomics: the
 //      result is the same from run to run.
-// Both score products run on the tensor cores through warp-level mma
-// (nvcuda::wmma, bf16 in, f32 accumulate).
 //
-// Bound on the H100: operations (two score passes, 4 * Nq * Nk * 128 flops
-// per head, against q and k read once and [B, H, Nk] written).
-#include <mma.h>
-
-#include "common.cuh"
+// Bound on the H100: the function needs one score product (2 * Nq * Nk *
+// 128 flops per head) and one exp a score; the design takes two of each.
+// At dk = 128 the exp unit's rate (16 a clock an SM) is about that of the
+// tensor cores for a score (128 multiply-adds), so each pass is held by
+// both; the two consumer warpgroups, and the two blocks an SM holds (about
+// 100 KB of shared memory and few registers each), overlap one's products
+// with another's exps. exp2f with the scale folded into log2(e) costs one
+// fma a score before the exp, as in FA3.
+//
+// Keys: Nk % 64 == 0. Where Nk % 128 == 64 the second warpgroup of the last
+// key block owns keys past Nk: it runs the same loop on whatever its TMA box
+// holds (the next batch item's keys, or zeros past the end of the tensor)
+// and stores nothing, so that every consumer warp arrives on every barrier.
+#include "flash_fwd.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace vcr::hopper;
+using bf16 = __nv_bfloat16;
 
 constexpr int kDk = 128;
-constexpr int kWarps = 4;
-constexpr int kTileQ = 16 * kWarps;
-constexpr int kTileK = 64;
+constexpr int kConsumers = 2;  // warpgroups, 64 keys each
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kThreads = 32 * (kConsumerWarps + 1);
+constexpr int kTileKeys = 64 * kConsumers;
+constexpr int kTileQ = 64;
+constexpr int kStages = 4;
+constexpr uint32_t kKBytes = kConsumers * kHeadTileBytes;
+constexpr uint32_t kLseBytes = kTileQ * sizeof(float);
+constexpr uint32_t kStageBytes = kHeadTileBytes + kLseBytes;  // what a stage's copies deliver
+constexpr size_t kSmemBytes =
+    1024 + kKBytes + kStages * (kHeadTileBytes + kLseBytes) + (2 * kStages + 1) * 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr size_t kKBytes = sizeof(__nv_bfloat16) * kTileK * kDk;  // one key tile
-constexpr size_t kSBytes = sizeof(float) * 16 * kTileK;           // a warp's score tile
-constexpr size_t kLseBytes = sizeof(float) * 16;                  // a warp's row statistics
-constexpr size_t kRedBytes = sizeof(float) * kWarps * kTileK;     // the warps' column sums
-constexpr size_t kSmemBytes = kKBytes + kWarps * (kSBytes + kLseBytes) + kRedBytes;
+__global__ void __launch_bounds__(kThreads, 2)
+colmass_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const float* __restrict__ lse2,  // [B, H, Nq], base 2
+               float* __restrict__ out,         // [B, H, Nk]
+               int nq, int nk, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                   // [consumer][2 boxes]
+  bf16* q_ring = reinterpret_cast<bf16*>(smem + kKBytes);      // [stage][2 boxes]
+  float* lse_ring = reinterpret_cast<float*>(smem + kKBytes + kStages * kHeadTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lse_ring + kStages * kTileQ);
+  uint64_t* k_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-using QFrags = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+  const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
+  const int key0 = blockIdx.x * kTileKeys;
+  const int col = head * kDk;
+  const int n_tiles = nq / kTileQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t bh = static_cast<size_t>(b) * n_heads + head;
 
-// The block copies 64 key rows of one head into shared memory.
-__device__ __forceinline__ void stage_keys(const __nv_bfloat16* __restrict__ kb, int d_model,
-                                           __nv_bfloat16* ks) {
-  for (int t = threadIdx.x; t < kTileK * kDk / 8; t += blockDim.x) {
-    const int row = t / (kDk / 8), c8 = (t % (kDk / 8)) * 8;
-    reinterpret_cast<uint4*>(ks)[t] =
-        *reinterpret_cast<const uint4*>(kb + static_cast<size_t>(row) * d_model + c8);
-  }
-}
-
-// One warp: sp[16, 64] = q rows (fragments qa) times the staged keys^T.
-__device__ __forceinline__ void warp_scores(const QFrags* qa, const __nv_bfloat16* ks,
-                                            float* sp) {
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  for (int nb = 0; nb < kTileK / 16; ++nb) {
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDk / 16; ++kk) {
-      wmma::load_matrix_sync(kf, ks + nb * 16 * kDk + kk * 16, kDk);
-      wmma::mma_sync(acc, qa[kk], kf, acc);
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);  // lane 0 of every consumer warp
     }
-    wmma::store_matrix_sync(sp + nb * 16, acc, kTileK, wmma::mem_row_major);
+    mbar_init_fence();
   }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-row_lse_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               float* __restrict__ lse,  // [B, H, Nq]
-               int nq, int nk, int d_model, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sp = reinterpret_cast<float*>(smem + kKBytes + warp * kSBytes);
-
-  const int b = blockIdx.z, head = blockIdx.y;
-  const int row0 = blockIdx.x * kTileQ + warp * 16;
-  const size_t col0 = static_cast<size_t>(head) * kDk;
-  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * nq + row0) * d_model + col0;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * nk * d_model + col0;
-
-  QFrags qa[kDk / 16];
-#pragma unroll
-  for (int kk = 0; kk < kDk / 16; ++kk) wmma::load_matrix_sync(qa[kk], qb + kk * 16, d_model);
-
-  // two lanes per row, 32 columns each; a lane starts at its own column so
-  // the 32 lanes read 32 different banks
-  const int r = lane >> 1, c0 = (lane & 1) * (kTileK / 2);
-  float m = -CUDART_INF_F, l = 0.f;
-  for (int t0 = 0; t0 < nk; t0 += kTileK) {
-    __syncthreads();  // every warp is done with the previous key tile
-    stage_keys(kb + static_cast<size_t>(t0) * d_model, d_model, ks);
-    __syncthreads();
-    warp_scores(qa, ks, sp);
-
-    const float* srow = sp + r * kTileK + c0;
-    float tmax = -CUDART_INF_F;
-    for (int j = 0; j < kTileK / 2; ++j) tmax = fmaxf(tmax, srow[(j + lane) & 31] * sm_scale);
-    tmax = fmaxf(tmax, __shfl_xor_sync(vcr::kFullMask, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    float lsum = 0.f;
-    for (int j = 0; j < kTileK / 2; ++j) lsum += expf(srow[(j + lane) & 31] * sm_scale - m_new);
-    lsum += __shfl_xor_sync(vcr::kFullMask, lsum, 1);
-    l = l * expf(m - m_new) + lsum;
-    m = m_new;
-    __syncwarp();  // the score tile is rewritten next round
-  }
-  if ((lane & 1) == 0)
-    lse[(static_cast<size_t>(b) * gridDim.y + head) * nq + row0 + r] = m + logf(l);
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-colmass_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const float* __restrict__ lse,  // [B, H, Nq]
-               float* __restrict__ out,        // [B, H, Nk]
-               int nq, int nk, int d_model, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sp = reinterpret_cast<float*>(smem + kKBytes + warp * kSBytes);
-  float* lse_s = reinterpret_cast<float*>(smem + kKBytes + kWarps * kSBytes + warp * kLseBytes);
-  float* red = reinterpret_cast<float*>(smem + kKBytes + kWarps * (kSBytes + kLseBytes));
-
-  const int b = blockIdx.z, head = blockIdx.y;
-  const int key0 = blockIdx.x * kTileK;
-  const size_t col0 = static_cast<size_t>(head) * kDk;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * nq * d_model + col0;
-  const float* lb = lse + (static_cast<size_t>(b) * gridDim.y + head) * nq;
-
-  stage_keys(k + (static_cast<size_t>(b) * nk + key0) * d_model + col0, d_model, ks);
   __syncthreads();
 
-  float acc0 = 0.f, acc1 = 0.f;  // columns lane and lane + 32 of the key tile
-  QFrags qa[kDk / 16];
-  for (int row0 = warp * 16; row0 < nq; row0 += kTileQ) {
-#pragma unroll
-    for (int kk = 0; kk < kDk / 16; ++kk)
-      wmma::load_matrix_sync(qa[kk], qb + static_cast<size_t>(row0) * d_model + kk * 16,
-                             d_model);
-    if (lane < 16) lse_s[lane] = lb[row0 + lane];
-    warp_scores(qa, ks, sp);  // ends in a __syncwarp: lse_s is visible too
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      acc0 += expf(sp[r * kTileK + lane] * sm_scale - lse_s[r]);
-      acc1 += expf(sp[r * kTileK + lane + 32] * sm_scale - lse_s[r]);
+  if (warp == kConsumerWarps) {  // ---- producer: one lane issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(k_full, kKBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int h = 0; h < 2; ++h)
+          tma_load_box(k_s + (2 * c + h) * kBox * kBox, &k_map, k_full, col + h * kBox,
+                       b * nk + key0 + c * 64);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        bf16* q_s = q_ring + s * 2 * kBox * kBox;
+        mbar_expect_tx(&full[s], kStageBytes);
+        for (int h = 0; h < 2; ++h)
+          tma_load_box(q_s + h * kBox * kBox, &q_map, &full[s], col + h * kBox,
+                       b * nq + t * kTileQ);
+        bulk_load(lse_ring + s * kTileQ, lse2 + bh * nq + t * kTileQ, kLseBytes, &full[s]);
+      }
     }
-    __syncwarp();  // the score tile and lse_s are rewritten next round
+    return;
   }
-  red[warp * kTileK + lane] = acc0;
-  red[warp * kTileK + lane + 32] = acc1;
-  __syncthreads();
-  if (threadIdx.x < kTileK) {
-    float sum = 0.f;
+
+  // ---- consumers: warpgroup wg owns keys key0 + 64 wg .. + 63; lane (g, qd)
+  // of warp w holds keys 16 w + g and 16 w + g + 8 against query columns
+  // 8 j + 2 qd + {0, 1} of each tile
+  const int wg = warp >> 2;
+  const int g = lane >> 2, qd = lane & 3;
+  const bf16* k_tile = k_s + wg * 2 * kBox * kBox;
+  float mass_g = 0.f, mass_g8 = 0.f;
+
+  mbar_wait(k_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    float sc[32];  // S^T of the tile: 64 keys by 64 queries
+    wgmma_fence();
+    scores_64x64(sc, k_tile, q_ring + s * 2 * kBox * kBox);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    float2 l2[8];
+    const float* lse_s = lse_ring + s * kTileQ;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w * kTileK + threadIdx.x];
-    out[(static_cast<size_t>(b) * gridDim.y + head) * nk + key0 + threadIdx.x] = sum;
+    for (int j = 0; j < 8; ++j) l2[j] = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * qd);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read: Q by wgmma, lse2 above
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mass_g += exp2f(fmaf(sc[4 * j], scale_log2, -l2[j].x));
+      mass_g += exp2f(fmaf(sc[4 * j + 1], scale_log2, -l2[j].y));
+      mass_g8 += exp2f(fmaf(sc[4 * j + 2], scale_log2, -l2[j].x));
+      mass_g8 += exp2f(fmaf(sc[4 * j + 3], scale_log2, -l2[j].y));
+    }
+  }
+  mass_g = quad_sum(mass_g);
+  mass_g8 = quad_sum(mass_g8);
+  const int key_g = key0 + wg * 64 + (warp & 3) * 16 + g;
+  if (qd == 0) {
+    if (key_g < nk) out[bh * nk + key_g] = mass_g;
+    if (key_g + 8 < nk) out[bh * nk + key_g + 8] = mass_g8;
   }
 }
 
 }  // namespace
 
 // q bf16 [B,Nq,H*128], k bf16 [B,Nk,H*128] -> out f32 [B,H,Nk]; lse f32
-// [B,H,Nq] is scratch that the first kernel writes and the second reads.
-// Requires Nq % 64 == 0, Nk % 64 == 0, 32-byte aligned pointers. Returns the
-// launch status.
+// [B,H,Nq] is scratch that the first kernel writes (base 2) and the second
+// reads. Requires Nq % 64 == 0, Nk % 64 == 0, 16-byte aligned pointers.
+// Returns the launch status.
 cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
                                 int batch, int nq, int nk, int n_heads, float sm_scale,
                                 cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      row_lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  const uint64_t d_model = static_cast<uint64_t>(n_heads) * kDk;
+  CUtensorMap q_map, k_map;
+  cudaError_t err = make_box_map(&q_map, q, static_cast<uint64_t>(batch) * nq, d_model);
+  if (err == cudaSuccess) err = make_box_map(&k_map, k, static_cast<uint64_t>(batch) * nk, d_model);
+  if (err == cudaSuccess)
+    err = vcr::flash::launch_lse(q_map, k_map, lse, batch, nq, nk, nk, n_heads, sm_scale,
+                                 stream);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(colmass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(colmass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return err;
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  const int d_model = n_heads * kDk;
-  row_lse_kernel<<<dim3(nq / kTileQ, n_heads, batch), kWarps * 32, kSmemBytes, stream>>>(
-      qp, kp, lse, nq, nk, d_model, sm_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  colmass_kernel<<<dim3(nk / kTileK, n_heads, batch), kWarps * 32, kSmemBytes, stream>>>(
-      qp, kp, lse, out, nq, nk, d_model, sm_scale);
+  colmass_kernel<<<dim3((nk + kTileKeys - 1) / kTileKeys, n_heads, batch), kThreads, kSmemBytes,
+                   stream>>>(q_map, k_map, lse, out, nq, nk, sm_scale * kLog2e);
   return cudaGetLastError();
 }

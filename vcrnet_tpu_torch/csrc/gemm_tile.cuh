@@ -1,5 +1,5 @@
 // A block-level matrix product for the kernels that project a tile of rows
-// through a weight matrix (dgcnn_eval.cu, pointer_ff.cu, pointer_mha.cu):
+// through a weight matrix (dgcnn_eval.cu, pointer_ff.cu):
 //
 //   C[64, n_out] = A[64, depth] @ W[depth, n_out]      (bf16 in, f32 accumulate)
 //

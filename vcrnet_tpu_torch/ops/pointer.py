@@ -1,6 +1,7 @@
-"""The transformer pointer's sublayers as single kernels, beside their plain
-versions. Off unless ``VCRNET_FUSED_POINTER=1`` (read at call time), as in the
-JAX package, where they are kept as a measured negative result on the TPU.
+"""The transformer pointer's sublayers as single kernel calls, beside their
+plain versions. Off unless ``VCRNET_FUSED_POINTER=1`` (read at call time), as
+in the JAX package, where they are kept as a measured negative result on the
+TPU.
 
   fused_mha  q/k/v projections, per-head softmax(q k^T / sqrt(dk)) v, out
              projection (vcrnet_tpu/ops/pallas_pointer.py:fused_mha)
@@ -11,10 +12,13 @@ Both cast activations, weights and biases to bf16, accumulate in f32 and
 return bf16, with the Pallas kernels' rounding points: q, k, v, the hidden
 tile and the per-head outputs rounded to bf16; scores and softmax in f32;
 ``exp(s - m)`` rounded to bf16 before its product with v and divided by the
-f32 row sum afterwards. A CUDA tensor launches ``csrc/pointer_mha.cu`` /
-``csrc/pointer_ff.cu`` (or raises); a CPU tensor runs the ``*_ref`` plain
-version. Eval only: no backward, and the wrappers raise where a gradient is
-wanted. Weights are [in, out] (a Linear's ``weight.t()``).
+f32 row sum afterwards (the CUDA attention rounds it against the running max
+of 64-key tiles, not the row's final max: ROADMAP C). A CUDA tensor launches
+``csrc/pointer_mha.cu`` (three kernels: the q/k/v projections, the
+attention, the out projection; one counted launch) / ``csrc/pointer_ff.cu``
+(or raises); a CPU tensor runs the ``*_ref`` plain version. Eval only: no
+backward, and the wrappers raise where a gradient is wanted. Weights are
+[in, out] (a Linear's ``weight.t()``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from vcrnet_tpu_torch.ops import _build
 from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_tensor, kernel_route
 
 HEAD_DIM = 128  # the attention kernel's dk
-MAX_D_MODEL = 512  # its yq/O and Q tiles, [64, D] bf16 each, must fit shared memory
+MAX_D_MODEL = 512  # the widest sublayer whose kernels are held to the plain version on the card
 
 
 def fused_pointer_enabled() -> bool:
@@ -46,20 +50,25 @@ def pointer_ff_smem_bytes(d: int, f: int) -> int:
 
 
 def pointer_mha_smem_bytes(d: int) -> int:
-    """Shared memory of the attention kernel (csrc/pointer_mha.cu): the
-    yq/O tile, the Q tile, and the larger of the projections' scratch and
-    the attention's K and V tiles with the warps' score tiles."""
-    attend = 2 * (2 * 32 * 264) + 8 * (4 * 16 * 40 + 2 * 16 * 40 + 4 * 32)
-    return 2 * _tile_bytes(d) + max(attend, 2 * 64 * 136 + 4 * 8 * 256)
+    """Shared memory of the sublayer's largest kernel (csrc/pointer_mha.cu):
+    the projections' ring of three stages, each a [128, 64] slice of the
+    activations and a [64, 256] slice of the weights, the [128, 256] output
+    tile, 1 KB of alignment and the ring's barriers. The attention kernel
+    takes less (99368 bytes), and neither depends on the model width
+    ``d``."""
+    del d
+    box = 64 * 64 * 2
+    return 1024 + 3 * (2 * box + 4 * box) + 8 * box + 2 * 3 * 8
 
 
 def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
     """Whether the model takes the fused attention branch: the environment
-    variable, then the CUDA kernel's own limits (dk == 128, D <= 512, whole
-    64-query and 32-key tiles). On dk == 128 and D <= 512 this takes every
-    shape the JAX gate takes (pallas_pointer.py:fused_mha_supported, lengths
-    in 128s) and more: the JAX package's on-chip budget for a batch item's K
-    and V does not bind here, where they live in device memory."""
+    variable, then the shapes the CUDA kernels are held to (dk == 128,
+    D <= 512, whole 64-query and 32-key tiles). On dk == 128 and D <= 512
+    this takes every shape the JAX gate takes (pallas_pointer.py:
+    fused_mha_supported, lengths in 128s) and more: the JAX package's
+    on-chip budget for a batch item's K and V does not bind here, where
+    they live in device memory."""
     if not fused_pointer_enabled():
         return False
     return (d % n_heads == 0 and d // n_heads == HEAD_DIM and d <= MAX_D_MODEL
