@@ -7,9 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build   compile the port's CUDA extension from csrc/ (sm_90a) and print
            the build time, the registers and spills of the soft-correspondence,
-           edge-conv, SN-block, attention forward, column-mass and fused
-           attention kernels (nvcc -Xptxas -v; a spill fails) and the card's
-           name and power limit;
+           edge-conv, SN-block, attention forward, column-mass, fused
+           attention, feed-forward and DGCNN eval kernels (nvcc -Xptxas -v;
+           a spill fails) and the card's name and power limit;
 2. kernels run each hand-written forward kernel against its plain PyTorch
            version on the card at the serving shapes (B = 8 and 64,
            N = 1024; the column masses and attention with a valid-key count
@@ -76,7 +76,11 @@ with NaN; and softmax_colmass at Nq != Nk (1024 and 3072 both ways), B = 1,
 Nq = Nk = 128 and lengths whose last block of 128 keys holds 64 (each run
 twice: the results must be equal), and fused_mha at B = 1 and 8 with
 N = 768 and 1024, self and cross attention, and over 992 keys, each beside
-the library call.
+the library call; and fused_ff at B = 1 over 992 and 1024 rows a cloud
+and at the other widths its gate takes (D = 128 and 384, F up to 4096),
+and dgcnn_eval at N = 784 (no whole tile of 64 queries), N = 5120 (a cloud
+read from device memory), k = 1, 30, 32 and 40, B = 1 and 2, and on a cloud
+of duplicate points.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -1292,6 +1296,16 @@ EDGE_FLOPS = 2 * (6 * 64 + 64 * 64 + 64 * 128 + 128 * 256)  # per edge, stages 1
 FAMILY_SHAPES = ((768, 64), (N, 8), (N, 64))
 # fused_mha beyond them: (Nq, Nk, B)
 MHA_EDGES = ((768, 768, 1), (768, 768, 8), (N, N, 1), (N, 992, 8))
+# fused_ff beyond them: (B, N, D, F), rows not in 128s and every width the gate
+# takes the largest of
+FF_EDGES = ((1, 992, 512, 1024), (1, N, 512, 1024), (1, N, 512, 2048), (2, N, 512, 4096),
+            (1, N, 128, 256), (1, 768, 384, 2048))
+# dgcnn_eval beyond them: (B, N, k, duplicate points); N = 784 has no whole
+# tile of 64 queries, N = 5120 is a cloud the edge kernel reads from device
+# memory (it stages clouds up to 4096 points), k = 40 is past the kNN
+# kernel's 32 (the plain selection gives its idx)
+DGCNN_EDGES = ((1, 784, K, False), (1, N, 1, False), (1, N, 30, False), (1, N, 32, False),
+               (2, N, 40, False), (1, 5120, K, False), (2, N, K, True))
 
 
 def param_bytes(*tensors) -> int:
@@ -1323,7 +1337,7 @@ def phase_family_kernels(dev):
     from vcrnet_tpu_torch.ops import _build, dgcnn, edgeconv, graph, knn, pointer
 
     ext = _build.extension()
-    check(ext.dgcnn_eval_smem(K) == dgcnn.dgcnn_eval_smem_bytes(K),
+    check(ext.dgcnn_eval_smem() == dgcnn.dgcnn_eval_smem_bytes(),
           "dgcnn_eval: the wrapper's shared-memory formula is not the kernel's")
     check(ext.pointer_mha_smem(512) == pointer.pointer_mha_smem_bytes(512),
           "fused_mha: the wrapper's shared-memory formula is not the kernel's")
@@ -1435,10 +1449,22 @@ def phase_family_kernels(dev):
         check(rel <= 2 ** -6, f"fused_ff N={n} B={B}: relative err {rel} > 2^-6")
         b, by = bound_ms(nbytes(yq, out) + param_bytes(*ff_w), 4 * B * n * D * FF,
                          BF16_TENSOR_FLOPS)
+        # no single PyTorch call computes the sublayer; the library's
+        # sequence of three (bf16 products by cuBLAS) is timed beside it
+        ff_lib = (ff_w[0].to(bf16).t().contiguous(), ff_w[1].to(bf16),
+                  ff_w[2].to(bf16).t().contiguous(), ff_w[3].to(bf16))
+
+        def library_ff():
+            return F.linear(torch.relu(F.linear(yq, ff_lib[0], ff_lib[1])), ff_lib[2], ff_lib[3])
+
+        lib_rel = rel_err(library_ff(), want)
+        check(lib_rel <= 5e-2, f"fused_ff N={n} B={B}: the library sequence is another function "
+                               f"({lib_rel})")
         rows.setdefault("fused_ff", []).append(dict(
             B=B, N=n, max_abs_err=err, rel_err=rel, bound_ms=b, bound_by=by,
             ms=cuda_time_ms(lambda: pointer.fused_ff(yq, *ff_w)),
-            plain_ms=cuda_time_ms(lambda: pointer.fused_ff_ref(yq, *ff_w)), library_ms=None))
+            plain_ms=cuda_time_ms(lambda: pointer.fused_ff_ref(yq, *ff_w)), library_ms=None,
+            library_seq_ms=cuda_time_ms(library_ff), library_seq_rel_err=lib_rel))
         del want, out
     # fused_mha at the other batches and lengths of the served paths, self and
     # cross attention, beside the library call; cross attention also over
@@ -1467,6 +1493,41 @@ def phase_family_kernels(dev):
                 ms=cuda_time_ms(lambda: pointer.fused_mha(yq, kv, *mha_w, H)),
                 library_ms=cuda_time_ms(library_mha)))
             del want, out
+
+    # fused_ff at rows not in 128s, B = 1 and the widths its gate takes
+    for B, n, d, f in FF_EDGES:
+        y = randn(B, n, d, dtype=bf16)
+        w = (randn(d, f, scale=d ** -0.5), randn(f, scale=0.1), randn(f, d, scale=f ** -0.5),
+             randn(d, scale=0.1))
+        out = pointer.fused_ff(y, *w)
+        torch.cuda.synchronize()
+        want = pointer.fused_ff_ref(y, *w)
+        err, rel = (out.float() - want.float()).abs().max().item(), rel_err(out, want)
+        check(out.shape == (B, n, d) and bool(torch.isfinite(out.float()).all()),
+              f"fused_ff B={B} N={n} D={d} F={f} output")
+        check(rel <= 2 ** -6, f"fused_ff B={B} N={n} D={d} F={f}: relative err {rel} > 2^-6")
+        rows.setdefault("fused_ff_edge", []).append(dict(
+            B=B, N=n, D=d, F=f, max_abs_err=err, rel_err=rel,
+            ms=cuda_time_ms(lambda: pointer.fused_ff(y, *w))))
+        del want, out
+    # dgcnn_eval at a ragged N, a cloud past the staged size, k from 1 to 40,
+    # B = 1 and on duplicate points (64 distinct points, each 16 times)
+    for B, n, k, dup in DGCNN_EDGES:
+        x = torch.rand(B, 64 if dup else n, 3, generator=g, device=dev) * 2 - 1
+        if dup:
+            x = x.repeat(1, n // 64, 1)
+        idx = knn.fused_knn(x, k) if k <= 32 else knn.fused_knn_ref(x, k)
+        out = dgcnn.fused_dgcnn_eval(x, idx, folded, emb)
+        torch.cuda.synchronize()
+        want = dgcnn.fused_dgcnn_eval_ref(x, idx, folded, emb)
+        err, rel = (out - want).abs().max().item(), rel_err(out, want)
+        check(out.shape == (B, n, emb) and bool(torch.isfinite(out).all()),
+              f"dgcnn_eval B={B} N={n} k={k} output")
+        check(rel <= 2e-2, f"dgcnn_eval B={B} N={n} k={k} dup={dup}: relative err {rel} > 2e-2")
+        rows.setdefault("dgcnn_eval_edge", []).append(dict(
+            B=B, N=n, k=k, duplicates=dup, max_abs_err=err, rel_err=rel,
+            ms=cuda_time_ms(lambda: dgcnn.fused_dgcnn_eval(x, idx, folded, emb))))
+        del want, out
 
     # knn beyond the shapes above: N = 8192 on xyz and N = 4096 on bf16
     # features (fewer queries per block, so that their score rows fit shared
@@ -1506,8 +1567,14 @@ def phase_family_kernels(dev):
         "dgcnn_eval N % 16": lambda: dgcnn.fused_dgcnn_eval(
             x[:, :1000].contiguous(), idx[:, :1000].contiguous(), folded, emb),
         "fused_mha dk = 64": lambda: pointer.fused_mha(yq, yq, *mha_w, 8),
-        "fused_ff hidden tile": lambda: pointer.fused_ff(
-            yq, randn(D, 2 * FF), randn(2 * FF), randn(2 * FF, D), randn(D)),
+        "fused_ff F > 4096": lambda: pointer.fused_ff(
+            yq, randn(D, 8 * FF), randn(8 * FF), randn(8 * FF, D), randn(D)),
+        "fused_ff D > 512": lambda: pointer.fused_ff(
+            randn(1, 64, 2 * D, dtype=bf16), randn(2 * D, FF), randn(FF), randn(FF, 2 * D),
+            randn(2 * D)),
+        "dgcnn_eval k = N": lambda: dgcnn.fused_dgcnn_eval(
+            x[:1, :32].contiguous(), idx[:1, :32, :1].expand(1, 32, 32).contiguous(), folded,
+            emb),
     }
     for what, call in refused.items():
         try:
@@ -1789,7 +1856,8 @@ def phase_fused_pointer():
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
                   "edge_conv_bwd.cu", "knn_gather_max.cu", "knn.cu", "gather_max_from_idx.cu",
-                  "gather_max_bwd.cu", "flash_packed.cu", "colmass.cu", "pointer_mha.cu")
+                  "gather_max_bwd.cu", "flash_packed.cu", "colmass.cu", "pointer_mha.cu",
+                  "pointer_ff.cu", "dgcnn_eval.cu")
 # template arguments of the kernels as ptxas names them, mangled
 TEMPLATE_ARGS = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>"}
 
@@ -1818,7 +1886,7 @@ def print_ptxas_reports(procs: dict) -> None:
                              r"Used (\d+) registers", out, re.S)
         # a template's arguments as they are mangled (ILi64ELb1E: <64, true>)
         report = "; ".join(
-            f"{name}{TEMPLATE_ARGS.get(args) or args.replace('ILi', '<').replace('ELb', ',').rstrip('E')}"
+            f"{name}{TEMPLATE_ARGS.get(args) or args.replace('ILi', '<').replace('ILb', '<').replace('ELb', ',').rstrip('E')}"
             f"{'>' if args and args not in TEMPLATE_ARGS else ''} {regs} registers, "
             f"spills {st}/{ld} bytes" for name, args, st, ld, regs in kernels)
         print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}",
@@ -1938,6 +2006,7 @@ def main() -> int:
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            **({"library_seq_ms": top["library_seq_ms"]} if "library_seq_ms" in top else {}),
         })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main paths: {kernels}")

@@ -38,6 +38,7 @@ from vcrnet_tpu_torch.models import embeddings as emb
 from vcrnet_tpu_torch.models._common import FlaxBatchNorm
 from vcrnet_tpu_torch.models.dcp import MLPHead, svd_head_corr
 from vcrnet_tpu_torch.ops import dgcnn, graph, knn
+from vcrnet_tpu_torch.ops._common import SMEM_LIMIT
 from vcrnet_tpu_torch.serve import Registrar
 from vcrnet_tpu_torch.train import Trainer
 from vcrnet_tpu_torch.utils.params import from_jax_params
@@ -205,8 +206,10 @@ def test_fused_dgcnn_gates_and_refusals():
     assert dgcnn.fused_dgcnn_supported(64, 30, 128)
     assert not dgcnn.fused_dgcnn_supported(1000, 20, 512)  # no whole 16-point tiles
     assert not dgcnn.fused_dgcnn_supported(1024, 20, 500)  # the projection tiles 128 columns
-    assert not dgcnn.fused_dgcnn_supported(1024, 31, 512)  # the edge rows outgrow shared memory
-    assert dgcnn.dgcnn_eval_smem_bytes(20) == 161280
+    # the edge kernel streams the neighbour slots: k is bounded by N alone
+    assert dgcnn.fused_dgcnn_supported(1024, 31, 512) and dgcnn.fused_dgcnn_supported(64, 63, 128)
+    assert not dgcnn.fused_dgcnn_supported(64, 64, 128) and not dgcnn.fused_dgcnn_supported(64, 0, 128)
+    assert dgcnn.dgcnn_eval_smem_bytes() == 216072 <= SMEM_LIMIT
     x, _, _, model = _dgcnn_pair()
     idx = graph.knn(_t(x), 5)
     with pytest.raises(RuntimeError, match="no backward"):

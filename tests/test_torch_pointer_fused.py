@@ -90,7 +90,8 @@ def test_gates_match_jax(monkeypatch, flag):
     with the JAX gates when the variable is unset, and on wherever JAX's are
     (at the dk = 128, D <= 512 the CUDA attention takes). They are wider
     only where the JAX gate models its own chip: the on-chip budget for K
-    and V (8192 keys) and lengths in 128s."""
+    and V (8192 keys), the VMEM budget of the feed-forward's weights (F =
+    4096) and lengths in 128s."""
     if flag is None:
         monkeypatch.delenv("VCRNET_FUSED_POINTER", raising=False)
     else:
@@ -114,7 +115,11 @@ def test_gates_match_jax(monkeypatch, flag):
     # the feed-forward kernel masks a ragged last tile of rows
     assert not pp.fused_ff_supported(1000, 512, 1024)
     assert pointer.fused_ff_supported(1000, 512, 1024) is on
-    assert not pointer.fused_ff_supported(8192, 512, 4096)  # the hidden tile outgrows a block
+    # the feed-forward's kernels keep no width in shared memory: F = 4096 is
+    # held on the card, where JAX's weights outgrow its VMEM budget
+    assert not pp.fused_ff_supported(8192, 512, 4096)
+    assert pointer.fused_ff_supported(8192, 512, 4096) is on
+    assert not pointer.fused_ff_supported(8192, 512, 8192)  # past the widths held on the card
 
 
 def test_the_cuda_kernels_own_limits_narrow_the_gate(monkeypatch):
@@ -124,9 +129,13 @@ def test_the_cuda_kernels_own_limits_narrow_the_gate(monkeypatch):
     assert pp.fused_mha_supported(256, 256, 512, 2)  # dk = 256
     assert not pointer.fused_mha_supported(256, 256, 512, 2)
     assert pointer.pointer_mha_smem_bytes(512) == 214064
-    assert pointer.pointer_ff_smem_bytes(512, 1024) == 224256 <= pointer.SMEM_LIMIT
-    assert pointer.pointer_ff_smem_bytes(512, 2048) > pointer.SMEM_LIMIT
-    assert not pointer.fused_ff_supported(1024, 512, 2048)
+    # the feed-forward runs the product twice, whose shared memory depends
+    # on no width; the gate stops at the widths held on the card
+    assert pointer.pointer_ff_smem_bytes(512, 1024) == 214064 <= pointer.SMEM_LIMIT
+    assert pointer.pointer_ff_smem_bytes(512, 4096) == pointer.pointer_ff_smem_bytes(128, 256)
+    assert pointer.fused_ff_supported(1024, 512, 2048)
+    assert not pointer.fused_ff_supported(1024, 512, 8192)  # F > 4096
+    assert not pointer.fused_ff_supported(1024, 640, 1024)  # D > 512
 
 
 def test_fused_wrappers_refuse_a_gradient():

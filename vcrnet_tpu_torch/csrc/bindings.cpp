@@ -56,7 +56,7 @@ cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float*
 
 cudaError_t vcr_knn(const void* x, const float* norms, int* idx, int batch, int n, int c, int k,
                     int is_bf16, cudaStream_t stream);
-size_t vcr_dgcnn_eval_smem(int k);
+size_t vcr_dgcnn_eval_smem();
 cudaError_t vcr_dgcnn_eval(const float* x, const int* idx, const void* w1, const float* b1,
                            const void* w2, const float* b2, const void* w3, const float* b3,
                            const void* w4, const float* b4, const void* w5, const float* b5,
@@ -70,7 +70,7 @@ cudaError_t vcr_pointer_mha(const void* yq, const void* ykv, const void* wq, con
                             int n_heads, cudaStream_t stream);
 size_t vcr_pointer_ff_smem(int d, int f);
 cudaError_t vcr_pointer_ff(const void* y, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* out, long long rows, int d, int f,
+                           const void* b2, void* hidden, void* out, long long rows, int d, int f,
                            cudaStream_t stream);
 
 namespace {
@@ -253,16 +253,18 @@ void pointer_mha(torch::Tensor yq, torch::Tensor ykv, torch::Tensor wq, torch::T
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The hidden activations go to a scratch in device memory: [B, N, F] bf16.
 void pointer_ff(torch::Tensor y, torch::Tensor w1, torch::Tensor b1, torch::Tensor w2,
                 torch::Tensor b2, torch::Tensor out) {
   const c10::cuda::CUDAGuard guard(y.device());
+  const auto hidden = torch::empty({y.size(0), y.size(1), w1.size(1)}, y.options());
   C10_CUDA_CHECK(vcr_pointer_ff(y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                b2.data_ptr(), out.data_ptr(), y.size(0) * y.size(1), y.size(2),
-                                w1.size(1), stream_of(y)));
+                                b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+                                y.size(0) * y.size(1), y.size(2), w1.size(1), stream_of(y)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-int64_t dgcnn_eval_smem(int64_t k) { return vcr_dgcnn_eval_smem(k); }
+int64_t dgcnn_eval_smem() { return vcr_dgcnn_eval_smem(); }
 int64_t pointer_mha_smem(int64_t d) { return vcr_pointer_mha_smem(d); }
 int64_t pointer_ff_smem(int64_t d, int64_t f) { return vcr_pointer_ff_smem(d, f); }
 

@@ -1,11 +1,18 @@
 // A matrix product on the tensor cores through TMA and wgmma, for the
-// projections of the pointer's attention sublayer (pointer_mha.cu):
+// projections of the pointer's attention sublayer (pointer_mha.cu), its
+// feed-forward sublayer (pointer_ff.cu) and DGCNN's projection of the
+// concat (dgcnn_eval.cu):
 //
-//   out[rows, n] = bf16(A[rows, depth] @ W[depth, n] + bias[n])
+//   out[rows, n] = act(A[rows, depth] @ W[depth, n] + bias[n])
 //
-// bf16 in, f32 accumulate, the bf16 bias added in f32 and the sum rounded
-// to bf16 once: the rounding points of the Pallas kernel's projections
-// (pallas_pointer.py:_mha_kernel). One launch runs up to three such
+// bf16 in, f32 accumulate, the bias added in f32, act a ReLU or nothing and
+// the result rounded once to the output's type. The epilogue's options are
+// compile-time (Epilogue below): the projections of the attention take a
+// bf16 bias, no ReLU and a bf16 output, the rounding points of the Pallas
+// kernel's projections (pallas_pointer.py:_mha_kernel); the feed-forward's
+// first product takes a ReLU (pallas_pointer.py:_ff_kernel), DGCNN's
+// projection an f32 bias, a ReLU and an f32 output
+// (pallas_dgcnn.py:_dgcnn_kernel). One launch runs up to three such
 // products ("jobs", each with its own A, W, bias and output), so that the
 // q, k and v projections of a sublayer are one launch whether q and k/v
 // come from one activation (self-attention) or from two (cross-attention).
@@ -40,9 +47,11 @@
 //     until those stores have read the boxes. Storing bf16 pairs straight
 //     from the accumulator's layout (4-byte stores, eight rows a warp
 //     instruction) took half the time of the products at B * N = 65536
-//     rows (train/attention_parts.py). Rows at or beyond ``rows`` and
-//     columns at or beyond ``n`` are neither read (TMA reads zeros) nor
-//     written.
+//     rows (train/attention_parts.py). An f32 output goes the same way in
+//     two passes of 128 columns (eight boxes of [64, 32] f32), the second
+//     waiting until the first pass's stores have read the boxes. Rows at
+//     or beyond ``rows`` and columns at or beyond ``n`` are neither read
+//     (TMA reads zeros) nor written.
 // 288 threads, ~209 KB of shared memory, one block per SM.
 #pragma once
 
@@ -70,11 +79,21 @@ constexpr uint32_t kOutBytes = kConsumers * kWBytes;       // [128, 256] bf16
 constexpr size_t kSmemBytes = 1024 + kStages * kStageBytes + kOutBytes + 2 * kStages * 8;
 constexpr int kMaxJobs = 3;
 
+// What the epilogue applies: a ReLU or nothing, a bias of bf16 or f32, an
+// output of bf16 or f32 (a bf16 output takes a bf16 bias).
+template <bool kReluArg, bool kBiasF32Arg, bool kOutF32Arg>
+struct Epilogue {
+  static constexpr bool kRelu = kReluArg;
+  static constexpr bool kBiasF32 = kBiasF32Arg;
+  static constexpr bool kOutF32 = kOutF32Arg;
+};
+using Projection = Epilogue<false, false, false>;  // bf16(A W + b), b bf16
+
 struct Job {
   CUtensorMap a;    // [rows, depth] bf16
   CUtensorMap w;    // [depth, n] bf16
-  CUtensorMap out;  // [rows, n] bf16
-  const bf16* bias;  // [n]
+  CUtensorMap out;  // [rows, n] bf16 or f32
+  const void* bias;  // [n] bf16 or f32
   int rows;
 };
 
@@ -97,8 +116,26 @@ __device__ __forceinline__ bool tile_of(const Jobs& jobs, int t, int col_tiles, 
   return row0 < jobs.job[j].rows;
 }
 
+template <class Ep>
+__device__ __forceinline__ float act(float v) {
+  return Ep::kRelu ? fmaxf(v, 0.f) : v;
+}
+
+// The bias of columns c and c + 1 (zeros past n), for an f32 output.
+template <class Ep>
+__device__ __forceinline__ float2 bias_pair(const void* bias, int c, int n) {
+  if constexpr (Ep::kBiasF32)
+    return c < n ? *reinterpret_cast<const float2*>(static_cast<const float*>(bias) + c)
+                 : make_float2(0.f, 0.f);
+  else
+    return c < n ? unpack_bf16(*reinterpret_cast<const uint32_t*>(static_cast<const bf16*>(bias) + c))
+                 : make_float2(0.f, 0.f);
+}
+
+template <bool kRelu, bool kBiasF32, bool kOutF32>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ Jobs jobs, int n_tiles) {
+  using Ep = Epilogue<kRelu, kBiasF32, kOutF32>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align_1024(smem_raw);  // [stage]{A 2 boxes, W 4 boxes}
   uint8_t* out_s = ring + kStages * kStageBytes;  // [consumer]{4 boxes}
@@ -180,25 +217,60 @@ gemm_kernel(const __grid_constant__ Jobs jobs, int n_tiles) {
 
     const Job& job = jobs.job[j];
     const int n = jobs.n;
-    if (storer) bulk_wait_read<0>();  // the last tile's stores have read tile_s
-    named_bar_sync(1 + wg, 128);
+    if constexpr (!Ep::kOutF32) {
+      // the bias is read here as PR 9's kernel read it: through bias_pair the
+      // attention's projections compiled to other instructions
+      static_assert(!Ep::kBiasF32, "a bf16 output takes a bf16 bias");
+      if (storer) bulk_wait_read<0>();  // the last tile's stores have read tile_s
+      named_bar_sync(1 + wg, 128);
 #pragma unroll
-    for (int jj = 0; jj < kTileN / 8; ++jj) {
-      const int c = col0 + 8 * jj + 2 * qd;
-      const float2 bias = c < n ? unpack_bf16(*reinterpret_cast<const uint32_t*>(job.bias + c))
-                                : make_float2(0.f, 0.f);
-      uint8_t* box = tile_s + (jj >> 3) * kBoxBytes + 4 * qd;
-      *reinterpret_cast<uint32_t*>(box + sw128_offset(r_g, jj & 7)) =
-          pack_bf16(acc[4 * jj] + bias.x, acc[4 * jj + 1] + bias.y);
-      *reinterpret_cast<uint32_t*>(box + sw128_offset(r_g + 8, jj & 7)) =
-          pack_bf16(acc[4 * jj + 2] + bias.x, acc[4 * jj + 3] + bias.y);
-    }
-    fence_proxy_async();  // the boxes are read by TMA
-    named_bar_sync(1 + wg, 128);
-    if (storer && row0 + wg * 64 < job.rows) {
-      for (int b = 0; b < kTileN / kBox && col0 + b * kBox < n; ++b)
-        tma_store_box(&job.out, tile_s + b * kBoxBytes, col0 + b * kBox, row0 + wg * 64);
-      bulk_commit();
+      for (int jj = 0; jj < kTileN / 8; ++jj) {
+        const int c = col0 + 8 * jj + 2 * qd;
+        const float2 bias = c < n ? unpack_bf16(*reinterpret_cast<const uint32_t*>(
+                                        static_cast<const bf16*>(job.bias) + c))
+                                  : make_float2(0.f, 0.f);
+        uint8_t* box = tile_s + (jj >> 3) * kBoxBytes + 4 * qd;
+        *reinterpret_cast<uint32_t*>(box + sw128_offset(r_g, jj & 7)) =
+            pack_bf16(act<Ep>(acc[4 * jj] + bias.x), act<Ep>(acc[4 * jj + 1] + bias.y));
+        *reinterpret_cast<uint32_t*>(box + sw128_offset(r_g + 8, jj & 7)) =
+            pack_bf16(act<Ep>(acc[4 * jj + 2] + bias.x), act<Ep>(acc[4 * jj + 3] + bias.y));
+      }
+      fence_proxy_async();  // the boxes are read by TMA
+      named_bar_sync(1 + wg, 128);
+      if (storer && row0 + wg * 64 < job.rows) {
+        for (int b = 0; b < kTileN / kBox && col0 + b * kBox < n; ++b)
+          tma_store_box(&job.out, tile_s + b * kBoxBytes, col0 + b * kBox, row0 + wg * 64);
+        bulk_commit();
+      }
+    } else {
+      // f32: two passes of 128 columns, each four [64, 32] boxes; column
+      // 8 jj + 2 qd of a pass lies in box jj / 4, 16-byte chunk
+      // 2 (jj % 4) + qd / 2, at byte 8 (qd % 2) of it
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        if (storer) bulk_wait_read<0>();  // the last stores have read tile_s
+        named_bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < kTileN / 16; ++jj) {
+          const int a = 4 * (16 * pass + jj);  // this pair's place in acc
+          const int c = col0 + 128 * pass + 8 * jj + 2 * qd;
+          const float2 bias = bias_pair<Ep>(job.bias, c, n);
+          uint8_t* box = tile_s + (jj >> 2) * kBoxBytes + 8 * (qd & 1);
+          const int chunk = 2 * (jj & 3) + (qd >> 1);
+          *reinterpret_cast<float2*>(box + sw128_offset(r_g, chunk)) =
+              make_float2(act<Ep>(acc[a] + bias.x), act<Ep>(acc[a + 1] + bias.y));
+          *reinterpret_cast<float2*>(box + sw128_offset(r_g + 8, chunk)) =
+              make_float2(act<Ep>(acc[a + 2] + bias.x), act<Ep>(acc[a + 3] + bias.y));
+        }
+        fence_proxy_async();  // the boxes are read by TMA
+        named_bar_sync(1 + wg, 128);
+        if (storer && row0 + wg * 64 < job.rows) {
+          const int c0 = col0 + 128 * pass;
+          for (int b = 0; b < 4 && c0 + b * (kBox / 2) < n; ++b)
+            tma_store_box(&job.out, tile_s + b * kBoxBytes, c0 + b * (kBox / 2), row0 + wg * 64);
+          bulk_commit();
+        }
+      }
     }
   }
   if (storer) bulk_wait<0>();  // the shared memory stays until the stores are done
@@ -214,20 +286,25 @@ int sm_count() {
   return count;
 }
 
-// One job of a launch: out [rows, n] = bf16(a [rows, depth] @ w [depth, n] + bias).
+// One job of a launch: out [rows, n] = act(a [rows, depth] @ w [depth, n] + bias),
+// out and bias of the types Ep names.
+template <class Ep = Projection>
 inline cudaError_t add_job(Jobs& jobs, const void* a, const void* w, const void* bias, void* out,
                            int rows) {
   Job& job = jobs.job[jobs.count++];
   cudaError_t err = make_box_map(&job.a, a, rows, jobs.depth);
   if (err == cudaSuccess) err = make_box_map(&job.w, w, jobs.depth, jobs.n);
-  if (err == cudaSuccess) err = make_box_map(&job.out, out, rows, jobs.n);
-  job.bias = static_cast<const bf16*>(bias);
+  if (err == cudaSuccess)
+    err = Ep::kOutF32 ? make_box_map_f32(&job.out, out, rows, jobs.n)
+                      : make_box_map(&job.out, out, rows, jobs.n);
+  job.bias = bias;
   job.rows = rows;
   return err;
 }
 
 // Launches the jobs' products, a persistent block per SM. depth % 64 == 0,
-// n % 8 == 0, 16-byte aligned pointers.
+// n % 8 == 0, 16-byte aligned pointers; every job added with the same Ep.
+template <class Ep = Projection>
 inline cudaError_t launch_gemm(const Jobs& jobs, cudaStream_t stream) {
   int max_rows = 0;
   for (int j = 0; j < jobs.count; ++j)
@@ -235,10 +312,12 @@ inline cudaError_t launch_gemm(const Jobs& jobs, cudaStream_t stream) {
   const int n_tiles =
       (max_rows + kTileM - 1) / kTileM * jobs.count * ((jobs.n + kTileN - 1) / kTileN);
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+      gemm_kernel<Ep::kRelu, Ep::kBiasF32, Ep::kOutF32>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const int grid = n_tiles < sm_count() ? n_tiles : sm_count();
-  gemm_kernel<<<grid, kThreads, kSmemBytes, stream>>>(jobs, n_tiles);
+  gemm_kernel<Ep::kRelu, Ep::kBiasF32, Ep::kOutF32>
+      <<<grid, kThreads, kSmemBytes, stream>>>(jobs, n_tiles);
   return cudaGetLastError();
 }
 

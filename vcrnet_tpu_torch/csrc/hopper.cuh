@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the attention kernels (flash_fwd.cuh for
 // flash_packed.cu, colmass.cu and pointer_mha.cu; flash_bwd.cu), the
-// projections of pointer_mha.cu (gemm_wgmma.cuh), the soft-correspondence
-// kernels (vcp_stream.cu, vcp_bwd.cu) and the edge-conv kernels
-// (edge_conv.cu, edge_conv_from_idx.cu through edge_tile.cuh,
+// products of pointer_mha.cu, pointer_ff.cu and dgcnn_eval.cu
+// (gemm_wgmma.cuh), DGCNN's edge kernel (dgcnn_eval.cu), the
+// soft-correspondence kernels (vcp_stream.cu, vcp_bwd.cu) and the edge-conv
+// kernels (edge_conv.cu, edge_conv_from_idx.cu through edge_tile.cuh,
 // edge_conv_bwd.cu): TMA tensor maps and loads,
 // cp.async copies into swizzled boxes, mbarriers, named barriers, register
 // rebalancing, wgmma descriptors, the wgmma shapes they use and the fences
@@ -77,6 +78,23 @@ inline cudaError_t make_box_map(CUtensorMap* map, const void* base, uint64_t row
   const cuuint32_t box[2] = {kBox, kBox};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same over a row-major f32 matrix [rows, cols] (cols % 4 == 0): a box of
+// [64 rows, 32 columns], 128 bytes a row as above, for storing f32 tiles.
+inline cudaError_t make_box_map_f32(CUtensorMap* map, const void* base, uint64_t rows,
+                                    uint64_t cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(float)};
+  const cuuint32_t box[2] = {kBox / 2, kBox};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
                         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -338,8 +356,10 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a,
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A from registers (a bf16x2
-// fragment, as below), B from shared memory read K-major (trans-b = 0);
-// f32 accumulate; ``accumulate`` = 0 overwrites d.
+// fragment, as below), B from shared memory read K-major (kTransB = 0) or
+// MN-major (kTransB = 1: a [k, 64] box whose rows run along n); f32
+// accumulate; ``accumulate`` = 0 overwrites d.
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                                 uint32_t a2, uint32_t a3, uint64_t desc_b,
                                                 int accumulate) {
@@ -350,14 +370,14 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], uint32_t a0, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
-      "%36, p, 1, 1, 0;\n"
+      "%36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[16 x 128]: A from registers (a bf16x2

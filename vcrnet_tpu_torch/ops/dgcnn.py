@@ -10,7 +10,10 @@ Dense by ``fold_dgcnn_eval_params``. Products take bf16 operands (xyz, the
 weights and every activation are rounded to bf16 before their product) and
 accumulate in f32; bias and ReLU are f32; the output is f32.
 
-A CUDA tensor launches ``csrc/dgcnn_eval.cu`` (or raises); a CPU tensor runs
+A CUDA tensor launches ``csrc/dgcnn_eval.cu`` (two kernels: the edge chain,
+streaming one neighbour slot of 64 queries at a time through the four stages
+with running maxima, and the projection on ``csrc/gemm_wgmma.cuh``; one
+counted launch) or raises; a CPU tensor runs
 ``fused_dgcnn_eval_ref``, which keeps the same rounding points. Eval only:
 there is no backward, and the wrapper raises where a gradient is wanted.
 """
@@ -20,12 +23,12 @@ from __future__ import annotations
 import torch
 
 from vcrnet_tpu_torch.ops import _build
-from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_tensor, kernel_route
+from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route
 from vcrnet_tpu_torch.ops.graph import gather_neighbors
 
 STAGE_WIDTHS = ((6, 64), (64, 64), (64, 128), (128, 256))
 CAT_WIDTH = 512
-TILE_Q = 16  # query points per block of the kernel
+TILE_Q = 16  # the gate takes N in whole 16-point tiles (the kernel masks any ragged end)
 
 
 def fold_bn_dense(kernel, scale, bias, mean, var, eps: float = 1e-5):
@@ -48,25 +51,25 @@ def fold_dgcnn_eval_params(dgcnn, eps: float = 1e-5) -> list:
     return folded
 
 
-def dgcnn_eval_smem_bytes(k: int) -> int:
-    """Shared memory of the edge kernel (csrc/dgcnn_eval.cu:Layout): the
-    [16 k, 128] and [16 k, 64] bf16 activation tiles with 8 elements of row
-    padding, the [16, 512] concat, the warps' staging tiles, the selection,
-    the centres and W1."""
-    def align(v):
-        return (v + 127) // 128 * 128
+CLOUD_MAX = 4096  # points of a cloud the edge kernel stages in shared memory
 
-    rows = TILE_Q * k
-    return (align(2 * rows * 136) + align(2 * rows * 72) + align(2 * TILE_Q * 520)
-            + align(4 * 8 * 256) + align(4 * rows) + align(4 * TILE_Q * 3) + align(4 * 448))
+
+def dgcnn_eval_smem_bytes() -> int:
+    """Shared memory of the edge kernel (csrc/dgcnn_eval.cu), at any N and
+    k: 1 KB of alignment, the weights W1..W4 as twelve [64, 64] bf16 boxes,
+    two warpgroups' stage-4 running maxima ([64, 256] bf16 each), the
+    biases b1..b4 (f32), a cloud of up to 4096 points (f32 xyz) and the
+    weights' barrier."""
+    box = 64 * 64 * 2
+    return 1024 + 12 * box + 2 * 64 * 256 * 2 + 4 * 512 + 12 * CLOUD_MAX + 8
 
 
 def fused_dgcnn_supported(n: int, k: int, emb_dims: int) -> bool:
     """Shapes the kernel takes: whole 16-point tiles, an output width the
-    projection tiles (128 columns a pass), and k edge rows per point that
-    fit a block's shared memory (k <= 30)."""
-    return (n % TILE_Q == 0 and emb_dims % 128 == 0 and 0 < k < n
-            and dgcnn_eval_smem_bytes(k) <= SMEM_LIMIT)
+    projection tiles (128 columns a pass) and 0 < k < N. The edge kernel
+    streams the neighbour slots, so its shared memory depends on neither N
+    nor k."""
+    return n % TILE_Q == 0 and emb_dims % 128 == 0 and 0 < k < n
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -106,7 +109,7 @@ def fused_dgcnn_eval(x: torch.Tensor, idx: torch.Tensor, folded, emb_dims: int) 
     if not fused_dgcnn_supported(N, k, emb_dims):
         raise ValueError(
             f"fused_dgcnn_eval kernel does not take N={N} k={k} emb_dims={emb_dims} "
-            f"(N % {TILE_Q} == 0, emb_dims % 128 == 0, k <= 30)"
+            f"(N % {TILE_Q} == 0, emb_dims % 128 == 0, 0 < k < N)"
         )
     x = x.float().contiguous()
     check_tensor("x", x, torch.float32, (B, N, 3))

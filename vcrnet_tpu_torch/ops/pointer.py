@@ -5,8 +5,7 @@ TPU.
 
   fused_mha  q/k/v projections, per-head softmax(q k^T / sqrt(dk)) v, out
              projection (vcrnet_tpu/ops/pallas_pointer.py:fused_mha)
-  fused_ff   w2(relu(w1 y)) with the hidden tile kept on chip
-             (vcrnet_tpu/ops/pallas_pointer.py:fused_ff)
+  fused_ff   w2(relu(w1 y)) (vcrnet_tpu/ops/pallas_pointer.py:fused_ff)
 
 Both cast activations, weights and biases to bf16, accumulate in f32 and
 return bf16, with the Pallas kernels' rounding points: q, k, v, the hidden
@@ -16,7 +15,8 @@ f32 row sum afterwards (the CUDA attention rounds it against the running max
 of 64-key tiles, not the row's final max: ROADMAP C). A CUDA tensor launches
 ``csrc/pointer_mha.cu`` (three kernels: the q/k/v projections, the
 attention, the out projection; one counted launch) / ``csrc/pointer_ff.cu``
-(or raises); a CPU tensor runs the ``*_ref`` plain version. Eval only: no
+(two launches of the product through a bf16 hidden scratch; one counted
+launch), or raises; a CPU tensor runs the ``*_ref`` plain version. Eval only: no
 backward, and the wrappers raise where a gradient is wanted. Weights are
 [in, out] (a Linear's ``weight.t()``).
 """
@@ -32,33 +32,36 @@ from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_tensor, kernel_route
 
 HEAD_DIM = 128  # the attention kernel's dk
 MAX_D_MODEL = 512  # the widest sublayer whose kernels are held to the plain version on the card
+MAX_D_FF = 4096  # the widest feed-forward hidden layer held on the card
 
 
 def fused_pointer_enabled() -> bool:
     return os.environ.get("VCRNET_FUSED_POINTER", "0") == "1"
 
 
-def _tile_bytes(width: int) -> int:
-    return 2 * 64 * (width + 8)  # a [64, width] bf16 tile with 8 elements of row padding
+def gemm_smem_bytes() -> int:
+    """Shared memory of the product (csrc/gemm_wgmma.cuh): a ring of three
+    stages, each a [128, 64] slice of the activations and a [64, 256] slice
+    of the weights, the [128, 256] bf16 output tile (or half of an f32 one),
+    1 KB of alignment and the ring's barriers, at any widths."""
+    box = 64 * 64 * 2
+    return 1024 + 3 * (2 * box + 4 * box) + 8 * box + 2 * 3 * 8
 
 
 def pointer_ff_smem_bytes(d: int, f: int) -> int:
-    """Shared memory of the feed-forward kernel (csrc/pointer_ff.cu): the y
-    tile, the hidden tile, one [64, 128] tile of weights and the warps'
-    staging tiles."""
-    return _tile_bytes(d) + _tile_bytes(f) + 2 * 64 * 136 + 4 * 8 * 256
+    """Shared memory of the feed-forward sublayer's kernels
+    (csrc/pointer_ff.cu: two launches of the product), which depends on
+    neither width."""
+    del d, f
+    return gemm_smem_bytes()
 
 
 def pointer_mha_smem_bytes(d: int) -> int:
     """Shared memory of the sublayer's largest kernel (csrc/pointer_mha.cu):
-    the projections' ring of three stages, each a [128, 64] slice of the
-    activations and a [64, 256] slice of the weights, the [128, 256] output
-    tile, 1 KB of alignment and the ring's barriers. The attention kernel
-    takes less (99368 bytes), and neither depends on the model width
-    ``d``."""
+    the product's. The attention kernel takes less (99368 bytes), and
+    neither depends on the model width ``d``."""
     del d
-    box = 64 * 64 * 2
-    return 1024 + 3 * (2 * box + 4 * box) + 8 * box + 2 * 3 * 8
+    return gemm_smem_bytes()
 
 
 def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
@@ -77,12 +80,16 @@ def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
 
 def fused_ff_supported(n: int, d: int, f: int) -> bool:
     """Whether the model takes the fused feed-forward branch: the
-    environment variable, then the CUDA kernel's own limits (widths in 128s
-    whose tiles fit a block's shared memory: D = 512 with F = 1024 does; any
-    number of rows)."""
+    environment variable, then the widths the CUDA kernels are held to on
+    the card (D in 128s up to 512, F in 128s up to 4096; any number of
+    rows). Their shared memory depends on neither width."""
     if not fused_pointer_enabled():
         return False
-    return d % 128 == 0 and f % 128 == 0 and pointer_ff_smem_bytes(d, f) <= SMEM_LIMIT
+    return _ff_widths_held(d, f)
+
+
+def _ff_widths_held(d: int, f: int) -> bool:
+    return d % 128 == 0 and f % 128 == 0 and d <= MAX_D_MODEL and f <= MAX_D_FF
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -158,15 +165,15 @@ def fused_ff_ref(y, w1, b1, w2, b2) -> torch.Tensor:
 
 def fused_ff(y, w1, b1, w2, b2) -> torch.Tensor:
     """y [B, N, D], w1 [D, F], b1 [F], w2 [F, D], b2 [D] in any float dtype
-    -> [B, N, D] bf16. The kernel takes D % 128 == 0, F % 128 == 0 and widths
-    whose tiles fit a block's shared memory (D = 512, F = 1024 does)."""
+    -> [B, N, D] bf16. The kernels take D % 128 == 0, F % 128 == 0,
+    D <= 512 and F <= 4096, any number of rows."""
     tensors = (y, w1, b1, w2, b2)
     _refuse_grad("fused_ff", tensors)
     if not kernel_route(*tensors):
         return fused_ff_ref(*tensors)
     B, n, d = y.shape
     f = w1.shape[1]
-    if d % 128 or f % 128 or pointer_ff_smem_bytes(d, f) > SMEM_LIMIT:
+    if not _ff_widths_held(d, f):
         raise ValueError(f"fused_ff kernel does not take d_model={d} d_ff={f}")
     y_b = _bf(y).contiguous()
     w1, b1, w2, b2 = (_bf(t).contiguous() for t in (w1, b1, w2, b2))
