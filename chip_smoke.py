@@ -44,14 +44,20 @@ Phases (any failure raises and the script exits non-zero):
            kept keys, attention with a valid-key count), against the same
            route with the scores written out and against the plain route,
            with the share of kept keys on which the two re-masks agree;
-7. dgcnn   the DGCNN / DCP family: a DCP Trainer on the DGCNN embedding
+7. ragged  cloud sizes that are no multiple of 64, through the kernels:
+           the partial protocol at the CLI's default overlap 0.75 (1024 ->
+           885 points, iter=3, the 73 pairs) within 2.0 deg of the plain
+           route, a whole request at num_points = 1000 (iter=3) within
+           0.1 deg of it, the launches of a 1-pair request of each, and the
+           training step at N = 1000, which must raise from a backward gate;
+8. dgcnn   the DGCNN / DCP family: a DCP Trainer on the DGCNN embedding
            (bf16, full width) takes 20 Adam steps on one batch (the loss
            falls, the launches of one step, step time at B = 8 and 64), its
            eval step on the kernel route (kNN kernel, fused eval chain on the
            trained running statistics) against the plain route, then VCR-Net
            on DGCNN served with those weights at iter=1 and iter=3 (launches
            of a 1-pair request, kernel route against plain route, latency);
-8. fused   the default VCR-Net with VCRNET_FUSED_POINTER=1 for this phase
+9. fused   the default VCR-Net with VCRNET_FUSED_POINTER=1 for this phase
    pointer only: launches of a 1-pair request at iter=1 and iter=3, rot RMSE
            over the 73 pairs against the unfused kernel route (0.25 / 0.1
            deg), the rotation between the two routes' results pair by pair
@@ -80,7 +86,15 @@ the library call; and fused_ff at B = 1 over 992 and 1024 rows a cloud
 and at the other widths its gate takes (D = 128 and 384, F up to 4096),
 and dgcnn_eval at N = 784 (no whole tile of 64 queries), N = 5120 (a cloud
 read from device memory), k = 1, 30, 32 and 40, B = 1 and 2, and on a cloud
-of duplicate points.
+of duplicate points. And every forward kernel of the served paths at
+N = 885 and 1000 (edge_conv and vcp_stream also 707 and 971), B = 2 and 64,
+against its plain version, with item 0's results unchanged when item 1's
+inputs are drawn again (its last tiles reach into item 1's rows); and
+gather_max_from_idx, redesigned by channel slices, equal bit for bit
+(winners too) to its plain version and to knn_gather_max at B = 64 with
+N = 768, 885, 1024 and 3072, at N = 16384 (rows read from device memory),
+on duplicate indices and tied values, at k = 1, 7 and 32 and F = 8 and
+264.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -1286,6 +1300,86 @@ def phase_partial():
     return total
 
 
+OVERLAP_CLI = 0.75  # the default of Config.overlap and of the JAX CLI's --overlap
+N_RAGGED = 1000       # a whole-cloud size that is no multiple of 64
+
+
+def phase_ragged():
+    """Cloud sizes that are no multiple of 64, through the kernels: the
+    partial protocol at the CLI's default overlap 0.75 (1024 -> 885 points,
+    iter=3, the 73 pairs), within 2.0 deg of the plain route; a whole
+    request at num_points = 1000 (iter=3, 73 pairs), <= 1.0 deg and within
+    0.1 deg of the plain route; launches of a 1-pair request of each; then
+    the training step at N = 1000, which must raise from a backward gate
+    (the gradient half of the ragged tiles is not done) and not run on the
+    plain route."""
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    state_dict = load_checkpoint(CHECKPOINT)
+    total = {}
+
+    cfg = Config(compute_dtype="bfloat16", iter=3, num_points=N, partial=True,
+                 overlap=OVERLAP_CLI)
+    check(cfg.n_cropped == 885, f"partial at overlap {OVERLAP_CLI}: {cfg.n_cropped} points")
+    data = shapes_eval_set(sum(REQUESTS), num_points=N, partial=True, overlap=OVERLAP_CLI)
+    check(data["src"].shape == (sum(REQUESTS), 885, 3), f"cropped clouds {data['src'].shape}")
+    requests = split_requests(data, REQUESTS)
+    reg = Registrar(cfg, state_dict)
+    plain = Registrar(cfg, state_dict, use_kernels=False)
+    check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+    serve_all(reg, requests)  # warm-up
+    add_launches(total, one_request_launches(reg, *requests[0], LAUNCHES_PARTIAL, "partial 885"))
+    acc = accuracy(*serve_all(reg, requests), data)
+    acc_plain = accuracy(*serve_all(plain, requests), data)
+    print(f"partial 885: kernels {acc} plain {acc_plain} over {len(data['src'])} pairs",
+          flush=True)
+    print_latency(reg, requests, "partial 885")
+    check(acc["rot_rmse_deg"] <= ROT_LIMIT_PARTIAL_DEG,
+          f"partial 885: rot RMSE {acc['rot_rmse_deg']} deg > {ROT_LIMIT_PARTIAL_DEG}")
+    check(abs(acc["rot_rmse_deg"] - acc_plain["rot_rmse_deg"]) <= 2.0,
+          "partial 885: kernel vs plain rot RMSE differ by more than 2.0 deg")
+    del reg, plain
+
+    cfg = Config(compute_dtype="bfloat16", iter=3, num_points=N_RAGGED)
+    data = shapes_eval_set(sum(REQUESTS), num_points=N_RAGGED)
+    requests = split_requests(data, REQUESTS)
+    reg = Registrar(cfg, state_dict)
+    plain = Registrar(cfg, state_dict, use_kernels=False)
+    serve_all(reg, requests)  # warm-up
+    add_launches(total, one_request_launches(reg, *requests[0], LAUNCHES_ITER3,
+                                             f"whole {N_RAGGED}"))
+    acc = accuracy(*serve_all(reg, requests), data)
+    acc_plain = accuracy(*serve_all(plain, requests), data)
+    print(f"whole {N_RAGGED}: kernels {acc} plain {acc_plain} over {len(data['src'])} pairs",
+          flush=True)
+    print_latency(reg, requests, f"whole {N_RAGGED}")
+    check(acc["rot_rmse_deg"] <= ROT_LIMIT_ITER3_DEG,
+          f"whole {N_RAGGED}: rot RMSE {acc['rot_rmse_deg']} deg > {ROT_LIMIT_ITER3_DEG}")
+    check(abs(acc["rot_rmse_deg"] - acc_plain["rot_rmse_deg"]) <= 0.1,
+          f"whole {N_RAGGED}: kernel vs plain rot RMSE differ by more than 0.1 deg")
+    del reg, plain
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N_RAGGED)
+    tr = Trainer(cfg, seed=0)
+    check(tr.model.use_kernels, "the training step at a ragged N must take the kernel route")
+    ops.reset_launch_counts()
+    try:
+        tr.train_step(_train_batch(cfg, 2, seed=3))
+    except ValueError as err:
+        print(f"train step at N={N_RAGGED}: refused by a backward gate: {err}", flush=True)
+        check("vjp" in str(err) or "bwd" in str(err),
+              f"train step at N={N_RAGGED}: refused by another gate than a backward one: {err}")
+    else:
+        raise RuntimeError(f"train step at N={N_RAGGED}: ran, where the backward kernels "
+                           "take whole 64-row tiles alone")
+    return total
+
+
 # ---------------------------------------------------------------------------
 # the DGCNN / DCP family and the fused pointer
 # ---------------------------------------------------------------------------
@@ -1549,9 +1643,9 @@ def phase_family_kernels(dev):
     agree = same_rows(graph.knn(ragged, K), knn.fused_knn_ref(ragged, K))
     check(knn.fused_knn.launches == before + 1, "graph.knn on the card did not launch the kernel")
     check(agree >= KNN_ROW_AGREEMENT, f"knn at N=1001: rows agree {agree}")
-    module = DGCNN(emb, k=K, dtype=bf16).to(dev).eval()
+    module = DGCNN(500, k=K, dtype=bf16).to(dev).eval()
 
-    def module_on_ragged():
+    def module_on_refused():
         with torch.no_grad():
             module(x[:, :1000].contiguous(), fused=True)
 
@@ -1563,9 +1657,9 @@ def phase_family_kernels(dev):
         "gather_max_bwd N > 7264": lambda: edgeconv.gather_max_bwd(
             idx.new_zeros(1, 8192, K), torch.zeros(1, 8192, 8, dtype=torch.uint8, device=dev),
             torch.zeros(1, 8192, 8, dtype=bf16, device=dev)),
-        "DGCNN module, kernel route, N % 16": module_on_ragged,
-        "dgcnn_eval N % 16": lambda: dgcnn.fused_dgcnn_eval(
-            x[:, :1000].contiguous(), idx[:, :1000].contiguous(), folded, emb),
+        "DGCNN module, kernel route, emb % 128": module_on_refused,
+        "dgcnn_eval emb % 128": lambda: dgcnn.fused_dgcnn_eval(
+            x[:, :1000].contiguous(), idx[:, :1000].contiguous(), folded, 500),
         "fused_mha dk = 64": lambda: pointer.fused_mha(yq, yq, *mha_w, 8),
         "fused_ff F > 4096": lambda: pointer.fused_ff(
             yq, randn(D, 8 * FF), randn(8 * FF), randn(8 * FF, D), randn(D)),
@@ -1582,6 +1676,264 @@ def phase_family_kernels(dev):
         except ValueError:
             continue
         raise RuntimeError(f"{what}: the wrapper did not raise")
+    print_rows(rows)
+    return rows
+
+
+# (B, N) of the ragged-cloud checks: the partial crop at the CLI's default
+# overlap (0.75 of 1024: 885 points) and num_points = 1000, each at B = 2
+# (item 0's last tiles border item 1's rows) and B = 64; edge_conv and
+# vcp_stream also at the crops of overlaps 0.5 and 0.9 (707, 971)
+RAGGED_SHAPES = ((2, 885), (64, 885), (2, 1000), (64, 1000))
+RAGGED_EXTRA = ((2, 707), (2, 971))
+# gather_max_from_idx: (B, N) held bit for bit at B = 64 over the slice
+# widths (N = 1024, 768 and 885: 64 channels; 3072: 32), and a cloud
+# beyond the slices (rows from device memory)
+GATHER_SHAPES = ((64, 1024), (64, 768), (64, 885), (64, 3072), (8, 3072), (1, 16384))
+
+
+def phase_ragged_kernels(dev):
+    """Every forward kernel of the served paths at cloud sizes that are no
+    multiple of 64 (885, 1000; edge_conv and vcp_stream also 707 and 971),
+    against its plain version with the tolerances of the kernels phase, and
+    at B = 2 with item 1's inputs changed: item 0's results must stay the
+    same bit for bit (its last tiles reach into item 1's rows, which are
+    masked or not written). Times at B = 64."""
+    import torch
+
+    from vcrnet_tpu_torch.ops import attention, colmass, dgcnn, edgeconv, knn, pointer, vcp
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def item0_unchanged(fn, inputs, what):
+        """fn(*inputs) -> tuple of tensors; item 1 of every input is drawn
+        again and item 0 of every output must not move."""
+        before = [t[0].clone() for t in fn(*inputs)]
+        again = []
+        for t in inputs:
+            t = t.clone()
+            if t.dtype == torch.int32:  # indices: a permutation of item 1's
+                t[1] = t[1].flip(0)
+            else:
+                t[1] = torch.randn(t[1].shape, generator=g, device=dev).to(t.dtype)
+            again.append(t)
+        after = fn(*again)
+        check(all(torch.equal(x, y[0]) for x, y in zip(before, after)),
+              f"{what}: item 0 moved when item 1's rows changed")
+
+    bf16, scale = torch.bfloat16, 128 ** -0.5
+    w2 = randn(128, 128, scale=128 ** -0.5, dtype=bf16)
+    b2 = randn(128, scale=0.1, dtype=bf16)
+    emb, D, H = 512, 512, 4
+    folded = [(randn(i, o, scale=i ** -0.5), randn(o, scale=0.1))
+              for i, o in dgcnn.STAGE_WIDTHS + ((512, emb),)]
+    mha_w = [t for _ in range(4) for t in (randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))]
+    rows = {}
+    for B, n in RAGGED_SHAPES + RAGGED_EXTRA:
+        extra = (B, n) in RAGGED_EXTRA
+        # --- the DG block: edge_conv (with and without winners), then
+        # edge_conv_from_idx on its selection
+        xf = randn(B, n, 64, dtype=bf16)
+        a = randn(B, n, 128, scale=0.5, dtype=bf16)
+        h = randn(B, n, 128, scale=0.5, dtype=bf16)
+        x1, x2, idx = edgeconv.fused_edge_conv(xf, a, h, w2, b2, K)
+        torch.cuda.synchronize()
+        agree = same_rows(idx, edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K)[2])
+        r1, r2, _ = edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K, idx=idx)
+        err = max((x1.float() - r1.float()).abs().max().item(),
+                  (x2.float() - r2.float()).abs().max().item())
+        check(agree >= KNN_ROW_AGREEMENT, f"edge_conv B={B} N={n}: rows agree {agree}")
+        check(err <= 2e-2, f"edge_conv B={B} N={n}: max abs err {err} > 2e-2")
+        check(int(idx.min()) >= 0 and int(idx.max()) < n, f"edge_conv B={B} N={n}: idx past N")
+        row = dict(B=B, N=n, rows_agree=agree, max_abs_err=err)
+        if B == 2:
+            w1_, w2_ = edgeconv.fused_edge_conv(xf, a, h, w2, b2, K, winners=True)[3:]
+            _, _, _, rw1, rw2 = edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K, idx=idx,
+                                                             winners=True)
+            check(torch.equal(w1_, rw1) and torch.equal(w2_, rw2),
+                  f"edge_conv B={B} N={n}: winners differ from the plain version")
+            item0_unchanged(lambda *t: edgeconv.fused_edge_conv(*t, w2, b2, K), (xf, a, h),
+                            f"edge_conv N={n}")
+        else:
+            row["ms"] = cuda_time_ms(lambda: edgeconv.fused_edge_conv(xf, a, h, w2, b2, K))
+        rows.setdefault("edge_conv_ragged", []).append(row)
+
+        # --- soft correspondence (forward with lse)
+        se = randn(B, n, 512, scale=512 ** -0.5, dtype=bf16)
+        te = randn(B, n + 5 if extra else n, 512, scale=512 ** -0.5, dtype=bf16)
+        tgt = torch.rand(B, te.shape[1], 3, generator=g, device=dev) * 2 - 1
+        c, lse = vcp.streaming_soft_correspondence(se, te, tgt, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+        err = (c - want).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        check(err <= 1e-3 and lse_err <= 1e-3,
+              f"vcp_stream B={B} Ns={n} Nt={te.shape[1]}: max abs err {err}, lse {lse_err}")
+        check(torch.equal(c, vcp.streaming_soft_correspondence(se, te, tgt)),
+              f"vcp_stream B={B} Ns={n}: two runs differ")
+        row = dict(B=B, N=n, Nt=te.shape[1], max_abs_err=err, lse_err=lse_err)
+        if B == 2:
+            item0_unchanged(lambda *t: vcp.streaming_soft_correspondence(*t, return_lse=True),
+                            (se, te, tgt), f"vcp_stream N={n}")
+        else:
+            row["ms"] = cuda_time_ms(lambda: vcp.streaming_soft_correspondence(se, te, tgt))
+        rows.setdefault("vcp_stream_ragged", []).append(row)
+        if extra:
+            continue
+
+        r1, r2 = edgeconv.edge_conv_from_idx(idx, a, h, w2, b2)
+        torch.cuda.synchronize()
+        p1, p2 = edgeconv.edge_conv_from_idx_ref(idx, a, h, w2, b2)
+        err = max((r1.float() - p1.float()).abs().max().item(),
+                  (r2.float() - p2.float()).abs().max().item())
+        x2_rel = rel_err(r2, x2)
+        check(err <= 2e-2, f"edge_conv_from_idx B={B} N={n}: max abs err {err} > 2e-2")
+        check(torch.equal(r1, x1) and x2_rel <= 2 ** -7,
+              f"edge_conv_from_idx B={B} N={n}: differs from edge_conv on its idx ({x2_rel})")
+        row = dict(B=B, N=n, max_abs_err=err, x2_rel_vs_fused=x2_rel)
+        if B == 64:
+            row["ms"] = cuda_time_ms(lambda: edgeconv.edge_conv_from_idx(idx, a, h, w2, b2))
+        rows.setdefault("edge_conv_from_idx_ragged", []).append(row)
+
+        # --- the SN block and the kNN kernel, which take any N
+        x = torch.rand(B, n, 3, generator=g, device=dev) * 2 - 1
+        values = randn(B, n, 256, dtype=bf16)
+        fused_out, xyz_idx = edgeconv.fused_knn_gather_max(x, values, K)
+        torch.cuda.synchronize()
+        check(torch.equal(knn.fused_knn(x, K), xyz_idx), f"knn N={n}: differs from knn_gather_max")
+        check(torch.equal(fused_out, edgeconv.gather_max_from_idx_ref(xyz_idx, values)),
+              f"knn_gather_max B={B} N={n}: gather-max not exact")
+        agree = same_rows(xyz_idx, edgeconv.fused_knn_gather_max_ref(x, values, K)[1])
+        check(agree >= KNN_ROW_AGREEMENT, f"knn_gather_max B={B} N={n}: rows agree {agree}")
+        rows.setdefault("knn_gather_max_ragged", []).append(dict(
+            B=B, N=n, rows_agree=agree, max_abs_err=0.0, equals_knn=True))
+
+        # --- packed-head attention (output and lse), self lengths
+        q, k, v = (randn(B, n, 512, dtype=bf16) for _ in range(3))
+        o, lse = attention.flash_mha_packed(q, k, v, scale, 4, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, 4, return_lse=True)
+        err = (o.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        check(err <= 2e-2 and lse_err <= 1e-3,
+              f"flash_packed B={B} N={n}: max abs err {err}, lse {lse_err}")
+        row = dict(B=B, N=n, max_abs_err=err, lse_err=lse_err)
+        del want
+        if B == 2:
+            item0_unchanged(lambda *t: attention.flash_mha_packed(*t, scale, 4, return_lse=True),
+                            (q, k, v), f"flash_packed N={n}")
+        else:
+            row["ms"] = cuda_time_ms(lambda: attention.flash_mha_packed(q, k, v, scale, 4))
+        rows.setdefault("flash_packed_ragged", []).append(row)
+
+        # --- column masses (Nq != Nk too), twice: the results must be equal
+        kk = randn(B, n + 61, 512, dtype=bf16)
+        for kind, keys in (("self", k), ("cross", kk)):
+            cm = colmass.softmax_colmass(q, keys, scale, 4)
+            torch.cuda.synchronize()
+            want = colmass.softmax_colmass_ref(q, keys, scale, 4)
+            rel = rel_err(cm, want)
+            check(rel <= 1e-3, f"softmax_colmass {kind} B={B} N={n}: relative err {rel} > 1e-3")
+            check(torch.equal(cm, colmass.softmax_colmass(q, keys, scale, 4)),
+                  f"softmax_colmass {kind} B={B} N={n}: two runs differ")
+            row = dict(B=B, N=n, Nk=keys.shape[1], max_abs_err=(cm - want).abs().max().item(),
+                       rel_err=rel)
+            if B == 2:
+                item0_unchanged(lambda *t: (colmass.softmax_colmass(*t, scale, 4),), (q, keys),
+                                f"softmax_colmass {kind} N={n}")
+            elif kind == "self":
+                row["ms"] = cuda_time_ms(lambda: colmass.softmax_colmass(q, keys, scale, 4))
+            rows.setdefault("softmax_colmass_ragged", []).append(row)
+
+        # --- DGCNN's eval chain and the fused attention sublayer
+        idx_x = knn.fused_knn(x, K)
+        out = dgcnn.fused_dgcnn_eval(x, idx_x, folded, emb)
+        torch.cuda.synchronize()
+        rel = rel_err(out, dgcnn.fused_dgcnn_eval_ref(x, idx_x, folded, emb))
+        check(rel <= 2e-2, f"dgcnn_eval B={B} N={n}: relative err {rel} > 2e-2")
+        row = dict(B=B, N=n, max_abs_err=rel, rel_err=rel)
+        if B == 64:
+            row["ms"] = cuda_time_ms(lambda: dgcnn.fused_dgcnn_eval(x, idx_x, folded, emb))
+        rows.setdefault("dgcnn_eval_ragged", []).append(row)
+        yq = randn(B, n, D, dtype=bf16)
+        for kind, kv in (("self", yq), ("cross", randn(B, n + 61, D, dtype=bf16))):
+            out = pointer.fused_mha(yq, kv, *mha_w, H)
+            torch.cuda.synchronize()
+            rel = rel_err(out, pointer.fused_mha_ref(yq, kv, *mha_w, H))
+            check(rel <= 2 ** -6, f"fused_mha {kind} B={B} N={n}: relative err {rel} > 2^-6")
+            row = dict(B=B, N=n, Nk=kv.shape[1], max_abs_err=rel, rel_err=rel)
+            if B == 64 and kind == "self":
+                row["ms"] = cuda_time_ms(lambda: pointer.fused_mha(yq, yq, *mha_w, H))
+            rows.setdefault("fused_mha_ragged", []).append(row)
+    print_rows(rows)
+    return rows
+
+
+def phase_gather_kernels(dev):
+    """gather_max_from_idx, redesigned by channel slices: out and winners
+    equal to the plain version's bit for bit at every slice width it runs
+    (N = 768, 885, 1024: 64 channels; 3072: 32) and beyond the slices (N =
+    16384: rows from device memory), on duplicate indices, at k = 1, 7 (the
+    indices read one by one) and 32, at F = 8 and 264 (a narrower last
+    slice); equal to knn_gather_max's out on its idx; and timed at B = 64,
+    N = 1024 without winners (the serving route) and with them (the
+    training route's), beside its bound and the plain version."""
+    import torch
+
+    from vcrnet_tpu_torch.ops import edgeconv
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def exact(idx, values, what):
+        out, win = edgeconv.fused_gather_max_from_idx(idx, values, winners=True)
+        plain_out = edgeconv.fused_gather_max_from_idx(idx, values)
+        torch.cuda.synchronize()
+        ref_out, _, ref_win = edgeconv.fused_knn_gather_max_ref(None, values, idx=idx,
+                                                                winners=True)
+        check(torch.equal(out, ref_out) and torch.equal(plain_out, ref_out),
+              f"gather_max_from_idx {what}: out differs from the plain version")
+        check(torch.equal(win, ref_win), f"gather_max_from_idx {what}: winners differ")
+
+    for B, n in GATHER_SHAPES:
+        x = torch.rand(B, n, 3, generator=g, device=dev) * 2 - 1
+        values = torch.randn(B, n, 256, generator=g, device=dev).to(bf16)
+        fused_out, idx = edgeconv.fused_knn_gather_max(x, values, K)
+        exact(idx, values, f"B={B} N={n}")
+        check(torch.equal(edgeconv.fused_gather_max_from_idx(idx, values), fused_out),
+              f"gather_max_from_idx B={B} N={n}: differs from knn_gather_max on its idx")
+        rows.setdefault("gather_max_from_idx_slices", []).append(dict(
+            B=B, N=n, max_abs_err=0.0, equals_fused=True,
+            ms=cuda_time_ms(lambda: edgeconv.fused_gather_max_from_idx(idx, values))))
+    # duplicate indices (every neighbour twice), and ties of value: a table
+    # of a few distinct values, so that many rows reach each maximum
+    B, n = 8, N
+    idx = torch.randint(0, n, (B, n, K // 2), generator=g, device=dev, dtype=torch.int32)
+    idx = idx.repeat_interleave(2, dim=2).contiguous()
+    values = torch.randint(-3, 4, (B, n, 256), generator=g, device=dev).to(bf16)
+    exact(idx, values, "duplicate indices, tied values")
+    for k, f in ((1, 256), (7, 256), (32, 256), (K, 8), (K, 264)):
+        idx = torch.randint(0, n, (B, n, k), generator=g, device=dev, dtype=torch.int32)
+        values = torch.randn(B, n, f, generator=g, device=dev).to(bf16)
+        exact(idx, values, f"k={k} F={f}")
+    rows["gather_max_from_idx_edge"] = [dict(B=B, N=n, duplicates=True, ks=(1, 7, 32),
+                                             fs=(8, 264), max_abs_err=0.0)]
+
+    # with winners (the training route's forward) at B = 64, N = 1024: one
+    # more byte an output element
+    B, n = 64, N
+    x = torch.rand(B, n, 3, generator=g, device=dev) * 2 - 1
+    values = torch.randn(B, n, 256, generator=g, device=dev).to(bf16)
+    _, idx = edgeconv.fused_knn_gather_max(x, values, K)
+    out, win = edgeconv.fused_gather_max_from_idx(idx, values, winners=True)
+    b, by = bound_ms(nbytes(idx, values, out, win), B * n * K * 256, F32_FLOPS)
+    rows["gather_max_from_idx_winners"] = [dict(
+        B=B, N=n, max_abs_err=0.0, bound_ms=b, bound_by=by,
+        ms=cuda_time_ms(lambda: edgeconv.fused_gather_max_from_idx(idx, values, winners=True)))]
     print_rows(rows)
     return rows
 
@@ -1895,7 +2247,7 @@ def print_ptxas_reports(procs: dict) -> None:
         check(kernels and not any(spills), f"{src}: the kernels spill registers ({spills} bytes)")
 
 
-PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "dgcnn",
+PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "dgcnn",
           "fused_pointer")
 
 
@@ -1935,6 +2287,8 @@ def main() -> int:
             rows.update(phase_eval_kernels(dev))
             rows.update(phase_sn_kernels(dev))
             rows.update(phase_family_kernels(dev))
+            rows.update(phase_ragged_kernels(dev))
+            rows.update(phase_gather_kernels(dev))
         elif name == "backward":
             rows.update(phase_backward(dev))
         elif name == "train":
@@ -1945,6 +2299,8 @@ def main() -> int:
             launches[name] = phase_refine()
         elif name == "partial":
             launches[name] = phase_partial()
+        elif name == "ragged":
+            launches[name] = phase_ragged()
         elif name == "dgcnn":
             launches[name] = phase_dgcnn()
         elif name == "fused_pointer":
@@ -1992,6 +2348,8 @@ def main() -> int:
         errs = [r["max_abs_err"] for r in rows[name]]
         errs += [r["max_abs_err"] for r in rows.get(name + "_path_shapes", ())]
         errs += [r["max_abs_err"] for r in rows.get(name + "_edge", ())]
+        errs += [r["max_abs_err"] for r in rows.get(name + "_ragged", ())]
+        errs += [r["max_abs_err"] for r in rows.get(name + "_slices", ())]
         if name == "flash_packed":
             errs += [r["max_abs_err"] for r in rows["flash_packed_nk_valid"]]
         kernels.append({
@@ -2001,6 +2359,7 @@ def main() -> int:
             "launches_serve": launches["serve"][name],
             "launches_refine": launches["refine"][name],
             "launches_partial": launches["partial"][name],
+            "launches_ragged": launches["ragged"].get(name, 0),
             "launches_dgcnn": launches["dgcnn"][name],
             "launches_fused_pointer": launches["fused_pointer"][name],
             "max_abs_err": max(errs),

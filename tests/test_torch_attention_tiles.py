@@ -13,7 +13,11 @@ package's Pallas kernels in interpret mode (``_flash_packed_impl``,
   at or beyond ``nk_valid`` masked to -inf in the last tile, tiles wholly
   past it never visited; lse = m + log l. The Pallas kernel and the plain
   version round P against the row's FINAL max instead (ROADMAP C, "Online
-  softmax"): these tests bound that divergence;
+  softmax"): these tests bound that divergence. At lengths that are no
+  multiple of 64 the tiles are read as the kernel's TMA boxes read the
+  flattened [B * N, H * dk] matrices (the next item's rows, then zeros past
+  the end), keys past Nk are masked by the count and query rows past Nq
+  are not stored;
 * backward: dK and dV summed tile by tile over 64-row query tiles (the
   dK/dV kernel's loop), dQ over 64-key tiles (the dQ kernel's loop), each
   tile's product added to an f32 accumulator; p = exp(s - lse), dS and P
@@ -163,6 +167,94 @@ def test_tiled_forward_matches_pallas(dtype, nq, nk, nk_valid):
         SCALE, HEADS, interpret=True)).astype(np.float32)
     np.testing.assert_allclose(got.float().numpy(), want,
                                atol=_forward_tol(dtype, v, torch.from_numpy(want)), rtol=0)
+
+
+def _box_rows(x, r0, rows):
+    """Rows r0 .. r0 + rows of every item as a TMA box of the flattened
+    [B * N, D] matrix sees them: past the item's N, the next item's rows,
+    and zeros past the end of the tensor."""
+    b, n, d = x.shape
+    flat = torch.cat([x.reshape(b * n, d), torch.zeros(rows + TILE, d, dtype=x.dtype)])
+    return flat[torch.arange(b)[:, None] * n + r0 + torch.arange(rows)]
+
+
+def ragged_forward(q, k, v, q_block=128):
+    """fwd_kernel at any Nq and Nk (nk_valid = Nk): blocks of 128 query rows
+    and 64-key tiles read as the TMA boxes read them; keys past Nk set to
+    -inf by the count; only rows below Nq stored. (out, lse)."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    out = torch.full((b, nq, d), float("nan"), dtype=q.dtype)
+    lse = torch.full((b, HEADS, nq), float("nan"))
+    for r0 in range(0, nq, q_block):
+        qh = _split(_box_rows(q, r0, q_block))
+        m = torch.full(qh.shape[:3], float("-inf"))
+        l = torch.zeros(qh.shape[:3])
+        o = torch.zeros(qh.shape)
+        for t0 in range(0, nk, TILE):
+            kh, vh = _split(_box_rows(k, t0, TILE)), _split(_box_rows(v, t0, TILE))
+            s = qh @ kh.transpose(-1, -2) * SCALE
+            s[..., torch.arange(t0, t0 + TILE) >= nk] = float("-inf")
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + p.to(v.dtype).float() @ vh
+            m = m_new
+        stored = min(q_block, nq - r0)
+        out[:, r0:r0 + stored] = _merge(o / l[..., None], q.dtype)[:, :stored]
+        lse[:, :, r0:r0 + stored] = (m + torch.log(l))[:, :, :stored]
+    return out, lse
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", [(100, 100), (130, 70), (64, 150), (245, 200)])
+def test_ragged_forward_matches_plain_version(dtype, nq, nk):
+    q, k, v = _inputs(35, dtype, nq, nk)
+    got, got_lse = ragged_forward(q, k, v)
+    want, want_lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+    assert not torch.isnan(got.float()).any()
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=_forward_tol(dtype, v, want), rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=0)
+
+
+def test_ragged_tiles_of_the_next_item_change_nothing():
+    """Item 0's last query block and key tile hold item 1's rows: redrawing
+    them leaves item 0's output and lse the same bit for bit, and equal to
+    the attention over item 0 alone."""
+    q, k, v = _inputs(36, "bfloat16", 100, 150)
+    first = ragged_forward(q, k, v)
+    alone = ragged_forward(q[:1], k[:1], v[:1])
+    rng = np.random.RandomState(37)
+    for t in (q, k, v):
+        t[1] = torch.from_numpy(rng.randn(*t[1].shape).astype(np.float32)).to(t.dtype)
+    second = ragged_forward(q, k, v)
+    for a, b, c in zip(first, second, alone):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[:1], c)
+
+
+def test_attention_pads_nothing_on_the_card(monkeypatch):
+    """Without a gradient the eval attention hands a ragged key count to the
+    kernel as it is (no padding copy); with one, the backward gate refuses
+    it."""
+    calls = []
+
+    class Ext:
+        @staticmethod
+        def flash_packed(q, k, v, out, lse, nk_valid, n_heads, sm_scale):
+            calls.append((tuple(q.shape), tuple(k.shape), nk_valid))
+
+    monkeypatch.setattr(attention, "kernel_route", lambda *t: True)
+    monkeypatch.setattr(attention._build, "extension", lambda: Ext)
+    q, k, v = _inputs(38, "bfloat16", 100, 150)
+    with torch.no_grad():
+        attention.attention(q, k, v, SCALE, HEADS)
+    assert calls == [((B, 100, HEADS * DK), (B, 150, HEADS * DK), 150)]
+    assert attention.flash_packed_supported(885, 885, 512, 4)
+    assert not attention.flash_bwd_supported(885, 885, 512, 4)
+    assert not attention.flash_bwd_supported(1024, 1000, 512, 4)
+    assert attention.flash_bwd_supported(1024, 768, 512, 4)
 
 
 # (Nq, Nk): equal, Nq % 128 == 64 for both kernels' blocks, Nq != Nk

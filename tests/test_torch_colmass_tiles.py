@@ -130,6 +130,71 @@ def test_tiled_colmass_matches_pallas(dtype, b, nq, nk, heads):
     _close(tiled_colmass(q, k, scale, heads), torch.from_numpy(want), nq)
 
 
+def _box_rows(x, r0, rows):
+    """Rows r0 .. r0 + rows of every item as a TMA box of the flattened
+    [B * N, D] matrix sees them: the next item's rows past N, zeros past the
+    end of the tensor."""
+    b, n, d = x.shape
+    flat = torch.cat([x.float().reshape(b * n, d), torch.zeros(rows + TILE, d)])
+    return flat[torch.arange(b)[:, None] * n + r0 + torch.arange(rows)]
+
+
+def ragged_colmass(q, k, scale, heads):
+    """Both kernels at any Nq and Nk, their tiles read as the TMA boxes
+    read them. The lse pass masks keys past Nk by the count and writes the
+    rows below Nq into a scratch of whole 64-row tiles (the rest holds
+    whatever was there: NaN here); the mass pass gives the columns of its
+    last query tile past Nq a score of 0 and an lse of +inf, and stores the
+    keys below Nk."""
+    b, nq, _ = q.shape
+    nk = k.shape[1]
+    scale_log2 = scale * LOG2E
+    n_tiles = -(-nq // TILE)
+    lse2 = torch.full((b, heads, n_tiles * TILE), float("nan"))
+    qh = _split(q, heads)
+    m = torch.full(qh.shape[:3], float("-inf"))
+    l = torch.zeros(qh.shape[:3])
+    for t0 in range(0, nk, TILE):
+        s = qh @ _split(_box_rows(k, t0, TILE), heads).transpose(-1, -2)
+        s[..., torch.arange(t0, t0 + TILE) >= nk] = float("-inf")
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        l = l * torch.exp2(m - m_new) + torch.exp2(s * scale_log2 - m_new[..., None]).sum(-1)
+        m = m_new
+    lse2[..., :nq] = m + torch.log2(l)
+    kh = _split(_box_rows(k, 0, -(-nk // TILE) * TILE), heads)  # keys past Nk: not stored
+    mass = torch.zeros(kh.shape[:3])
+    for t in range(n_tiles):
+        st = kh @ _split(_box_rows(q, t * TILE, TILE), heads).transpose(-1, -2)
+        lt = lse2[:, :, None, t * TILE:(t + 1) * TILE].clone()
+        past = torch.arange(t * TILE, (t + 1) * TILE) >= nq
+        st[..., past] = 0.0
+        lt[..., past] = float("inf")
+        mass += torch.exp2(st * scale_log2 - lt).sum(-1)
+    return mass[..., :nk]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", [(100, 100), (130, 70), (70, 200), (245, 185)])
+def test_ragged_colmass_matches_plain_version(dtype, nq, nk):
+    q, k = _inputs(14, 2, nq, nk, 2, dtype)
+    scale = DK ** -0.5
+    got = ragged_colmass(q, k, scale, 2)
+    assert not torch.isnan(got).any()
+    _close(got, colmass.softmax_colmass_ref(q, k, scale, 2), nq)
+
+
+def test_ragged_tiles_of_the_next_item_change_nothing():
+    """Item 0's last query tile and key block hold item 1's rows: redrawing
+    them leaves item 0's masses the same bit for bit."""
+    q, k = _inputs(15, 2, 100, 150, 2, "bfloat16")
+    scale = DK ** -0.5
+    first = ragged_colmass(q, k, scale, 2)
+    rng = np.random.RandomState(16)
+    for t in (q, k):
+        t[1] = torch.from_numpy(rng.randn(*t[1].shape).astype(np.float32)).to(t.dtype)
+    assert torch.equal(first[0], ragged_colmass(q, k, scale, 2)[0])
+
+
 def test_gate_takes_every_served_shape():
     """The decoder streams the re-mask at nk > stream_above with Nq and Nk
     in 128s (models/transformer.py); the partial-3072 request gives 3072 by
@@ -140,8 +205,9 @@ def test_gate_takes_every_served_shape():
         assert colmass.colmass_supported(n, n, 512, 4)
     assert colmass.colmass_supported(192, 320, 256, 2)  # lengths in 64s
     assert not colmass.colmass_supported(3072, 3072, 512, 8)  # dk = 64
-    assert not colmass.colmass_supported(3000, 3072, 512, 4)
-    assert not colmass.colmass_supported(3072, 3000, 512, 4)
+    # ragged lengths: the last tiles mask by counts (ROADMAP C1)
+    assert colmass.colmass_supported(3000, 3072, 512, 4)
+    assert colmass.colmass_supported(3072, 3000, 512, 4)
 
 
 def _as_if_on_the_card(monkeypatch):
@@ -159,7 +225,7 @@ def _as_if_on_the_card(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("nq,nk,d,heads", [(3000, 3072, 512, 4), (3072, 3000, 512, 4),
+@pytest.mark.parametrize("nq,nk,d,heads", [(3072, 3072, 384, 4), (3072, 3072, 1024, 4),
                                            (3072, 3072, 512, 8)])
 def test_a_refused_shape_raises_on_the_card(monkeypatch, nq, nk, d, heads):
     calls = _as_if_on_the_card(monkeypatch)
@@ -179,5 +245,8 @@ def test_a_served_shape_launches_the_kernel_once(monkeypatch):
     assert out.shape == (2, 4, 3072) and out.dtype == torch.float32
     assert calls == [((2, 3072, 512), (2, 3072, 512), (2, 4, 3072), (2, 4, 3072))]
     assert colmass.softmax_colmass.launches == before + 1
+    # a ragged Nq: the row logsumexps' scratch fills whole 64-query tiles
+    colmass.softmax_colmass(q[:, :3000].contiguous(), q, 128 ** -0.5, 4)
+    assert calls[-1] == ((2, 3000, 512), (2, 3072, 512), (2, 4, 3008), (2, 4, 3072))
     with pytest.raises(TypeError, match="bfloat16"):  # the kernel takes bf16 alone
         colmass.softmax_colmass(q.float(), q.float(), 128 ** -0.5, 4)

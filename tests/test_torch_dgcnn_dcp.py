@@ -204,7 +204,7 @@ def test_fused_dgcnn_eval_ref_matches_pallas_kernel_and_module():
 def test_fused_dgcnn_gates_and_refusals():
     assert dgcnn.fused_dgcnn_supported(1024, 20, 512) and dgcnn.fused_dgcnn_supported(768, 20, 512)
     assert dgcnn.fused_dgcnn_supported(64, 30, 128)
-    assert not dgcnn.fused_dgcnn_supported(1000, 20, 512)  # no whole 16-point tiles
+    assert dgcnn.fused_dgcnn_supported(1000, 20, 512)  # a ragged last tile (ROADMAP C1)
     assert not dgcnn.fused_dgcnn_supported(1024, 20, 500)  # the projection tiles 128 columns
     # the edge kernel streams the neighbour slots: k is bounded by N alone
     assert dgcnn.fused_dgcnn_supported(1024, 31, 512) and dgcnn.fused_dgcnn_supported(64, 63, 128)
@@ -242,16 +242,19 @@ def test_dgcnn_kernel_route_on_cpu_is_the_plain_eval_chain_in_bf16():
 
 
 def test_dgcnn_kernel_route_does_not_give_way_on_a_shape_the_kernel_refuses():
-    """N = 60 is no whole number of 16-point tiles: the module still calls
-    the fused chain (on the card its wrapper raises there; a CPU tensor runs
-    its plain version, which takes any shape), never the plain formulation."""
-    x, _, _, model = _dgcnn_pair(dtype=jnp.bfloat16, n=60)
-    assert not dgcnn.fused_dgcnn_supported(60, 5, 128)
+    """An embedding of 96 is no whole number of the projection's 128-column
+    passes: the module still calls the fused chain (on the card its wrapper
+    raises there; a CPU tensor runs its plain version, which takes any
+    shape), never the plain formulation. N = 60 is a ragged cloud, which the
+    kernel takes."""
+    x, _, _, model = _dgcnn_pair(emb_dims=96, dtype=jnp.bfloat16, n=60)
+    assert not dgcnn.fused_dgcnn_supported(60, 5, 96)
+    assert dgcnn.fused_dgcnn_supported(60, 5, 128)
     model.eval()
     tx = _t(x)
     with torch.no_grad():
         fused, idx, _ = model(tx, fused=True)
-        want = dgcnn.fused_dgcnn_eval_ref(tx, idx, dgcnn.fold_dgcnn_eval_params(model), 128)
+        want = dgcnn.fused_dgcnn_eval_ref(tx, idx, dgcnn.fold_dgcnn_eval_params(model), 96)
         plain = model(tx, fused=False)[0]
     assert torch.equal(fused, want) and not torch.equal(fused, plain)
 

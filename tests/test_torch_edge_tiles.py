@@ -10,13 +10,18 @@ the VJP of ``_fused_edge_conv_vjp``), on the same seeded numpy inputs:
 
 * selection: a key is the order-preserving uint32 of the f32 score (-0 made
   +0) above the complement of the column. Lane l of a warp sees columns l
-  and l + 32 of every 64-column tile. Pass 1 keeps each lane's two best
-  keys; the k-th best of the 64 is the threshold. Pass 2 inserts every key
-  at or above it, tile by tile and lane by lane, into a 32-slot list sorted
-  by key; its first k slots are the selection. It must equal the plain
-  stable sort exactly, on ties, duplicate points, the -inf diagonal and NaN;
+  and l + 32 of every 64-column tile; past N (a ragged last tile) the
+  columns score -inf (the kernel gives their keys an infinite norm). Pass 1
+  keeps each lane's two best keys; the k-th best of the 64 is the
+  threshold. Pass 2 inserts every key at or above it, tile by tile and lane
+  by lane, into a 32-slot list sorted by key; its first k slots are the
+  selection. It must equal the plain stable sort exactly, on ties,
+  duplicate points, the -inf diagonal, NaN and ragged clouds;
 * edge phase: m64 tiles of two queries, each query's k rows padded to 32 by
-  repeating neighbour 0; z in f32, rounded to bf16 for the product with
+  repeating neighbour 0; blocks of 64 query rows (of a cloud for
+  edge_conv, of the flattened [B*N] for edge_conv_from_idx), where a query
+  slot past the block's rows repeats the tile's first query and is not
+  written; z in f32, rounded to bf16 for the product with
   W2 (f32 accumulation); each warp's 16 rows reduce first (a thread's rows
   g and g + 8, then the eight lanes of a column), then the query's two
   warps, keeping the larger value and the smaller row on ties. Without
@@ -71,8 +76,10 @@ def rank_key(s: float, j: int) -> int:
 
 
 def two_pass_select(row: np.ndarray, k: int) -> list:
-    """edge_conv.cu's selection of one score row (f32, NaN already -inf)."""
-    n = row.shape[0]
+    """edge_conv.cu's selection of one score row (f32, NaN already -inf),
+    over whole 64-column tiles: the columns past the row's end score -inf."""
+    n = -(-row.shape[0] // TILE) * TILE
+    row = np.concatenate([row, np.full(n - row.shape[0], -np.inf, np.float32)])
     keys = [rank_key(row[j], j) for j in range(n)]
     top2 = []  # pass 1: each lane's two best keys
     for lane in range(LANES):
@@ -112,7 +119,7 @@ def _clouds(kind: str, n: int, c: int = 64) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("kind", ["random", "ties", "duplicates", "nan"])
-@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("n", [64, 128, 100])
 def test_two_pass_selection_equals_the_plain_selection(kind, n):
     x = _clouds(kind, n)
     np.testing.assert_array_equal(tiled_select(x, K).numpy(),
@@ -238,6 +245,68 @@ def test_tiled_winners_take_the_first_row_on_ties():
     assert int(w1.max()) < K  # padding rows never win
 
 
+def flat_edge_rows(idx, a, h, w2, b2, slope):
+    """edge_conv_from_idx.cu's blocks: 64 rows of the flattened [B*N] a
+    block, tiles of two queries; a query slot at or past the block's rows
+    (the end of B*N) computes the tile's first query again and is not
+    written. Each query gathers from its own cloud (flat row i / N)."""
+    b, n, k = idx.shape
+    rows = b * n
+    flat_idx, flat_h = idx.reshape(rows, k), h.reshape(rows, F)
+    x1, x2 = torch.full((rows, F), float("nan")), torch.full((rows, F), float("nan"))
+    for row0 in range(0, rows, 64):
+        n_valid = min(64, rows - row0)
+        for t in range(-(-n_valid // 2)):
+            for p in range(2):
+                qp = 2 * t + p if 2 * t + p < n_valid else 2 * t
+                i = row0 + qp
+                cloud = a[i // n]
+                one = tiled_edge_phase(flat_idx[i].view(1, 1, k), cloud[None],
+                                       flat_h[i].view(1, 1, F), w2, b2, slope, winners=False)
+                if 2 * t + p < n_valid:
+                    x1[row0 + 2 * t + p], x2[row0 + 2 * t + p] = one[0][0, 0], one[1][0, 0]
+    return x1.reshape(b, n, F), x2.reshape(b, n, F)
+
+
+def test_flat_blocks_with_an_odd_row_count_write_every_row_once():
+    """B*N = 3 * 33 = 99 rows: two blocks, the last tile of the second holds
+    one real query. Every row is written, and equals the plain version."""
+    rng = np.random.RandomState(12)
+    b, n = 3, 33
+    a, h = _t(_rand(rng, b, n, F, scale=0.5)), _t(_rand(rng, b, n, F, scale=0.5))
+    w2, b2 = _t(_rand(rng, F, F, scale=F ** -0.5)), _t(_rand(rng, F, scale=0.1))
+    idx = torch.from_numpy(rng.randint(0, n, (b, n, K)).astype(np.int32))
+    x1, x2 = flat_edge_rows(idx, a, h, w2, b2, 0.0)
+    r1, r2 = edgeconv.edge_conv_from_idx_ref(idx, a, h, w2.to(torch.bfloat16), b2)
+    bf = torch.bfloat16
+    assert not (torch.isnan(x1).any() or torch.isnan(x2).any())
+    assert torch.equal(x1, r1.to(bf).float())
+    torch.testing.assert_close(x2, r2.to(bf).float(), rtol=2 ** -8, atol=1e-6)
+
+
+def test_ragged_tiles_of_the_next_item_change_nothing():
+    """B = 2 clouds of N = 100 points, whose last key tile and last block of
+    64 queries are ragged: redrawing item 1 leaves item 0's selection and
+    both outputs the same bit for bit, and they equal the plain version."""
+    n = 100
+    x, a, h, w2, b2 = (_t(v) for v in _edge_inputs(n, seed=13))
+
+    def forward(x, a, h):
+        idx = tiled_select(x, K)
+        return (idx, *flat_edge_rows(idx, a, h, w2, b2, 0.0))
+
+    first = forward(x, a, h)
+    r1, r2, r_idx = edgeconv.fused_edge_conv_ref(x, a, h, w2.to(torch.bfloat16), b2, K)
+    assert torch.equal(first[0], r_idx)
+    assert torch.equal(first[1], r1.to(torch.bfloat16).float())
+    rng = np.random.RandomState(14)
+    for t in (x, a, h):
+        t[1] = _t(_rand(rng, *t[1].shape))
+    second = forward(x, a, h)
+    assert all(torch.equal(u[0], v[0]) for u, v in zip(first, second))
+    assert not torch.equal(first[1][1], second[1][1])
+
+
 # ------------------------------------------------------------------- backward
 
 
@@ -328,10 +397,13 @@ def test_edge_gates_take_every_served_and_trained_shape():
     for c in (32, 128):
         assert edgeconv.edge_conv_supported(1024, c, K)
     assert edgeconv.edge_conv_supported(64, 64, 32) and edgeconv.edge_conv_supported(4096, 64, K)
-    for n, c, k in ((1000, 64, K), (96, 64, K), (1024, 48, K), (1024, 64, 33), (64, 64, 64)):
+    # a ragged last tile: any N (ROADMAP C1)
+    assert edgeconv.edge_conv_supported(1000, 64, K) and edgeconv.edge_conv_supported(96, 64, K)
+    for n, c, k in ((1024, 48, K), (1024, 64, 33), (64, 64, 64)):
         assert not edgeconv.edge_conv_supported(n, c, k)
-    assert not edgeconv.edge_conv_from_idx_supported(1000, K)
-    assert not edgeconv.edge_conv_bwd_supported(1000, K)
+    assert edgeconv.edge_conv_from_idx_supported(1000, K)
+    assert not edgeconv.edge_conv_from_idx_supported(1000, 33)
+    assert not edgeconv.edge_conv_bwd_supported(1000, K)  # the gradient half: C1b, with A4
     assert not edgeconv.edge_conv_bwd_supported(1024, 33)
 
 
@@ -346,18 +418,19 @@ class _FakeCuda(torch.Tensor):
 
 def test_refused_cuda_shapes_raise_and_do_not_fall_back():
     bf = torch.bfloat16
-    n = 96  # N % 64 != 0: edge_conv refuses it
+    n = 96  # a ragged N is taken now; C = 48 is refused
 
     def fake(shape, dtype=bf):
         return torch.zeros(shape, dtype=dtype).as_subclass(_FakeCuda)
 
-    x, a, h = fake((1, n, 64)), fake((1, n, F)), fake((1, n, F))
+    x, a, h = fake((1, n, 48)), fake((1, n, F)), fake((1, n, F))
     w2, b2 = fake((F, F)), fake((F,))
-    with pytest.raises(ValueError, match="N % 64"):
+    with pytest.raises(ValueError, match="C in"):
         edgeconv.fused_edge_conv(x, a, h, w2, b2, K)
+    with pytest.raises(ValueError, match=r"k in \[1, 32\]"):
+        edgeconv.edge_conv_from_idx(fake((1, 100, 33), torch.int32), fake((1, 100, F)),
+                                    fake((1, 100, F)), w2, b2)
     idx = fake((1, 100, K), torch.int32)
-    with pytest.raises(ValueError, match="N % 16"):
-        edgeconv.edge_conv_from_idx(idx, fake((1, 100, F)), fake((1, 100, F)), w2, b2)
     win = fake((1, 100, F), torch.uint8)
     t = fake((1, 100, F))
     with pytest.raises(ValueError, match="N % 16"):

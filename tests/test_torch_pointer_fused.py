@@ -107,8 +107,11 @@ def test_gates_match_jax(monkeypatch, flag):
     assert pointer.fused_mha_supported(768, 768, 512, 4) is on
     assert pointer.fused_ff_supported(1024, 512, 1024) is on
     assert not pointer.fused_mha_supported(1024, 1024, 512, 8)  # dk = 64
-    assert not pointer.fused_mha_supported(1000, 1024, 512, 4)  # no whole 64-query tiles
-    assert not pointer.fused_mha_supported(1024, 1000, 512, 4)  # no whole 32-key tiles
+    # ragged lengths: the last query tile stores its real rows alone, the
+    # last key tile masks the next item's keys (ROADMAP C1)
+    assert pointer.fused_mha_supported(1000, 1024, 512, 4) is on
+    assert pointer.fused_mha_supported(1024, 1000, 512, 4) is on
+    assert pointer.fused_mha_supported(885, 885, 512, 4) is on
     # K and V live in device memory, so the JAX package's budget does not bind
     assert not pp.fused_mha_supported(8192, 8192, 512, 4)
     assert pointer.fused_mha_supported(8192, 8192, 512, 4) is on
@@ -154,9 +157,9 @@ def test_fused_wrappers_refuse_a_gradient():
 # the two branches in models/transformer.py
 # ---------------------------------------------------------------------------
 
-def _pointer(partial, flash, seed=0):
+def _pointer(partial, flash, seed=0, n_heads=1):
     torch.manual_seed(seed)
-    model = TransformerPointer(128, 1, 1, 256, dtype=torch.bfloat16, flash=flash,
+    model = TransformerPointer(128, 1, n_heads, 256, dtype=torch.bfloat16, flash=flash,
                                partial=partial, overlap2=0.75)
     return model.eval()
 
@@ -202,9 +205,10 @@ def test_fused_branches_are_not_taken(monkeypatch, why):
     else:
         monkeypatch.setenv("VCRNET_FUSED_POINTER", "0" if why == "zero" else "1")
     calls = _count_calls(monkeypatch)
-    model = _pointer(False, flash=why != "plain_route")
-    n = 48 if why == "shape" else 128  # 48 rows are no whole 64-query tile
-    x = torch.randn(1, n, 128, generator=torch.Generator().manual_seed(3))
+    # two heads of 64 columns: the attention kernel takes dk = 128 alone (any
+    # number of rows since the ragged tiles of ROADMAP C1)
+    model = _pointer(False, flash=why != "plain_route", n_heads=2 if why == "shape" else 1)
+    x = torch.randn(1, 128, 128, generator=torch.Generator().manual_seed(3))
     if why == "training":
         model.train()
     if why in ("training", "gradient"):

@@ -177,7 +177,7 @@ def _as_if_on_the_card(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("nq,nk,d,heads", [(1000, 1024, 512, 4), (1024, 1000, 512, 4),
+@pytest.mark.parametrize("nq,nk,d,heads", [(1000, 1024, 1024, 8), (1024, 1000, 384, 4),
                                            (1024, 1024, 512, 8), (1024, 1024, 640, 5)])
 def test_a_refused_shape_raises_on_the_card(monkeypatch, nq, nk, d, heads):
     calls = _as_if_on_the_card(monkeypatch)

@@ -188,7 +188,7 @@ def test_attention_valid_key_count_matches_unpadded_keys(entry):
                                               heads, return_lse=True, nk_valid=nk)
         _, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, heads, return_lse=True)
         np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-6)
-    else:  # the entry point pads 96 -> 128 keys itself and passes the count
+    else:  # the entry point hands the 96 keys over as they are (no padding)
         got = attention.attention(q, k, v, scale, heads)
     # the same f32 arithmetic over the same 96 keys
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
@@ -196,7 +196,9 @@ def test_attention_valid_key_count_matches_unpadded_keys(entry):
 
 def test_attention_under_a_gradient_takes_no_valid_key_count():
     # flash_bwd knows no count: under a gradient nothing is padded (a CUDA
-    # tensor then raises on 96 keys; the plain versions take any count)
+    # tensor then raises on 96 keys; the plain versions take any count);
+    # without one nothing is padded either: the forward kernel masks the
+    # keys past a ragged count itself
     rng = np.random.RandomState(7)
     q, k = _t(_rand(rng, 1, 64, 256)).requires_grad_(), _t(_rand(rng, 1, 96, 256))
     calls = []
@@ -213,7 +215,7 @@ def test_attention_under_a_gradient_takes_no_valid_key_count():
             attention.attention(q, k, k, 0.1, 2)
     finally:
         attention.flash_mha_packed = real
-    assert calls == [(96, None), (128, 96)]
+    assert calls == [(96, None), (96, None)]
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
     with pytest.raises(ValueError, match="nk_valid"):
@@ -442,13 +444,19 @@ def test_vcrnet_iter_refine_subsample_matches_jax(use_kernels):
     assert torch.equal(clamped[2], exact[2])
 
 
+# the partial sizes of N = 64 at the eval protocol's overlap and at the
+# CLI's default (whose crops are ragged at every N the CLI takes)
+PARTIAL_SIZES = {0.575: (48, 36, 30, 11), 0.75: (55, 47, 40, 18)}
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
-def test_vcrnet_iter_partial_matches_jax(use_kernels):
-    jmodel, variables, model = _models(use_kernels=use_kernels, **PARTIAL)
+@pytest.mark.parametrize("overlap", sorted(PARTIAL_SIZES))
+def test_vcrnet_iter_partial_matches_jax(overlap, use_kernels):
+    jmodel, variables, model = _models(use_kernels=use_kernels, partial=True, overlap=overlap)
     cfg = model.cfg
-    assert (cfg.n_cropped, cfg.attn_mask_k, cfg.select_k, cfg.pair_k) == (48, 36, 30, 11)
-    src, tgt = _pair(6, 2, partial=True)
-    assert src.shape == (2, 48, 3)
+    assert (cfg.n_cropped, cfg.attn_mask_k, cfg.select_k, cfg.pair_k) == PARTIAL_SIZES[overlap]
+    src, tgt = _pair(6, 2, partial=True, overlap=overlap)
+    assert src.shape == (2, cfg.n_cropped, 3)
     got, want = _iter_both(jmodel, variables, model, src, tgt, 3)
     assert got[0].shape == (2, cfg.pair_k, 3)
     # f32; three chained passes of hard selections: the selected sets agree
@@ -507,6 +515,28 @@ def test_registrar_iter3_on_cpu_matches_vcrnet_iter(mode):
     np.testing.assert_array_equal(out["R"], want[2].numpy())
     np.testing.assert_array_equal(out["t"], want[3].numpy())
     assert np.isfinite(out["R_inv"]).all() and out["t_inv"].shape == (2, 3)
+
+
+def test_registrar_at_a_ragged_cloud_size_matches_jax():
+    """num_points = 1000, no multiple of 64 (ROADMAP C1): the port's
+    Registrar on its kernel route (the plain versions on the CPU) against
+    the JAX package's, f32, iter = 3, on the same weights and pairs."""
+    n = 1000
+    kw = dict(NARROW, num_points=n, iter=3)
+    jcfg = JConfig(**kw)
+    jmodel = JVCRNet(cfg=jcfg)
+    cloud = np.zeros((1, n, 3), np.float32)
+    variables = jmodel.init(jax.random.PRNGKey(1), cloud, cloud)
+    data = shapes_eval_set(2, num_points=n, cloud_points=2 * n, seed=8)
+    want = JRegistrar(jcfg, {"params": variables["params"]}, buckets=(2,)).register(
+        data["src"], data["tgt"])
+    reg = Registrar(Config(**kw), from_jax_params(jax.device_get(variables["params"])),
+                    buckets=(2,), device="cpu", use_kernels=True)
+    assert reg.n_points == n and reg.model.use_kernels
+    got = reg.register(data["src"], data["tgt"])
+    # f32 on both sides; the selections agree on this seed
+    np.testing.assert_allclose(got["R"], want["R"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got["t"], want["t"], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("mode", ["whole", "partial"])

@@ -7,8 +7,11 @@ rounding points, and holds it against the port's plain versions
 JAX package's Pallas kernels in interpret mode (``_run_streaming``, and the
 VJP of ``soft_correspondence_vjp``), on the same seeded numpy inputs:
 
-* forward: blocks of 128 source rows (a last block of 64 real rows runs
-  other rows in place of the missing ones, and drops them); 64-key tiles,
+* forward: blocks of 128 source rows (a last block with fewer real rows
+  runs other rows in place of the missing ones, and drops them); 64-key
+  tiles read as the TMA boxes read the flattened [B * Nt, E] matrix (past
+  Nt the next item's rows, then zeros), whose keys past Nt have an infinite
+  norm and xyz 0 (the packing pass): they score -inf and add nothing;
   each tile's scores summed over E in chunks of 128 columns (two boxes; E padded with
   zeros to whole 64-column boxes, as TMA fills them); an online softmax
   in base 2 with a running max m, the sum l and the xyz sums rescaled by
@@ -73,14 +76,21 @@ def tiled_forward(se, te, tgt):
     """vcp_stream.cu's order: (corr [B, Ns, 3], lse [B, Ns]) in f32."""
     q, f = _pad_e(se), _pad_e(te)
     ns, nt, e = q.shape[1], f.shape[1], q.shape[2]
-    nb2 = -(f * f).sum(-1) * LOG2E  # the keys' -|f|^2 log2(e)
+    pad = -nt % TILE
+    # the packing pass: -|f|^2 log2(e) of whole tiles, -inf (norm +inf) and
+    # xyz 0 past Nt
+    nb2 = torch.nn.functional.pad(-(f * f).sum(-1) * LOG2E, (0, pad), value=float("-inf"))
+    xyz = torch.nn.functional.pad(tgt.float(), (0, 0, 0, pad))
+    # the key tiles as the TMA boxes see the flattened [B * Nt, E] matrix
+    f = torch.cat([f.reshape(B * nt, e), torch.zeros(TILE, e)])
+    f = f[torch.arange(B)[:, None] * nt + torch.arange(nt + pad)]
     corr, lse = torch.zeros(B, ns, 3), torch.zeros(B, ns)
     for b in range(B):
         for r0 in range(0, ns, ROWS):
             rows = q[b, torch.arange(r0, r0 + ROWS).clamp(max=ns - 1)][None]
             m = torch.full((1, ROWS), float("-inf"))
             l, acc = torch.zeros(1, ROWS), torch.zeros(1, ROWS, 3)
-            for t0 in range(0, nt, TILE):
+            for t0 in range(0, nt + pad, TILE):
                 keys = f[b:b + 1, t0:t0 + TILE]
                 s = torch.zeros(1, ROWS, TILE)
                 for c0 in range(0, e, CHUNK):
@@ -90,7 +100,7 @@ def tiled_forward(se, te, tgt):
                 alpha = torch.exp2(m - m_new)
                 p = torch.exp2(s2 - m_new[..., None])
                 l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + p @ tgt[b:b + 1, t0:t0 + TILE].float()
+                acc = acc * alpha[..., None] + p @ xyz[b:b + 1, t0:t0 + TILE]
                 m = m_new
             n = min(ROWS, ns - r0)
             corr[b, r0:r0 + n] = (acc / l[..., None])[0, :n]
@@ -158,11 +168,13 @@ def _bwd_tol(dtype, want):
 
 
 # (Ns, Nt, E): one tile each way; Ns % 128 == 64 with Ns != Nt both ways;
-# E with a box partly past it (zero-filled); two 128-column chunks
+# E with a box partly past it (zero-filled); two 128-column chunks; ragged
+# lengths (the last tiles reach into the next item, or past the end)
 SHAPES = [(64, 64, 128), (320, 192, 256), (192, 320, 80), (128, 256, 256)]
+RAGGED_SHAPES = [(100, 100, 128), (130, 70, 80), (70, 150, 256)]
 
 
-@pytest.mark.parametrize("ns,nt,e", SHAPES)
+@pytest.mark.parametrize("ns,nt,e", SHAPES + RAGGED_SHAPES)
 def test_tiled_forward_matches_plain_version(ns, nt, e):
     se, te, tgt, _ = _inputs(40, "bfloat16", ns, nt, e)
     got, got_lse = tiled_forward(se, te, tgt)
@@ -215,13 +227,31 @@ def test_tiled_chain_matches_pallas_vjp(dtype, ns, nt, e):
         np.testing.assert_allclose(g, w, atol=_bwd_tol(dtype, w), rtol=0)
 
 
+def test_ragged_tiles_of_the_next_item_change_nothing():
+    """Item 0's last key tile holds item 1's rows (and its last block item
+    1's source rows): redrawing item 1 leaves item 0's corr and lse the same
+    bit for bit."""
+    se, te, tgt, _ = _inputs(44, "bfloat16", 100, 150, 128)
+    first = tiled_forward(se, te, tgt)
+    rng = np.random.RandomState(45)
+    for t in (se, te, tgt):
+        t[1] = torch.from_numpy(rng.randn(*t[1].shape).astype(np.float32)).to(t.dtype)
+    second = tiled_forward(se, te, tgt)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(first, second))
+
+
 def test_vcp_gates_take_every_served_and_trained_shape():
     """The kernels' gate (ROADMAP C, "VCP kernels' gate"): every N the
-    served and trained paths give, Ns != Nt, E = 512; never E > 512."""
+    served and trained paths give, Ns != Nt, E = 512; never E > 512. The
+    forward takes any lengths (ROADMAP C1); the backward whole 64-row tiles
+    alone (C1b)."""
     for ns, nt in ((1024, 1024), (512, 512), (512, 1024), (1024, 512), (320, 320), (64, 64)):
         assert vcp.streaming_supported(ns, nt, 512)
         assert vcp.streaming_vjp_supported(ns, nt, 512)
     assert vcp.streaming_supported(64, 64, 16) and vcp.streaming_supported(64, 64, 80)
-    for ns, nt, e in ((1024, 1024, 1024), (1024, 1024, 520), (1024, 48, 512), (96, 64, 512)):
+    for ns, nt, e in ((1024, 1024, 1024), (1024, 1024, 520)):
         assert not vcp.streaming_supported(ns, nt, e)
+        assert not vcp.streaming_vjp_supported(ns, nt, e)
+    for ns, nt, e in ((1024, 48, 512), (96, 64, 512), (885, 885, 512), (1000, 1000, 512)):
+        assert vcp.streaming_supported(ns, nt, e)
         assert not vcp.streaming_vjp_supported(ns, nt, e)

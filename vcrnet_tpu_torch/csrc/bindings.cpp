@@ -79,6 +79,10 @@ cudaStream_t stream_of(const torch::Tensor& t) {
   return c10::cuda::getCurrentCUDAStream(t.device().index()).stream();
 }
 
+// A length rounded up to whole 64-row tiles: the row count of the scratch
+// that the kernels of a ragged cloud read in whole tiles.
+int64_t whole_tiles(int64_t n) { return (n + 63) / 64 * 64; }
+
 void* optional_ptr(const c10::optional<torch::Tensor>& t) {
   return t.has_value() ? t->data_ptr() : nullptr;
 }
@@ -99,6 +103,7 @@ void edge_conv(torch::Tensor x, torch::Tensor norms, torch::Tensor a, torch::Ten
                torch::Tensor idx, c10::optional<torch::Tensor> win1,
                c10::optional<torch::Tensor> win2, int64_t k, double slope) {
   const c10::cuda::CUDAGuard guard(x.device());
+  TORCH_CHECK(norms.size(1) == whole_tiles(x.size(1)), "edge_conv: norms must fill whole tiles");
   C10_CUDA_CHECK(vcr_edge_conv(
       x.data_ptr(), norms.data_ptr<float>(), a.data_ptr(), h.data_ptr(), w2.data_ptr(),
       b2.data_ptr(), x1.data_ptr(), x2.data_ptr(), idx.data_ptr<int>(), optional_ptr(win1),
@@ -121,6 +126,7 @@ void flash_packed(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tens
 void vcp_stream(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor tgt,
                 torch::Tensor keys, torch::Tensor out, c10::optional<torch::Tensor> lse) {
   const c10::cuda::CUDAGuard guard(src_emb.device());
+  TORCH_CHECK(keys.size(1) == whole_tiles(tgt_emb.size(1)), "vcp_stream: keys must fill whole tiles");
   C10_CUDA_CHECK(vcr_vcp_stream(src_emb.data_ptr(), tgt_emb.data_ptr(), tgt.data_ptr<float>(),
                                 keys.data_ptr<float>(), out.data_ptr<float>(),
                                 static_cast<float*>(optional_ptr(lse)), src_emb.size(0),
@@ -205,6 +211,7 @@ void edge_conv_from_idx(torch::Tensor idx, torch::Tensor a, torch::Tensor h, tor
 void softmax_colmass(torch::Tensor q, torch::Tensor k, torch::Tensor lse, torch::Tensor out,
                      int64_t n_heads, double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(lse.size(2) == whole_tiles(q.size(1)), "softmax_colmass: lse must fill whole tiles");
   C10_CUDA_CHECK(vcr_softmax_colmass(q.data_ptr(), k.data_ptr(), lse.data_ptr<float>(),
                                      out.data_ptr<float>(), q.size(0), q.size(1), k.size(1),
                                      n_heads, static_cast<float>(sm_scale), stream_of(q)));

@@ -38,10 +38,17 @@
 // with another's exps. exp2f with the scale folded into log2(e) costs one
 // fma a score before the exp, as in FA3.
 //
-// Keys: Nk % 64 == 0. Where Nk % 128 == 64 the second warpgroup of the last
-// key block owns keys past Nk: it runs the same loop on whatever its TMA box
-// holds (the next batch item's keys, or zeros past the end of the tensor)
-// and stores nothing, so that every consumer warp arrives on every barrier.
+// Any Nk: the last key block of an item owns keys past Nk (all of its
+// second warpgroup's where Nk % 128 <= 64). They run the same loop on
+// whatever the TMA box holds (the next batch item's keys, or zeros past the
+// end of the tensor) and store nothing, so that every consumer warp arrives
+// on every barrier. Any Nq: the last query tile of an item holds rows past
+// Nq (the next item's, or zeros); by a count, their columns are given a
+// score of 0 and an lse of +inf, so each adds exp2(-inf) = 0 and the masses
+// are those of the real queries, bit for bit. The row logsumexps are
+// written with a row stride of Nq rounded up to 64, so that a tile's 64
+// values are one aligned bulk copy inside the scratch. lse_kernel masks the
+// keys past Nk by its valid-key count (flash_fwd.cuh).
 #include "flash_fwd.cuh"
 
 namespace {
@@ -66,7 +73,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 __global__ void __launch_bounds__(kThreads, 2)
 colmass_kernel(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
-               const float* __restrict__ lse2,  // [B, H, Nq], base 2
+               const float* __restrict__ lse2,  // [B, H, n_tiles * 64], base 2
                float* __restrict__ out,         // [B, H, Nk]
                int nq, int nk, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
@@ -82,7 +89,7 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int key0 = blockIdx.x * kTileKeys;
   const int col = head * kDk;
-  const int n_tiles = nq / kTileQ;
+  const int n_tiles = (nq + kTileQ - 1) / kTileQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t bh = static_cast<size_t>(b) * n_heads + head;
 
@@ -111,7 +118,8 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int h = 0; h < 2; ++h)
           tma_load_box(q_s + h * kBox * kBox, &q_map, &full[s], col + h * kBox,
                        b * nq + t * kTileQ);
-        bulk_load(lse_ring + s * kTileQ, lse2 + bh * nq + t * kTileQ, kLseBytes, &full[s]);
+        bulk_load(lse_ring + s * kTileQ, lse2 + (bh * n_tiles + t) * kTileQ, kLseBytes,
+                  &full[s]);
       }
     }
     return;
@@ -139,8 +147,24 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
     const float* lse_s = lse_ring + s * kTileQ;
 #pragma unroll
     for (int j = 0; j < 8; ++j) l2[j] = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * qd);
+    // the producer's next bulk copy into this stage (the async proxy) must
+    // not overtake these reads (the generic proxy): without the fence it
+    // did, on the card, and a few masses took another tile's lse2
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read: Q by wgmma, lse2 above
+    if (t == n_tiles - 1 && nq % kTileQ) {  // query columns past Nq add exp2(-inf) = 0
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (t * kTileQ + 8 * j + 2 * qd + c >= nq) {
+            sc[4 * j + c] = 0.f;
+            sc[4 * j + 2 + c] = 0.f;
+            if (c) l2[j].y = CUDART_INF_F;
+            else l2[j].x = CUDART_INF_F;
+          }
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       mass_g += exp2f(fmaf(sc[4 * j], scale_log2, -l2[j].x));
@@ -161,9 +185,9 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
 }  // namespace
 
 // q bf16 [B,Nq,H*128], k bf16 [B,Nk,H*128] -> out f32 [B,H,Nk]; lse f32
-// [B,H,Nq] is scratch that the first kernel writes (base 2) and the second
-// reads. Requires Nq % 64 == 0, Nk % 64 == 0, 16-byte aligned pointers.
-// Returns the launch status.
+// [B,H,Nq'] (Nq' = Nq rounded up to 64) is scratch that the first kernel
+// writes (base 2) and the second reads. Any Nq, Nk; 16-byte aligned
+// pointers. Returns the launch status.
 cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
                                 int batch, int nq, int nk, int n_heads, float sm_scale,
                                 cudaStream_t stream) {
@@ -172,8 +196,8 @@ cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float*
   cudaError_t err = make_box_map(&q_map, q, static_cast<uint64_t>(batch) * nq, d_model);
   if (err == cudaSuccess) err = make_box_map(&k_map, k, static_cast<uint64_t>(batch) * nk, d_model);
   if (err == cudaSuccess)
-    err = vcr::flash::launch_lse(q_map, k_map, lse, batch, nq, nk, nk, n_heads, sm_scale,
-                                 stream);
+    err = vcr::flash::launch_lse(q_map, k_map, lse, batch, nq, nk, nk,
+                                 (nq + kTileQ - 1) / kTileQ * kTileQ, n_heads, sm_scale, stream);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(colmass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemBytes));

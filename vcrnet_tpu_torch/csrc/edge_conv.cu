@@ -48,6 +48,13 @@
 // edge_conv_from_idx on the same shapes), the edge phase's CUDA-core work
 // (z, act, the maxima) most of the rest.
 //
+// Any N: the grid has ceil(N / 64) blocks a cloud. The last key tile reads
+// the cloud's last row in place of the rows past N, and their norms are
+// +inf (the wrapper pads the norms to whole tiles), so their scores are
+// -inf: they rank after every real key, -inf ones included (ties go to the
+// smaller column), and k < N real keys exist. The last block's queries past
+// N select on repeats of the last row and write nothing (edge_tile.cuh).
+//
 // Training: with non-null ``win1``/``win2`` the kernel also writes, per
 // output channel of x1 and x2, the k-position that won the max (uint8,
 // the first position on ties, as the Pallas kernel's emit_winners).
@@ -78,20 +85,22 @@ constexpr uint32_t kSelOff = kStgOff + kStgBytes;
 constexpr size_t kSmemBytes = 1024 + kSelOff + kSelBytes;
 
 // 64 rows of a [*, C] bf16 matrix from ``src`` into dst as swizzled boxes
-// of 64 columns (cp.async; the caller commits).
+// of 64 columns (cp.async; the caller commits). Only the first ``rows``
+// are read: the rest repeat the last of them (the end of a cloud).
 template <int C>
-__device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* __restrict__ src) {
+__device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* __restrict__ src, int rows) {
   constexpr int kChunks = C / 8;  // 16-byte chunks of a row
   for (int t = threadIdx.x; t < 64 * kChunks; t += kThreads) {
     const int r = t / kChunks, c = t % kChunks;
-    cp_async16(dst + (c >> 3) * kBoxBytes + sw128_offset(r, c & 7), src + r * C + c * 8);
+    cp_async16(dst + (c >> 3) * kBoxBytes + sw128_offset(r, c & 7),
+               src + min(r, rows - 1) * C + c * 8);
   }
 }
 
 template <int C, bool kWinners>
 __global__ void __launch_bounds__(kThreads, kWinners ? 2 : 3)
 edge_conv_kernel(const bf16* __restrict__ x,    // [B, N, C]
-                 const float* __restrict__ norms,  // [B, N]
+                 const float* __restrict__ norms,  // [B, n_tiles * 64], +inf past N
                  const bf16* __restrict__ a,    // [B, N, F]
                  const bf16* __restrict__ h,    // [B, N, F]
                  const bf16* __restrict__ w2,   // [F, F] (in, out)
@@ -111,11 +120,13 @@ edge_conv_kernel(const bf16* __restrict__ x,    // [B, N, C]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int b = blockIdx.y, q0 = blockIdx.x * kTileQ;
+  const int n_tiles = (n + kKeyTile - 1) / kKeyTile;
+  const int n_valid = min(kTileQ, n - q0);  // the block's queries within the cloud
   const bf16* xb = x + static_cast<size_t>(b) * n * C;
-  const float* nb = norms + static_cast<size_t>(b) * n;
+  const float* nb = norms + static_cast<size_t>(b) * n_tiles * kKeyTile;
 
-  load_rows<C>(base + kQOff, xb + static_cast<size_t>(q0) * C);
-  load_rows<C>(base + kRingOff, xb);
+  load_rows<C>(base + kQOff, xb + static_cast<size_t>(q0) * C, n_valid);
+  load_rows<C>(base + kRingOff, xb, min(kKeyTile, n));
   cp_async_commit();
   uint32_t b2p[16];
   load_b2(b2, b2p);
@@ -127,12 +138,13 @@ edge_conv_kernel(const bf16* __restrict__ x,    // [B, N, C]
   for (int r = 0; r < 16; ++r) m1[r] = m2[r] = 0;  // below every key
   float* stg = reinterpret_cast<float*>(base + kStgOff) + warp * 16 * kStgStride;
   const int i_g = q0 + warp * 16 + g, i_g8 = i_g + 8;
-  const int n_tiles = n / kKeyTile;
   for (int u = 0; u < 2 * n_tiles; ++u) {  // the key tiles twice: one pass each
     const int t = u < n_tiles ? u : u - n_tiles;
     if (u + 1 < 2 * n_tiles) {
+      const int next = (u + 1) % n_tiles;
       load_rows<C>(base + kRingOff + ((u + 1) & 1) * kRowsBytes,
-                   xb + static_cast<size_t>((u + 1) % n_tiles) * kKeyTile * C);
+                   xb + static_cast<size_t>(next) * kKeyTile * C,
+                   min(kKeyTile, n - next * kKeyTile));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -199,13 +211,13 @@ edge_conv_kernel(const bf16* __restrict__ x,    // [B, N, C]
     const int col = static_cast<int>(~static_cast<uint32_t>(list[r]));
     const int first = __shfl_sync(vcr::kFullMask, col, 0);
     const int ql = warp * 16 + r;
-    if (lane < k) idx[(static_cast<size_t>(b) * n + q0 + ql) * k + lane] = col;
+    if (lane < k && ql < n_valid) idx[(static_cast<size_t>(b) * n + q0 + ql) * k + lane] = col;
     sel[ql * kRows + lane] = lane < k ? col : first;  // pad: repeats neighbour 0
   }
   cp_async_wait<0>();
   fence_proxy_async();
   __syncthreads();  // W2 is in; the staging becomes the edge phase's exchange
-  edge_rows<kWinners>(sel, kTileQ / 2, b * n + q0, n, k, a, h, w2s, b2p, x1, x2, win1, win2,
+  edge_rows<kWinners>(sel, n_valid, b * n + q0, n, k, a, h, w2s, b2p, x1, x2, win1, win2,
                       base + kStgOff, base + kABufOff, slope);
 }
 
@@ -218,7 +230,7 @@ cudaError_t launch(const void* x, const float* norms, const void* a, const void*
       edge_conv_kernel<C, kWinners>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(n / kTileQ, batch);
+  const dim3 grid((n + kTileQ - 1) / kTileQ, batch);
   edge_conv_kernel<C, kWinners><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const bf16*>(x), norms, static_cast<const bf16*>(a),
       static_cast<const bf16*>(h), static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
@@ -242,16 +254,17 @@ cudaError_t launch(const void* x, const float* norms, const void* a, const void*
 
 }  // namespace
 
-// x bf16 [B,N,C] (C in {32, 64, 128}), norms f32 [B,N], a/h bf16 [B,N,128],
-// w2 bf16 [128,128] (in, out), b2 bf16 [128] -> x1/x2 bf16 [B,N,128],
-// idx int32 [B,N,k], and with non-null win1/win2 the winners uint8 [B,N,128].
-// Requires N % 64 == 0, 0 < k <= 32, k < N, 16-byte aligned pointers.
-// Returns the launch status (cudaErrorInvalidValue for another C or N, k).
+// x bf16 [B,N,C] (C in {32, 64, 128}), norms f32 [B,N'] (N' = N rounded up
+// to 64, +inf past N), a/h bf16 [B,N,128], w2 bf16 [128,128] (in, out), b2
+// bf16 [128] -> x1/x2 bf16 [B,N,128], idx int32 [B,N,k], and with non-null
+// win1/win2 the winners uint8 [B,N,128]. Requires 0 < k <= 32, k < N,
+// 16-byte aligned pointers. Returns the launch status
+// (cudaErrorInvalidValue for another C or k).
 cudaError_t vcr_edge_conv(const void* x, const float* norms, const void* a,
                           const void* h, const void* w2, const void* b2, void* x1,
                           void* x2, int* idx, void* win1, void* win2, int batch, int n,
                           int c, int k, float slope, cudaStream_t stream) {
-  if (n % kTileQ || k < 1 || k > kRows || k >= n) return cudaErrorInvalidValue;
+  if (k < 1 || k > kRows || k >= n) return cudaErrorInvalidValue;
   switch (c) {
     case 32: return launch<32>(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, batch, n, k, slope, stream);
     case 64: return launch<64>(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, batch, n, k, slope, stream);

@@ -154,7 +154,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* abuf, uint8_t* qrows, const 
                                            const uint8_t* __restrict__ win1,
                                            const uint8_t* __restrict__ win2, int i0, int n, int k,
                                            int t) {
-  vcr::edge::gather_tile(abuf, ids, 0, i0, n, k, a, t);
+  vcr::edge::gather_tile(abuf, ids, 0, 2, i0, n, k, a, t);
   for (int c = t; c < 2 * 80; c += 128) {  // 80 chunks of 16 bytes a query
     const int p = c >= 80, r = c - p * 80;
     const size_t e = static_cast<size_t>(i0 + p) * kF;

@@ -11,7 +11,8 @@
 // refinement loop reuses an earlier iteration's feature graph
 // (Config.reuse_feature_knn). The TPU kernel gathered with a [k*TQ, N]
 // one-hot matmul; here a block (one warpgroup) owns 64 consecutive query
-// rows of the flattened [B*N], loads their indices, and runs the edge phase
+// rows of the flattened [B*N] (the last block fewer: it gates on rows, not
+// on N), loads their indices, and runs the edge phase
 // of edge_tile.cuh (the rows gathered by cp.async and read as wgmma A
 // fragments by ldmatrix, the [64, 128] x [128, 128] product per tile of two
 // queries with W2 staged in swizzled boxes, the two maxima from registers):
@@ -63,22 +64,23 @@ edge_conv_from_idx_kernel(const int* __restrict__ idx,   // [B, N, k]
   fence_proxy_async();
   __syncthreads();
 
-  const int n_tiles = min(kTileQ, rows - row0) / 2;
-  edge_rows<false>(sel, n_tiles, row0, n, k, a, h, reinterpret_cast<const bf16*>(base), b2p, x1,
+  edge_rows<false>(sel, min(kTileQ, rows - row0), row0, n, k, a, h,
+                   reinterpret_cast<const bf16*>(base), b2p, x1,
                    x2, nullptr, nullptr, base + kRedOff, base + kABufOff, slope);
 }
 
 }  // namespace
 
 // idx int32 [B,N,k] with entries in [0, N), a/h bf16 [B,N,128], w2 bf16
-// [128,128] (in, out), b2 bf16 [128] -> x1/x2 bf16 [B,N,128]. Requires
-// N % 16 == 0, 0 < k <= 32, 16-byte aligned pointers. Returns the launch
-// status.
+// [128,128] (in, out), b2 bf16 [128] -> x1/x2 bf16 [B,N,128]. Any N: the
+// last block's queries past B*N (and, where B*N is odd, the last tile's
+// second query) repeat a real query and are not written. Requires
+// 0 < k <= 32, 16-byte aligned pointers. Returns the launch status.
 cudaError_t vcr_edge_conv_from_idx(const int* idx, const void* a, const void* h,
                                    const void* w2, const void* b2, void* x1, void* x2,
                                    int batch, int n, int k, float slope,
                                    cudaStream_t stream) {
-  if (n % 16 || k < 1 || k > kRows) return cudaErrorInvalidValue;
+  if (n < 1 || k < 1 || k > kRows) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       edge_conv_from_idx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));

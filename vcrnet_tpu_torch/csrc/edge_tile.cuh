@@ -10,6 +10,9 @@
 // rows: uint8 k-positions). A query's k <= 32 rows are padded to kRows = 32
 // by repeating its first neighbour, which leaves both maxima and the
 // winners unchanged (a padding row ties row 0 and comes after it).
+// A block's last queries may run past the end of the rows it owns (a cloud
+// of N % 64 != 0 points, or [B*N] rows of an odd count): past n_valid a
+// query slot computes the tile's first query again and writes nothing.
 //
 // One warpgroup runs the phase on m64 tiles of two queries (warps 0-1 hold
 // the first query's 32 rows, warps 2-3 the second's). Per tile:
@@ -145,18 +148,21 @@ __device__ __forceinline__ void warp_column_max_bf16(const uint32_t (&v)[32], ui
 // 32 p + r for row r of the tile's query p (flat row row0 + q0 + p, its
 // list at sel[(q0 + p) * kRows]), chunk c of a slot at c ^ (slot % 8) so
 // that ldmatrix's eight rows fall in eight bank groups. Padding rows are
-// not loaded: a_fragments reads slot 32 p for them. ``t`` is the thread's
-// index in its warpgroup. The caller commits.
-__device__ __forceinline__ void gather_tile(uint8_t* abuf, const int* sel, int q0, int row0,
-                                            int n, int k, const bf16* __restrict__ a, int t) {
+// not loaded: a_fragments reads slot 32 p for them. A query at or past
+// n_valid takes query q0's rows (q0 < n_valid). ``t`` is the thread's index
+// in its warpgroup. The caller commits.
+__device__ __forceinline__ void gather_tile(uint8_t* abuf, const int* sel, int q0, int n_valid,
+                                            int row0, int n, int k, const bf16* __restrict__ a,
+                                            int t) {
   const int per_query = k * 16;
   for (int c = t; c < 2 * per_query; c += kThreads) {
     const int p = c >= per_query, rem = c - p * per_query;
     const int r = rem >> 4, ch = rem & 15;
-    const int i = row0 + q0 + p;
+    const int qp = q0 + p < n_valid ? q0 + p : q0;
+    const int i = row0 + qp;
     const int slot = 32 * p + r;
     hopper::cp_async16(abuf + slot * 256 + ((ch ^ (slot & 7)) << 4),
-                       a + static_cast<size_t>(i / n * n + sel[(q0 + p) * kRows + r]) * kF + ch * 8);
+                       a + static_cast<size_t>(i / n * n + sel[qp * kRows + r]) * kF + ch * 8);
   }
 }
 
@@ -175,18 +181,20 @@ __device__ __forceinline__ void a_fragments(uint32_t (&araw)[32], const uint8_t*
   }
 }
 
-// The warpgroup (threads 0..127 of the block) runs the edge phase on
-// n_tiles tiles of two queries: tile t holds the block's queries 2t and
-// 2t + 1, flat rows row0 + 2t (+1) of [B*N], with their kRows selected
-// rows sel[query * kRows ..] (shared memory, indices into the query's
-// cloud of n rows; the first k are read). w2s is W2 staged by stage_w2_mn,
+// The warpgroup (threads 0..127 of the block) runs the edge phase on the
+// block's first n_valid queries (<= kTileQ), in tiles of two queries: tile
+// t holds the block's queries 2t and 2t + 1, flat rows row0 + 2t (+1) of
+// [B*N], with their kRows selected rows sel[query * kRows ..] (shared
+// memory, indices into the query's cloud of n rows; the first k are read).
+// An odd n_valid leaves the last tile's second query past the end: it
+// repeats the first and is not written. w2s is W2 staged by stage_w2_mn,
 // b2p from load_b2, red kRedBytes and abuf kABufBytes of shared memory.
 // Writes x1/x2 and, with kWinners, the winners (first row on ties, from f32
 // comparisons); without, the maxima are taken on bf16 pairs, which gives
 // the same x1 and x2. The next tile's rows are gathered while a tile is
 // computed.
 template <bool kWinners>
-__device__ __forceinline__ void edge_rows(const int* sel, int n_tiles, int row0, int n, int k,
+__device__ __forceinline__ void edge_rows(const int* sel, int n_valid, int row0, int n, int k,
                                           const bf16* __restrict__ a, const bf16* __restrict__ h,
                                           const bf16* w2s, const uint32_t (&b2p)[16],
                                           bf16* __restrict__ x1, bf16* __restrict__ x2,
@@ -198,11 +206,12 @@ __device__ __forceinline__ void edge_rows(const int* sel, int n_tiles, int row0,
   const int g = lane >> 2, q = lane & 3;
   const int half = warp >> 1;                 // which query of the tile
   const int row_g = 16 * (warp & 1) + g;      // the thread's rows of that query: row_g, row_g + 8
+  const int n_tiles = (n_valid + 1) / 2;
 
-  gather_tile(abuf, sel, 0, row0, n, k, a, tid);
+  gather_tile(abuf, sel, 0, n_valid, row0, n, k, a, tid);
   cp_async_commit();
   for (int t = 0; t < n_tiles; ++t) {
-    const int i = row0 + 2 * t + half;
+    const int i = row0 + min(2 * t + half, n_valid - 1);
     const uint32_t* hw = reinterpret_cast<const uint32_t*>(h + static_cast<size_t>(i) * kF);
     uint32_t hp[16];
 #pragma unroll
@@ -212,7 +221,7 @@ __device__ __forceinline__ void edge_rows(const int* sel, int n_tiles, int row0,
     uint32_t araw[32];  // bf16 pairs of a in the A fragment layout
     a_fragments(araw, abuf, k);
     __syncthreads();  // every warp has its fragments: abuf takes the next tile
-    if (t + 1 < n_tiles) gather_tile(abuf, sel, 2 * (t + 1), row0, n, k, a, tid);
+    if (t + 1 < n_tiles) gather_tile(abuf, sel, 2 * (t + 1), n_valid, row0, n, k, a, tid);
     cp_async_commit();
 
     float z[64];
@@ -286,6 +295,7 @@ __device__ __forceinline__ void edge_rows(const int* sel, int n_tiles, int row0,
       const int c = tid;
 #pragma unroll
       for (int qq = 0; qq < 2; ++qq) {
+        if (2 * t + qq >= n_valid) break;
         const size_t o = static_cast<size_t>(row0 + 2 * t + qq) * kF + c;
         float m = v1[2 * qq * kF + c];
         int r = r1[2 * qq * kF + c];
@@ -304,8 +314,10 @@ __device__ __forceinline__ void edge_rows(const int* sel, int n_tiles, int row0,
       const size_t o = static_cast<size_t>(row0 + 2 * t + qq) * (kF / 2) + w;
       const uint32_t* a1 = p1 + 2 * qq * (kF / 2) + w;
       const uint32_t* a2 = p2 + 2 * qq * (kF / 2) + w;
-      reinterpret_cast<uint32_t*>(x1)[o] = hmax2_u32(a1[0], a1[kF / 2]);
-      reinterpret_cast<uint32_t*>(x2)[o] = hmax2_u32(a2[0], a2[kF / 2]);
+      if (2 * t + qq < n_valid) {
+        reinterpret_cast<uint32_t*>(x1)[o] = hmax2_u32(a1[0], a1[kF / 2]);
+        reinterpret_cast<uint32_t*>(x2)[o] = hmax2_u32(a2[0], a2[kF / 2]);
+      }
     }
     // the next tile writes the other buffer; the one after reuses this one
     // only after the next tile's barrier, which every read here precedes

@@ -59,11 +59,14 @@
 // of nk_valid in pallas_attention.py:_fwd_packed_kernel); tiles wholly past
 // it are neither loaded nor visited. Their V rows must be finite.
 //
-// Nq % 128 == 64: the second warpgroup of the last query block owns rows
-// past Nq. It runs the same loop on whatever its TMA box holds (the next
-// batch item's rows, or zeros past the end of the tensor), arrives on every
-// barrier like the other, and stores nothing: a warpgroup that left early
-// would leave the producer waiting on its empty barriers.
+// Any Nq: the last query block of an item owns rows past Nq (all of its
+// second warpgroup's where Nq % 128 <= 64). They run the same loop on
+// whatever the TMA box holds (the next batch item's rows, or zeros past the
+// end of the tensor), arrive on every barrier like the others, and store
+// nothing: a warpgroup that left early would leave the producer waiting on
+// its empty barriers. Query rows are independent, so the real rows' results
+// do not depend on them. Likewise any Nk: a key count that is no multiple
+// of 64 (nk_valid == nk) masks the rows of the next item in the last tile.
 //
 // The logsumexp ([B, H, Nq] f32) is m + log(l) of the scaled scores in
 // natural units from fwd_kernel, from which flash_bwd.cu recomputes the
@@ -283,8 +286,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 
 __global__ void __launch_bounds__(kThreads, 2)
 lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-           float* __restrict__ lse2,  // [B, H, Nq], base 2
-           int nq, int nk, int nk_valid, float sm_scale) {
+           float* __restrict__ lse2,  // [B, H, lse_stride >= Nq], base 2
+           int nq, int nk, int nk_valid, int lse_stride, float sm_scale) {
   extern __shared__ uint8_t smem_raw[];
   const Smem sm = carve<kLseStages, kLseStageBytes>(smem_raw);
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
@@ -344,14 +347,14 @@ lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   l_g8 = quad_sum(l_g8);
   const int r_g = q0 + wg * 64 + (warp & 3) * 16 + g, r_g8 = r_g + 8;
   if (qd == 0) {
-    float* lse_bh = lse2 + (static_cast<size_t>(b) * n_heads + head) * nq;
+    float* lse_bh = lse2 + (static_cast<size_t>(b) * n_heads + head) * lse_stride;
     if (r_g < nq) lse_bh[r_g] = m_g + log2f(l_g);
     if (r_g8 < nq) lse_bh[r_g8] = m_g8 + log2f(l_g8);
   }
 }
 
 // fwd_kernel over the maps of q [batch*nq, H*128] and k, v [batch*nk,
-// H*128]. Nq % 64 == 0.
+// H*128]. Any nq and nk.
 inline cudaError_t launch_fwd(const CUtensorMap& q_map, const CUtensorMap& k_map,
                               const CUtensorMap& v_map, bf16* out, float* lse, int batch, int nq,
                               int nk, int nk_valid, int n_heads, float sm_scale,
@@ -365,16 +368,17 @@ inline cudaError_t launch_fwd(const CUtensorMap& q_map, const CUtensorMap& k_map
   return cudaGetLastError();
 }
 
-// lse_kernel likewise (base-2 logsumexps into lse2 [batch, H, nq]).
+// lse_kernel likewise (base-2 logsumexps into lse2 [batch, H, lse_stride],
+// the first nq of each row written).
 inline cudaError_t launch_lse(const CUtensorMap& q_map, const CUtensorMap& k_map, float* lse2,
-                              int batch, int nq, int nk, int nk_valid, int n_heads,
-                              float sm_scale, cudaStream_t stream) {
+                              int batch, int nq, int nk, int nk_valid, int lse_stride,
+                              int n_heads, float sm_scale, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kLseSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kTileQ - 1) / kTileQ, n_heads, batch);
   lse_kernel<<<grid, kThreads, kLseSmemBytes, stream>>>(q_map, k_map, lse2, nq, nk, nk_valid,
-                                                        sm_scale);
+                                                        lse_stride, sm_scale);
   return cudaGetLastError();
 }
 

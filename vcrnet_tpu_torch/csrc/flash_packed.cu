@@ -17,8 +17,9 @@
 
 // q bf16 [B,Nq,H*128], k/v bf16 [B,Nk,H*128] -> out bf16 [B,Nq,H*128], and
 // with a non-null lse the row logsumexp f32 [B,H,Nq], over the first
-// nk_valid keys (1 <= nk_valid <= Nk; finite K and V rows beyond it).
-// Requires Nq % 64 == 0, Nk % 64 == 0, 16-byte aligned pointers.
+// nk_valid keys (1 <= nk_valid <= Nk; finite K and V rows beyond it). Any
+// Nq, Nk (rows past them in a last tile: flash_fwd.cuh); 16-byte aligned
+// pointers.
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
                              float* lse, int batch, int nq, int nk, int nk_valid,
                              int n_heads, float sm_scale, cudaStream_t stream) {

@@ -53,8 +53,9 @@ size_t vcr_pointer_mha_smem(int /*d*/) {
 
 // yq bf16 [B,Nq,D], ykv bf16 [B,Nk,D], wq/wk/wv/wo bf16 [D,D] (in, out),
 // bq/bk/bv/bo bf16 [D], qscr bf16 [B,Nq,D] and kscr/vscr bf16 [B,Nk,D]
-// scratch -> out bf16 [B,Nq,D]. Requires D = n_heads * 128, Nq % 64 == 0,
-// 16-byte aligned pointers (any Nk >= 1). Returns the launch status.
+// scratch -> out bf16 [B,Nq,D]. Requires D = n_heads * 128, 16-byte aligned
+// pointers (any Nq, Nk >= 1: the attention writes O over Q only in the rows
+// of its own item below Nq). Returns the launch status.
 cudaError_t vcr_pointer_mha(const void* yq, const void* ykv, const void* wq, const void* bq,
                             const void* wk, const void* bk, const void* wv, const void* bv,
                             const void* wo, const void* bo, void* qscr, void* kscr, void* vscr,

@@ -500,7 +500,7 @@ cudaError_t vcr_vcp_bwd(const void* src_emb, const void* tgt_emb, const float* t
   if (err == cudaSuccess) err = make_box_map(&tgt_map, tgt_emb, static_cast<uint64_t>(batch) * nt, e);
   if (err == cudaSuccess) err = allow_smem(vcp_bwd_de_kernel);
   if (err == cudaSuccess) err = allow_smem(vcp_bwd_df_kernel);
-  if (err == cudaSuccess) err = vcr::vcp::launch_keys(tgt_emb, tgt, keys, batch * nt, e, stream);
+  if (err == cudaSuccess) err = vcr::vcp::launch_keys(tgt_emb, tgt, keys, batch, nt, nt, e, stream);
   if (err != cudaSuccess) return err;
   const int n_rows = batch * ns;
   vcp_rows_kernel<<<(n_rows + 255) / 256, 256, 0, stream>>>(corr, dcorr,

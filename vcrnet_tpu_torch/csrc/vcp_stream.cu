@@ -51,11 +51,18 @@
 // consumers rise to 240 (setmaxnreg); `-Xptxas -v` (chip_smoke.py prints
 // it) reports no spills.
 //
-// Ns % 128 == 64: the second warpgroup of the last block owns rows past
-// Ns. In their place it reads the last row (its register fragments) and
-// whatever the TMA boxes hold (the next batch item's rows, or zeros past
-// the end of the tensor), runs the loop, arrives on every barrier, and
-// stores nothing.
+// Any Ns: the last block of an item owns rows past Ns (all of its second
+// warpgroup's where Ns % 128 <= 64). In their place it reads the last row
+// (its register fragments) and whatever the TMA boxes hold (the next batch
+// item's rows, or zeros past the end of the tensor), runs the loop, arrives
+// on every barrier, and stores nothing.
+//
+// Any Nt: the packing pass writes the keys of whole 64-key tiles, those
+// past Nt with a norm of +inf (vcp.cuh). In the last tile the key rows past
+// Nt are the next item's (or zeros past the end of the tensor); their
+// scores 2 e . f - inf are -inf whatever those rows hold (finite), so
+// they add exp2(-inf) = 0 to the sums, with xyz 0. Every visited tile has
+// a real key, so the running max stays finite.
 //
 // E < 512: the last loaded box of a row is partly past E and TMA fills it
 // with zeros, as the fragments past E are; boxes wholly past E are zeroed
@@ -292,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 vcp_stream_kernel(const bf16* __restrict__ src_emb,               // [B, Ns, E]
                   const __grid_constant__ CUtensorMap src_map,  // [B * Ns, E] bf16
                   const __grid_constant__ CUtensorMap tgt_map,  // [B * Nt, E] bf16
-                  const float4* __restrict__ keys,              // [B, Nt]: x, y, z, |f|^2
+                  const float4* __restrict__ keys,              // [B, n_tiles * 64]: x, y, z, |f|^2
                   float* __restrict__ out,                      // [B, Ns, 3]
                   float* __restrict__ lse,                      // [B, Ns] or null
                   int ns, int nt, int e) {
@@ -300,7 +307,7 @@ vcp_stream_kernel(const bf16* __restrict__ src_emb,               // [B, Ns, E]
   const Smem sm(smem_raw);
   const int b = blockIdx.y, q0 = blockIdx.x * kRows;
   const int n_boxes = (e + kBox - 1) / kBox;
-  const int n_tiles = nt / kTile;
+  const int n_tiles = (nt + kTile - 1) / kTile;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -334,8 +341,8 @@ vcp_stream_kernel(const bf16* __restrict__ src_emb,               // [B, Ns, E]
   if (threadIdx.x >= 32 * kConsumerWarps) {  // ---- producer: one lane issues every copy
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 32 * kConsumerWarps)
-      produce(sm, &src_map, &tgt_map, keys + static_cast<size_t>(b) * nt, b * ns + q0, b * nt,
-              n_tiles, n_boxes);
+      produce(sm, &src_map, &tgt_map, keys + static_cast<size_t>(b) * n_tiles * kTile,
+              b * ns + q0, b * nt, n_tiles, n_boxes);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
     consume(sm, src_emb, out, lse, q0, ns, e, n_tiles);
@@ -345,20 +352,23 @@ vcp_stream_kernel(const bf16* __restrict__ src_emb,               // [B, Ns, E]
 }  // namespace
 
 // src_emb bf16 [B,Ns,E], tgt_emb bf16 [B,Nt,E], tgt f32 [B,Nt,3], keys f32
-// [B,Nt,4] scratch -> out f32 [B,Ns,3], and with a non-null lse the row
-// logsumexp f32 [B,Ns]. Requires Ns % 64 == 0, Nt % 64 == 0, E % 16 == 0,
-// E <= 512, 16-byte aligned pointers. Returns the launch status.
+// [B,Nt',4] scratch (Nt' = Nt rounded up to 64) -> out f32 [B,Ns,3], and
+// with a non-null lse the row logsumexp f32 [B,Ns]. Any Ns, Nt; requires
+// E % 16 == 0, E <= 512, 16-byte aligned pointers. Returns the launch
+// status.
 cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float* tgt,
                            float* keys, float* out, float* lse, int batch, int ns, int nt,
                            int e, cudaStream_t stream) {
-  if (ns % kTile || nt % kTile || e % 16 || e > vcr::vcp::kMaxE) return cudaErrorInvalidValue;
+  if (ns < 1 || nt < 1 || e % 16 || e > vcr::vcp::kMaxE) return cudaErrorInvalidValue;
   CUtensorMap src_map, tgt_map;
   cudaError_t err = make_box_map(&src_map, src_emb, static_cast<uint64_t>(batch) * ns, e);
   if (err == cudaSuccess) err = make_box_map(&tgt_map, tgt_emb, static_cast<uint64_t>(batch) * nt, e);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(vcp_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemBytes));
-  if (err == cudaSuccess) err = vcr::vcp::launch_keys(tgt_emb, tgt, keys, batch * nt, e, stream);
+  if (err == cudaSuccess)
+    err = vcr::vcp::launch_keys(tgt_emb, tgt, keys, batch, nt, (nt + kTile - 1) / kTile * kTile,
+                                e, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((ns + kRows - 1) / kRows, batch);
   vcp_stream_kernel<<<grid, kThreads, kSmemBytes, stream>>>(

@@ -13,17 +13,16 @@ entry point, which the model calls in eval and in training.
 ``nk_valid`` is the count of real keys when k and v carry padding rows
 behind them (the counterpart of ``nk_valid`` in pallas_attention.py:
 _fwd_packed_kernel): keys at or beyond it are masked out of the softmax.
-``attention`` pads a key count that is no multiple of 64 itself and passes
-the count; padding without the mask would change the row sums. Eval only:
-``flash_bwd`` knows no valid-key count, so where a gradient is wanted k and
-v go to the kernels as they are, which raise on a key count that is no
-multiple of 64.
+The forward kernel takes any Nq and Nk: its last query tile stores only
+the rows below Nq, and its last key tile masks the keys past Nk (the next
+item's rows, or zeros past the end of the tensor) by the same count, so
+nothing is padded. ``flash_bwd`` knows no valid-key count and takes
+lengths in 64s alone: where a gradient is wanted, another length raises.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from vcrnet_tpu_torch.ops import _build
 from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route, upcast
@@ -32,13 +31,16 @@ HEAD_DIM = 128  # the kernels' dk
 
 
 def flash_packed_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the kernels take: dk == 128 and both lengths a multiple of
-    64 (the TPU gate, pallas_attention.py:flash_packed_supported, asked
-    for multiples of 128; every shape it accepts is accepted here)."""
-    return (
-        d_model % n_heads == 0 and d_model // n_heads == HEAD_DIM
-        and nq % 64 == 0 and nk % 64 == 0
-    )
+    """Shapes the forward kernel takes: dk == 128 and any lengths (the TPU
+    gate, pallas_attention.py:flash_packed_supported, asked for multiples
+    of 128; every shape it accepts is accepted here)."""
+    return d_model % n_heads == 0 and d_model // n_heads == HEAD_DIM and nq > 0 and nk > 0
+
+
+def flash_bwd_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
+    """Shapes the backward kernels take: the forward's, with both lengths a
+    multiple of 64 (whole 64-row tiles; no valid-key count)."""
+    return flash_packed_supported(nq, nk, d_model, n_heads) and nq % 64 == 0 and nk % 64 == 0
 
 
 def _split(x, n_heads):
@@ -131,13 +133,13 @@ def flash_mha_packed_bwd_ref(q, k, v, o, lse, do, sm_scale: float, n_heads: int)
 def flash_bwd(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
     """(dq, dk, dv) of packed-head attention, each in its input's layout
     and dtype, from the forward's output ``o`` and logsumexp ``lse``
-    [B, H, Nq] f32. The kernel takes bf16 with :func:`flash_packed_supported`
+    [B, H, Nq] f32. The kernel takes bf16 with :func:`flash_bwd_supported`
     shapes."""
     if not kernel_route(q, k, v, o, lse, do):
         return flash_mha_packed_bwd_ref(q, k, v, o, lse, do, sm_scale, n_heads)
     B, nq, d = q.shape
     nk = k.shape[1]
-    if not flash_packed_supported(nq, nk, d, n_heads):
+    if not flash_bwd_supported(nq, nk, d, n_heads):
         raise ValueError(
             f"flash_bwd kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
         )
@@ -159,13 +161,8 @@ flash_bwd.launches = 0
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, n_heads, grad_enabled):
-        nk = k.shape[1]
         if not (grad_enabled and any(ctx.needs_input_grad[:3])):
-            pad = -nk % 64
-            if not pad:
-                return flash_mha_packed(q, k, v, sm_scale, n_heads)
-            return flash_mha_packed(q, F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
-                                    sm_scale, n_heads, nk_valid=nk)
+            return flash_mha_packed(q, k, v, sm_scale, n_heads)
         o, lse = flash_mha_packed(q, k, v, sm_scale, n_heads, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (sm_scale, n_heads)
@@ -181,7 +178,6 @@ class _Attention(torch.autograd.Function):
 def attention(q, k, v, sm_scale: float, n_heads: int):
     """Differentiable :func:`flash_mha_packed`, for eval and training: the
     forward saves its logsumexp only when a gradient is wanted, and the
-    backward is :func:`flash_bwd`. Without a gradient, a key count that is
-    no multiple of 64 is padded with zero rows and masked by ``nk_valid``;
-    with one, the kernels take multiples of 64 only."""
+    backward is :func:`flash_bwd`. Without a gradient any lengths run; with
+    one, the backward kernels take multiples of 64 only."""
     return _Attention.apply(q, k, v, sm_scale, n_heads, torch.is_grad_enabled())

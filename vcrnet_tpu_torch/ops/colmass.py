@@ -29,11 +29,10 @@ from vcrnet_tpu_torch.ops.attention import HEAD_DIM, _scores
 
 
 def colmass_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the kernels take: dk == 128 and both lengths a multiple of 64."""
-    return (
-        d_model % n_heads == 0 and d_model // n_heads == HEAD_DIM
-        and nq % 64 == 0 and nk % 64 == 0
-    )
+    """Shapes the kernels take: dk == 128 and any lengths (the last query
+    tile adds the masses of its real rows alone, by a count; the last key
+    block stores only its real keys)."""
+    return d_model % n_heads == 0 and d_model // n_heads == HEAD_DIM and nq > 0 and nk > 0
 
 
 def softmax_colmass_ref(q, k, sm_scale: float, n_heads: int):
@@ -51,12 +50,13 @@ def softmax_colmass(q: torch.Tensor, k: torch.Tensor, sm_scale: float, n_heads: 
     nk = k.shape[1]
     if not colmass_supported(nq, nk, d, n_heads):
         raise ValueError(
-            f"softmax_colmass kernel takes dk == {HEAD_DIM}, Nq % 64 == 0 and Nk % 64 == 0, "
+            f"softmax_colmass kernel takes dk == {HEAD_DIM}, "
             f"got nq={nq} nk={nk} d_model={d} heads={n_heads}"
         )
     check_tensor("q", q, torch.bfloat16, (B, nq, d))
     check_tensor("k", k, torch.bfloat16, (B, nk, d))
-    lse = torch.empty((B, n_heads, nq), dtype=torch.float32, device=q.device)
+    # scratch of the row logsumexps, read back in whole 64-query tiles
+    lse = torch.empty((B, n_heads, nq + -nq % 64), dtype=torch.float32, device=q.device)
     out = torch.empty((B, n_heads, nk), dtype=torch.float32, device=q.device)
     _build.extension().softmax_colmass(q, k, lse, out, n_heads, float(sm_scale))
     softmax_colmass.launches += 1

@@ -28,7 +28,6 @@ from vcrnet_tpu_torch.ops.graph import gather_neighbors
 
 STAGE_WIDTHS = ((6, 64), (64, 64), (64, 128), (128, 256))
 CAT_WIDTH = 512
-TILE_Q = 16  # the gate takes N in whole 16-point tiles (the kernel masks any ragged end)
 
 
 def fold_bn_dense(kernel, scale, bias, mean, var, eps: float = 1e-5):
@@ -65,11 +64,12 @@ def dgcnn_eval_smem_bytes() -> int:
 
 
 def fused_dgcnn_supported(n: int, k: int, emb_dims: int) -> bool:
-    """Shapes the kernel takes: whole 16-point tiles, an output width the
-    projection tiles (128 columns a pass) and 0 < k < N. The edge kernel
-    streams the neighbour slots, so its shared memory depends on neither N
-    nor k."""
-    return n % TILE_Q == 0 and emb_dims % 128 == 0 and 0 < k < n
+    """Shapes the kernel takes: an output width the projection tiles (128
+    columns a pass) and 0 < k < N. Any N: the edge kernel clamps the reads
+    of a ragged last tile and skips its writes, and the projection takes
+    any number of rows. The edge kernel streams the neighbour slots, so its
+    shared memory depends on neither N nor k."""
+    return emb_dims % 128 == 0 and 0 < k < n
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -109,7 +109,7 @@ def fused_dgcnn_eval(x: torch.Tensor, idx: torch.Tensor, folded, emb_dims: int) 
     if not fused_dgcnn_supported(N, k, emb_dims):
         raise ValueError(
             f"fused_dgcnn_eval kernel does not take N={N} k={k} emb_dims={emb_dims} "
-            f"(N % {TILE_Q} == 0, emb_dims % 128 == 0, 0 < k < N)"
+            f"(emb_dims % 128 == 0, 0 < k < N)"
         )
     x = x.float().contiguous()
     check_tensor("x", x, torch.float32, (B, N, 3))

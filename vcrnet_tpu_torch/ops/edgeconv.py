@@ -59,16 +59,26 @@ def gather_max_bwd_supported(n: int, f: int, k: int) -> bool:
 
 
 def edge_conv_supported(n: int, c: int, k: int) -> bool:
-    """The gate of the ``edge_conv`` kernel: blocks of 64 queries of one
-    cloud over 64-key tiles (N % 64 == 0; shared memory does not grow with
-    N), kNN width C in (32, 64, 128), 0 < k <= 32 and k < N."""
-    return c in (32, 64, 128) and n % 64 == 0 and 0 < k <= 32 and k < n
+    """The gate of the ``edge_conv`` kernel: kNN width C in (32, 64, 128),
+    0 < k <= 32 and k < N. Any N: blocks of 64 queries of one cloud over
+    64-key tiles, the last of each ragged (keys past N score -inf, queries
+    past N are not written); shared memory does not grow with N."""
+    return c in (32, 64, 128) and 0 < k <= 32 and k < n
 
 
 def edge_conv_from_idx_supported(n: int, k: int) -> bool:
-    """The gate of the ``edge_conv_from_idx`` kernel: tiles of two query
-    rows of the flattened [B*N] (N % 16 == 0) and 0 < k <= 32."""
-    return n % 16 == 0 and 0 < k <= 32
+    """The gate of the ``edge_conv_from_idx`` kernel: 0 < k <= 32. Any N:
+    blocks of 64 rows of the flattened [B*N] in tiles of two query rows;
+    the kernel gates on rows, and a last block or tile that runs past B*N
+    repeats a real query and writes nothing."""
+    return n > 0 and 0 < k <= 32
+
+
+def gather_max_from_idx_supported(n: int, f: int, k: int) -> bool:
+    """The gate of the ``gather_max_from_idx`` kernel: F % 8 == 0 and
+    0 < k <= 32. Any N: a cloud's slice of up to 64 channels in shared
+    memory up to N = 14528, rows read from device memory beyond."""
+    return n > 0 and f % 8 == 0 and 0 < k <= 32
 
 
 def edge_conv_bwd_supported(n: int, k: int) -> bool:
@@ -192,7 +202,7 @@ def fused_gather_max_from_idx(idx: torch.Tensor, values: torch.Tensor, winners: 
     k = idx.shape[-1]
     check_tensor("idx", idx, torch.int32, (B, N, k))
     check_tensor("values", values, torch.bfloat16, (B, N, F))
-    if not 0 < k <= 32 or F % 8:
+    if not gather_max_from_idx_supported(N, F, k):
         raise ValueError(
             f"gather_max_from_idx kernel takes k in [1, 32] and F % 8 == 0, got k={k} F={F}"
         )
@@ -262,8 +272,8 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     bf16 = torch.bfloat16
     if not edge_conv_supported(N, C, k):
         raise ValueError(
-            f"edge_conv kernel takes C in (32, 64, 128), N % 64 == 0 and k in [1, 32] "
-            f"below N, got C={C} N={N} k={k}"
+            f"edge_conv kernel takes C in (32, 64, 128) and k in [1, 32] below N, "
+            f"got C={C} N={N} k={k}"
         )
     check_tensor("x", x, bf16, (B, N, C))
     for name, t in (("a", a), ("h", h)):
@@ -271,6 +281,8 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     check_tensor("w2", w2, bf16, (128, 128))
     check_tensor("b2", b2, bf16, (128,))
     norms = x.float().square().sum(-1)
+    if N % 64:  # the kernel reads whole 64-key tiles: keys past N get an infinite norm
+        norms = torch.nn.functional.pad(norms, (0, -N % 64), value=float("inf"))
     x1 = torch.empty_like(a)
     x2 = torch.empty_like(a)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)
@@ -306,9 +318,7 @@ def edge_conv_from_idx(idx, a, h, w2, b2, negative_slope: float = 0.0):
     B, N, k = idx.shape
     bf16 = torch.bfloat16
     if not edge_conv_from_idx_supported(N, k):
-        raise ValueError(
-            f"edge_conv_from_idx kernel takes N % 16 == 0 and k in [1, 32], got N={N} k={k}"
-        )
+        raise ValueError(f"edge_conv_from_idx kernel takes k in [1, 32], got N={N} k={k}")
     check_tensor("idx", idx, torch.int32, (B, N, k))
     for name, t in (("a", a), ("h", h)):
         check_tensor(name, t, bf16, (B, N, 128))

@@ -67,7 +67,9 @@ def pointer_mha_smem_bytes(d: int) -> int:
 def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
     """Whether the model takes the fused attention branch: the environment
     variable, then the shapes the CUDA kernels are held to (dk == 128,
-    D <= 512, whole 64-query and 32-key tiles). On dk == 128 and D <= 512
+    D <= 512, any lengths: the projections take any number of rows, and the
+    attention stores only the real query rows and masks the keys past Nk
+    by a count, as ``flash_packed`` does). On dk == 128 and D <= 512
     this takes every shape the JAX gate takes (pallas_pointer.py:
     fused_mha_supported, lengths in 128s) and more: the JAX package's
     on-chip budget for a batch item's K and V does not bind here, where
@@ -75,7 +77,7 @@ def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
     if not fused_pointer_enabled():
         return False
     return (d % n_heads == 0 and d // n_heads == HEAD_DIM and d <= MAX_D_MODEL
-            and nq % 64 == 0 and nk % 32 == 0 and pointer_mha_smem_bytes(d) <= SMEM_LIMIT)
+            and nq > 0 and nk > 0 and pointer_mha_smem_bytes(d) <= SMEM_LIMIT)
 
 
 def fused_ff_supported(n: int, d: int, f: int) -> bool:
@@ -126,14 +128,14 @@ def fused_mha(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int) -> torch.Te
     """yq [B, Nq, D], ykv [B, Nk, D] (pass yq for self-attention), weights
     [D, D] (in, out) and biases [D] in any float dtype -> [B, Nq, D] bf16:
     the whole sublayer before the residual. The kernel takes dk == 128,
-    D <= 512, Nq % 64 == 0 and Nk % 32 == 0."""
+    D <= 512 and any lengths."""
     tensors = (yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo)
     _refuse_grad("fused_mha", tensors)
     if not kernel_route(*tensors):
         return fused_mha_ref(*tensors, n_heads)
     B, nq, d = yq.shape
     nk = ykv.shape[1]
-    if (d % n_heads or d // n_heads != HEAD_DIM or d > MAX_D_MODEL or nq % 64 or nk % 32
+    if (d % n_heads or d // n_heads != HEAD_DIM or d > MAX_D_MODEL
             or pointer_mha_smem_bytes(d) > SMEM_LIMIT):
         raise ValueError(
             f"fused_mha kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"

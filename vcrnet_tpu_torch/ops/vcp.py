@@ -42,8 +42,10 @@ MAX_E = 512
 
 
 def streaming_supported(ns: int, nt: int, e: int) -> bool:
-    """Shapes the forward kernel takes: 64-row tiles, whole k16 steps."""
-    return ns % 64 == 0 and nt % 64 == 0 and e % 16 == 0 and e <= MAX_E
+    """Shapes the forward kernel takes: whole k16 steps, E <= 512, any
+    lengths (the last block stores only its real rows; the keys past Nt
+    of the last tile have an infinite norm and score -inf)."""
+    return ns > 0 and nt > 0 and e % 16 == 0 and e <= MAX_E
 
 
 def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = False):
@@ -60,7 +62,9 @@ def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = Fals
     check_tensor("tgt_emb", tgt_emb, torch.bfloat16, (B, nt, e))
     check_tensor("tgt", tgt, torch.float32, (B, nt, 3))
     f32 = torch.float32
-    keys = torch.empty((B, nt, 4), dtype=f32, device=tgt.device)  # x, y, z, |f|^2
+    # x, y, z, |f|^2 of whole 64-key tiles (the kernel's packing pass
+    # fills the entries past Nt with (0, 0, 0, +inf))
+    keys = torch.empty((B, nt + -nt % 64, 4), dtype=f32, device=tgt.device)
     out = torch.empty((B, ns, 3), dtype=f32, device=tgt.device)
     lse = torch.empty((B, ns), dtype=f32, device=tgt.device) if return_lse else None
     _build.extension().vcp_stream(src_emb, tgt_emb, tgt, keys, out, lse)
@@ -72,9 +76,10 @@ streaming_soft_correspondence.launches = 0
 
 
 def streaming_vjp_supported(ns: int, nt: int, e: int) -> bool:
-    """Shapes the backward kernel takes (the counterpart of the TPU's VMEM
-    gate pallas_vcp.py:streaming_vjp_supported): the forward's."""
-    return streaming_supported(ns, nt, e)
+    """Shapes the backward kernels take (the counterpart of the TPU's VMEM
+    gate pallas_vcp.py:streaming_vjp_supported): the forward's, in whole
+    64-row tiles (Ns % 64 == 0, Nt % 64 == 0)."""
+    return streaming_supported(ns, nt, e) and ns % 64 == 0 and nt % 64 == 0
 
 
 def vcp_bwd_ref(src_emb, tgt_emb, tgt, corr, lse, dcorr):

@@ -12,8 +12,10 @@ random clouds in [-1, 1]^3 with a bf16 table of F = 256 channels, k = 20:
 * at B = 64 clouds of N = 1024 (the 64-pair request): ``knn_gather_max``;
   ``knn`` on the same xyz, which runs the same scores and selection and no
   gather; ``gather_max_from_idx`` on ``knn_gather_max``'s idx, which runs
-  the same gather and no selection. ``knn_gather_max`` less
-  ``gather_max_from_idx`` is the scores and the selection;
+  the same gather and no selection (a gather by channel slices from shared
+  memory, another design than ``knn_gather_max``'s: the difference is not
+  the scores and the selection alone); ``gather_max_from_idx`` with winners, and at the other
+  sizes of the served paths (B = 64, N = 768 and 885; B = 8, N = 3072);
 * at 2B = 128 clouds (the training step): ``knn_gather_max`` with winners,
   and ``gather_max_bwd`` from them, alone and behind a zero fill of dv (the
   fill that a kernel adding into dv needs from its caller);
@@ -84,7 +86,33 @@ extern "C" int shim(const int* idx, const void* win, const void* ct, float* dv, 
 _QW = ("knn_scores.cuh", "constexpr int kQueriesPerWarp = 2;")
 _BUDGET = ("gather_max_bwd.cu", "constexpr size_t kSliceBudget = 232448;")
 _THREADS = ("gather_max_bwd.cu", "constexpr int kThreads = 1024;")
+_SLICE64 = ("gather_max_from_idx.cu", "if (slice_smem(n, 32, k) <= kSliceBudget)")
+_GATHER_THREADS = ("gather_max_from_idx.cu", "constexpr int kThreads = 1024;")
 VARIANTS = {
+    # slices of 32 channels where 64 fit (two queries a warp), with all the
+    # block's indices at once (one block an SM at N = 1024), or with a ring
+    # of indices small enough for two blocks an SM
+    "gather_max_from_idx_slices_32":
+        ("gather_max_from_idx.cu", [(*_SLICE64, "if (false)")]),
+    "gather_max_from_idx_slices_32_two_blocks":
+        ("gather_max_from_idx.cu", [(*_SLICE64, "if (false)"),
+                                    ("gather_max_from_idx.cu",
+                                     "constexpr size_t kBlockBudget = kSliceBudget;",
+                                     "constexpr size_t kBlockBudget = 114688;")]),
+    "gather_max_from_idx_threads_512":
+        ("gather_max_from_idx.cu", [(*_GATHER_THREADS, "constexpr int kThreads = 512;")]),
+    # the rows' loop cut: staging, indices and stores alone
+    "gather_max_from_idx_no_rows":
+        ("gather_max_from_idx.cu", [("gather_max_from_idx.cu", "for (int r = 0; r < kk; r += 4)",
+                                     "for (int r = 0; r < 0; r += 4)")]),
+    # the running max by max.bf16x2 (no winners; -0 and +0 not ordered as idx)
+    "gather_max_from_idx_hmax2":
+        ("gather_max_from_idx.cu", [("gather_max_from_idx.cu",
+                                     "const uint32_t gt = gt_mask(v[i], m);\n          m = (v[i] & gt) | (m & ~gt);",
+                                     "const uint32_t gt = 0;\n          const __nv_bfloat162 mx = "
+                                     "__hmax2(*reinterpret_cast<const __nv_bfloat162*>(&v[i]), "
+                                     "*reinterpret_cast<const __nv_bfloat162*>(&m));\n"
+                                     "          m = *reinterpret_cast<const uint32_t*>(&mx);")]),
     "knn_gather_max_queries_per_warp_1":
         ("knn_gather_max.cu", [(*_QW, "constexpr int kQueriesPerWarp = 1;")]),
     "knn_gather_max_queries_per_warp_4":
@@ -219,9 +247,38 @@ def main(argv=None) -> int:
         raise RuntimeError("gather_max_from_idx: differs from knn_gather_max on its idx")
     report("gather_max_from_idx", time_ms(lambda: _call(from_idx, idx, values, fo, None, b, n,
                                                         F, K)))
-    report("knn_gather_max_scores_and_selection",
-           out["knn_gather_max"]["ms"] - out["gather_max_from_idx"]["ms"],
-           note="knn_gather_max less gather_max_from_idx")
+    report("knn_gather_max_less_gather_max_from_idx",
+           out["knn_gather_max"]["ms"] - out["gather_max_from_idx"]["ms"])
+    win = torch.empty(b, n, F, dtype=torch.uint8, device=dev)
+    _call(from_idx, idx, values, fo, win, b, n, F, K)
+    torch.cuda.synchronize()
+    ref_out, _, ref_win = edgeconv.fused_knn_gather_max_ref(None, values, idx=idx, winners=True)
+    if not (torch.equal(fo, ref_out) and torch.equal(win, ref_win)):
+        raise RuntimeError("gather_max_from_idx with winners: differs from the plain version")
+    report("gather_max_from_idx_winners", time_ms(lambda: _call(from_idx, idx, values, fo, win,
+                                                                b, n, F, K)))
+    for name, lib in variants.items():  # each held to the main build's outputs
+        if not name.startswith("gather_max_from_idx"):
+            continue
+        vo = torch.empty_like(o)
+
+        def call(fn=lib.shim):
+            _call(fn, idx, values, vo, None, b, n, F, K)
+
+        call()
+        torch.cuda.synchronize()
+        if not name.endswith("_no_rows") and not torch.equal(vo, o):  # a cut build: time alone
+            raise RuntimeError(f"{name}: differs from the main build")
+        report(name, time_ms(call))
+    for b2, n2 in ((64, 768), (64, 885), (8, 3072)):
+        x2, _, values2, o2, idx2, _ = checked_fused(b2, n2, winners=False)
+        fo2 = torch.empty_like(o2)
+        _call(from_idx, idx2, values2, fo2, None, b2, n2, F, K)
+        torch.cuda.synchronize()
+        if not torch.equal(fo2, o2):
+            raise RuntimeError(f"gather_max_from_idx B={b2} N={n2}: differs from knn_gather_max")
+        report(f"gather_max_from_idx_B{b2}_N{n2}",
+               time_ms(lambda: _call(from_idx, idx2, values2, fo2, None, b2, n2, F, K)))
     for name, lib in variants.items():  # each held to the main build's outputs
         if not name.startswith("knn_gather_max"):
             continue
