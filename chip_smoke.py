@@ -49,22 +49,29 @@ Phases (any failure raises and the script exits non-zero):
            885 points, iter=3, the 73 pairs) within 2.0 deg of the plain
            route, a whole request at num_points = 1000 (iter=3) within
            0.1 deg of it, the launches of a 1-pair request of each, and the
-           training step at N = 1000, which must raise from a backward gate;
-8. dgcnn   the DGCNN / DCP family: a DCP Trainer on the DGCNN embedding
+           training step through the kernels at N = 1000 (B = 8 and 64) and
+           N = 885 (B = 3), held as the train phase holds N = 1024;
+8. fit     a full-width Trainer at N = 1000 fits two epochs with
+           checkpoints and a metrics writer, a fresh one reloads model.1.pt
+           bit for bit and resumes to epoch 2 within 1e-3 of an
+           uninterrupted fit, the committed checkpoint read by
+           train/checkpoint.py serves what utils/params.py's reader serves;
+           save and load timed;
+9. dgcnn   the DGCNN / DCP family: a DCP Trainer on the DGCNN embedding
            (bf16, full width) takes 20 Adam steps on one batch (the loss
            falls, the launches of one step, step time at B = 8 and 64), its
            eval step on the kernel route (kNN kernel, fused eval chain on the
            trained running statistics) against the plain route, then VCR-Net
            on DGCNN served with those weights at iter=1 and iter=3 (launches
            of a 1-pair request, kernel route against plain route, latency);
-9. fused   the default VCR-Net with VCRNET_FUSED_POINTER=1 for this phase
+10. fused  the default VCR-Net with VCRNET_FUSED_POINTER=1 for this phase
    pointer only: launches of a 1-pair request at iter=1 and iter=3, rot RMSE
            over the 73 pairs against the unfused kernel route (0.25 / 0.1
            deg), the rotation between the two routes' results pair by pair
            (median <= 0.05, max <= 0.5 deg), latency beside the unfused
            route's.
 
-The kernels phase also holds the four kernels of phases 7 and 8 (knn,
+The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
 64, N = 1024 and at N = 768, and the attention kernels at the edges of
 their tiling: the forward (output and logsumexp) at Nq % 128 == 64, one key
@@ -94,7 +101,10 @@ gather_max_from_idx, redesigned by channel slices, equal bit for bit
 (winners too) to its plain version and to knn_gather_max at B = 64 with
 N = 768, 885, 1024 and 3072, at N = 16384 (rows read from device memory),
 on duplicate indices and tied values, at k = 1, 7 and 32 and F = 8 and
-264.
+264. The backward phase also holds the three backward kernels of the
+training step at N = 885 and 1000 (B = 1, 2 and 64; also 707, 971 and
+Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
+every shape, item 0's gradients unchanged when item 1 is drawn again.
 
 The last lines are a JSON object with one entry per kernel (fifteen), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -696,6 +706,9 @@ def phase_backward(dev):
         do = randn(B, N, 512, dtype=bf16)
         got = attention.flash_bwd(q, k, v, o, lse, do, scale, 4)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, attention.flash_bwd(q, k, v, o, lse, do, scale, 4))),
+              f"flash_bwd B={B}: two runs differ")
         want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, 4)
         errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
         check(max(errs) <= 1e-2, f"flash_bwd B={B}: relative errors (dq, dk, dv) {errs}")
@@ -724,6 +737,8 @@ def phase_backward(dev):
         vargs = (se, te, tgt, corr, lse, dcorr)
         got = vcp.vcp_bwd(*vargs)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, vcp.vcp_bwd(*vargs))),
+              f"vcp_bwd B={B}: two runs differ")
         want = vcp.vcp_bwd_ref(*vargs)
         errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
         check(max(errs) <= 1e-2, f"vcp_bwd B={B}: relative errors (de, df, dtgt) {errs}")
@@ -753,6 +768,9 @@ def phase_backward(dev):
         o, lse = attention.flash_mha_packed(q, k, v, scale, 4, return_lse=True)
         got = attention.flash_bwd(q, k, v, o, lse, do, scale, 4)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, attention.flash_bwd(q, k, v, o, lse, do, scale, 4))),
+              f"flash_bwd B={B} Nq={nq} Nk={nk}: two runs differ")
         want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, 4)
         errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
         check(max(errs) <= 1e-2, f"flash_bwd B={B} Nq={nq} Nk={nk}: relative errors {errs}")
@@ -780,6 +798,8 @@ def phase_backward(dev):
         vargs = (se, te, tgt, corr, lse, randn(B, ns, 3))
         got = vcp.vcp_bwd(*vargs)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, vcp.vcp_bwd(*vargs))),
+              f"vcp_bwd {what}: two runs differ")
         want = vcp.vcp_bwd_ref(*vargs)
         errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
         check(max(errs) <= 1e-2, f"vcp_bwd {what}: relative errors (de, df, dtgt) {errs}")
@@ -839,6 +859,143 @@ def phase_backward(dev):
     return rows
 
 
+# (B, N) of the backward kernels at cloud sizes that are no multiple of 64:
+# the partial crop at the CLI's default overlap (885) and num_points = 1000
+# at B = 1, 2 (item 0's last tiles border item 1's rows) and 64, the crops
+# of overlaps 0.5 and 0.9 (707, 971) at B = 2; edge_conv_bwd at 885 and
+# 1000 (B clouds; 885 and 2 * 885 rows leave a ragged last round of four,
+# and 3 * 885 too)
+RAGGED_BWD_SHAPES = tuple((b, n) for n in (885, 1000) for b in (1, 2, 64)) + ((2, 707), (2, 971))
+RAGGED_EDGE_BWD_SHAPES = tuple((b, n) for n in (885, 1000) for b in (1, 2, 64)) + ((3, 885),)
+
+
+def phase_ragged_backward(dev):
+    """The three backward kernels of the training step at cloud sizes that
+    are no multiple of 64 (RAGGED_BWD_SHAPES; attention and soft
+    correspondence also at Nq = 885 over Nk = 1000), each against its plain
+    version with the tolerances of phase_backward, flash_bwd and vcp_bwd
+    equal from run to run, and at B = 2 with item 1's inputs drawn again:
+    item 0's gradients must stay the same bit for bit (dh; da within 1e-6
+    of its largest value, its sums land by atomics in a varying order).
+    Times at B = 64, N = 885 and 1000."""
+    import torch
+
+    from vcrnet_tpu_torch.ops import attention, edgeconv, vcp
+
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def redraw_item1(inputs):
+        out = []
+        for t in inputs:
+            t = t.clone()
+            if t.dtype == torch.int32:  # indices: a permutation of item 1's rows
+                t[1] = t[1].flip(0)
+            elif t.dtype == torch.uint8:  # winners: other k-positions
+                t[1] = torch.randint(0, K, t[1].shape, generator=g, device=dev).to(t.dtype)
+            else:
+                t[1] = torch.randn(t[1].shape, generator=g, device=dev).to(t.dtype)
+            out.append(t)
+        return out
+
+    bf16, scale = torch.bfloat16, 128 ** -0.5
+    rows = {}
+
+    def flash_grads(q, k, v, do):
+        o, lse = attention.flash_mha_packed(q, k, v, scale, 4, return_lse=True)
+        return o, lse, attention.flash_bwd(q, k, v, o, lse, do, scale, 4)
+
+    def vcp_grads(se, te, tgt, dcorr):
+        corr, lse = vcp.streaming_soft_correspondence(se, te, tgt, return_lse=True)
+        return corr, lse, vcp.vcp_bwd(se, te, tgt, corr, lse, dcorr)
+
+    for B, n in RAGGED_BWD_SHAPES + ((2, None),):
+        nq, nk = (885, 1000) if n is None else (n, n)
+        what = f"B={B} Nq={nq} Nk={nk}"
+        # --- attention backward from the forward's output and logsumexp
+        inputs = [randn(B, nq, 512, dtype=bf16), randn(B, nk, 512, dtype=bf16),
+                  randn(B, nk, 512, dtype=bf16), randn(B, nq, 512, dtype=bf16)]
+        o, lse, got = flash_grads(*inputs)
+        torch.cuda.synchronize()
+        q, k, v, do = inputs
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, attention.flash_bwd(q, k, v, o, lse, do, scale, 4))),
+              f"flash_bwd {what}: two runs differ")
+        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, 4)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(max(errs) <= 1e-2, f"flash_bwd {what}: relative errors (dq, dk, dv) {errs}")
+        row = dict(B=B, Nq=nq, Nk=nk, rel_errs=errs, equal_run_to_run=True,
+                   max_abs_err=max((gv.float() - wv.float()).abs().max().item()
+                                   for gv, wv in zip(got, want)))
+        del want
+        if B == 2:
+            again = flash_grads(*redraw_item1(inputs))[2]
+            check(all(torch.equal(a[0], b[0]) for a, b in zip(got, again)),
+                  f"flash_bwd {what}: item 0 moved when item 1's rows changed")
+        elif B == 64:
+            row["ms"] = cuda_time_ms(lambda: attention.flash_bwd(q, k, v, o, lse, do, scale, 4))
+        rows.setdefault("flash_bwd_ragged", []).append(row)
+        del inputs, q, k, v, do, o, got
+
+        # --- soft correspondence backward from the forward's corr and lse
+        inputs = [randn(B, nq, 512, scale=512 ** -0.5, dtype=bf16),
+                  randn(B, nk, 512, scale=512 ** -0.5, dtype=bf16),
+                  torch.rand(B, nk, 3, generator=g, device=dev) * 2 - 1, randn(B, nq, 3)]
+        corr, lse, got = vcp_grads(*inputs)
+        torch.cuda.synchronize()
+        se, te, tgt, dcorr = inputs
+        vargs = (se, te, tgt, corr, lse, dcorr)
+        check(all(torch.equal(a, b) for a, b in zip(got, vcp.vcp_bwd(*vargs))),
+              f"vcp_bwd {what}: two runs differ")
+        want = vcp.vcp_bwd_ref(*vargs)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(max(errs) <= 1e-2, f"vcp_bwd {what}: relative errors (de, df, dtgt) {errs}")
+        row = dict(B=B, Ns=nq, Nt=nk, rel_errs=errs, equal_run_to_run=True,
+                   max_abs_err=max((gv - wv).abs().max().item() for gv, wv in zip(got, want)))
+        if B == 2:
+            again = vcp_grads(*redraw_item1(inputs))[2]
+            check(all(torch.equal(a[0], b[0]) for a, b in zip(got, again)),
+                  f"vcp_bwd {what}: item 0 moved when item 1's rows changed")
+        elif B == 64:
+            row["ms"] = cuda_time_ms(lambda: vcp.vcp_bwd(*vargs))
+        rows.setdefault("vcp_bwd_ragged", []).append(row)
+        del inputs, vargs, got, want
+
+    # --- the DG block's backward from the forward's idx and winners
+    w2 = randn(128, 128, scale=128 ** -0.5, dtype=bf16)
+    b2 = randn(128, scale=0.1, dtype=bf16)
+    for B, n in RAGGED_EDGE_BWD_SHAPES:
+        what = f"B={B} N={n}"
+        xf = randn(B, n, 64, dtype=bf16)
+        a = randn(B, n, 128, scale=0.5, dtype=bf16)
+        h = randn(B, n, 128, scale=0.5, dtype=bf16)
+        _, x2, idx, win1, win2 = edgeconv.fused_edge_conv(xf, a, h, w2, b2, K, winners=True)
+        ct1, ct2 = randn(B, n, 128, dtype=bf16), randn(B, n, 128, dtype=bf16)
+        args = [idx, win1, win2, a, h, w2, x2, ct1, ct2]
+        got = edgeconv.edge_conv_bwd(*args)
+        torch.cuda.synchronize()
+        want = edgeconv.edge_conv_bwd_ref(*args)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(errs[0] <= 2 ** -7 and max(errs[1:]) <= 1e-4,
+              f"edge_conv_bwd {what}: relative errors (da, dh, dW2, db2) {errs}")
+        row = dict(B=B, N=n, rows=B * n, rel_errs=errs,
+                   max_abs_err=max((gv - wv).abs().max().item() for gv, wv in zip(got, want)))
+        if B == 2:
+            item1 = redraw_item1([idx, win1, win2, a, h, x2, ct1, ct2])
+            again = edgeconv.edge_conv_bwd(*item1[:5], w2, *item1[5:])
+            da_moved = rel_err(again[0][0], got[0][0])
+            check(torch.equal(got[1][0], again[1][0]) and da_moved <= 1e-6,
+                  f"edge_conv_bwd {what}: item 0 moved when item 1 changed (da {da_moved})")
+            row["item0_da_moved"] = da_moved
+        elif B == 64:
+            row["ms"] = cuda_time_ms(lambda: edgeconv.edge_conv_bwd(*args))
+        rows.setdefault("edge_conv_bwd_ragged", []).append(row)
+    print_rows(rows)
+    return rows
+
+
 # kernel launches in one training step: the forward embeds src and tgt
 # stacked (1 edge conv, 1 gather-max), the pointer runs 6 attentions, the
 # head 1 soft correspondence; the backward launches one backward kernel each
@@ -871,29 +1028,26 @@ def _cosine(a, b) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
 
 
-def phase_train():
-    """The training step at full width, bf16, N = 1024, from a seeded init
-    on synthetic shape pairs: kernel-route vs plain-route gradients on one
-    batch of 8, the launches of one step, 20 Adam steps on one batch, and
-    the step time at B = 8 and 64."""
+def check_training(cfg, what: str, grad_batch: int, time_batches) -> tuple:
+    """The training step of ``cfg`` (bf16, full width) from a seeded init on
+    synthetic shape pairs: kernel-route vs plain-route gradients on one
+    batch of ``grad_batch`` (cosine >= 0.99 whole, >= 0.98 per parameter
+    but the four with a zero exact gradient), the launches of one step, 20
+    Adam steps on one batch (the loss must fall), and the median step time
+    at each of ``time_batches``. Returns (launches, step_ms)."""
     import torch
 
     from vcrnet_tpu_torch import ops
-    from vcrnet_tpu_torch.config import Config
     from vcrnet_tpu_torch.train import Trainer
 
-    cfg = Config(compute_dtype="bfloat16", num_points=N)
-    check((cfg.emb_dims, cfg.ff_dims, cfg.n_heads, cfg.n_blocks, cfg.loss, cfg.cycle,
-           cfg.dropout, cfg.streaming_vcp_train) == (512, 1024, 4, 1, "point", False, 0.0, True),
-          "train phase must run the default configuration")
-    batch8 = _train_batch(cfg, 8, seed=1)
+    batch = _train_batch(cfg, grad_batch, seed=1)
     kern = Trainer(cfg, seed=0)
     plain = Trainer(cfg, seed=0, use_kernels=False)
     check(kern.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
 
-    # gradients of the two routes on one batch of 8, from the same init
-    loss_k, _ = kern.compute_grads(batch8)
-    loss_p, _ = plain.compute_grads(batch8)
+    # gradients of the two routes on one batch, from the same init
+    loss_k, _ = kern.compute_grads(batch)
+    loss_p, _ = plain.compute_grads(batch)
     names, gk, gp = [], [], []
     for (name, pk), (_, pp) in zip(kern.model.named_parameters(), plain.model.named_parameters()):
         names.append(name)
@@ -902,46 +1056,61 @@ def phase_train():
     low = []
     for name, a, b in zip(names, gk, gp):
         leaf_cos = _cosine(a, b)
-        print(f"train grad cosine {name}: {leaf_cos}", flush=True)
+        print(f"{what} grad cosine {name}: {leaf_cos}", flush=True)
         if not name.endswith(ZERO_GRAD_LEAVES) and not leaf_cos >= LEAF_COSINE_MIN:
             low.append((name, leaf_cos))
     cos = _cosine(torch.cat(gk), torch.cat(gp))
-    print(f"train loss at init: kernels {loss_k.item()} plain {loss_p.item()}; "
+    print(f"{what} loss at init: kernels {loss_k.item()} plain {loss_p.item()}; "
           f"whole-model grad cosine {cos}", flush=True)
-    check(math.isfinite(loss_k.item()), "non-finite training loss")
-    check(cos >= GRAD_COSINE_MIN, f"kernel vs plain gradient cosine {cos} < {GRAD_COSINE_MIN}")
-    check(not low, f"kernel vs plain gradient cosine below {LEAF_COSINE_MIN}: {low}")
+    check(math.isfinite(loss_k.item()), f"{what}: non-finite training loss")
+    check(cos >= GRAD_COSINE_MIN,
+          f"{what}: kernel vs plain gradient cosine {cos} < {GRAD_COSINE_MIN}")
+    check(not low, f"{what}: kernel vs plain gradient cosine below {LEAF_COSINE_MIN}: {low}")
     exempt = [n for n in names if n.endswith(ZERO_GRAD_LEAVES)]
     check(len(exempt) == 4, f"zero-gradient leaves {exempt}: expected 3 key biases + 1 shift")
     del plain
 
     # launches of one training step on the main path (after a warm-up step)
-    kern.train_step(batch8)
+    kern.train_step(batch)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    kern.train_step(batch8)
+    kern.train_step(batch)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    print(f"train launches in one step: {launches}", flush=True)
-    check_launches(launches, TRAIN_LAUNCHES, "train step")
+    print(f"{what} launches in one step: {launches}", flush=True)
+    check_launches(launches, TRAIN_LAUNCHES, f"{what} step")
 
     # Adam on one fixed batch: the loss must fall
     tr = Trainer(cfg, seed=0)
     losses = []
     for _ in range(TRAIN_STEPS + 1):
-        sums = tr.train_step(batch8)
+        sums = tr.train_step(batch)
         losses.append((sums["loss"] / sums["count"]).item())
-    print(f"train losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
-    check(all(math.isfinite(v) for v in losses), "non-finite loss in the Adam steps")
+    print(f"{what} losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss in the Adam steps")
     check(losses[-1] < losses[0],
-          f"loss after {TRAIN_STEPS} steps {losses[-1]} >= first {losses[0]}")
+          f"{what}: loss after {TRAIN_STEPS} steps {losses[-1]} >= first {losses[0]}")
 
     step_ms = {}
-    for b in BATCHES:
+    for b in time_batches:
         times = timed_steps_ms(tr, tr.to_device(_train_batch(cfg, b, seed=2)))
         step_ms[b] = statistics.median(times)
-        print(f"train step at B={b}: median {step_ms[b]} ms (5 steps: {times})", flush=True)
+        print(f"{what} step at B={b}: median {step_ms[b]} ms (5 steps: {times})", flush=True)
     return launches, step_ms
+
+
+def phase_train():
+    """The training step at full width, bf16, N = 1024, from a seeded init
+    on synthetic shape pairs (check_training): kernel-route vs plain-route
+    gradients on one batch of 8, the launches of one step, 20 Adam steps on
+    one batch, and the step time at B = 8 and 64."""
+    from vcrnet_tpu_torch.config import Config
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N)
+    check((cfg.emb_dims, cfg.ff_dims, cfg.n_heads, cfg.n_blocks, cfg.loss, cfg.cycle,
+           cfg.dropout, cfg.streaming_vcp_train) == (512, 1024, 4, 1, "point", False, 0.0, True),
+          "train phase must run the default configuration")
+    return check_training(cfg, "train", 8, BATCHES)
 
 
 def rot_rmse_deg(R_pred, euler_gt):
@@ -1310,14 +1479,13 @@ def phase_ragged():
     iter=3, the 73 pairs), within 2.0 deg of the plain route; a whole
     request at num_points = 1000 (iter=3, 73 pairs), <= 1.0 deg and within
     0.1 deg of the plain route; launches of a 1-pair request of each; then
-    the training step at N = 1000, which must raise from a backward gate
-    (the gradient half of the ragged tiles is not done) and not run on the
-    plain route."""
-    from vcrnet_tpu_torch import ops
+    the training step through the kernels (check_training) at N = 1000
+    (gradients on a batch of 8, step times at B = 8 and 64) and at N = 885
+    with B = 3, whose stacked 2B * N = 5310 query rows leave edge_conv_bwd a
+    ragged last round of four."""
     from vcrnet_tpu_torch.config import Config
     from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
     from vcrnet_tpu_torch.serve import Registrar
-    from vcrnet_tpu_torch.train import Trainer
     from vcrnet_tpu_torch.utils.params import load_checkpoint
 
     state_dict = load_checkpoint(CHECKPOINT)
@@ -1364,20 +1532,142 @@ def phase_ragged():
           f"whole {N_RAGGED}: kernel vs plain rot RMSE differ by more than 0.1 deg")
     del reg, plain
 
+    step_ms = {}
+    for n, grad_batch, time_batches in ((N_RAGGED, 8, BATCHES), (885, 3, (3,))):
+        cfg = Config(compute_dtype="bfloat16", num_points=n)
+        launches, ms = check_training(cfg, f"train N={n}", grad_batch, time_batches)
+        add_launches(total, launches)
+        step_ms[n] = ms
+    return total, step_ms
+
+
+FIT_TRAIN_BATCHES = 4  # batches of 8 pairs an epoch
+FIT_RESUME_REL = 1e-3     # resumed vs uninterrupted epoch-2 losses, relative
+
+
+def phase_fit():
+    """Checkpoints, resume and the rest of ``fit`` at full width, bf16,
+    N = 1000 (a ragged size), through the kernels, on synthetic shape pairs
+    (four batches of 8 an epoch, 16 test pairs):
+
+    1. ``fit(epochs=2, checkpoint_dir, metrics_writer)`` writes
+       model.best.pt, model.0.pt, model.1.pt and fit_state.json, and hands
+       the writer the reference's 63 scalars an epoch; the MetricsWriter
+       writes them to an event file where tensorboardX is installed (it is
+       a no-op without it, as the JAX package's is);
+    2. a fresh Trainer (another seed) loads model.1.pt: parameters, buffers,
+       Adam's moments and the step equal bit for bit to the first trainer's;
+       its ``fit(epochs=3)`` resumes at epoch 2 at the scheduler's rate;
+    3. its epoch-2 losses within 1e-3 relative of an uninterrupted fit of
+       three epochs from the first seed (not bit-equal: gather_max_bwd and
+       edge_conv_bwd add in an order that changes from run to run);
+    4. the committed checkpoint read by checkpoint.load_checkpoint into a
+       Trainer serves the rotations that utils/params.py::load_checkpoint's
+       state dict serves, bit for bit (iter=1, 8 pairs at N = 1024);
+    5. the time of one save_checkpoint and one load_checkpoint."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import Loader, SyntheticDataset, shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train import checkpoint as ckpt
+    from vcrnet_tpu_torch.utils import params
+    from vcrnet_tpu_torch.utils.logging import MetricsWriter
+
     cfg = Config(compute_dtype="bfloat16", num_points=N_RAGGED)
-    tr = Trainer(cfg, seed=0)
-    check(tr.model.use_kernels, "the training step at a ragged N must take the kernel route")
-    ops.reset_launch_counts()
+    train = [_train_batch(cfg, 8, seed=20 + i) for i in range(FIT_TRAIN_BATCHES)]
+    test = list(Loader(SyntheticDataset(cfg, "test", n_items=16, cloud_points=2 * N, seed=30,
+                                        kind="shapes"), 8))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fit_", dir=os.path.join(HERE, "build"))
+    logs, tags = [], []
+
+    class Tee:  # hands each scalar to the MetricsWriter and keeps its tag
+        def __init__(self, writer):
+            self.writer = writer
+
+        def scalar(self, tag, value, step):
+            tags.append(tag)
+            self.writer.scalar(tag, value, step)
+
     try:
-        tr.train_step(_train_batch(cfg, 2, seed=3))
-    except ValueError as err:
-        print(f"train step at N={N_RAGGED}: refused by a backward gate: {err}", flush=True)
-        check("vjp" in str(err) or "bwd" in str(err),
-              f"train step at N={N_RAGGED}: refused by another gate than a backward one: {err}")
-    else:
-        raise RuntimeError(f"train step at N={N_RAGGED}: ran, where the backward kernels "
-                           "take whole 64-row tiles alone")
-    return total
+        first = Trainer(cfg, seed=0)
+        writer = MetricsWriter(tmp)
+        h1 = first.fit(train, test, epochs=2, log=logs.append, checkpoint_dir=tmp,
+                       metrics_writer=Tee(writer))
+        writer.close()
+        names = sorted(os.listdir(tmp))
+        print(f"fit: files {names}; (epoch, lr, train loss, test loss_pose) "
+              f"{[(h['epoch'], h['lr'], h['train']['loss'], h['test']['loss_pose']) for h in h1]}",
+              flush=True)
+        for name in ("model.best.pt", "model.0.pt", "model.1.pt", "fit_state.json"):
+            check(name in names, f"fit: {name} not written")
+        check(len(tags) == 2 * 63, f"fit: {len(tags)} scalars written, expected 126")
+        tensorboard = importlib.util.find_spec("tensorboardX") is not None
+        print(f"fit: tensorboardX installed: {tensorboard}", flush=True)
+        check(not tensorboard or any(n.startswith("events.out.tfevents") for n in names),
+              "fit: no event file")
+        fit_state = ckpt.load_fit_state(tmp)
+        check(fit_state["epoch"] == 1, f"fit: fit_state.json {fit_state}")
+
+        resumed = Trainer(cfg, seed=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load_checkpoint(os.path.join(tmp, "model.1.pt"), resumed)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        want, got = first.model.state_dict(), resumed.model.state_dict()
+        check(list(want) == list(got) and all(torch.equal(want[k], got[k]) for k in want),
+              "fit: the loaded parameters or buffers differ from the saved trainer's")
+        opt_w, opt_g = first.optimizer.state_dict(), resumed.optimizer.state_dict()
+        moments = [(i, k) for i, st in opt_w["state"].items() for k in st]
+        check(bool(moments) and all(torch.equal(opt_w["state"][i][k], opt_g["state"][i][k])
+                                    for i, k in moments),
+              "fit: the loaded Adam state differs from the saved trainer's")
+        check(resumed.step == first.step == 2 * FIT_TRAIN_BATCHES, f"fit: step {resumed.step}")
+        h2 = resumed.fit(train, test, epochs=3, log=logs.append, checkpoint_dir=tmp)
+        check([h["epoch"] for h in h2] == [2] and logs[-2] == "resumed fit state at epoch 2",
+              f"fit: resumed at {[h['epoch'] for h in h2]}; log {logs}")
+        check(h2[0]["lr"] == fit_state["lr"], f"fit: resumed lr {h2[0]['lr']} vs {fit_state}")
+
+        whole = Trainer(cfg, seed=0).fit(train, test, epochs=3, log=logs.append)
+        rel = {split: {k: abs(h2[0][split][k] - whole[2][split][k])
+                       / max(abs(whole[2][split][k]), 1e-12)
+                       for k in ("loss", "loss_pose")} for split in ("train", "test")}
+        print(f"fit: epoch 2 losses resumed "
+              f"{[h2[0][sp][k] for sp in ('train', 'test') for k in ('loss', 'loss_pose')]} "
+              f"uninterrupted "
+              f"{[whole[2][sp][k] for sp in ('train', 'test') for k in ('loss', 'loss_pose')]}; "
+              f"relative {rel}", flush=True)
+        check(max(v for d in rel.values() for v in d.values()) <= FIT_RESUME_REL,
+              f"fit: resumed epoch 2 differs from the uninterrupted fit by {rel}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(tmp, "timed", resumed)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size_mb = os.path.getsize(os.path.join(tmp, "timed.pt")) / 2 ** 20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    serve_cfg = Config(compute_dtype="bfloat16", num_points=N)
+    data = shapes_eval_set(8, num_points=N)
+    template = ckpt.load_checkpoint(CHECKPOINT, Trainer(serve_cfg, seed=9))
+    R_new = Registrar(serve_cfg, template.model.state_dict()).register(data["src"], data["tgt"])
+    R_old = Registrar(serve_cfg, params.load_checkpoint(CHECKPOINT)).register(data["src"],
+                                                                              data["tgt"])
+    check(np.array_equal(R_new["R"], R_old["R"]) and np.array_equal(R_new["t"], R_old["t"]),
+          "fit: the committed checkpoint serves otherwise through checkpoint.load_checkpoint")
+    print(f"fit: save_checkpoint {save_ms} ms, load_checkpoint {load_ms} ms "
+          f"({size_mb} MiB, full width); the committed checkpoint serves the same rotations "
+          "through both readers", flush=True)
+    return dict(save_ms=save_ms, load_ms=load_ms, size_mb=size_mb)
 
 
 # ---------------------------------------------------------------------------
@@ -2208,8 +2498,8 @@ def phase_fused_pointer():
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
                   "edge_conv_bwd.cu", "knn_gather_max.cu", "knn.cu", "gather_max_from_idx.cu",
-                  "gather_max_bwd.cu", "flash_packed.cu", "colmass.cu", "pointer_mha.cu",
-                  "pointer_ff.cu", "dgcnn_eval.cu")
+                  "gather_max_bwd.cu", "flash_packed.cu", "flash_bwd.cu", "colmass.cu",
+                  "pointer_mha.cu", "pointer_ff.cu", "dgcnn_eval.cu")
 # template arguments of the kernels as ptxas names them, mangled
 TEMPLATE_ARGS = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>"}
 
@@ -2247,7 +2537,7 @@ def print_ptxas_reports(procs: dict) -> None:
         check(kernels and not any(spills), f"{src}: the kernels spill registers ({spills} bytes)")
 
 
-PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "dgcnn",
+PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
           "fused_pointer")
 
 
@@ -2291,6 +2581,7 @@ def main() -> int:
             rows.update(phase_gather_kernels(dev))
         elif name == "backward":
             rows.update(phase_backward(dev))
+            rows.update(phase_ragged_backward(dev))
         elif name == "train":
             launches[name] = phase_train()[0]
         elif name == "serve":
@@ -2300,7 +2591,9 @@ def main() -> int:
         elif name == "partial":
             launches[name] = phase_partial()
         elif name == "ragged":
-            launches[name] = phase_ragged()
+            launches[name] = phase_ragged()[0]
+        elif name == "fit":
+            phase_fit()
         elif name == "dgcnn":
             launches[name] = phase_dgcnn()
         elif name == "fused_pointer":

@@ -21,7 +21,12 @@ package's Pallas kernels in interpret mode (``_flash_packed_impl``,
 * backward: dK and dV summed tile by tile over 64-row query tiles (the
   dK/dV kernel's loop), dQ over 64-key tiles (the dQ kernel's loop), each
   tile's product added to an f32 accumulator; p = exp(s - lse), dS and P
-  rounded to q's dtype before their products.
+  rounded to q's dtype before their products. At lengths that are no
+  multiple of 64 the owned rows (blocks of 128) and the streamed tiles are
+  read as the TMA boxes read them; the dK/dV kernel takes each q tile's lse
+  and delta from rows padded per (b, h) to whole tiles (lse +inf, delta 0
+  past Nq), the dQ kernel masks keys past Nk by the count, and rows past
+  Nq or Nk are not stored.
 
 Tolerances, each with its reason:
 * f32: 1e-5 absolute (sums of values of order one in another order);
@@ -236,8 +241,8 @@ def test_ragged_tiles_of_the_next_item_change_nothing():
 
 def test_attention_pads_nothing_on_the_card(monkeypatch):
     """Without a gradient the eval attention hands a ragged key count to the
-    kernel as it is (no padding copy); with one, the backward gate refuses
-    it."""
+    kernel as it is (no padding copy); the backward gate takes any lengths
+    (ROADMAP C1b) and refuses only what the forward's refuses."""
     calls = []
 
     class Ext:
@@ -252,9 +257,10 @@ def test_attention_pads_nothing_on_the_card(monkeypatch):
         attention.attention(q, k, v, SCALE, HEADS)
     assert calls == [((B, 100, HEADS * DK), (B, 150, HEADS * DK), 150)]
     assert attention.flash_packed_supported(885, 885, 512, 4)
-    assert not attention.flash_bwd_supported(885, 885, 512, 4)
-    assert not attention.flash_bwd_supported(1024, 1000, 512, 4)
+    assert attention.flash_bwd_supported(885, 885, 512, 4)
+    assert attention.flash_bwd_supported(1024, 1000, 512, 4)
     assert attention.flash_bwd_supported(1024, 768, 512, 4)
+    assert not attention.flash_bwd_supported(885, 885, 256, 4)  # dk = 64
 
 
 # (Nq, Nk): equal, Nq % 128 == 64 for both kernels' blocks, Nq != Nk
@@ -295,3 +301,127 @@ def test_tiled_backward_matches_pallas(dtype, nq, nk):
     for g, w in zip(got, want):
         w = np.asarray(w.astype(jnp.float32)).transpose(0, 2, 1, 3).reshape(g.shape)
         np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
+
+
+def ragged_backward(q, k, v, o, lse_tiles, do, block=128):
+    """flash_bwd.cu at any Nq and Nk, from ``lse_tiles`` [B, H, ld] (ld = Nq
+    rounded up to 64, +inf past Nq, as the wrapper hands it over): the
+    delta pass writes delta in the same layout, 0 past Nq; the dK/dV kernel
+    owns blocks of 128 keys and streams 64-row q tiles with the tile's lse
+    and delta; the dQ kernel owns blocks of 128 queries (rows past Nq read
+    row 0's statistics) and streams 64-key tiles, the keys past Nk masked
+    to p = 0 by the count. Every tile is read as the TMA boxes read the
+    flattened matrices; only rows below Nq (dq) and Nk (dk, dv) are
+    stored. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    ld = lse_tiles.shape[-1]
+    delta = torch.zeros(b, HEADS, ld)
+    delta[..., :nq] = (_split(do) * _split(o)).sum(-1)
+    dq = torch.full(q.shape, float("nan"), dtype=q.dtype)
+    dk = torch.full(k.shape, float("nan"), dtype=k.dtype)
+    dv = torch.full(v.shape, float("nan"), dtype=v.dtype)
+    for key0 in range(0, nk, block):
+        kh, vh = _split(_box_rows(k, key0, block)), _split(_box_rows(v, key0, block))
+        acc_k, acc_v = torch.zeros(kh.shape), torch.zeros(vh.shape)
+        for t0 in range(0, ld, TILE):
+            qh = _split(_box_rows(q, t0, TILE))
+            do_c = _split(_box_rows(do, t0, TILE)).to(v.dtype).float()
+            st = kh @ qh.transpose(-1, -2) * SCALE
+            pt = torch.exp(st - lse_tiles[:, :, None, t0:t0 + TILE])
+            dst = (pt * (vh @ do_c.transpose(-1, -2) - delta[:, :, None, t0:t0 + TILE])
+                   * SCALE).to(q.dtype).float()
+            acc_v += pt.to(q.dtype).float() @ do_c
+            acc_k += dst @ qh
+        stored = min(block, nk - key0)
+        dk[:, key0:key0 + stored] = _merge(acc_k, k.dtype)[:, :stored]
+        dv[:, key0:key0 + stored] = _merge(acc_v, v.dtype)[:, :stored]
+    for q0 in range(0, nq, block):
+        qh = _split(_box_rows(q, q0, block))
+        do_c = _split(_box_rows(do, q0, block)).to(v.dtype).float()
+        rows = torch.arange(q0, q0 + block)
+        rows = torch.where(rows < nq, rows, 0)
+        lse_r, delta_r = lse_tiles[..., rows, None], delta[..., rows, None]
+        acc = torch.zeros(qh.shape)
+        for t0 in range(0, nk, TILE):
+            kh, vh = _split(_box_rows(k, t0, TILE)), _split(_box_rows(v, t0, TILE))
+            p = torch.exp(qh @ kh.transpose(-1, -2) * SCALE - lse_r)
+            p[..., torch.arange(t0, t0 + TILE) >= nk] = 0.0
+            ds = (p * (do_c @ vh.transpose(-1, -2) - delta_r) * SCALE).to(q.dtype).float()
+            acc += ds @ kh
+        stored = min(block, nq - q0)
+        dq[:, q0:q0 + stored] = _merge(acc, q.dtype)[:, :stored]
+    return dq, dk, dv
+
+
+def _lse_tiles(lse):
+    """The wrapper's padding of the forward's lse: whole 64-value tiles,
+    +inf past Nq."""
+    return torch.nn.functional.pad(lse, (0, -lse.shape[-1] % TILE), value=float("inf"))
+
+
+# (Nq, Nk): both ragged; Nq ragged in a second q tile and a block of 128
+# with one warpgroup's rows past the end; Nk ragged alone; Nq ragged alone
+RAGGED_BACKWARD_SHAPES = [(100, 100), (130, 70), (64, 150), (245, 192)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_BACKWARD_SHAPES)
+def test_ragged_backward_matches_plain_version(dtype, nq, nk):
+    q, k, v, do = _inputs(39, dtype, nq, nk, n=4)
+    o, lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+    got = ragged_backward(q, k, v, o, _lse_tiles(lse), do)
+    want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, SCALE, HEADS)
+    for g, w in zip(got, want):  # dq, dk, dv: every row written
+        assert not torch.isnan(g.float()).any()
+        w = w.float().numpy()
+        np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
+
+
+def test_ragged_backward_tiles_of_the_next_item_change_nothing():
+    """Item 0's last q tile, key tile and owned blocks hold item 1's rows:
+    redrawing item 1 leaves item 0's dq, dk and dv the same bit for bit."""
+    q, k, v, do = _inputs(40, "bfloat16", 100, 150, n=4)
+
+    def grads(q, k, v, do):
+        o, lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+        return ragged_backward(q, k, v, o, _lse_tiles(lse), do)
+
+    first = grads(q, k, v, do)
+    rng = np.random.RandomState(41)
+    for t in (q, k, v, do):
+        t[1] = torch.from_numpy(rng.randn(*t[1].shape).astype(np.float32)).to(t.dtype)
+    second = grads(q, k, v, do)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(first, second))
+
+
+def test_flash_bwd_hands_the_kernels_lse_in_whole_tiles(monkeypatch):
+    """On the kernel route a ragged Nq reaches the kernels with the lse
+    padded per (b, h) to whole 64-value tiles with +inf and a delta scratch
+    of the same shape; q, k, v, o and do go as they are. A stand-in for the
+    extension runs ragged_backward on what it is given, which must equal
+    the plain version."""
+    seen = {}
+
+    class Ext:
+        @staticmethod
+        def flash_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, n_heads, sm_scale):
+            seen.update(q=tuple(q.shape), k=tuple(k.shape), lse=lse.clone(),
+                        delta=tuple(delta.shape))
+            for out, got in zip((dq, dk, dv), ragged_backward(q, k, v, o, lse, do)):
+                out.copy_(got)
+
+    monkeypatch.setattr(attention, "kernel_route", lambda *t: True)
+    monkeypatch.setattr(attention._build, "extension", lambda: Ext)
+    q, k, v, do = _inputs(42, "bfloat16", 100, 70, n=4)
+    o, lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+    got = attention.flash_bwd(q, k, v, o, lse, do, SCALE, HEADS)
+    assert seen["q"] == (B, 100, HEADS * DK) and seen["k"] == (B, 70, HEADS * DK)
+    assert seen["lse"].shape == seen["delta"] == (B, HEADS, 128)
+    assert torch.equal(seen["lse"][..., :100], lse)
+    assert torch.isinf(seen["lse"][..., 100:]).all() and (seen["lse"][..., 100:] > 0).all()
+    want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, SCALE, HEADS)
+    for g, w in zip(got, want):
+        w = w.float().numpy()
+        np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol("bfloat16", w),
+                                   rtol=0)

@@ -31,7 +31,9 @@ the VJP of ``_fused_edge_conv_vjp``), on the same seeded numpy inputs:
   act'(z) applied; da from bf16(dq) of the rows below k; dh from each
   thread's two rows, then the 16 partial rows of the two warps in order;
   dW2 and db2 summed per block over rounds of four queries in the kernel's
-  order, then the blocks' partials in block order.
+  order, then the blocks' partials in block order. The rounds walk the
+  flattened [B*N], ceil(B*N / 4) of them: a query slot past the end loads
+  the last query's rows and adds and stores nothing.
 
 Tolerances, each with its reason: selections, winners and the forward's
 bf16 outputs exact (the same f32 values in the same comparisons); the
@@ -403,8 +405,10 @@ def test_edge_gates_take_every_served_and_trained_shape():
         assert not edgeconv.edge_conv_supported(n, c, k)
     assert edgeconv.edge_conv_from_idx_supported(1000, K)
     assert not edgeconv.edge_conv_from_idx_supported(1000, 33)
-    assert not edgeconv.edge_conv_bwd_supported(1000, K)  # the gradient half: C1b, with A4
+    assert edgeconv.edge_conv_bwd_supported(1000, K)  # a ragged last round (C1b)
+    assert edgeconv.edge_conv_bwd_supported(885, K) and edgeconv.edge_conv_bwd_supported(75, K)
     assert not edgeconv.edge_conv_bwd_supported(1024, 33)
+    assert not edgeconv.edge_conv_bwd_supported(20, K)
 
 
 class _FakeCuda(torch.Tensor):
@@ -430,11 +434,93 @@ def test_refused_cuda_shapes_raise_and_do_not_fall_back():
     with pytest.raises(ValueError, match=r"k in \[1, 32\]"):
         edgeconv.edge_conv_from_idx(fake((1, 100, 33), torch.int32), fake((1, 100, F)),
                                     fake((1, 100, F)), w2, b2)
-    idx = fake((1, 100, K), torch.int32)
+    idx = fake((1, 100, 33), torch.int32)  # a ragged N is taken now; k = 33 is refused
     win = fake((1, 100, F), torch.uint8)
     t = fake((1, 100, F))
-    with pytest.raises(ValueError, match="N % 16"):
+    with pytest.raises(ValueError, match=r"k in \[1, 32\] below N"):
         edgeconv.edge_conv_bwd(idx, win, win, t, t, w2, t, t, t)
+
+
+def flat_backward(idx, win1, win2, a, h, w2, x2, ct1, ct2, slope, blocks=3):
+    """edge_conv_bwd.cu's walk at any B*N: rounds of four query slots of the
+    flattened [B*N], ceil(B*N / 4) of them, round r to block r % blocks; a
+    slot at or past B*N loads the last query's rows (and computes on them)
+    but adds nothing to da, dW2 or db2 and stores no dh. Per query the
+    arithmetic of tiled_backward. (da, dh, dW2, db2) in f32; dh rows never
+    stored stay NaN."""
+    Bn, n, k = idx.shape
+    rows = Bn * n
+    sel = _pad_rows(idx).reshape(rows, ROWS)
+    flat = [t.reshape(rows, F) for t in (a, h, x2, ct1, ct2)]
+    w1f, w2f = win1.reshape(rows, F).long(), win2.reshape(rows, F).long()
+    rowid = torch.arange(ROWS)[:, None]
+    da = torch.zeros(rows, F)
+    dh = torch.full((rows, F), float("nan"))
+    partial, part_b = torch.zeros(blocks, F, F), torch.zeros(blocks, F)
+    for rnd in range(-(-rows // 4)):
+        for slot in range(4):
+            i = 4 * rnd + slot
+            j = min(i, rows - 1)  # the row the slot loads
+            cloud = j // n * n
+            _, hq, x2q, c1, c2 = (t[j].float() for t in flat)
+            z = leaky(flat[0][cloud + sel[j]].float() + hq, slope)  # [32, F]
+            dp = c2 * torch.where(x2q > 0, 1.0, slope)
+            routed = torch.where(w2f[j] == rowid, dp.to(torch.bfloat16).float(), 0.0)
+            dz = routed @ w2.float().t() + torch.where(w1f[j] == rowid, c1, 0.0)
+            dq = dz * torch.where(z > 0, 1.0, slope)
+            if i >= rows:
+                continue
+            da.index_add_(0, cloud + idx.reshape(rows, k)[j].long(),
+                          dq[:k].to(torch.bfloat16).float())
+            pairs = torch.cat([dq[0:8] + dq[8:16], dq[16:24] + dq[24:32]])
+            acc = torch.zeros(F)
+            for r in range(16):
+                acc = acc + pairs[r]
+            dh[i] = acc
+            # dW2[c, o] += z[win2[o], c] dp[o]
+            partial[rnd % blocks] += torch.gather(z.t(), 1, w2f[j][None].expand(F, F)) * dp
+            part_b[rnd % blocks] += dp
+    dw2, db2 = torch.zeros(F, F), torch.zeros(F)
+    for blk in range(blocks):
+        dw2 = dw2 + partial[blk]
+        db2 = db2 + part_b[blk]
+    return da.reshape(Bn, n, F), dh.reshape(Bn, n, F), dw2, db2
+
+
+def _ragged_bwd_args(b, n, seed):
+    rng = np.random.RandomState(seed)
+    x = _t(_rand(rng, b, n, 64))
+    a, h = _t(_rand(rng, b, n, F, scale=0.5)), _t(_rand(rng, b, n, F, scale=0.5))
+    w2, b2 = _t(_rand(rng, F, F, scale=F ** -0.5)), _t(_rand(rng, F, scale=0.1))
+    _, x2, idx, win1, win2 = edgeconv.fused_edge_conv_ref(x, a, h, w2, b2, K, 0.0, winners=True)
+    ct1, ct2 = _t(_rand(rng, b, n, F)), _t(_rand(rng, b, n, F))
+    return [idx, win1, win2, a, h, w2, x2, ct1, ct2]
+
+
+# (B, N): B*N = 99 (the last round holds three queries), 150 (two: the
+# second tile wholly past the end), 2 * 75 and 3 * 75 (one)
+@pytest.mark.parametrize("b,n", [(3, 33), (2, 75), (3, 75)])
+def test_flat_backward_with_a_ragged_last_round_matches_plain(b, n):
+    args = _ragged_bwd_args(b, n, seed=24)
+    got = flat_backward(*args, 0.0)
+    idx, win1, win2, a, h, w2, x2, ct1, ct2 = args
+    want = edgeconv.edge_conv_bwd_ref(idx, win1, win2, a, h.to(torch.bfloat16),
+                                      w2.to(torch.bfloat16), x2, ct1, ct2, 0.0)
+    for gv, wv in zip(got, want):  # da, dh, dW2, db2: every row of dh written
+        assert not torch.isnan(gv).any()
+        torch.testing.assert_close(gv, wv, rtol=0, atol=1e-5 * float(wv.abs().max()))
+
+
+def test_ragged_backward_round_of_the_next_item_changes_nothing():
+    """B = 2 clouds of N = 75: rounds span both clouds. Redrawing item 1's
+    inputs and gradients leaves item 0's da and dh the same bit for bit."""
+    args = _ragged_bwd_args(2, 75, seed=25)
+    first = flat_backward(*args, 0.0)
+    rng = np.random.RandomState(26)
+    for t in (args[3], args[4], args[7], args[8]):  # a, h, ct1, ct2
+        t[1] = _t(_rand(rng, *t[1].shape))
+    second = flat_backward(*args, 0.0)
+    assert torch.equal(first[0][0], second[0][0]) and torch.equal(first[1][0], second[1][0])
 
 
 def test_edge_conv_parts_cuts_apply_to_the_backward_source():

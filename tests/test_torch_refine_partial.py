@@ -195,8 +195,8 @@ def test_attention_valid_key_count_matches_unpadded_keys(entry):
 
 
 def test_attention_under_a_gradient_takes_no_valid_key_count():
-    # flash_bwd knows no count: under a gradient nothing is padded (a CUDA
-    # tensor then raises on 96 keys; the plain versions take any count);
+    # flash_bwd knows no count: under a gradient nothing is padded (the
+    # backward kernels take 96 keys as they are, as the plain versions do);
     # without one nothing is padded either: the forward kernel masks the
     # keys past a ragged count itself
     rng = np.random.RandomState(7)

@@ -131,9 +131,13 @@ def test_vcp_bwd_ref_matches_pallas_vjp():
 
 
 def test_vcp_vjp_refuses_shapes_its_kernel_does_not_take():
-    e = torch.zeros(1, 48, 16, requires_grad=True)  # the gate holds where a gradient is wanted
+    # the gate holds where a gradient is wanted: E % 16 != 0 is refused (a
+    # ragged length, 48 rows, is taken since the backward kernels' ragged
+    # last tiles)
+    e = torch.zeros(1, 48, 24, requires_grad=True)
     with pytest.raises(ValueError, match="does not take"):
         vcp.soft_correspondence_vjp(e, e, torch.zeros(1, 48, 3))
+    assert vcp.streaming_vjp_supported(48, 48, 16)
     assert vcp.streaming_vjp_supported(1024, 1024, 512)
     assert not vcp.streaming_vjp_supported(1024, 1024, 1024)
 

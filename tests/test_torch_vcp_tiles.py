@@ -24,6 +24,11 @@ VJP of ``soft_correspondence_vjp``), on the same seeded numpy inputs:
   the tile's first 32 columns); p = exp2((2 s - |f|^2 - lse) log2 e);
   ds = p (dp - delta) rounded to the embeddings' dtype, and p likewise for d_tgt;
   the -2 colsum(ds) f term is applied once at the end, as 2 (acc - cs f).
+  At lengths that are no multiple of 64 the owned rows and the streamed
+  tiles are read as the TMA boxes read the flattened matrices, and the
+  packed values come in whole 64-row tiles an item: keys past Nt (0, 0, 0,
+  +inf), source rows past Ns (g, delta) = 0 with lse +inf, so p = 0 there;
+  rows past Ns or Nt are not stored.
 
 Tolerances, each with its reason:
 * f32 forward: 1e-5 absolute (sums of values of order one in another order,
@@ -242,9 +247,8 @@ def test_ragged_tiles_of_the_next_item_change_nothing():
 
 def test_vcp_gates_take_every_served_and_trained_shape():
     """The kernels' gate (ROADMAP C, "VCP kernels' gate"): every N the
-    served and trained paths give, Ns != Nt, E = 512; never E > 512. The
-    forward takes any lengths (ROADMAP C1); the backward whole 64-row tiles
-    alone (C1b)."""
+    served and trained paths give, Ns != Nt, E = 512; never E > 512. Both
+    take any lengths (ROADMAP C1, C1b)."""
     for ns, nt in ((1024, 1024), (512, 512), (512, 1024), (1024, 512), (320, 320), (64, 64)):
         assert vcp.streaming_supported(ns, nt, 512)
         assert vcp.streaming_vjp_supported(ns, nt, 512)
@@ -254,4 +258,121 @@ def test_vcp_gates_take_every_served_and_trained_shape():
         assert not vcp.streaming_vjp_supported(ns, nt, e)
     for ns, nt, e in ((1024, 48, 512), (96, 64, 512), (885, 885, 512), (1000, 1000, 512)):
         assert vcp.streaming_supported(ns, nt, e)
-        assert not vcp.streaming_vjp_supported(ns, nt, e)
+        assert vcp.streaming_vjp_supported(ns, nt, e)
+
+
+def _flat_rows(x, pad_to):
+    """[B, n, E] -> [B, pad_to, E]: each item's rows 0 .. pad_to - 1 as a TMA
+    box of the flattened [B * n, E] matrix sees them (past n the next
+    item's rows, then zeros)."""
+    b, n, e = x.shape
+    flat = torch.cat([x.reshape(b * n, e), torch.zeros(pad_to, e)])
+    return flat[torch.arange(b)[:, None] * n + torch.arange(pad_to)]
+
+
+def ragged_backward(se, te, tgt, corr, lse, dcorr):
+    """vcp_bwd.cu at any Ns and Nt: (d_src, d_tgt_emb, d_tgt) in f32, every
+    row past Ns or Nt left NaN if it were stored. The packing passes write
+    whole 64-row tiles an item (keys past Nt: xyz 0, norm +inf; source rows
+    past Ns: g = 0, delta = 0), the wrapper pads lse with +inf; the tiles
+    and owned rows are read as the TMA boxes read them."""
+    dt = se.dtype
+    q, f = _pad_e(se), _pad_e(te)
+    ns, nt, e = q.shape[1], f.shape[1], se.shape[2]
+    ns_p, nt_p = ns + -ns % TILE, nt + -nt % TILE
+    pad = torch.nn.functional.pad
+    g = pad(dcorr.float(), (0, 0, 0, ns_p - ns))
+    delta = pad((dcorr.float() * corr.float()).sum(-1), (0, ns_p - ns))
+    nl2 = -pad(lse, (0, ns_p - ns), value=float("inf")) * LOG2E
+    xyz = pad(tgt.float(), (0, 0, 0, nt_p - nt))
+    nb2 = -pad((f * f).sum(-1), (0, nt_p - nt), value=float("inf")) * LOG2E
+    qb, fb = _flat_rows(q, ns_p), _flat_rows(f, nt_p)  # owned rows and tiles
+
+    def ds_and_p(s, nbias, dp, dlt):
+        p = torch.exp2(s * (2 * LOG2E) + nbias)
+        return (p * (dp - dlt)).to(dt).float(), p.to(dt).float()
+
+    d_src = torch.full((B, ns, q.shape[2]), float("nan"))
+    for r0 in range(0, ns_p, TILE):
+        own, rows = qb[:, r0:r0 + TILE], slice(r0, r0 + TILE)
+        acc = torch.zeros(B, TILE, q.shape[2])
+        for t0 in range(0, nt_p, TILE):
+            keys = slice(t0, t0 + TILE)
+            s = _scores_in_halves(own, fb[:, keys])
+            dp = g[:, rows] @ xyz[:, keys].transpose(1, 2)
+            ds, _ = ds_and_p(s, nb2[:, None, keys] + nl2[:, rows, None], dp, delta[:, rows, None])
+            acc += ds @ fb[:, keys]
+        n = min(TILE, ns - r0)
+        d_src[:, r0:r0 + n] = 2.0 * acc[:, :n]
+    d_tgt_emb = torch.full((B, nt, q.shape[2]), float("nan"))
+    d_tgt = torch.full((B, nt, 3), float("nan"))
+    for k0 in range(0, nt_p, TILE):
+        own, keys = fb[:, k0:k0 + TILE], slice(k0, k0 + TILE)
+        acc, cs, dxyz = torch.zeros(B, TILE, q.shape[2]), torch.zeros(B, TILE), torch.zeros(B, TILE, 3)
+        for t0 in range(0, ns_p, TILE):
+            rows = slice(t0, t0 + TILE)
+            st = _scores_in_halves(own, qb[:, rows])  # S^T: [keys, source rows]
+            dpt = xyz[:, keys] @ g[:, rows].transpose(1, 2)
+            dst, pt = ds_and_p(st, nb2[:, keys, None] + nl2[:, None, rows], dpt,
+                               delta[:, None, rows])
+            cs += dst.sum(-1)
+            dxyz += pt @ g[:, rows]
+            acc += dst @ qb[:, rows]
+        n = min(TILE, nt - k0)
+        d_tgt_emb[:, k0:k0 + n] = (2.0 * (acc - cs[..., None] * own))[:, :n]
+        d_tgt[:, k0:k0 + n] = dxyz[:, :n]
+    return d_src[..., :e], d_tgt_emb[..., :e], d_tgt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ns,nt,e", RAGGED_SHAPES + [(64, 70, 128)])
+def test_ragged_backward_matches_plain_version(dtype, ns, nt, e):
+    se, te, tgt, dcorr = _inputs(46, dtype, ns, nt, e)
+    corr, lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+    got = ragged_backward(se, te, tgt, corr, lse, dcorr)
+    want = vcp.vcp_bwd_ref(se, te, tgt, corr, lse, dcorr)
+    for g, w in zip(got, want):  # d_src, d_tgt_emb, d_tgt: every row written
+        assert not torch.isnan(g).any()
+        w = w.numpy()
+        np.testing.assert_allclose(g.numpy(), w, atol=_bwd_tol(dtype, w), rtol=0)
+
+
+def test_ragged_backward_tiles_of_the_next_item_change_nothing():
+    """Item 0's last source and key tiles (streamed and owned) hold item 1's
+    rows: redrawing item 1 leaves item 0's three gradients the same bit for
+    bit."""
+    se, te, tgt, dcorr = _inputs(47, "bfloat16", 100, 150, 128)
+
+    def grads(se, te, tgt, dcorr):
+        corr, lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+        return ragged_backward(se, te, tgt, corr, lse, dcorr)
+
+    first = grads(se, te, tgt, dcorr)
+    rng = np.random.RandomState(48)
+    for t in (se, te, tgt, dcorr):
+        t[1] = torch.from_numpy(rng.randn(*t[1].shape).astype(np.float32)).to(t.dtype)
+    second = grads(se, te, tgt, dcorr)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(first, second))
+
+
+def test_vcp_bwd_hands_the_kernels_whole_tiles(monkeypatch):
+    """On the kernel route ragged lengths reach the kernels with the keys
+    and rows scratch in whole 64-row tiles an item and the lse padded with
+    +inf past Ns; the embeddings go as they are."""
+    seen = {}
+
+    class Ext:
+        @staticmethod
+        def vcp_bwd(se, te, tgt, corr, dcorr, lse, keys, rows, d_src, d_tgt_emb, d_tgt):
+            seen.update(keys=tuple(keys.shape), rows=tuple(rows.shape), lse=lse.clone(),
+                        se=tuple(se.shape), te=tuple(te.shape))
+
+    monkeypatch.setattr(vcp, "kernel_route", lambda *t: True)
+    monkeypatch.setattr(vcp._build, "extension", lambda: Ext)
+    se, te, tgt, dcorr = (t.clone() for t in _inputs(49, "bfloat16", 100, 70, 128))
+    corr, lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+    vcp.vcp_bwd(se, te, tgt, corr, lse, dcorr)
+    assert seen["se"] == (B, 100, 128) and seen["te"] == (B, 70, 128)
+    assert seen["keys"] == (B, 128, 4) and seen["rows"] == (B, 128, 4)
+    assert seen["lse"].shape == (B, 128) and torch.equal(seen["lse"][:, :100], lse)
+    assert torch.isinf(seen["lse"][:, 100:]).all() and (seen["lse"][:, 100:] > 0).all()

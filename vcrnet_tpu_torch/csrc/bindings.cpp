@@ -165,6 +165,8 @@ void flash_bwd(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tensor 
                torch::Tensor dout, torch::Tensor lse, torch::Tensor delta, torch::Tensor dq,
                torch::Tensor dk, torch::Tensor dv, int64_t n_heads, double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(lse.size(2) == whole_tiles(q.size(1)) && delta.sizes() == lse.sizes(),
+              "flash_bwd: lse and delta must fill whole tiles");
   C10_CUDA_CHECK(vcr_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.size(0),
@@ -178,6 +180,9 @@ void vcp_bwd(torch::Tensor src_emb, torch::Tensor tgt_emb, torch::Tensor tgt,
              torch::Tensor rows, torch::Tensor d_src, torch::Tensor d_tgt_emb,
              torch::Tensor d_tgt) {
   const c10::cuda::CUDAGuard guard(src_emb.device());
+  TORCH_CHECK(keys.size(1) == whole_tiles(tgt_emb.size(1)), "vcp_bwd: keys must fill whole tiles");
+  TORCH_CHECK(rows.size(1) == whole_tiles(src_emb.size(1)) && lse.size(1) == rows.size(1),
+              "vcp_bwd: rows and lse must fill whole tiles");
   C10_CUDA_CHECK(vcr_vcp_bwd(src_emb.data_ptr(), tgt_emb.data_ptr(), tgt.data_ptr<float>(),
                              corr.data_ptr<float>(), dcorr.data_ptr<float>(),
                              lse.data_ptr<float>(), keys.data_ptr<float>(),

@@ -54,6 +54,13 @@
 //     32 banks). At the end each block writes its
 //     partial; a second kernel adds the partials in block order
 //     (deterministic).
+// Any B*N: the rounds cover ceil(B*N / 4) and the last may be ragged. A
+// query slot at or past B*N loads the last query's lists and rows (so it
+// reads nothing beyond the tensors and computes on finite values), adds
+// nothing to da, dW2 or db2, and stores no dh; a tile whose first slot is
+// past the end repeats the last query in both (edge_tile.cuh's gather
+// takes the count of real queries). Each query's cloud is found from its
+// own flat row, so a round may span two clouds.
 // What bounds it (timed on the H100 by leaving parts out, PERF.md): the
 // tile chain, the vector reductions and dW2's shared-memory reads, in that
 // order; not the tensor cores.
@@ -135,29 +142,31 @@ struct Stage {
   }
 };
 
-// cp.async of the neighbour lists of queries i0, i0 + 1 into ids.
-__device__ __forceinline__ void stage_idx(int* ids, const int* __restrict__ idx, int i0, int k,
-                                          int t) {
+// cp.async of the neighbour lists of flat rows r0, r1 into ids.
+__device__ __forceinline__ void stage_idx_of(int* ids, const int* __restrict__ idx, int r0, int r1,
+                                             int k, int t) {
   for (int c = t; c < 2 * k; c += 128) {
     const int p = c >= k, r = c - p * k;
-    cp_async4(ids + p * kRows + r, idx + static_cast<size_t>(i0 + p) * k + r);
+    cp_async4(ids + p * kRows + r, idx + static_cast<size_t>(p ? r1 : r0) * k + r);
   }
 }
 
-// cp.async of queries i0, i0 + 1's k gathered rows of a (from their lists
-// ids, by edge_tile.cuh's gather) into abuf and of their rows of h, ct1,
-// ct2, x2, win1, win2 into qrows.
-__device__ __forceinline__ void stage_rows(uint8_t* abuf, uint8_t* qrows, const int* ids,
-                                           const bf16* __restrict__ a, const bf16* __restrict__ h,
-                                           const bf16* __restrict__ ct1, const bf16* __restrict__ ct2,
-                                           const bf16* __restrict__ x2,
-                                           const uint8_t* __restrict__ win1,
-                                           const uint8_t* __restrict__ win2, int i0, int n, int k,
-                                           int t) {
-  vcr::edge::gather_tile(abuf, ids, 0, 2, i0, n, k, a, t);
+// cp.async of flat rows r0, r1's k gathered rows of a (from their lists
+// ids, by edge_tile.cuh's gather; n_valid = 1 gathers r0's twice) into abuf
+// and of their rows of h, ct1, ct2, x2, win1, win2 into qrows.
+__device__ __forceinline__ void stage_rows_of(uint8_t* abuf, uint8_t* qrows, const int* ids,
+                                              const bf16* __restrict__ a,
+                                              const bf16* __restrict__ h,
+                                              const bf16* __restrict__ ct1,
+                                              const bf16* __restrict__ ct2,
+                                              const bf16* __restrict__ x2,
+                                              const uint8_t* __restrict__ win1,
+                                              const uint8_t* __restrict__ win2, int r0, int r1,
+                                              int n_valid, int n, int k, int t) {
+  vcr::edge::gather_tile(abuf, ids, 0, n_valid, r0, n, k, a, t);
   for (int c = t; c < 2 * 80; c += 128) {  // 80 chunks of 16 bytes a query
     const int p = c >= 80, r = c - p * 80;
-    const size_t e = static_cast<size_t>(i0 + p) * kF;
+    const size_t e = static_cast<size_t>(p ? r1 : r0) * kF;
     uint8_t* dst = qrows + p * kQRowBytes;
     if (r < 64) {
       const bf16* src = r < 16 ? h : r < 32 ? ct1 : r < 48 ? ct2 : x2;
@@ -168,6 +177,32 @@ __device__ __forceinline__ void stage_rows(uint8_t* abuf, uint8_t* qrows, const 
                  (r2 < 8 ? win1 : win2) + e + (r2 & 7) * 16);
     }
   }
+}
+
+// The two helpers above for queries i0, i0 + 1 of rows = B*N: a slot past
+// the last query loads the last query's lists and rows. One uniform branch
+// a call, so that whole pairs run the loops without a check (with a check
+// in the loops the kernel took 2% longer at N = 1024; PERF.md).
+__device__ __forceinline__ void stage_idx(int* ids, const int* __restrict__ idx, int i0, int rows,
+                                          int k, int t) {
+  if (i0 + 2 <= rows)
+    stage_idx_of(ids, idx, i0, i0 + 1, k, t);
+  else
+    stage_idx_of(ids, idx, i0 < rows ? i0 : rows - 1, rows - 1, k, t);
+}
+
+__device__ __forceinline__ void stage_rows(uint8_t* abuf, uint8_t* qrows, const int* ids,
+                                           const bf16* __restrict__ a, const bf16* __restrict__ h,
+                                           const bf16* __restrict__ ct1, const bf16* __restrict__ ct2,
+                                           const bf16* __restrict__ x2,
+                                           const uint8_t* __restrict__ win1,
+                                           const uint8_t* __restrict__ win2, int i0, int rows,
+                                           int n, int k, int t) {
+  if (i0 + 2 <= rows)
+    stage_rows_of(abuf, qrows, ids, a, h, ct1, ct2, x2, win1, win2, i0, i0 + 1, 2, n, k, t);
+  else  // at most one real slot: both gather by the first slot's list
+    stage_rows_of(abuf, qrows, ids, a, h, ct1, ct2, x2, win1, win2, i0 < rows ? i0 : rows - 1,
+                  rows - 1, 1, n, k, t);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -214,24 +249,25 @@ edge_conv_bwd_kernel(const int* __restrict__ idx,        // [B, N, k]
 
   const int t128 = tid & 127;
   const Stage stage{base + kStageOff + wg * kStageBytes};
-  const int rounds = rows / kRound;
+  const int rounds = (rows + kRound - 1) / kRound;
   // the loads run one round ahead: round m's lists arrive with round m-1's
   // rows, and round m's rows while round m-1 is computed
   if (blockIdx.x < rounds) {
-    stage_idx(stage.idx(0), idx, kRound * blockIdx.x + 2 * wg, k, t128);
+    stage_idx(stage.idx(0), idx, kRound * blockIdx.x + 2 * wg, rows, k, t128);
     cp_async_commit();
     cp_async_wait<0>();
     named_bar_sync(1 + wg, 128);
     stage_rows(stage.a(), stage.rows(0), stage.idx(0), a, h, ct1g, ct2g, x2, win1, win2,
-               kRound * blockIdx.x + 2 * wg, n, k, t128);
+               kRound * blockIdx.x + 2 * wg, rows, n, k, t128);
     if (blockIdx.x + gridDim.x < rounds)
-      stage_idx(stage.idx(1), idx, kRound * (blockIdx.x + gridDim.x) + 2 * wg, k, t128);
+      stage_idx(stage.idx(1), idx, kRound * (blockIdx.x + gridDim.x) + 2 * wg, rows, k, t128);
     cp_async_commit();
   }
   int m = 0;
   for (int rnd = blockIdx.x; rnd < rounds; rnd += gridDim.x, ++m) {
     // ---- the warpgroup's tile: query i, rows row_g and row_g8 of it
     const int i = kRound * rnd + 2 * wg + half;
+    const bool real = i < rows;  // a slot past the last query adds and stores nothing
     const int cloud = i / n * n;
     cp_async_wait<0>();
     named_bar_sync(1 + wg, 128);  // round m's rows and round m + 1's lists are in
@@ -243,9 +279,9 @@ edge_conv_bwd_kernel(const int* __restrict__ idx,        // [B, N, k]
     named_bar_sync(1 + wg, 128);  // the rows of a and the lists of round m are read
     if (rnd + gridDim.x < rounds) {
       stage_rows(stage.a(), stage.rows(m + 1), stage.idx(m + 1), a, h, ct1g, ct2g, x2, win1,
-                 win2, kRound * (rnd + gridDim.x) + 2 * wg, n, k, t128);
+                 win2, kRound * (rnd + gridDim.x) + 2 * wg, rows, n, k, t128);
       if (rnd + 2 * gridDim.x < rounds)
-        stage_idx(stage.idx(m), idx, kRound * (rnd + 2 * gridDim.x) + 2 * wg, k, t128);
+        stage_idx(stage.idx(m), idx, kRound * (rnd + 2 * gridDim.x) + 2 * wg, rows, k, t128);
     }
     cp_async_commit();
 
@@ -349,7 +385,7 @@ edge_conv_bwd_kernel(const int* __restrict__ idx,        // [B, N, k]
       const float sx = __shfl_xor_sync(vcr::kFullMask, even ? d2 : d0, 1);
       const float sy = __shfl_xor_sync(vcr::kFullMask, even ? d3 : d1, 1);
       const int row = even ? row_g : row_g8;
-      if (row < k) {
+      if (row < k && real) {
         float* dst = da + static_cast<size_t>(cloud + (even ? nb_g : nb_g8)) * kF + 8 * j +
                      (even ? 2 * q : 2 * q - 2);
         if (even)
@@ -362,9 +398,10 @@ edge_conv_bwd_kernel(const int* __restrict__ idx,        // [B, N, k]
     }
     __syncthreads();  // the round's z tiles and dh partials are in shared memory
 
-    // ---- dW2, db2 over the round's four queries; dh of each
+    // ---- dW2, db2 over the round's real queries; dh of each
+    const int in_round = rows - kRound * rnd < kRound ? rows - kRound * rnd : kRound;
 #pragma unroll 1
-    for (int qi = 0; qi < kRound; ++qi) {
+    for (int qi = 0; qi < in_round; ++qi) {
       const float dp = dps[qi * kF + o];
       const float* zc = zt + ((qi >> 1) * kF + 64 * ch) * kZStride + 32 * (qi & 1) +
                         win2s[qi * kF + o];  // row win2[o] of the query, column 64 ch
@@ -380,7 +417,7 @@ edge_conv_bwd_kernel(const int* __restrict__ idx,        // [B, N, k]
       float sum = 0.f;
 #pragma unroll
       for (int r = 0; r < 16; ++r) sum += part[r * kDhStride];  // two warps' eight row pairs
-      dh[static_cast<size_t>(kRound * rnd + qi) * kF + c] = sum;
+      if (qi < in_round) dh[static_cast<size_t>(kRound * rnd + qi) * kF + c] = sum;
     }
     __syncthreads();  // before the next round rewrites them
   }
@@ -423,7 +460,7 @@ cudaError_t vcr_edge_conv_bwd_grid(int rows, int* blocks, int64_t* scratch_float
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_conv_bwd_kernel, kThreads,
                                                       kSmemBytes);
   if (err != cudaSuccess) return err;
-  const int rounds = rows / kRound;
+  const int rounds = (rows + kRound - 1) / kRound;
   *blocks = per_sm * sms < rounds ? per_sm * sms : rounds;
   *scratch_floats = static_cast<int64_t>(*blocks) * kPartial;
   return *blocks < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
@@ -433,14 +470,14 @@ cudaError_t vcr_edge_conv_bwd_grid(int rows, int* blocks, int64_t* scratch_float
 // w2 bf16 [128,128] (in, out) -> da f32 [B,N,128] (zeroed by the caller,
 // added into), dh f32 [B,N,128], dw2 f32 [128,128], db2 f32 [128], on the
 // grid and with the scratch `partial` that vcr_edge_conv_bwd_grid gave.
-// Requires N % 16 == 0, 0 < k <= 32, every idx < N, win < k, 16-byte
+// Any B*N > 0; requires 0 < k <= 32, every idx < N, win < k, 16-byte
 // aligned pointers. Returns the launch status.
 cudaError_t vcr_edge_conv_bwd(const int* idx, const void* win1, const void* win2,
                               const void* a, const void* h, const void* w2, const void* x2,
                               const void* ct1, const void* ct2, float* da, float* dh,
                               float* dw2, float* db2, float* partial, int blocks, int batch,
                               int n, int k, float slope, cudaStream_t stream) {
-  if (k < 1 || k > kRows || n % 16 || blocks < 1) return cudaErrorInvalidValue;
+  if (k < 1 || k > kRows || batch < 1 || n < 1 || blocks < 1) return cudaErrorInvalidValue;
   cudaError_t err;
   edge_conv_bwd_kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
       idx, static_cast<const uint8_t*>(win1), static_cast<const uint8_t*>(win2),

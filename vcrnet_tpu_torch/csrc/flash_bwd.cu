@@ -37,10 +37,27 @@
 // one full/empty mbarrier pair per ring stage, as in flash_packed.cu.
 // Nothing of S, P, dP or dS goes to shared memory.
 //
-// Nk (dK/dV) or Nq (dQ) % 128 == 64: the second warpgroup of the last block
-// owns rows past the end. It runs the same loop on whatever its boxes hold
-// (the next batch item's rows, or zeros past the end of the tensor),
-// arrives on every barrier, and stores nothing.
+// Any Nq and Nk. The TMA maps cover [B * N, D] as one matrix, so the last
+// tiles of an item hold the next item's rows (zeros past the end of the
+// tensor):
+//   * owned rows past Nk (dK/dV) or Nq (dQ) run the same loop on whatever
+//     their boxes hold, arrive on every barrier, and are not stored;
+//   * streamed q rows past Nq (dK/dV) get P^T = 0, hence dS^T = 0, with no
+//     instruction in the loop: the per-tile statistics are laid out per
+//     (b, h) in whole 64-value tiles, ld = Nq rounded up to 64, with lse
+//     +inf and delta 0 past Nq (the wrapper pads lse; the delta pass writes
+//     its zeros). A count in the kernel would not do: the tile's 64 values
+//     reach the ring by one bulk copy, which needs a 16-byte aligned source
+//     and must not run into the next head's row;
+//   * streamed keys past Nk (dQ) are masked to p = 0 by the count of real
+//     keys in the last tile, as flash_fwd.cuh masks its keys past nk_valid
+//     (a branch taken in that tile alone).
+// Ring slots: every value the consumers read from a slot (the q tiles by
+// wgmma, lse and delta by the CUDA cores) feeds a product that has
+// completed (wgmma_wait<0>) before the slot is released, so no read of the
+// slot is outstanding when the bulk copy refills it; unlike colmass.cu's
+// lse2, whose values fed no product before the release, no
+// fence.proxy.async is needed.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -68,15 +85,24 @@ constexpr size_t kSmemBytes =
     1024 + 2 * kOwnedBytes + kStages * (kStageBytes + kStatBytes) + (2 * kStages + 1) * 8;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// delta [B, H, ld] (ld = n rounded up to 64), 0 past n; one warp an entry
+// (32-bit index arithmetic: vcr_flash_bwd launches it with fewer than 2^32
+// threads or refuses the call)
 __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                       float* __restrict__ delta,  // [B, H, N]
-                                       int batch, int n, int n_heads) {
-  const size_t w = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+                                       float* __restrict__ delta, int batch, int n, int ld,
+                                       int n_heads) {
+  const unsigned w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (w >= static_cast<size_t>(batch) * n * n_heads) return;
-  const size_t bi = w / n_heads;  // b * n + i
-  const int head = static_cast<int>(w % n_heads);
-  const size_t off = bi * n_heads * kDk + head * kDk + lane * 4;
+  if (w >= static_cast<unsigned>(batch * ld * n_heads)) return;
+  const unsigned bi = w / n_heads;  // b * ld + i
+  const unsigned head = w - bi * n_heads;
+  const unsigned b = bi / ld, i = bi - b * ld;
+  const size_t out = (static_cast<size_t>(b) * n_heads + head) * ld + i;
+  if (i >= static_cast<unsigned>(n)) {
+    if (lane == 0) delta[out] = 0.f;
+    return;
+  }
+  const size_t off = (static_cast<size_t>(b) * n + i) * n_heads * kDk + head * kDk + lane * 4;
   const uint2 oraw = *reinterpret_cast<const uint2*>(o + off);
   const uint2 draw = *reinterpret_cast<const uint2*>(dout + off);
   const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&oraw);
@@ -89,10 +115,7 @@ __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* _
   }
 #pragma unroll
   for (int off2 = 16; off2 > 0; off2 >>= 1) s += __shfl_xor_sync(vcr::kFullMask, s, off2);
-  if (lane == 0) {
-    const size_t b = bi / n, i = bi % n;
-    delta[(b * n_heads + head) * n + i] = s;
-  }
+  if (lane == 0) delta[out] = s;
 }
 
 // Shared memory of both kernels: the owned rows' two operands (K and V, or
@@ -167,12 +190,11 @@ __device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* own_a
 }
 
 // ---- dK/dV consumers: warpgroup wg owns keys key0 + 64 wg .. + 63
-__device__ __forceinline__ void dkdv_consumer(const Smem& sm, const float* lse,
-                                              const float* delta, bf16* dk, bf16* dv, int nq,
-                                              int nk, float sm_scale) {
+__device__ __forceinline__ void dkdv_consumer(const Smem& sm, bf16* dk, bf16* dv, int nq, int nk,
+                                              float sm_scale) {
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int key0 = blockIdx.x * kRows, col = head * kDk;
-  const int n_tiles = nq / kTile;
+  const int n_tiles = (nq + kTile - 1) / kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
@@ -245,12 +267,14 @@ __device__ __forceinline__ void dkdv_consumer(const Smem& sm, const float* lse,
                   r_g8 < nk ? dv + base + r_g8 * d_model : nullptr, dv_acc, 1.f, 1.f, qd);
 }
 
-// ---- dQ consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+// ---- dQ consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; the
+// last key tile's keys past Nk get p = 0
 __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, const float* delta,
                                             bf16* dq, int nq, int nk, float sm_scale) {
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int q0 = blockIdx.x * kRows, col = head * kDk;
-  const int n_tiles = nk / kTile;
+  const int n_tiles = (nk + kTile - 1) / kTile;
+  const int ld = (nq + kTile - 1) / kTile * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
@@ -260,10 +284,10 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
   const int r_g = q0 + wg * 64 + (warp & 3) * 16 + g, r_g8 = r_g + 8;
   const size_t bh = static_cast<size_t>(b) * n_heads + head;
   // rows past Nq (they are not stored) read row 0's statistics
-  const float nl_g = -lse[bh * nq + (r_g < nq ? r_g : 0)] * kLog2e;
-  const float nl_g8 = -lse[bh * nq + (r_g8 < nq ? r_g8 : 0)] * kLog2e;
-  const float dl_g = delta[bh * nq + (r_g < nq ? r_g : 0)];
-  const float dl_g8 = delta[bh * nq + (r_g8 < nq ? r_g8 : 0)];
+  const float nl_g = -lse[bh * ld + (r_g < nq ? r_g : 0)] * kLog2e;
+  const float nl_g8 = -lse[bh * ld + (r_g8 < nq ? r_g8 : 0)] * kLog2e;
+  const float dl_g = delta[bh * ld + (r_g < nq ? r_g : 0)];
+  const float dl_g8 = delta[bh * ld + (r_g8 < nq ? r_g8 : 0)];
 
   float dq_acc[64];
 #pragma unroll
@@ -290,6 +314,14 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
       sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], scale_log2, nl_g));
       sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], scale_log2, nl_g8));
       sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], scale_log2, nl_g8));
+    }
+    const int valid = nk - t * kTile;  // >= 64 but in a ragged last tile
+    if (valid < kTile) {  // keys at or past Nk: the next item's, or zeros
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sc[4 * j + c] = 8 * j + 2 * qd + (c & 1) < valid ? sc[4 * j + c] : 0.f;
     }
     wgmma_wait<0>();
     fence_regs(dp);
@@ -331,13 +363,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 32 * kConsumerWarps) {
       const int b = blockIdx.z, head = blockIdx.y;
-      const size_t bh = static_cast<size_t>(b) * gridDim.y + head;
+      const int n_tiles = (nq + kTile - 1) / kTile;
+      const size_t row = (static_cast<size_t>(b) * gridDim.y + head) * n_tiles * kTile;
       produce(sm, &k_map, &v_map, b * nk + blockIdx.x * kRows, &q_map, &do_map, b * nq,
-              nq / kTile, head * kDk, lse + bh * nq, delta + bh * nq);
+              n_tiles, head * kDk, lse + row, delta + row);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dkdv_consumer(sm, lse, delta, dk, dv, nq, nk, sm_scale);
+    dkdv_consumer(sm, dk, dv, nq, nk, sm_scale);
   }
 }
 
@@ -356,7 +389,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 32 * kConsumerWarps) {
       const int b = blockIdx.z;
       produce(sm, &q_map, &do_map, b * nq + blockIdx.x * kRows, &k_map, &v_map, b * nk,
-              nk / kTile, blockIdx.y * kDk, nullptr, nullptr);
+              (nk + kTile - 1) / kTile, blockIdx.y * kDk, nullptr, nullptr);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
@@ -372,10 +405,11 @@ cudaError_t allow_smem(Kernel kernel) {
 
 }  // namespace
 
-// q/k/v/o/do bf16 [B,N,H*128] (packed heads), lse f32 [B,H,Nq] from the
-// forward -> dq/dk/dv bf16 [B,N,H*128], with delta f32 [B,H,Nq] as scratch.
-// Requires Nq % 64 == 0, Nk % 64 == 0, 16-byte aligned pointers. Returns
-// the launch status.
+// q/k/v/o/do bf16 [B,N,H*128] (packed heads), lse f32 [B,H,ld] from the
+// forward, ld = Nq rounded up to 64 and +inf past Nq -> dq/dk/dv bf16
+// [B,N,H*128], with delta f32 [B,H,ld] as scratch. Any Nq, Nk > 0 with
+// B * ld * H * 32 < 2^32 (the delta pass's threads); 16-byte aligned
+// pointers. Returns the launch status.
 cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
                           void* dv, int batch, int nq, int nk, int n_heads, float sm_scale,
@@ -392,9 +426,11 @@ cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const voi
   if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel);
   if (err != cudaSuccess) return err;
 
-  const size_t warps = rows_q * n_heads;
+  const int ld = (nq + kTile - 1) / kTile * kTile;
+  const size_t warps = static_cast<size_t>(batch) * ld * n_heads;
+  if (warps * 32 > UINT32_MAX) return cudaErrorInvalidValue;
   flash_bwd_delta_kernel<<<static_cast<unsigned>((warps * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<cbf>(o), static_cast<cbf>(dout), delta, batch, nq, n_heads);
+      static_cast<cbf>(o), static_cast<cbf>(dout), delta, batch, nq, ld, n_heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<<<dim3((nk + kRows - 1) / kRows, n_heads, batch), kThreads, kSmemBytes,

@@ -528,16 +528,19 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* row_g, __nv_bfloa
 }
 
 // A thread's part of a [64, 128] f32 accumulator, scaled by ``scale``, to
-// the f32 rows ``row_g`` and ``row_g8`` at their columns ``col0`` + 0..127;
-// columns at or beyond ``cols`` are skipped.
+// the f32 rows ``row_g`` and ``row_g8`` (nullptr: not stored) at their
+// columns ``col0`` + 0..127; columns at or beyond ``cols`` are skipped.
 __device__ __forceinline__ void store_rows_f32(float* row_g, float* row_g8, const float (&d)[64],
                                                float scale, int col0, int cols, int q) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int c = col0 + 8 * j + 2 * q;
     if (c >= cols) continue;
-    *reinterpret_cast<float2*>(row_g + c) = make_float2(d[4 * j] * scale, d[4 * j + 1] * scale);
-    *reinterpret_cast<float2*>(row_g8 + c) = make_float2(d[4 * j + 2] * scale, d[4 * j + 3] * scale);
+    if (row_g != nullptr)
+      *reinterpret_cast<float2*>(row_g + c) = make_float2(d[4 * j] * scale, d[4 * j + 1] * scale);
+    if (row_g8 != nullptr)
+      *reinterpret_cast<float2*>(row_g8 + c) =
+          make_float2(d[4 * j + 2] * scale, d[4 * j + 3] * scale);
   }
 }
 

@@ -68,6 +68,23 @@
 // zeros); boxes wholly past E are zeroed once in the owned rows and in
 // every stage and never loaded, so every product runs over eight boxes,
 // and the accumulator columns past E are not stored.
+//
+// Any Ns and Nt. The TMA maps cover [B * N, E] as one matrix, so an
+// item's last tile holds the next item's rows (zeros past the end of the
+// tensor), and the packed values are laid out per item in whole 64-row
+// tiles (Ns' and Nt', Ns and Nt rounded up to 64), so that each tile's
+// values arrive by one aligned bulk copy: keys past Nt are (0, 0, 0, +inf)
+// (vcp.cuh's packing pass) and source rows past Ns (g, delta) = 0 with lse
+// +inf (the rows pass writes the zeros, the wrapper pads lse). Either gives
+// p = 0, hence ds = 0 and bf16(p) = 0, with no instruction in the loops:
+// the rows past the end add nothing to de, df, colsum or dtgt. Owned rows
+// past Ns (de) or Nt (df) are computed and not stored.
+// Ring slots: every value the consumers read from a slot (the tiles by
+// wgmma, the packed values and lse by the CUDA cores) feeds the ds
+// fragments of a product that has completed (wgmma_wait<0>) before the
+// slot is released, so no read of the slot is outstanding when the bulk
+// copy refills it, and no fence.proxy.async is needed (colmass.cu's lse2
+// fed no product before its release and needed one).
 #include "common.cuh"
 #include "hopper.cuh"
 #include "vcp.cuh"
@@ -96,14 +113,23 @@ constexpr size_t kSmemBytes = 1024 + kRowsBytes + kStages * kRowsBytes + kStages
                               kScoreSwapBytes + kDsSwapBytes + (1 + 2 * kStages) * 8;
 constexpr int kScoresSwapped = 1, kDsSwapped = 2;  // named barriers of the consumers
 
-// (g, g . corr) of every source row; one thread a row
+// rows[b, i] = (g, g . corr) of source row i of item b, for i < ns_pad: 0
+// past ns; one thread an entry
 __global__ void vcp_rows_kernel(const float* __restrict__ corr, const float* __restrict__ dcorr,
-                                float4* __restrict__ rows, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                                float4* __restrict__ rows, int ns, int ns_pad, int entries) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= entries) return;
+  const int b = w / ns_pad, r = w - b * ns_pad;
+  if (r >= ns) {
+    rows[w] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const size_t i = static_cast<size_t>(b) * ns + r;
   const float gx = dcorr[3 * i], gy = dcorr[3 * i + 1], gz = dcorr[3 * i + 2];
-  rows[i] = make_float4(gx, gy, gz, gx * corr[3 * i] + gy * corr[3 * i + 1] + gz * corr[3 * i + 2]);
+  rows[w] = make_float4(gx, gy, gz, gx * corr[3 * i] + gy * corr[3 * i + 1] + gz * corr[3 * i + 2]);
 }
+
+__host__ __device__ __forceinline__ int whole_tiles(int n) { return (n + kTile - 1) / kTile * kTile; }
 
 struct Smem {
   bf16* own;            // [kMaxBoxes boxes]
@@ -273,16 +299,18 @@ __device__ __forceinline__ void de_consumer(const Smem& sm, const float4* rows, 
   const int b = blockIdx.y, row0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, g = lane >> 2, qd = lane & 3;
-  const size_t i_g = static_cast<size_t>(b) * ns + row0 + (warp & 3) * 16 + g, i_g8 = i_g + 8;
-  const float4 gd_g = rows[i_g], gd_g8 = rows[i_g8];  // (g, delta)
-  const float nl_g = -lse[i_g] * kLog2e, nl_g8 = -lse[i_g8] * kLog2e;
+  const int r_g = row0 + (warp & 3) * 16 + g, r_g8 = r_g + 8;  // < Ns' (whole tiles)
+  const size_t p_g = static_cast<size_t>(b) * whole_tiles(ns) + r_g, p_g8 = p_g + 8;
+  const float4 gd_g = rows[p_g], gd_g8 = rows[p_g8];  // (g, delta)
+  const float nl_g = -lse[p_g] * kLog2e, nl_g8 = -lse[p_g8] * kLog2e;
+  const size_t i_g = static_cast<size_t>(b) * ns + r_g, i_g8 = i_g + 8;
 
   float acc0[64], acc1[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
 
   mbar_wait(sm.own_full, 0);
-  for (int t = 0; t < nt / kTile; ++t) {
+  for (int t = 0; t < whole_tiles(nt) / kTile; ++t) {
     const int s = t % kStages;
     mbar_wait(&sm.full[s], (t / kStages) & 1);
     const bf16* tile = sm.tile(s);
@@ -311,8 +339,10 @@ __device__ __forceinline__ void de_consumer(const Smem& sm, const float4* rows, 
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);
   }
-  store_rows_f32(d_src + i_g * e, d_src + i_g8 * e, acc0, 2.f, 256 * wg, e, qd);
-  store_rows_f32(d_src + i_g * e, d_src + i_g8 * e, acc1, 2.f, 256 * wg + 128, e, qd);
+  float* d_g = r_g < ns ? d_src + i_g * e : nullptr;
+  float* d_g8 = r_g8 < ns ? d_src + i_g8 * e : nullptr;
+  store_rows_f32(d_g, d_g8, acc0, 2.f, 256 * wg, e, qd);
+  store_rows_f32(d_g, d_g8, acc1, 2.f, 256 * wg + 128, e, qd);
 }
 
 // acc -= cs * f over a thread's part of a [64, 128] accumulator: f the
@@ -341,8 +371,12 @@ __device__ __forceinline__ void df_consumer(const Smem& sm, const float4* keys,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, g = lane >> 2, qd = lane & 3;
   const int tid = threadIdx.x & 127;
-  const size_t j_g = static_cast<size_t>(b) * nt + key0 + (warp & 3) * 16 + g, j_g8 = j_g + 8;
-  const float4 kv_g = keys[j_g], kv_g8 = keys[j_g8];  // x, y, z, |f|^2
+  const int r_g = key0 + (warp & 3) * 16 + g, r_g8 = r_g + 8;  // < Nt' (whole tiles)
+  const size_t p_g = static_cast<size_t>(b) * whole_tiles(nt) + r_g;
+  const float4 kv_g = keys[p_g], kv_g8 = keys[p_g + 8];  // x, y, z, |f|^2 (+inf past Nt)
+  // rows past Nt are not stored: they read the item's row 0 of tgt_emb
+  const size_t j_g = static_cast<size_t>(b) * nt + (r_g < nt ? r_g : 0);
+  const size_t j_g8 = static_cast<size_t>(b) * nt + (r_g8 < nt ? r_g8 : 0);
   const float nb_g = -kv_g.w * kLog2e, nb_g8 = -kv_g8.w * kLog2e;
   // this lane's part, over the own columns, of colsum(ds) and dtgt of its
   // two rows: cs, tx, ty, tz of row g, then of row g + 8
@@ -353,7 +387,7 @@ __device__ __forceinline__ void df_consumer(const Smem& sm, const float4* keys,
   for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
 
   mbar_wait(sm.own_full, 0);
-  for (int t = 0; t < ns / kTile; ++t) {
+  for (int t = 0; t < whole_tiles(ns) / kTile; ++t) {
     const int s = t % kStages;
     mbar_wait(&sm.full[s], (t / kStages) & 1);
     const bf16* tile = sm.tile(s);
@@ -412,24 +446,30 @@ __device__ __forceinline__ void df_consumer(const Smem& sm, const float4* keys,
   const bf16* f_g8 = tgt_emb + j_g8 * e;
   subtract_colsum(acc0, f_g, f_g8, cs_g, cs_g8, 256 * wg, e, qd);
   subtract_colsum(acc1, f_g, f_g8, cs_g, cs_g8, 256 * wg + 128, e, qd);
-  store_rows_f32(d_tgt_emb + j_g * e, d_tgt_emb + j_g8 * e, acc0, 2.f, 256 * wg, e, qd);
-  store_rows_f32(d_tgt_emb + j_g * e, d_tgt_emb + j_g8 * e, acc1, 2.f, 256 * wg + 128, e, qd);
+  float* d_g = r_g < nt ? d_tgt_emb + j_g * e : nullptr;
+  float* d_g8 = r_g8 < nt ? d_tgt_emb + j_g8 * e : nullptr;
+  store_rows_f32(d_g, d_g8, acc0, 2.f, 256 * wg, e, qd);
+  store_rows_f32(d_g, d_g8, acc1, 2.f, 256 * wg + 128, e, qd);
   if (wg == 0 && qd == 0) {
-    d_tgt[3 * j_g] = a0.y + c0.y;
-    d_tgt[3 * j_g + 1] = a0.z + c0.z;
-    d_tgt[3 * j_g + 2] = a0.w + c0.w;
-    d_tgt[3 * j_g8] = a1.y + c1.y;
-    d_tgt[3 * j_g8 + 1] = a1.z + c1.z;
-    d_tgt[3 * j_g8 + 2] = a1.w + c1.w;
+    if (r_g < nt) {
+      d_tgt[3 * j_g] = a0.y + c0.y;
+      d_tgt[3 * j_g + 1] = a0.z + c0.z;
+      d_tgt[3 * j_g + 2] = a0.w + c0.w;
+    }
+    if (r_g8 < nt) {
+      d_tgt[3 * j_g8] = a1.y + c1.y;
+      d_tgt[3 * j_g8 + 1] = a1.z + c1.z;
+      d_tgt[3 * j_g8 + 2] = a1.w + c1.w;
+    }
   }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 vcp_bwd_de_kernel(const __grid_constant__ CUtensorMap src_map,  // [B * Ns, E] bf16
                   const __grid_constant__ CUtensorMap tgt_map,  // [B * Nt, E] bf16
-                  const float4* __restrict__ keys,              // [B, Nt]: x, y, z, |f|^2
-                  const float4* __restrict__ rows,              // [B, Ns]: g, delta
-                  const float* __restrict__ lse,                // [B, Ns]
+                  const float4* __restrict__ keys,              // [B, Nt']: x, y, z, |f|^2
+                  const float4* __restrict__ rows,              // [B, Ns']: g, delta
+                  const float* __restrict__ lse,                // [B, Ns']
                   float* __restrict__ d_src,                    // [B, Ns, E]
                   int ns, int nt, int e) {
   extern __shared__ uint8_t smem_raw[];
@@ -440,8 +480,8 @@ vcp_bwd_de_kernel(const __grid_constant__ CUtensorMap src_map,  // [B * Ns, E] b
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumerThreads) {
       const int b = blockIdx.y;
-      produce(sm, &src_map, b * ns + blockIdx.x * kTile, &tgt_map, b * nt, nt / kTile, n_boxes,
-              keys + static_cast<size_t>(b) * nt, nullptr);
+      produce(sm, &src_map, b * ns + blockIdx.x * kTile, &tgt_map, b * nt, whole_tiles(nt) / kTile,
+              n_boxes, keys + static_cast<size_t>(b) * whole_tiles(nt), nullptr);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
@@ -453,9 +493,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 vcp_bwd_df_kernel(const __grid_constant__ CUtensorMap src_map,  // [B * Ns, E] bf16
                   const __grid_constant__ CUtensorMap tgt_map,  // [B * Nt, E] bf16
                   const bf16* __restrict__ tgt_emb,             // [B, Nt, E]
-                  const float4* __restrict__ keys,              // [B, Nt]: x, y, z, |f|^2
-                  const float4* __restrict__ rows,              // [B, Ns]: g, delta
-                  const float* __restrict__ lse,                // [B, Ns]
+                  const float4* __restrict__ keys,              // [B, Nt']: x, y, z, |f|^2
+                  const float4* __restrict__ rows,              // [B, Ns']: g, delta
+                  const float* __restrict__ lse,                // [B, Ns']
                   float* __restrict__ d_tgt_emb,                // [B, Nt, E]
                   float* __restrict__ d_tgt,                    // [B, Nt, 3]
                   int ns, int nt, int e) {
@@ -467,9 +507,9 @@ vcp_bwd_df_kernel(const __grid_constant__ CUtensorMap src_map,  // [B * Ns, E] b
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumerThreads) {
       const int b = blockIdx.y;
-      const size_t r0 = static_cast<size_t>(b) * ns;
-      produce(sm, &tgt_map, b * nt + blockIdx.x * kTile, &src_map, b * ns, ns / kTile, n_boxes,
-              rows + r0, lse + r0);
+      const size_t r0 = static_cast<size_t>(b) * whole_tiles(ns);
+      produce(sm, &tgt_map, b * nt + blockIdx.x * kTile, &src_map, b * ns, whole_tiles(ns) / kTile,
+              n_boxes, rows + r0, lse + r0);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
@@ -486,34 +526,36 @@ cudaError_t allow_smem(Kernel kernel) {
 }  // namespace
 
 // src_emb/tgt_emb bf16 [B,N,E], tgt f32 [B,Nt,3], corr/dcorr f32 [B,Ns,3],
-// lse f32 [B,Ns], scratch keys f32 [B,Nt,4] and rows f32 [B,Ns,4] ->
-// d_src f32 [B,Ns,E], d_tgt_emb f32 [B,Nt,E], d_tgt f32 [B,Nt,3]. Requires
-// Ns % 64 == 0, Nt % 64 == 0, E % 16 == 0, E <= 512, 16-byte aligned
-// pointers. Returns the launch status.
+// lse f32 [B,Ns'] (+inf past Ns), scratch keys f32 [B,Nt',4] and rows f32
+// [B,Ns',4] (Ns', Nt': Ns, Nt rounded up to 64) -> d_src f32 [B,Ns,E],
+// d_tgt_emb f32 [B,Nt,E], d_tgt f32 [B,Nt,3]. Any Ns, Nt > 0; requires
+// E % 16 == 0, E <= 512, 16-byte aligned pointers. Returns the launch
+// status.
 cudaError_t vcr_vcp_bwd(const void* src_emb, const void* tgt_emb, const float* tgt,
                         const float* corr, const float* dcorr, const float* lse, float* keys,
                         float* rows, float* d_src, float* d_tgt_emb, float* d_tgt, int batch,
                         int ns, int nt, int e, cudaStream_t stream) {
-  if (ns % kTile || nt % kTile || e % 16 || e > vcr::vcp::kMaxE) return cudaErrorInvalidValue;
+  if (ns < 1 || nt < 1 || e % 16 || e > vcr::vcp::kMaxE) return cudaErrorInvalidValue;
   CUtensorMap src_map, tgt_map;
   cudaError_t err = make_box_map(&src_map, src_emb, static_cast<uint64_t>(batch) * ns, e);
   if (err == cudaSuccess) err = make_box_map(&tgt_map, tgt_emb, static_cast<uint64_t>(batch) * nt, e);
   if (err == cudaSuccess) err = allow_smem(vcp_bwd_de_kernel);
   if (err == cudaSuccess) err = allow_smem(vcp_bwd_df_kernel);
-  if (err == cudaSuccess) err = vcr::vcp::launch_keys(tgt_emb, tgt, keys, batch, nt, nt, e, stream);
+  if (err == cudaSuccess)
+    err = vcr::vcp::launch_keys(tgt_emb, tgt, keys, batch, nt, whole_tiles(nt), e, stream);
   if (err != cudaSuccess) return err;
-  const int n_rows = batch * ns;
-  vcp_rows_kernel<<<(n_rows + 255) / 256, 256, 0, stream>>>(corr, dcorr,
-                                                            reinterpret_cast<float4*>(rows), n_rows);
+  const int entries = batch * whole_tiles(ns);
+  vcp_rows_kernel<<<(entries + 255) / 256, 256, 0, stream>>>(
+      corr, dcorr, reinterpret_cast<float4*>(rows), ns, whole_tiles(ns), entries);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float4* k4 = reinterpret_cast<const float4*>(keys);
   const float4* r4 = reinterpret_cast<const float4*>(rows);
-  vcp_bwd_de_kernel<<<dim3(ns / kTile, batch), kThreads, kSmemBytes, stream>>>(
+  vcp_bwd_de_kernel<<<dim3(whole_tiles(ns) / kTile, batch), kThreads, kSmemBytes, stream>>>(
       src_map, tgt_map, k4, r4, lse, d_src, ns, nt, e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  vcp_bwd_df_kernel<<<dim3(nt / kTile, batch), kThreads, kSmemBytes, stream>>>(
+  vcp_bwd_df_kernel<<<dim3(whole_tiles(nt) / kTile, batch), kThreads, kSmemBytes, stream>>>(
       src_map, tgt_map, static_cast<const bf16*>(tgt_emb), k4, r4, lse, d_tgt_emb, d_tgt, ns, nt,
       e);
   return cudaGetLastError();

@@ -13,16 +13,18 @@ entry point, which the model calls in eval and in training.
 ``nk_valid`` is the count of real keys when k and v carry padding rows
 behind them (the counterpart of ``nk_valid`` in pallas_attention.py:
 _fwd_packed_kernel): keys at or beyond it are masked out of the softmax.
-The forward kernel takes any Nq and Nk: its last query tile stores only
-the rows below Nq, and its last key tile masks the keys past Nk (the next
-item's rows, or zeros past the end of the tensor) by the same count, so
-nothing is padded. ``flash_bwd`` knows no valid-key count and takes
-lengths in 64s alone: where a gradient is wanted, another length raises.
+The kernels take any Nq and Nk: a last query tile stores only the rows
+below Nq, and a last key tile masks the keys past Nk (the next item's rows,
+or zeros past the end of the tensor) by a count, so no q, k or v is padded.
+The backward streams each 64-query tile's lse and delta by one bulk copy,
+so ``flash_bwd`` hands it the lse padded per (b, h) to whole tiles with
++inf (p = 0 there); ``flash_bwd`` takes no valid-key count.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vcrnet_tpu_torch.ops import _build
 from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route, upcast
@@ -38,9 +40,9 @@ def flash_packed_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool
 
 
 def flash_bwd_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the backward kernels take: the forward's, with both lengths a
-    multiple of 64 (whole 64-row tiles; no valid-key count)."""
-    return flash_packed_supported(nq, nk, d_model, n_heads) and nq % 64 == 0 and nk % 64 == 0
+    """Shapes the backward kernels take: the forward's (dk == 128, any
+    lengths; the last tiles of each item are ragged)."""
+    return flash_packed_supported(nq, nk, d_model, n_heads)
 
 
 def _split(x, n_heads):
@@ -147,7 +149,9 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
     for name, t, n in (("q", q, nq), ("k", k, nk), ("v", v, nk), ("o", o, nq), ("do", do, nq)):
         check_tensor(name, t, bf16, (B, n, d))
     check_tensor("lse", lse, torch.float32, (B, n_heads, nq))
-    delta = torch.empty_like(lse)
+    if nq % 64:  # the kernels read whole 64-value tiles of lse: +inf past Nq gives p = 0
+        lse = F.pad(lse, (0, -nq % 64), value=float("inf"))
+    delta = torch.empty_like(lse)  # the kernels' scratch, 0 past Nq
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.extension().flash_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, n_heads,
                                  float(sm_scale))
@@ -178,6 +182,5 @@ class _Attention(torch.autograd.Function):
 def attention(q, k, v, sm_scale: float, n_heads: int):
     """Differentiable :func:`flash_mha_packed`, for eval and training: the
     forward saves its logsumexp only when a gradient is wanted, and the
-    backward is :func:`flash_bwd`. Without a gradient any lengths run; with
-    one, the backward kernels take multiples of 64 only."""
+    backward is :func:`flash_bwd`. Any lengths run, with a gradient too."""
     return _Attention.apply(q, k, v, sm_scale, n_heads, torch.is_grad_enabled())

@@ -82,9 +82,11 @@ def gather_max_from_idx_supported(n: int, f: int, k: int) -> bool:
 
 
 def edge_conv_bwd_supported(n: int, k: int) -> bool:
-    """The gate of the ``edge_conv_bwd`` kernel: rounds of four query rows
-    of the flattened [B*N] (N % 16 == 0), 0 < k <= 32 and k < N."""
-    return n % 16 == 0 and 0 < k <= 32 and k < n
+    """The gate of the ``edge_conv_bwd`` kernel: 0 < k <= 32 and k < N.
+    Any N: rounds of four query rows of the flattened [B*N], the last of
+    which may be ragged (a slot past B*N repeats the last query and adds
+    and stores nothing)."""
+    return 0 < k <= 32 and k < n
 
 
 def _max_and_winner(v: torch.Tensor):
@@ -378,7 +380,7 @@ def edge_conv_bwd(idx, win1, win2, a, h, w2, x2, ct1, ct2, negative_slope: float
     check_tensor("w2", w2, bf16, (128, 128))
     if not edge_conv_bwd_supported(N, k):
         raise ValueError(
-            f"edge_conv_bwd kernel takes N % 16 == 0 and k in [1, 32] below N, got N={N} k={k}"
+            f"edge_conv_bwd kernel takes k in [1, 32] below N, got N={N} k={k}"
         )
     dev = idx.device
     f32 = torch.float32

@@ -77,9 +77,11 @@ streaming_soft_correspondence.launches = 0
 
 def streaming_vjp_supported(ns: int, nt: int, e: int) -> bool:
     """Shapes the backward kernels take (the counterpart of the TPU's VMEM
-    gate pallas_vcp.py:streaming_vjp_supported): the forward's, in whole
-    64-row tiles (Ns % 64 == 0, Nt % 64 == 0)."""
-    return streaming_supported(ns, nt, e) and ns % 64 == 0 and nt % 64 == 0
+    gate pallas_vcp.py:streaming_vjp_supported): the forward's, at any
+    lengths (the last tiles of each item are ragged: keys past Nt have an
+    infinite norm, source rows past Ns a zero gradient and an lse of +inf,
+    so both give p = 0)."""
+    return streaming_supported(ns, nt, e)
 
 
 def vcp_bwd_ref(src_emb, tgt_emb, tgt, corr, lse, dcorr):
@@ -116,8 +118,14 @@ def vcp_bwd(src_emb, tgt_emb, tgt, corr, lse, dcorr):
         check_tensor(name, t, torch.float32, (B, ns, 3))
     check_tensor("lse", lse, torch.float32, (B, ns))
     f32 = torch.float32
-    keys = torch.empty((B, nt, 4), dtype=f32, device=tgt.device)  # x, y, z, |f|^2
-    rows = torch.empty((B, ns, 4), dtype=f32, device=tgt.device)  # g, g . corr
+    # the kernels stream 64-row tiles of packed values a batch item, whole
+    # tiles each: x, y, z, |f|^2 of the keys, (0, 0, 0, +inf) past Nt; g,
+    # g . corr of the source rows, 0 past Ns (both written by the kernels'
+    # packing passes), and lse, +inf past Ns
+    keys = torch.empty((B, nt + -nt % 64, 4), dtype=f32, device=tgt.device)
+    rows = torch.empty((B, ns + -ns % 64, 4), dtype=f32, device=tgt.device)
+    if ns % 64:
+        lse = torch.nn.functional.pad(lse, (0, -ns % 64), value=float("inf"))
     d_src = torch.empty((B, ns, e), dtype=f32, device=tgt.device)
     d_tgt_emb = torch.empty((B, nt, e), dtype=f32, device=tgt.device)
     d_tgt = torch.empty((B, nt, 3), dtype=f32, device=tgt.device)
@@ -151,7 +159,7 @@ def soft_correspondence_vjp(src_emb, tgt_emb, tgt):
     soft_correspondence_vjp), for eval and training: where a gradient is
     wanted the forward saves its logsumexp and the backward is
     :func:`vcp_bwd`, and shapes :func:`streaming_vjp_supported` refuses
-    raise, on any device."""
+    (E > 512, E % 16) raise, on any device."""
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (src_emb, tgt_emb, tgt))
     B, ns, e = src_emb.shape

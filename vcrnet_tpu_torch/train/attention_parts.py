@@ -1,14 +1,15 @@
-"""What the column-mass and fused-attention kernels' time is made of on the card.
+"""What the attention and soft-correspondence kernels' time is made of on the card.
 
-    python3 -m vcrnet_tpu_torch.train.attention_parts [--csrc DIR]
+    python3 -m vcrnet_tpu_torch.train.attention_parts [--csrc DIR] [--sizes 1024,1000,885]
 
-Compiles ``flash_packed.cu``, ``colmass.cu`` and ``pointer_mha.cu`` from
-``--csrc`` (default: this package's sources; another checkout's
-``vcrnet_tpu_torch/csrc`` times that checkout's kernels: the C interfaces of
-the first two are the same, and ``pointer_mha.cu`` is called with or
-without its Q scratch as its source declares it), each alone with nvcc into
-a shared library with a C shim, and times them with CUDA events (median of
-25) on seeded random bf16 inputs:
+Compiles ``flash_packed.cu``, ``colmass.cu``, ``pointer_mha.cu``,
+``flash_bwd.cu`` and ``vcp_bwd.cu`` from ``--csrc`` (default: this
+package's sources; another checkout's ``vcrnet_tpu_torch/csrc`` times that
+checkout's kernels: the C interfaces of all but ``pointer_mha.cu`` are the
+same, and ``pointer_mha.cu`` is called with or without its Q scratch as its
+source declares it), each alone with nvcc into a shared library with a C
+shim, and times them with CUDA events (median of 25) on seeded random bf16
+inputs:
 
 * ``flash_packed``, whose loop the other two share, at B = 64, N = 1024
   (without and with the row logsumexp) and at B = 8, Nq = 3072 over 2368
@@ -31,11 +32,21 @@ a shared library with a C shim, and times them with CUDA events (median of
   wrong and only their times are read; and builds of ``pointer_mha.cu``
   from a copy of the sources with one change (``VARIANTS``: the products'
   epilogue without its stores, a ring of two stages), beside the
-  library's own products (one for q, k and v, one for the out projection).
+  library's own products (one for q, k and v, one for the out projection);
+* the training step's backward kernels at each cloud size N of ``--sizes``
+  (default 1024): ``flash_bwd`` at B = 64, Nq = Nk = N, from the plain
+  forward's output and logsumexp (the lse in whole 64-value tiles a
+  (b, h), +inf past N, as ``ops/attention.py::flash_bwd`` hands it over),
+  and ``vcp_bwd`` at B = 64, Ns = Nt = N, E = 512, from the plain
+  forward's correspondences and logsumexp (its scratch and lse in whole
+  64-row tiles an item, as ``ops/vcp.py::vcp_bwd`` does). Sources from
+  before the backward kernels took ragged tiles refuse N % 64 != 0, or read
+  the padded lse misaligned: give them ``--sizes 1024`` alone.
 
 The full builds are held against the plain versions first (2e-2 absolute
 for the attention, 1e-3 of the largest mass, 2^-6 of the largest output of
-the sublayer), and the library call against
+the sublayer, 1e-2 relative for the backward gradients), and the library
+call against
 the plain version too (5e-2: it rounds elsewhere), so that a wrong call
 through a shim cannot pass for a time. Prints the card's ``nvidia-smi``
 name and power limit first, one line a timing, and last one JSON object of
@@ -53,12 +64,13 @@ import subprocess
 import torch
 import torch.nn.functional as F
 
-from vcrnet_tpu_torch.ops import _build, attention, colmass, pointer
+from vcrnet_tpu_torch.ops import _build, attention, colmass, pointer, vcp
 from vcrnet_tpu_torch.train.edge_conv_parts import _call, build, rel_err, time_ms
 from vcrnet_tpu_torch.train.gather_max_parts import _variant_sources
 
 H, DK = 4, 128
 D = H * DK
+E = 512  # the soft correspondence's embedding width
 BUILD_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "attention_parts")
 
 _FLASH_SHIM = """
@@ -74,6 +86,24 @@ extern "C" int shim(const void* q, const void* k, float* lse, float* out, int ba
                     int nk, int n_heads, float sm_scale, void* stream) {
   return static_cast<int>(vcr_softmax_colmass(q, k, lse, out, batch, nq, nk, n_heads, sm_scale,
                                               static_cast<cudaStream_t>(stream)));
+}
+"""
+_FLASH_BWD_SHIM = """
+extern "C" int shim(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
+                    int nq, int nk, int n_heads, float sm_scale, void* stream) {
+  return static_cast<int>(vcr_flash_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, nq, nk,
+                                        n_heads, sm_scale, static_cast<cudaStream_t>(stream)));
+}
+"""
+_VCP_BWD_SHIM = """
+extern "C" int shim(const void* src_emb, const void* tgt_emb, const float* tgt, const float* corr,
+                    const float* dcorr, const float* lse, float* keys, float* rows, float* d_src,
+                    float* d_tgt_emb, float* d_tgt, int batch, int ns, int nt, int e,
+                    void* stream) {
+  return static_cast<int>(vcr_vcp_bwd(src_emb, tgt_emb, tgt, corr, dcorr, lse, keys, rows, d_src,
+                                      d_tgt_emb, d_tgt, batch, ns, nt, e,
+                                      static_cast<cudaStream_t>(stream)));
 }
 """
 # pointer_mha.cu with a Q scratch (projections, attention and out projection
@@ -145,6 +175,8 @@ def _pick(text: str, alternatives) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", default=_build.CSRC_DIR, help="the kernels' source directory")
+    ap.add_argument("--sizes", default="1024",
+                    help="cloud sizes N of the backward kernels, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_parts: needs a CUDA device")
@@ -158,12 +190,14 @@ def main(argv=None) -> int:
             texts[src] = fh.read()
     three = "void* qscr" in texts["pointer_mha.cu"]
     shims = {"flash_packed.cu": _FLASH_SHIM, "colmass.cu": _COLMASS_SHIM,
-             "pointer_mha.cu": _MHA_SHIM_Q if three else _MHA_SHIM_KV}
+             "pointer_mha.cu": _MHA_SHIM_Q if three else _MHA_SHIM_KV,
+             "flash_bwd.cu": _FLASH_BWD_SHIM, "vcp_bwd.cu": _VCP_BWD_SHIM}
     cuts = {"colmass_lse_only": ("colmass.cu", _COLMASS_LSE_ONLY),
             "fused_mha_projections_only": ("pointer_mha.cu", _MHA_PROJECTIONS_ONLY),
             "fused_mha_no_out_projection": ("pointer_mha.cu", _MHA_NO_OUT_PROJECTION)}
     jobs = {"flash_packed": ("flash_packed.cu", ()), "colmass": ("colmass.cu", ()),
-            "fused_mha": ("pointer_mha.cu", ())}
+            "fused_mha": ("pointer_mha.cu", ()), "flash_bwd": ("flash_bwd.cu", ()),
+            "vcp_bwd": ("vcp_bwd.cu", ())}
     for name, (src, alternatives) in cuts.items():
         picked = _pick(texts[src], alternatives)
         if picked is None:
@@ -292,6 +326,51 @@ def main(argv=None) -> int:
                        time_ms(lambda: F.linear(yq, in_w, in_b)))
                 report(f"{name}_library_out_projection",
                        time_ms(lambda: F.linear(yq, out_w, bo)))
+
+    # ---- the training step's backward kernels, statistics in whole tiles
+    b = 64
+    for n in (int(v) for v in args.sizes.split(",")):
+        q, k, v, do = (randn(b, n, D) for _ in range(4))
+        o, lse = attention.flash_mha_packed_ref(q, k, v, scale, H, return_lse=True)
+        lse_t = F.pad(lse, (0, -n % 64), value=float("inf"))
+        delta = torch.empty_like(lse_t)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+        def flash_bwd():
+            _call(libs["flash_bwd"].shim, q, k, v, o, do, lse_t, delta, dq, dk, dv, b, n, n, H,
+                  scale)
+
+        flash_bwd()
+        torch.cuda.synchronize()
+        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, H)
+        errs = [rel_err(gv.float(), wv.float()) for gv, wv in zip((dq, dk, dv), want)]
+        if max(errs) > 1e-2:
+            raise RuntimeError(f"flash_bwd N={n} through the shim: relative errors {errs}")
+        report(f"flash_bwd_B{b}_N{n}", time_ms(flash_bwd), rel_errs=errs)
+        del q, k, v, do, o, want
+
+        se, te = randn(b, n, E, scale=E ** -0.5), randn(b, n, E, scale=E ** -0.5)
+        tgt = torch.rand(b, n, 3, generator=g, device=dev) * 2 - 1
+        corr, lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+        dcorr = torch.randn(b, n, 3, generator=g, device=dev)
+        lse_t = F.pad(lse, (0, -n % 64), value=float("inf"))
+        keys = torch.empty(b, n + -n % 64, 4, device=dev)
+        rows = torch.empty_like(keys)
+        d_src, d_tgt_emb = torch.empty(b, n, E, device=dev), torch.empty(b, n, E, device=dev)
+        d_tgt = torch.empty(b, n, 3, device=dev)
+
+        def vcp_bwd():
+            _call(libs["vcp_bwd"].shim, se, te, tgt, corr, dcorr, lse_t, keys, rows, d_src,
+                  d_tgt_emb, d_tgt, b, n, n, E)
+
+        vcp_bwd()
+        torch.cuda.synchronize()
+        want = vcp.vcp_bwd_ref(se, te, tgt, corr, lse, dcorr)
+        errs = [rel_err(gv, wv) for gv, wv in zip((d_src, d_tgt_emb, d_tgt), want)]
+        if max(errs) > 1e-2:
+            raise RuntimeError(f"vcp_bwd N={n} through the shim: relative errors {errs}")
+        report(f"vcp_bwd_B{b}_N{n}", time_ms(vcp_bwd), rel_errs=errs)
+        del se, te, tgt, corr, want
     print(json.dumps({"card": smi.strip().splitlines()[0], "sources": args.csrc,
                       "parts": out}), flush=True)
     return 0

@@ -1,6 +1,7 @@
 """What the edge-conv kernels' time is made of on the card.
 
-    python3 -m vcrnet_tpu_torch.train.edge_conv_parts [--csrc DIR]
+    python3 -m vcrnet_tpu_torch.train.edge_conv_parts [--csrc DIR] [--sizes 1024,1000,885]
+    python3 -m vcrnet_tpu_torch.train.edge_conv_parts --csrc DIR DIR ... [--rounds 12]
 
 Compiles ``edge_conv.cu``, ``edge_conv_from_idx.cu`` and ``edge_conv_bwd.cu``
 from ``--csrc`` (default: this package's sources; another checkout's
@@ -18,7 +19,18 @@ training step runs it), on seeded random inputs:
   the scatter into da (``red_add_v4`` made a no-op, so its shuffles and
   roundings go too), without dW2's sum, and without both, cut from the
   source text. Their results are wrong; only their times are read. A cut
-  whose text the source does not hold is reported and skipped.
+  whose text the source does not hold is reported and skipped. The
+  backward runs at each cloud size N of ``--sizes`` (default 1024; sources
+  from before it took a ragged last round refuse N % 16 != 0: give them
+  ``--sizes 1024`` alone).
+
+Given several source directories, it times only the full backward of
+each, at the first size, in turns within one process: ``--rounds`` rounds,
+each timing every source once (median of 25) in an order that rotates and
+reverses from round to round, then each source's median over the rounds
+against the first's and the rounds in which it was slower. Separate
+processes of one call differ by a few per cent on the same source; turns
+in one process take that spread out of a parent/change comparison.
 
 The full builds are held against the plain versions first, so that a
 wrong call through the shim cannot pass for a time. Prints the card's
@@ -157,26 +169,31 @@ def rel_err(got, want) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--csrc", default=_build.CSRC_DIR, help="the kernels' source directory")
+    ap.add_argument("--csrc", nargs="+", default=[_build.CSRC_DIR],
+                    help="the kernels' source directory; several: the backward of each in turns")
+    ap.add_argument("--sizes", default=str(N), help="cloud sizes N of the backward, comma-separated")
+    ap.add_argument("--rounds", type=int, default=12, help="rounds of turns between several sources")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("edge_conv_parts: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
-    print(f"card: {smi.strip().splitlines()[0]}; sources {os.path.abspath(args.csrc)}",
+    print(f"card: {smi.strip().splitlines()[0]}; sources {[os.path.abspath(d) for d in args.csrc]}",
           flush=True)
+    if len(args.csrc) > 1:
+        out = turns(args.csrc, int(args.sizes.split(",")[0]), args.rounds)
+        print(json.dumps({"card": smi.strip().splitlines()[0], "sources": args.csrc,
+                          "turns": out}), flush=True)
+        return 0
+    csrc = args.csrc[0]
     jobs = {"edge_conv": ("edge_conv.cu", ()),
             "edge_conv_from_idx": ("edge_conv_from_idx.cu", ())}
     jobs.update({f"edge_conv_bwd_{v}": ("edge_conv_bwd.cu", cuts)
                  for v, cuts in BWD_VARIANTS.items()})
-    libs = build(args.csrc, jobs)
+    libs = build(csrc, jobs)
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
-
+    dev = torch.device("cuda")
+    randn = _randn_on_card()
     out = {}
 
     def report(name, ms, **extra):
@@ -223,45 +240,122 @@ def main(argv=None) -> int:
 
     # ---- backward at twice the clouds, from the forward's idx and winners
     B2 = 2 * B
-    x = randn(B2, N, C)
-    a, h = randn(B2, N, F, scale=0.5), randn(B2, N, F, scale=0.5)
-    norms = x.float().square().sum(-1)
+    for n in (int(v) for v in args.sizes.split(",")):
+        backward(libs, report, randn, B2, n, w2, b2, "" if n == N else f"_N{n}")
+    print(json.dumps({"card": smi.strip().splitlines()[0], "sources": csrc,
+                      "parts": out}), flush=True)
+    return 0
+
+
+def _randn_on_card(seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    return randn
+
+
+def backward_inputs(fwd, randn, B2, n, w2, b2) -> tuple:
+    """Seeded inputs of the backward at B2 clouds of n points: (idx, win1,
+    win2, a, h, x2, ct1, ct2), idx and winners from ``fwd``, an
+    ``edge_conv.cu`` shim."""
+    dev = torch.device("cuda")
+    x = randn(B2, n, C)
+    a, h = randn(B2, n, F, scale=0.5), randn(B2, n, F, scale=0.5)
+    # the forward reads whole 64-key tiles: keys past n get an infinite norm
+    norms = torch.nn.functional.pad(x.float().square().sum(-1), (0, -n % 64), value=float("inf"))
     x1, x2 = torch.empty_like(a), torch.empty_like(a)
-    idx = torch.empty(B2, N, K, dtype=torch.int32, device=dev)
-    win1 = torch.empty(B2, N, F, dtype=torch.uint8, device=dev)
+    idx = torch.empty(B2, n, K, dtype=torch.int32, device=dev)
+    win1 = torch.empty(B2, n, F, dtype=torch.uint8, device=dev)
     win2 = torch.empty_like(win1)
-    _call(fwd, x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, B2, N, C, K, 0.0)
-    ct1, ct2 = randn(B2, N, F), randn(B2, N, F)
+    _call(fwd, x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, B2, n, C, K, 0.0)
+    ct1, ct2 = randn(B2, n, F), randn(B2, n, F)
+    return idx, win1, win2, a, h, x2, ct1, ct2
+
+
+def backward_call(lib, inputs, w2, B2, n):
+    """(a call of ``lib``'s backward shim on ``inputs``, its outputs (da,
+    dh, dW2, db2), its blocks); da is zeroed once, later calls add into it."""
+    dev = torch.device("cuda")
+    blocks, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    if lib.shim_grid(ctypes.c_int(B2 * n), ctypes.byref(blocks), ctypes.byref(floats)):
+        raise RuntimeError("edge_conv_bwd: grid query failed")
+    da = torch.zeros(B2, n, F, device=dev)
+    dh = torch.empty_like(da)
+    dw2, db2 = torch.empty(F, F, device=dev), torch.empty(F, device=dev)
+    partial = torch.empty(floats.value, device=dev)
+    idx, win1, win2, a, h, x2, ct1, ct2 = inputs
+
+    def bwd():
+        _call(lib.shim, idx, win1, win2, a, h, w2, x2, ct1, ct2, da, dh, dw2, db2, partial,
+              blocks.value, B2, n, K, 0.0)
+
+    return bwd, (da, dh, dw2, db2), blocks.value
+
+
+def check_backward(bwd, outs, inputs, w2, name) -> list:
+    """Runs ``bwd`` once into its zeroed da and holds its outputs to the
+    plain version (2^-7 relative for da, 1e-4 for dh, dW2, db2)."""
+    bwd()
+    torch.cuda.synchronize()
+    idx, win1, win2, a, h, x2, ct1, ct2 = inputs
+    want = edgeconv.edge_conv_bwd_ref(idx, win1, win2, a, h, w2, x2, ct1, ct2)
+    errs = [rel_err(gv, wv) for gv, wv in zip(outs, want)]
+    if errs[0] > 2 ** -7 or max(errs[1:]) > 1e-4:
+        raise RuntimeError(f"{name} through the shim: relative errors {errs}")
+    return errs
+
+
+def turns(dirs, n, rounds) -> dict:
+    """The full backward of each source directory at 2B clouds of n points,
+    timed in turns over ``rounds`` rounds in this process."""
+    libs = {"edge_conv": build(dirs[0], {"edge_conv": ("edge_conv.cu", ())},
+                               build_dir=os.path.join(BUILD_DIR, "turns", "fwd"))["edge_conv"]}
+    for i, d in enumerate(dirs):
+        libs[i] = build(d, {"bwd": ("edge_conv_bwd.cu", ())},
+                        build_dir=os.path.join(BUILD_DIR, "turns", str(i)))["bwd"]
+    randn = _randn_on_card()
+    B2 = 2 * B
+    w2, b2 = randn(F, F, scale=F ** -0.5), randn(F, scale=0.1)
+    inputs = backward_inputs(libs["edge_conv"].shim, randn, B2, n, w2, b2)
+    calls = []
+    for i, d in enumerate(dirs):
+        bwd, outs, _ = backward_call(libs[i], inputs, w2, B2, n)
+        print(f"{d}: relative errors {check_backward(bwd, outs, inputs, w2, d)}", flush=True)
+        calls.append(bwd)
+    times = [[] for _ in dirs]
+    for r in range(rounds):
+        order = list(range(len(dirs)))
+        order = order[r % len(order):] + order[:r % len(order)]
+        for i in order[::-1] if r % 2 else order:
+            times[i].append(time_ms(calls[i]))
+    first = statistics.median(times[0])
+    out = {}
+    for i, d in enumerate(dirs):
+        med = statistics.median(times[i])
+        slower = sum(t > t0 for t, t0 in zip(times[i], times[0]))
+        out[d] = dict(median_ms=med, vs_first=med / first - 1, rounds_slower=slower, ms=times[i])
+        print(f"{d}: median {med} ms ({100 * (med / first - 1):+.2f}% against the first), slower "
+              f"in {slower} of {rounds} rounds; quartiles {statistics.quantiles(times[i], n=4)}",
+              flush=True)
+    return out
+
+
+def backward(libs, report, randn, B2, n, w2, b2, suffix) -> None:
+    """Times each build of the backward at B2 clouds of n points (the full
+    one held to the plain version first), reported with ``suffix``."""
+    inputs = backward_inputs(libs["edge_conv"].shim, randn, B2, n, w2, b2)
     for v in BWD_VARIANTS:
         lib = libs[f"edge_conv_bwd_{v}"]
         if lib is None:
             print(f"edge_conv_bwd_{v}: the sources hold no such part; skipped", flush=True)
             continue
-        blocks, floats = ctypes.c_int(0), ctypes.c_longlong(0)
-        if lib.shim_grid(ctypes.c_int(B2 * N), ctypes.byref(blocks), ctypes.byref(floats)):
-            raise RuntimeError(f"edge_conv_bwd_{v}: grid query failed")
-        da = torch.zeros(B2, N, F, device=dev)
-        dh = torch.empty_like(da)
-        dw2, db2 = torch.empty(F, F, device=dev), torch.empty(F, device=dev)
-        partial = torch.empty(floats.value, device=dev)
-
-        def bwd():
-            _call(lib.shim, idx, win1, win2, a, h, w2, x2, ct1, ct2, da, dh, dw2, db2, partial,
-                  blocks.value, B2, N, K, 0.0)
-
+        bwd, outs, blocks = backward_call(lib, inputs, w2, B2, n)
         extra = {}
         if v == "full":
-            bwd()
-            torch.cuda.synchronize()
-            want = edgeconv.edge_conv_bwd_ref(idx, win1, win2, a, h, w2, x2, ct1, ct2)
-            errs = [rel_err(gv, wv) for gv, wv in zip((da, dh, dw2, db2), want)]
-            if errs[0] > 2 ** -7 or max(errs[1:]) > 1e-4:
-                raise RuntimeError(f"edge_conv_bwd through the shim: relative errors {errs}")
-            extra = dict(rel_errs=errs)
-        report(f"edge_conv_bwd_{v}", time_ms(bwd), blocks=blocks.value, **extra)
-    print(json.dumps({"card": smi.strip().splitlines()[0], "sources": args.csrc,
-                      "parts": out}), flush=True)
-    return 0
+            extra = dict(rel_errs=check_backward(bwd, outs, inputs, w2, f"edge_conv_bwd N={n}"))
+        report(f"edge_conv_bwd_{v}{suffix}", time_ms(bwd), blocks=blocks, **extra)
 
 
 if __name__ == "__main__":

@@ -27,9 +27,10 @@ Parameters are initialised from the JAX package's distributions (the
 same distributions, not the same bits): kaiming-uniform at the LPDNet
 slope with zero bias in LPDNet, lecun-normal (truncated) with zero bias
 everywhere else (the pointer, DGCNN's and PointNet's bias-free convs, the
-MLP head), LayerNorm and BatchNorm scale one and shift zero. Checkpoint
-save/resume, the raw-cloud on-device augmentation and the LPD/ICP families
-are not ported.
+MLP head), LayerNorm and BatchNorm scale one and shift zero. ``fit``
+saves and resumes through ``train/checkpoint.py`` and writes the reference's
+TensorBoard scalars through a ``utils/logging.py::MetricsWriter``. The
+raw-cloud on-device augmentation and the LPD/ICP families are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -47,6 +49,7 @@ from vcrnet_tpu_torch.models.dcp import DCP
 from vcrnet_tpu_torch.models.embeddings import LPDNet
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_iter
 from vcrnet_tpu_torch.train import metrics as M
+from vcrnet_tpu_torch.train.checkpoint import load_fit_state, save_checkpoint, save_fit_state
 from vcrnet_tpu_torch.train.optim import (
     EARLY_STOP_LR, ReduceLROnPlateau, initial_lr, make_optimizer, set_lr,
 )
@@ -95,10 +98,31 @@ def _cycle_loss(R_ab, t_ab, R_ba, t_ba):
     return rot + ((torch.einsum("bji,bj->bi", R_ba, t_ab) + t_ba) ** 2).mean()
 
 
+def _board_scalars(writer, split: str, loss: float, summary: dict, epoch: int):
+    """The reference's full TensorBoard scalar matrix (dcp_model.py:727-793):
+    for each direction and split, the loss and the point / rotation /
+    translation MSE, RMSE and MAE found in ``summary``."""
+    for d, suf in (("A->B", "ab"), ("B->A", "ba")):
+        writer.scalar(f"{d}/{split}/loss", loss, epoch)
+        for tag, key in (
+            ("MSE", f"point_{suf}_MSE"),
+            ("RMSE", f"point_{suf}_RMSE"),
+            ("MAE", f"point_{suf}_MAE"),
+            ("rotation/MSE", f"rot_{suf}_MSE"),
+            ("rotation/RMSE", f"rot_{suf}_RMSE"),
+            ("rotation/MAE", f"rot_{suf}_MAE"),
+            ("translation/MSE", f"trans_{suf}_MSE"),
+            ("translation/RMSE", f"trans_{suf}_RMSE"),
+            ("translation/MAE", f"trans_{suf}_MAE"),
+        ):
+            if key in summary:
+                writer.scalar(f"{d}/{split}/{tag}", summary[key], epoch)
+
+
 class Trainer:
     """>>> trainer = Trainer(cfg)                   # on the CUDA device
     >>> sums = trainer.train_step(batch)            # numpy batch from a Loader
-    >>> history = trainer.fit(train_loader, test_loader, epochs=2)
+    >>> history = trainer.fit(train_loader, test_loader, epochs=2, checkpoint_dir="ckpt")
 
     ``cfg.model`` picks :class:`VCRNet` or :class:`DCP`. ``device``
     defaults to ``"cuda"`` and raises where there is none; ``use_kernels``
@@ -262,27 +286,100 @@ class Trainer:
             acc.add(self.eval_step(batch))
         return M.summarize(acc)
 
+    @torch.no_grad()
+    def _per_sample_errors(self, batch: dict):
+        """Per-sample squared errors of the A->B prediction in eval mode:
+        rotation (euler z-y-x, degrees) and translation, and ``valid``; the
+        reference's worst-case mining (testVCRNet:808-813)."""
+        b = self.to_device(batch)
+        self.model.eval()
+        if self.cfg.model == "vcrnet":
+            if self.cfg.iter < 1:
+                raise NotImplementedError("cfg.iter == 0 (net + ICP) is not ported yet")
+            R_ab, t_ab = vcrnet_iter(self.model, b["src"], b["tgt"], self.cfg.iter)[2:4]
+        else:
+            R_ab, t_ab = self.model(b["src"], b["tgt"])[:2]
+        e_pred = geometry.mat_to_euler_zyx(R_ab, degrees=True)
+        rot_se = ((e_pred - torch.rad2deg(b["euler_ab"])) ** 2).sum(-1)
+        trans_se = ((b["t_ab"] - t_ab) ** 2).sum(-1)
+        return rot_se, trans_se, b["valid"]
+
+    def worst_cases(self, loader, k: int = 5) -> dict:
+        """Indices (dataset order) of the k worst rotation and translation
+        errors over the loader (padding rows never count), with the
+        per-sample squared errors."""
+        rot, trans = [], []
+        for batch in loader:
+            r, t, valid = (x.cpu().numpy() for x in self._per_sample_errors(batch))
+            rot.append(np.where(valid > 0, r, -np.inf))
+            trans.append(np.where(valid > 0, t, -np.inf))
+        rot, trans = np.concatenate(rot), np.concatenate(trans)
+        return {
+            "worst_rot_idx": np.argsort(rot)[-k:][::-1].tolist(),
+            "worst_trans_idx": np.argsort(trans)[-k:][::-1].tolist(),
+            "rot_se": rot,
+            "trans_se": trans,
+        }
+
     def fit(self, train_loader, test_loader, epochs: Optional[int] = None,
-            log: Callable[[str], None] = print) -> list:
-        """Epochs of training and eval with the plateau scheduler stepped on
-        the best test loss (VCR-Net: ``loss_pose``, patience 10; DCP:
-        ``loss``, patience 5) and the early stop at lr <= 1.1e-6. Returns
-        the per-epoch history."""
+            log: Callable[[str], None] = print, checkpoint_dir: Optional[str] = None,
+            metrics_writer=None) -> list:
+        """Epochs of training and eval (vcrnet_tpu/train/engine.py:fit): the
+        plateau scheduler stepped on the best test loss (VCR-Net:
+        ``loss_pose``, patience 10; DCP: ``loss``, patience 5), the early
+        stop at lr <= 1.1e-6. With ``checkpoint_dir``: resume from its
+        ``fit_state.json`` (the epoch after the saved one, the scheduler
+        and its learning rate, the best loss; the caller restores the model
+        and optimizer with ``checkpoint.load_checkpoint``), save
+        ``model.best`` whenever the test loss is at or below the best, and
+        ``model.{epoch}`` and ``fit_state.json`` every epoch. With
+        ``metrics_writer``: the reference's scalar matrix for train, test
+        and best_test, the pose losses and the learning rate. Returns the
+        per-epoch history of this call."""
         epochs = self.cfg.epochs if epochs is None else epochs
         dcp = self.cfg.model == "dcp"
         sched = ReduceLROnPlateau(initial_lr(self.cfg), patience=5 if dcp else 10)
         best_loss = float("inf")
+        best_sum: dict = {}
+        start_epoch = 0
+        if checkpoint_dir is not None:
+            fit_state = load_fit_state(checkpoint_dir)
+            if fit_state is not None:
+                best_loss = fit_state["best_loss"]
+                start_epoch = fit_state["epoch"] + 1
+                sched.__dict__.update(fit_state["sched"])
+                set_lr(self.optimizer, sched.lr)
+                log(f"resumed fit state at epoch {start_epoch}")
         history = []
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             train_sum = self.train_epoch(train_loader)
             test_sum = self.eval_epoch(test_loader)
             test_loss = test_sum.get("loss" if dcp else "loss_pose", test_sum.get("loss", 0.0))
-            best_loss = min(best_loss, test_loss)
-            lr = sched.step(best_loss)
+            if test_loss <= best_loss:
+                best_loss = test_loss
+                best_sum = test_sum
+                if checkpoint_dir is not None:
+                    save_checkpoint(checkpoint_dir, "model.best", self)
+            lr = sched.step(best_loss)  # the reference steps on the BEST loss
             set_lr(self.optimizer, lr)
             history.append({"epoch": epoch, "lr": lr, "train": train_sum, "test": test_sum})
+            if metrics_writer is not None:
+                _board_scalars(metrics_writer, "train", train_sum.get("loss", 0.0), train_sum,
+                               epoch)
+                _board_scalars(metrics_writer, "test", test_sum.get("loss", 0.0), test_sum,
+                               epoch)
+                _board_scalars(metrics_writer, "best_test", best_loss, best_sum, epoch)
+                metrics_writer.scalar("A->B/train/lossPose", train_sum.get("loss_pose", 0.0),
+                                      epoch)
+                metrics_writer.scalar("A->B/test/lossPose", test_sum.get("loss_pose", 0.0),
+                                      epoch)
+                metrics_writer.scalar("A->B/best_test/lr", lr, epoch)
             log(f"epoch {epoch}: lr={lr:.2e} train_loss={train_sum.get('loss', float('nan')):.6f} "
                 f"test_loss={test_loss:.6f} best={best_loss:.6f}")
+            if checkpoint_dir is not None:
+                save_checkpoint(checkpoint_dir, f"model.{epoch}", self)
+                save_fit_state(checkpoint_dir, {"epoch": epoch, "best_loss": best_loss, "lr": lr,
+                                                "sched": dict(sched.__dict__)})
             if lr <= EARLY_STOP_LR:
                 break
         return history
