@@ -69,7 +69,35 @@ Phases (any failure raises and the script exits non-zero):
            over the 73 pairs against the unfused kernel route (0.25 / 0.1
            deg), the rotation between the two routes' results pair by pair
            (median <= 0.05, max <= 0.5 deg), latency beside the unfused
-           route's.
+           route's;
+11. data   the data path on the card's installation (no h5py there): the
+           port's fixture writer writes velodyne frames and
+           read_velodyne_bin reads them back (padding, truncation);
+           make_datasets on ModelNet40 with an empty data directory gives the
+           synthetic sets; where h5py imports, fake ModelNet40 and KITTI trees
+           through make_loaders at N = 1024 (printed either way); a
+           full-width Trainer at N = 1024 trains an epoch of 16 batches of 8
+           through prefetch (staged host tensors pinned, batches on the card,
+           the summary within 1e-3 of the same epoch fed directly, the
+           launches of 16 steps; both epochs timed) and an epoch of
+           2048-point raw clouds through train_epoch_raw (pairs drawn on the
+           card; the launches of one raw step);
+12. regularise  dropout 0.1 and remat at full width, N = 1024, B = 8: the
+           exact launches of each step (dropout: no flash kernel for the
+           pointer; remat: the forward kernels twice), the dropped share of
+           the attention probabilities within 0.1 +- 0.005, masks that follow
+           (seed, step), eval with a dropout config equal to eval without it;
+           remat's gradient against the plain step's (cosine >= 0.9999, the
+           largest relative difference within twice that of two plain
+           passes), both peak memories printed, and a DCP/DGCNN remat step's
+           running statistics within 1e-5 of a plain step's;
+13. converge  make_loaders on the synthetic set (N = 256, B = 32, 1024
+           training and 128 test pairs) and fit through prefetch at full
+           width, bf16: VCR-Net 12 epochs, rot RMSE at iter=3 <= 1.0 deg and
+           <= 1/5 of the untrained model's; DCP on DGCNN 15 epochs, <= 0.75 of
+           the untrained model's, its kernel route within 0.5 deg (median per
+           pair) and 0.01 of the plain route on the trained statistics; the
+           exact launches of both fits.
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -106,7 +134,8 @@ training step at N = 885 and 1000 (B = 1, 2 and 64; also 707, 971 and
 Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
 every shape, item 0's gradients unchanged when item 1 is drawn again.
 
-The last lines are a JSON object with one entry per kernel (fifteen), the card's
+Each phase prints its seconds. The last lines are a JSON object with one entry per kernel
+(fifteen; the launches of each phase's main path beside the total), the card's
 ``nvidia-smi`` name and power limit, and the result object
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports nothing of
 JAX.
@@ -2494,6 +2523,484 @@ def phase_fused_pointer():
     return total
 
 
+# ---------------------------------------------------------------------------
+# the training path the CLI runs: datasets, loaders and prefetch, dropout and
+# remat, and convergence
+# ---------------------------------------------------------------------------
+
+DATA_BATCHES = 16       # batches of 8 pairs in the data phase's epochs
+DATA_EPOCH_REL = 1e-3   # prefetch vs direct feed: the epoch summary, relative
+RAW_CLOUD_POINTS = 2048
+# a training step's launches with dropout: the pointer's six attentions (and
+# their backward) take the plain route, their probabilities written out
+DROPOUT_LAUNCHES = {k: n for k, n in TRAIN_LAUNCHES.items() if k not in ("flash_packed",
+                                                                          "flash_bwd")}
+DROPOUT_RATE = 0.1
+DROPOUT_SHARE_TOL = 0.005
+# remat runs the forward twice (its kernels twice), the backward once
+REMAT_LAUNCHES = {k: n * (2 if k in ("knn_gather_max", "edge_conv", "flash_packed",
+                                     "vcp_stream") else 1) for k, n in TRAIN_LAUNCHES.items()}
+DCP_REMAT_LAUNCHES = {"knn": 4, "dgcnn_eval": 0, "flash_packed": 12, "flash_bwd": 6}
+REMAT_COSINE_MIN = 0.9999
+REMAT_SPREAD_FACTOR = 2.0  # remat vs plain gradient, against two plain passes
+BN_STATS_ATOL = 1e-5
+# converge: the JAX package's runs (STATUS.md) at N = 256, B = 32 on the
+# uniform synthetic set: VCR-Net 12 epochs, rot RMSE 0.19-0.316 deg at iter=3
+# (about 12.6 untrained); DCP on DGCNN 15 epochs, 14.5 deg (about 26)
+CONVERGE = dict(dataset="synthetic", num_points=256, batch_size=32, test_batch_size=32,
+                compute_dtype="bfloat16")
+VCRNET_EPOCHS = 12
+DCP_EPOCHS = 15
+VCRNET_ROT_LIMIT_DEG = 1.0    # three times the record's worst reading
+VCRNET_UNTRAINED_SHARE = 0.2  # of the untrained model's error, same eval set
+DCP_UNTRAINED_SHARE = 0.75
+
+
+def importable(name: str) -> bool:
+    """Whether ``name`` imports here (an optional package is printed as
+    present or absent, never worked around)."""
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def check_dataset_trees(root: str) -> None:
+    """Fake ModelNet40 and KITTI trees written under ``root`` and read
+    through ``make_loaders`` at N = 1024: two reads from one seed give equal
+    batches. Needs h5py."""
+    import numpy as np
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data import fixtures, pipeline
+
+    fixtures.make_fake_modelnet40_tree(root, (16, 16, 16, 16, 12), (16, 8), seed=0)
+    fixtures.make_fake_kitti_tree(root, frames_per_seq=5, points_per_frame=4096, seed=0)
+    for dataset in ("modelnet40", "kitti"):
+        cfg = Config(dataset=dataset, data_dir=root, num_points=N, batch_size=8)
+        reads = []
+        for _ in range(2):
+            np.random.seed(0)  # training pairs draw from the global generator
+            reads.append([b for loader in pipeline.make_loaders(cfg) for b in loader])
+        check(len(reads[0]) >= 2 and all(
+            all(np.array_equal(a[k], b[k]) for k in a) for a, b in zip(*reads)),
+              f"data: {dataset}: two reads from one seed differ")
+        check(reads[0][0]["src"].shape == (8, N, 3), f"data: {dataset}: batch shape")
+        print(f"data: {dataset} tree through make_loaders: {len(reads[0])} batches, two reads "
+              f"equal", flush=True)
+
+
+def phase_data():
+    """Datasets, loaders and the prefetch feed (on the card's installation):
+
+    1. the port's fixture writer writes velodyne frames (numpy alone) and
+       ``read_velodyne_bin`` reads them back, padded and truncated;
+    2. ``make_datasets`` on ModelNet40 with an empty data directory gives the
+       synthetic sets;
+    3. where h5py imports, fake ModelNet40 and KITTI trees go through
+       ``make_loaders`` at N = 1024, two reads from one seed bit-equal;
+    4. a full-width Trainer at N = 1024, B = 8 trains one epoch of 16 batches
+       through ``prefetch``: every staged host tensor pinned, every batch on
+       the card, the epoch's summary within 1e-3 relative of the same epoch
+       fed without prefetch, the exact launches of 16 steps; then two more
+       epochs of each feed, timed in turns (printed, no gate);
+    5. ``train_epoch_raw``: one epoch of 2048-point raw clouds at B = 8 (the
+       pairs drawn on the card), the launches of one raw step.
+    Returns the launches of the two epochs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data import fixtures, pipeline
+    from vcrnet_tpu_torch.data.kitti import read_velodyne_bin
+    from vcrnet_tpu_torch.data.synthetic import SyntheticDataset
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train import metrics as M
+
+    has_h5py = importable("h5py")
+    print(f"data: h5py: {'installed' if has_h5py else 'not installed'}", flush=True)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="data_", dir=os.path.join(HERE, "build"))
+    try:
+        kitti = fixtures.make_fake_kitti_tree(tmp, frames_per_seq=5, points_per_frame=4096,
+                                              seed=0, with_index=False)
+        frames = os.path.join(kitti, "bin", "00", "velodyne")
+        n_load = N + 1
+        for name in ("000000.bin", "000004.bin"):  # a whole frame, and one of 512 points
+            raw = np.fromfile(os.path.join(frames, name), dtype=np.float32).reshape(-1, 4)[:, :3]
+            got = read_velodyne_bin(os.path.join(frames, name), n_load)
+            n = min(len(raw), n_load)
+            check(got.shape == (n_load, 3) and np.array_equal(got[:n], raw[:n])
+                  and (len(raw) >= n_load or (got[n:] == raw[len(raw) // 6]).all()),
+                  f"data: read_velodyne_bin on {name} ({len(raw)} points)")
+        print(f"data: velodyne frames written and read back: {len(raw)} points padded to "
+              f"{n_load}", flush=True)
+        empty = os.path.join(tmp, "empty")
+        os.makedirs(empty)
+        sets = pipeline.make_datasets(Config(dataset="modelnet40", data_dir=empty))
+        check(all(isinstance(s, SyntheticDataset) for s in sets),
+              f"data: the fallback gave {[type(s).__name__ for s in sets]}")
+        if has_h5py:
+            check_dataset_trees(tmp)
+        else:
+            print("data: h5py not installed: the ModelNet40 and KITTI readers are held on the "
+                  "CPU only (tests/test_torch_data.py)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N)
+    dataset = SyntheticDataset(cfg, "train", n_items=8 * DATA_BATCHES, cloud_points=2 * N,
+                               seed=40, kind="shapes")
+
+    def loader():
+        np.random.seed(41)  # training pairs draw from the global generator
+        return pipeline.Loader(dataset, 8, shuffle=True, drop_last=True, seed=42)
+
+    warm = _train_batch(cfg, 8, seed=43)
+    fed = Trainer(cfg, seed=0)
+    staged, arrived = [], []
+    stage, to_device = fed.stage, fed.to_device
+
+    def spy_stage(batch):
+        out = stage(batch)
+        staged.append(all(v.is_pinned() for v in out.values()))
+        return out
+
+    def spy_to_device(batch):
+        out = to_device(batch)
+        arrived.append(all(v.is_cuda for v in out.values()))
+        return out
+
+    fed.stage, fed.to_device = spy_stage, spy_to_device
+    fed.train_step(warm)
+    staged.clear()
+    arrived.clear()
+    direct = Trainer(cfg, seed=0)
+    direct.train_step(warm)
+
+    def direct_epoch():
+        acc = M.EpochAccumulator()
+        for batch in loader():
+            acc.add(direct.train_step(batch))
+        return M.summarize(acc)
+
+    # the two trainers take the same epochs in step: the first of each is
+    # compared, then the feeds are timed in turns (prefetch first, then
+    # direct first)
+    times = {"prefetch": [], "direct": []}
+    summaries = {}
+    for kind in ("prefetch", "direct", "direct", "prefetch", "prefetch", "direct"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = fed.train_epoch(loader()) if kind == "prefetch" else direct_epoch()
+        torch.cuda.synchronize()
+        times[kind].append(time.perf_counter() - t0)
+        if kind == "prefetch" and kind not in summaries:
+            launches = ops.launch_counts()
+            check(len(staged) == DATA_BATCHES and all(staged),
+                  f"data: staged host batches pinned: {staged}")
+            check(len(arrived) == DATA_BATCHES and all(arrived),
+                  f"data: batches on the card: {arrived}")
+            check_launches(launches, {k: n * DATA_BATCHES for k, n in TRAIN_LAUNCHES.items()},
+                           "data: prefetch epoch")
+        summaries.setdefault(kind, summary)
+    with_prefetch, without = summaries["prefetch"], summaries["direct"]
+    rel = {k: abs(with_prefetch[k] - without[k]) / max(abs(without[k]), 1e-12)
+           for k in ("loss", "loss_pose", "rot_ab_RMSE", "trans_ab_RMSE")}
+    print(f"data: epochs of {DATA_BATCHES} batches of 8 at N = {N}, s: with prefetch "
+          f"{times['prefetch']}, fed directly {times['direct']} (in the order prefetch, direct, "
+          f"direct, prefetch, prefetch, direct); device idle share not measured; first epochs' "
+          f"summaries relative difference {rel}; loss {with_prefetch['loss']} / "
+          f"{without['loss']}", flush=True)
+    check(all(math.isfinite(v) for v in with_prefetch.values()), "data: non-finite epoch summary")
+    check(max(rel.values()) <= DATA_EPOCH_REL,
+          f"data: the prefetch epoch differs from the direct one by {rel}")
+    del direct
+
+    raw = dataset.raw_clouds()
+    check(raw.shape[1] == RAW_CLOUD_POINTS, f"data: raw clouds {raw.shape}")
+    batches = raw.reshape(DATA_BATCHES, 8, RAW_CLOUD_POINTS, 3)
+    staged.clear()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    raw_sum = fed.train_epoch_raw(batches)
+    torch.cuda.synchronize()
+    raw_s = time.perf_counter() - t0
+    raw_launches = ops.launch_counts()
+    check_launches(raw_launches, {k: n * DATA_BATCHES for k, n in TRAIN_LAUNCHES.items()},
+                   "data: raw epoch")
+    check(len(staged) == DATA_BATCHES and all(staged),
+          f"data: staged raw batches pinned: {staged}")
+    ops.reset_launch_counts()
+    fed.train_step_raw({"clouds": batches[0]})
+    torch.cuda.synchronize()
+    check_launches(ops.launch_counts(), TRAIN_LAUNCHES, "data: one raw step")
+    print(f"data: train_epoch_raw over {DATA_BATCHES} batches of 8 raw clouds of "
+          f"{RAW_CLOUD_POINTS} points: {raw_s} s, loss {raw_sum['loss']}, rot_ab_RMSE "
+          f"{raw_sum['rot_ab_RMSE']} deg", flush=True)
+    check(all(math.isfinite(v) for v in raw_sum.values()), "data: non-finite raw epoch summary")
+    total = {}
+    add_launches(total, launches)
+    add_launches(total, raw_launches)
+    return total
+
+
+def _flat_grads(trainer):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1).float() for p in trainer.model.parameters()])
+
+
+def _max_rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_regularise():
+    """Dropout and remat at full width, bf16, N = 1024, B = 8:
+
+    1. dropout 0.1: the exact launches of a step (the pointer's attention off
+       the flash kernels: its probabilities are written out), the share of
+       zeros in the dropped attention probabilities within 0.1 +- 0.005, two
+       training forwards at one (seed, step) equal and at another step not,
+       eval with the dropout config equal bit for bit to eval without it;
+    2. remat: the exact launches of a step (the forward kernels twice), the
+       gradient against the step without remat (cosine >= 0.9999, largest
+       relative difference within twice that of two plain backward passes),
+       the peak device memory of both steps (printed), and a DCP/DGCNN remat
+       step's running statistics within 1e-5 of a plain step's.
+    Returns the launches of the dropout and remat steps."""
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.models.vcrnet import vcrnet_iter
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train.engine import DROPOUT_SEED_OFFSET
+    from vcrnet_tpu_torch.utils.rng import fold_seed
+
+    total = {}
+    cfg = Config(compute_dtype="bfloat16", num_points=N, dropout=DROPOUT_RATE)
+    batch = _train_batch(cfg, 8, seed=1)
+    tr = Trainer(cfg, seed=0)
+    tr.train_step(batch)
+    drop_mods = [m for name, m in tr.model.named_modules() if name.endswith("attn_drop")]
+    seen = []
+
+    def share(mod, inp, out):
+        live = inp[0] != 0
+        seen.append((((out == 0) & live).sum().item(), live.sum().item()))
+
+    hooks = [m.register_forward_hook(share) for m in drop_mods]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sums = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for h in hooks:
+        h.remove()
+    check_launches(launches, DROPOUT_LAUNCHES, "regularise: dropout step")
+    add_launches(total, launches)
+    zeros = sum(z for z, _ in seen) / sum(n for _, n in seen)
+    print(f"regularise: dropout {DROPOUT_RATE}: launches of a step {launches}; zeros in the "
+          f"{len(seen)} dropped attention probability tensors: {zeros}; loss "
+          f"{(sums['loss'] / sums['count']).item()}", flush=True)
+    check(len(seen) == 6 and abs(zeros - DROPOUT_RATE) <= DROPOUT_SHARE_TOL,
+          f"regularise: dropped share {zeros} over {len(seen)} tensors")
+
+    b = tr.to_device(batch)
+    tr.model.train()
+    outs = []
+    with torch.no_grad():
+        for step in (5, 5, 6):
+            tr.model.dropout_rng.seed = fold_seed(cfg.seed + DROPOUT_SEED_OFFSET, step)
+            outs.append(tr.model(b["src"], b["tgt"]))
+    same = all(torch.equal(x, y) for x, y in zip(outs[0], outs[1]))
+    other = any(not torch.equal(x, y) for x, y in zip(outs[0], outs[2]))
+    print(f"regularise: training forwards at one (seed, step) equal: {same}; at another step "
+          f"different: {other}", flush=True)
+    check(same and other, "regularise: the dropout masks do not follow (seed, step)")
+
+    plain_eval = Trainer(Config(compute_dtype="bfloat16", num_points=N), seed=3)
+    plain_eval.model.load_state_dict(tr.model.state_dict())
+    tr.model.eval()
+    plain_eval.model.eval()
+    with torch.no_grad():
+        e_drop = vcrnet_iter(tr.model, b["src"], b["tgt"], 3)
+        e_plain = vcrnet_iter(plain_eval.model, b["src"], b["tgt"], 3)
+    check(all(torch.equal(x, y) for x, y in zip(e_drop, e_plain)),
+          "regularise: eval with a dropout config differs from eval without it")
+    print("regularise: eval at iter=3 with dropout 0.1 in the config equals eval without it, "
+          "bit for bit", flush=True)
+    del tr, plain_eval, outs
+
+    # remat: gradients of one batch from one initial state
+    cfg = Config(compute_dtype="bfloat16", num_points=N)
+    plain = Trainer(cfg, seed=0)
+    remat = Trainer(cfg.replace(remat=True), seed=0)
+    plain.compute_grads(batch)
+    remat.compute_grads(batch)  # warm-up
+    peak = {}
+    grads = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain.compute_grads(batch)
+        torch.cuda.synchronize()
+        peak["plain"] = torch.cuda.max_memory_allocated()
+        grads.append(_flat_grads(plain))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    remat.compute_grads(batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak["remat"] = torch.cuda.max_memory_allocated()
+    check_launches(launches, REMAT_LAUNCHES, "regularise: remat step")
+    add_launches(total, launches)
+    g_remat = _flat_grads(remat)
+    cos = _cosine(g_remat, grads[0])
+    rel_remat, rel_plain = _max_rel(g_remat, grads[0]), _max_rel(grads[1], grads[0])
+    print(f"regularise: remat: launches of a step {launches}; gradient cosine against the plain "
+          f"step {cos}, largest relative difference {rel_remat} (two plain passes: "
+          f"{rel_plain}); peak device memory of a step: plain {peak['plain']} B, remat "
+          f"{peak['remat']} B", flush=True)
+    check(cos >= REMAT_COSINE_MIN, f"regularise: remat gradient cosine {cos}")
+    check(rel_remat <= REMAT_SPREAD_FACTOR * rel_plain,
+          f"regularise: remat gradient {rel_remat} from the plain step, two plain passes "
+          f"{rel_plain}")
+    del plain, remat, grads
+
+    dcfg = Config(model="dcp", emb_nn="dgcnn", compute_dtype="bfloat16", num_points=N)
+    stats = []
+    for flag in (False, True):
+        dtr = Trainer(dcfg.replace(remat=flag), seed=0)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dtr.train_step(batch)
+        torch.cuda.synchronize()
+        if flag:
+            launches = ops.launch_counts()
+            check_launches(launches, DCP_REMAT_LAUNCHES, "regularise: DCP remat step")
+            add_launches(total, launches)
+        stats.append({n: b.clone() for n, b in dtr.model.named_buffers() if "running_" in n})
+        del dtr
+    diff = max((stats[0][n] - stats[1][n]).abs().max().item() for n in stats[0])
+    print(f"regularise: DCP/DGCNN remat step: running statistics of {len(stats[0])} buffers "
+          f"within {diff} of a plain step's; launches {launches}", flush=True)
+    check(len(stats[0]) == 10 and diff <= BN_STATS_ATOL,
+          f"regularise: remat running statistics {diff} from the plain step's")
+    return total
+
+
+def _route_results(model, loader, device):
+    """(R_ab, t_ab) numpy of every valid pair of ``loader`` through a DCP
+    model in eval."""
+    import numpy as np
+    import torch
+
+    model.eval()
+    Rs, ts = [], []
+    with torch.no_grad():
+        for batch in loader:
+            keep = batch["valid"] > 0
+            src, tgt = (torch.as_tensor(batch[k]).to(device) for k in ("src", "tgt"))
+            R, t = model(src, tgt)[:2]
+            Rs.append(R.double().cpu().numpy()[keep])
+            ts.append(t.double().cpu().numpy()[keep])
+    return np.concatenate(Rs), np.concatenate(ts)
+
+
+def phase_converge():
+    """Training the way the CLI trains, to a useful accuracy (ROADMAP A3):
+    ``make_loaders`` on the synthetic set at N = 256, B = 32 (1024 training
+    pairs, 128 test pairs), ``fit`` through prefetch at full width, bf16:
+
+    1. VCR-Net, 12 epochs, eval at iter=3: rot RMSE <= 1.0 deg and <= 1/5 of
+       the untrained model's on the same eval set;
+    2. DCP on DGCNN, 15 epochs: rot RMSE <= 0.75 of the untrained model's;
+       on the trained statistics the kernel route's rotations within 0.5 deg
+       of the plain route's (median per pair), translations within 0.01.
+    Returns the launches of the two fits."""
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.pipeline import make_loaders
+    from vcrnet_tpu_torch.train import Trainer
+
+    total = {}
+    results = {}
+    for name, cfg, epochs, train_l, eval_l in (
+        ("VCR-Net", Config(iter=3, **CONVERGE), VCRNET_EPOCHS, TRAIN_LAUNCHES, LAUNCHES_ITER3),
+        ("DCP/DGCNN", Config(model="dcp", emb_nn="dgcnn", **CONVERGE), DCP_EPOCHS,
+         DCP_TRAIN_LAUNCHES, DCP_EVAL_LAUNCHES),
+    ):
+        np.random.seed(0)  # training pairs draw from the global generator
+        train, test = make_loaders(cfg)
+        check((len(train), len(test.dataset)) == (32, 128), f"converge: loaders {len(train)}")
+        tr = Trainer(cfg, seed=0)
+        untrained = tr.eval_epoch(test)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = tr.fit(train, test, epochs=epochs, log=lambda s: None)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        add_launches(total, launches)
+        trained = history[-1]["test"]
+        curve = [round(h["test"]["rot_ab_RMSE"], 4) for h in history]
+        print(f"converge: {name}: {epochs} epochs in {fit_s} s ({fit_s / (epochs * len(train))} s "
+              f"a step with its share of the evals); test rot RMSE untrained "
+              f"{untrained['rot_ab_RMSE']} deg, by epoch {curve}; trained: rot RMSE "
+              f"{trained['rot_ab_RMSE']} MAE {trained['rot_ab_MAE']} deg, trans RMSE "
+              f"{trained['trans_ab_RMSE']}; launches {launches}", flush=True)
+        results[name] = (untrained, trained)
+        check(all(math.isfinite(v) for v in trained.values()), f"converge: {name}: non-finite")
+        expected = {k: epochs * len(train) * n for k, n in train_l.items()}
+        for k, n in eval_l.items():
+            expected[k] = expected.get(k, 0) + epochs * len(test) * n
+        check_launches(launches, expected, f"converge: {name} fit")
+        if cfg.model == "vcrnet":
+            check(trained["rot_ab_RMSE"] <= VCRNET_ROT_LIMIT_DEG,
+                  f"converge: {name}: rot RMSE {trained['rot_ab_RMSE']} > "
+                  f"{VCRNET_ROT_LIMIT_DEG} deg")
+            check(trained["rot_ab_RMSE"] <= VCRNET_UNTRAINED_SHARE * untrained["rot_ab_RMSE"],
+                  f"converge: {name}: rot RMSE {trained['rot_ab_RMSE']} > "
+                  f"{VCRNET_UNTRAINED_SHARE} x untrained {untrained['rot_ab_RMSE']}")
+            del tr
+            continue
+        check(trained["rot_ab_RMSE"] <= DCP_UNTRAINED_SHARE * untrained["rot_ab_RMSE"],
+              f"converge: {name}: rot RMSE {trained['rot_ab_RMSE']} > {DCP_UNTRAINED_SHARE} x "
+              f"untrained {untrained['rot_ab_RMSE']}")
+        plain = Trainer(cfg, seed=0, use_kernels=False)
+        plain.model.load_state_dict(tr.model.state_dict())
+        check(tr.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+        R_k, t_k = _route_results(tr.model, test, tr.device)
+        R_p, t_p = _route_results(plain.model, test, plain.device)
+        between = pair_rot_errors_deg(R_k, R_p)
+        dt = np.abs(t_k - t_p).max(axis=1)
+        print(f"converge: {name}: kernel vs plain route on the trained statistics over "
+              f"{len(R_k)} pairs: rotation between them median {float(np.median(between))} max "
+              f"{float(between.max())} deg; |dt| median {float(np.median(dt))} max "
+              f"{float(dt.max())}", flush=True)
+        check(float(np.median(between)) <= DGCNN_ROUTE_ROT_DEG,
+              f"converge: {name}: routes differ by more than {DGCNN_ROUTE_ROT_DEG} deg (median)")
+        check(float(np.median(dt)) <= DGCNN_ROUTE_TRANS,
+              f"converge: {name}: translations differ by more than {DGCNN_ROUTE_TRANS}")
+        del tr, plain
+    return total
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -2538,7 +3045,7 @@ def print_ptxas_reports(procs: dict) -> None:
 
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
-          "fused_pointer")
+          "fused_pointer", "data", "regularise", "converge")
 
 
 def main() -> int:
@@ -2598,6 +3105,12 @@ def main() -> int:
             launches[name] = phase_dgcnn()
         elif name == "fused_pointer":
             launches[name] = phase_fused_pointer()
+        elif name == "data":
+            launches[name] = phase_data()
+        elif name == "regularise":
+            launches[name] = phase_regularise()
+        elif name == "converge":
+            launches[name] = phase_converge()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -2655,6 +3168,9 @@ def main() -> int:
             "launches_ragged": launches["ragged"].get(name, 0),
             "launches_dgcnn": launches["dgcnn"][name],
             "launches_fused_pointer": launches["fused_pointer"][name],
+            "launches_data": launches["data"].get(name, 0),
+            "launches_regularise": launches["regularise"].get(name, 0),
+            "launches_converge": launches["converge"].get(name, 0),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

@@ -1,0 +1,109 @@
+"""The port and chip_smoke.py on an installation like the card's machine,
+which has neither h5py nor tensorboardX nor flax (nor, for the port, any
+use of JAX): a subprocess in which those packages cannot be imported (a
+``sys.meta_path`` finder ahead of every other raises ``ImportError`` for
+them) imports every module of the port and chip_smoke.py, runs the
+synthetic datasets and loaders, the synthetic fallback of ModelNet40, the
+velodyne frames written and read back without h5py, an epoch of training
+through prefetch and one on raw clouds, and finds that the ModelNet40 and
+KITTI readers raise an ImportError that names h5py."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("h5py", "tensorboardX", "jax", "jaxlib", "flax", "optax")
+
+CHILD = r'''
+import importlib, importlib.abc, os, pkgutil, sys, tempfile
+
+BLOCKED = %r
+
+
+class Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, Absent())
+for name in BLOCKED:
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        pass
+    else:
+        raise SystemExit(f"{name} imported")
+
+import numpy as np
+
+import vcrnet_tpu_torch
+for m in pkgutil.walk_packages(vcrnet_tpu_torch.__path__, "vcrnet_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+
+from vcrnet_tpu_torch.config import Config
+from vcrnet_tpu_torch.data import fixtures, pipeline
+from vcrnet_tpu_torch.data.kitti import KITTI, read_velodyne_bin
+from vcrnet_tpu_torch.data.modelnet40 import ModelNet40
+from vcrnet_tpu_torch.data.synthetic import SyntheticDataset
+from vcrnet_tpu_torch.train import Trainer
+from vcrnet_tpu_torch.utils.logging import MetricsWriter
+
+tiny = dict(num_points=32, emb_dims=256, ff_dims=128, n_heads=2, batch_size=4,
+            test_batch_size=4)
+train, test = pipeline.make_datasets(Config(dataset="synthetic", **tiny))
+assert isinstance(train, SyntheticDataset) and (len(train), len(test)) == (1024, 128)
+tmp = tempfile.mkdtemp()
+os.environ.pop("VCRNET_DATA", None)
+empty = os.path.join(tmp, "empty")
+os.makedirs(empty)
+fb_train, fb_test = pipeline.make_datasets(Config(dataset="modelnet40", data_dir=empty, **tiny))
+assert isinstance(fb_train, SyntheticDataset) and isinstance(fb_test, SyntheticDataset)
+
+kitti = fixtures.make_fake_kitti_tree(tmp, frames_per_seq=5, points_per_frame=256, seed=1,
+                                      with_index=False)
+frames = os.path.join(kitti, "bin", "00", "velodyne")
+short = read_velodyne_bin(os.path.join(frames, "000004.bin"), 100)  # 32 points, padded
+assert short.shape == (100, 3) and (short[32:] == short[32 // 6]).all()
+assert read_velodyne_bin(os.path.join(frames, "000000.bin"), 100).shape == (100, 3)
+
+mn = os.path.join(tmp, "mn", "modelnet40_ply_hdf5_2048")
+os.makedirs(mn)
+for name in ("ply_data_train0.h5", "ply_data_test0.h5"):
+    open(os.path.join(mn, name), "wb").close()
+for make in (lambda: ModelNet40(Config(data_dir=os.path.dirname(mn), **tiny)),
+             lambda: KITTI(Config(dataset="kitti", data_dir=tmp, **tiny))):
+    try:
+        make()
+    except ImportError as e:
+        assert "h5py" in str(e), e
+    else:
+        raise SystemExit("a reader of .h5 files ran without h5py")
+
+writer = MetricsWriter(os.path.join(tmp, "logs"))
+writer.scalar("a", 1.0, 0)
+writer.close()
+
+np.random.seed(0)
+trainer = Trainer(Config(dataset="synthetic", **tiny), device="cpu", seed=0)
+small = SyntheticDataset(trainer.cfg, n_items=8, cloud_points=64)
+summary = trainer.train_epoch(pipeline.Loader(small, 4, shuffle=True, drop_last=True))
+assert np.isfinite(summary["loss"]), summary
+summary = trainer.train_epoch_raw(small.raw_clouds().reshape(2, 4, 64, 3))
+assert np.isfinite(summary["loss"]) and trainer.step == 4, summary
+
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not bad, bad
+print("card env ok")
+''' % (BLOCKED,)
+
+
+def test_the_port_runs_without_h5py_tensorboardx_or_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    env.pop("VCRNET_DATA", None)
+    r = subprocess.run([sys.executable, "-c", CHILD], cwd=str(tmp_path), env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and "card env ok" in r.stdout, r.stdout + r.stderr

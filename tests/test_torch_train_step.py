@@ -172,13 +172,15 @@ def test_synthetic_loader_matches_jax_batches():
 
 
 def test_partial_dropout_and_remat_are_refused():
+    """Training in partial-overlap mode is still refused; dropout and remat
+    are ported (tests/test_torch_regularise.py) and no longer refused."""
     cfg = Config(**NARROW, partial=True, overlap=0.575)
     pair = make_pair_from_cloud(np.zeros((80, 3), np.float32), 0, cfg)
     with pytest.raises(NotImplementedError, match="partial"):
         Trainer(cfg, device="cpu").train_step(collate([pair]))
     for kw in (dict(dropout=0.1), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            Trainer(Config(**NARROW, **kw), device="cpu")
+        tr = Trainer(Config(**NARROW, **kw), device="cpu")
+        assert (tr.cfg.dropout, tr.cfg.remat) == (kw.get("dropout", 0.0), kw.get("remat", False))
 
 
 @pytest.mark.parametrize("model", ["vcrnet", "dcp"])

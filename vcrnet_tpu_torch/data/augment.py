@@ -1,19 +1,29 @@
-"""Registration-pair augmentation on the host (numpy).
+"""Registration-pair augmentation (counterpart of vcrnet_tpu/data/augment.py).
 
-Copy of vcrnet_tpu/data/augment.py:make_pair_from_cloud and nn_crop: the
-GLOBAL numpy generator in the JAX package's draw order, test items
-reseeded with their index first, so the pairs (whole and partial-overlap)
-are bit-equal to the JAX package's for the same seed. The on-device batch
-augmentation (``device_augment_batch``) is not ported.
+Two paths:
+
+1. ``make_pair_from_cloud`` and ``nn_crop``, on the host (numpy): the
+   GLOBAL numpy generator in the JAX package's draw order, test items
+   reseeded with their index first, so the pairs (whole and
+   partial-overlap) are bit-equal to the JAX package's for the same seed.
+2. ``device_augment_batch``, on the batch's device (torch): the same
+   distributions for a whole batch of raw clouds, drawn from an explicit
+   ``torch.Generator``, with no host round trip. Not bit-compatible with
+   either numpy or the JAX package's generator, by design.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
+from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
+
+PAIR_KEYS = ("src", "tgt", "R_ab", "t_ab", "R_ba", "t_ba", "euler_ab", "euler_ba")
 
 
 @dataclasses.dataclass
@@ -100,3 +110,52 @@ def make_pair_from_cloud(pointcloud: np.ndarray, item: int, cfg: Config,
         t_ab=t_ab.astype(f32), R_ba=R_ba.astype(f32), t_ba=t_ba.astype(f32),
         euler_ab=euler_ab.astype(f32), euler_ba=euler_ba.astype(f32), label=label,
     )
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, M, 3] gathered along the points by idx [B, n]."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _random_perm(gen: torch.Generator, b: int, n: int, device) -> torch.Tensor:
+    """[b, n] independent uniform permutations of range(n), one a row."""
+    return torch.rand((b, n), generator=gen, device=device).argsort(dim=1)
+
+
+def device_augment_batch(gen: torch.Generator, clouds: torch.Tensor, cfg: Config) -> dict:
+    """Registration pairs of a batch of raw clouds [B, M, 3] f32, drawn from
+    ``gen`` (a generator on the clouds' device) on that device: optional
+    jitter (clip(0.01 N(0, 1), +-0.05) on every raw point), rotation angles
+    (z, y, x) from U[0, pi/factor), a translation from U[-0.5, 0.5)^3, a
+    per-row random subsample to ``cfg.num_points`` points, the target
+    transformed from it, per-row shuffles of both clouds and, with
+    ``cfg.partial``, each cloud cropped to its ``int(N * reserve)`` points
+    nearest its last point (nearest first). Returns the dict of
+    :data:`PAIR_KEYS`, as the JAX function does."""
+    B, M, _ = clouds.shape
+    n = cfg.num_points
+    if n > M:
+        raise ValueError(f"num_points={n} > the raw clouds' {M} points")
+    dev = clouds.device
+    if cfg.gaussian_noise:
+        noise = torch.randn(clouds.shape, generator=gen, device=dev, dtype=clouds.dtype)
+        clouds = clouds + (0.01 * noise).clamp(-0.05, 0.05)
+    angles = torch.rand((B, 3), generator=gen, device=dev) * (math.pi / cfg.factor)  # z, y, x
+    R_ab = geometry.euler_to_mat_zyx(angles)
+    t_ab = torch.rand((B, 3), generator=gen, device=dev) - 0.5
+
+    pc1 = _rows(clouds, _random_perm(gen, B, M, dev)[:, :n])
+    pc2 = geometry.transform_points(pc1, R_ab, t_ab)
+    pc1 = _rows(pc1, _random_perm(gen, B, n, dev))
+    pc2 = _rows(pc2, _random_perm(gen, B, n, dev))
+    if cfg.partial:
+        n_keep = int(n * cfg.reserve)
+
+        def crop(pc):
+            d = ((pc - pc[:, -1:]) ** 2).sum(-1)  # [B, N]
+            return _rows(pc, torch.topk(d, n_keep, dim=1, largest=False).indices)
+
+        pc1, pc2 = crop(pc1), crop(pc2)
+    R_ba, t_ba = geometry.invert_transform(R_ab, t_ab)
+    return {"src": pc1, "tgt": pc2, "R_ab": R_ab, "t_ab": t_ab, "R_ba": R_ba, "t_ba": t_ba,
+            "euler_ab": angles, "euler_ba": -angles.flip(-1)}

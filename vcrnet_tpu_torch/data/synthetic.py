@@ -1,23 +1,22 @@
-"""Synthetic registration pairs with known ground truth (numpy), and a
-plain batching loader.
+"""Synthetic registration pairs with known ground truth (numpy).
 
 Copies of vcrnet_tpu/data/synthetic.py (``random_shape_cloud``,
-``SyntheticDataset``) and of the batching of vcrnet_tpu/data/pipeline.py
-(``collate``, ``Loader``). Pairs come from ``augment.make_pair_from_cloud``
+``SyntheticDataset``). Pairs come from ``augment.make_pair_from_cloud``
 with the JAX package's draw order, so a dataset built from the same seed
-gives the same pairs.
+gives the same pairs. ``collate`` and ``Loader`` live in ``pipeline`` and
+are importable from here too.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
-
 import numpy as np
 
 from vcrnet_tpu_torch.config import Config
-from vcrnet_tpu_torch.data.augment import RegistrationPair, make_pair_from_cloud
+from vcrnet_tpu_torch.data.augment import PAIR_KEYS, RegistrationPair, make_pair_from_cloud
+from vcrnet_tpu_torch.data.pipeline import Loader, collate
 
-PAIR_KEYS = ("src", "tgt", "R_ab", "t_ab", "R_ba", "t_ba", "euler_ab", "euler_ba")
+__all__ = ["PAIR_KEYS", "Loader", "SyntheticDataset", "collate", "random_shape_cloud",
+           "shapes_eval_set"]
 
 
 def random_shape_cloud(rng: np.random.RandomState, n_points: int) -> np.ndarray:
@@ -90,48 +89,9 @@ class SyntheticDataset:
     def __getitem__(self, item: int) -> RegistrationPair:
         return make_pair_from_cloud(self.data[item], item, self.cfg, self.partition)
 
-
-def collate(pairs) -> dict:
-    """Stack pairs into a dict of [B, ...] float32 arrays (no labels)."""
-    return {key: np.stack([getattr(p, key) for p in pairs]) for key in PAIR_KEYS}
-
-
-class Loader:
-    """Batches of a map-style dataset as dicts of numpy arrays. Train:
-    shuffle (seeded) and drop the ragged tail; eval: in order, the last
-    batch padded by repeating its last pair, with a 'valid' mask [B]
-    (1 = real pair) that the metric sums weight by."""
-
-    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.drop_last = drop_last
-        self.rng = np.random.RandomState(seed)
-
-    def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
-
-    def __iter__(self) -> Iterator[dict]:
-        n = len(self.dataset)
-        order = np.arange(n)
-        if self.shuffle:
-            self.rng.shuffle(order)
-        bs = self.batch_size
-        stop = (n // bs) * bs if self.drop_last else n
-        for start in range(0, stop, bs):
-            idx = order[start:start + bs]
-            batch = collate([self.dataset[int(i)] for i in idx])
-            valid = np.ones(len(idx), np.float32)
-            if len(idx) < bs:
-                pad = bs - len(idx)
-                batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-                         for k, v in batch.items()}
-                valid = np.concatenate([valid, np.zeros(pad, np.float32)])
-            batch["valid"] = valid
-            yield batch
+    def raw_clouds(self) -> np.ndarray:
+        """[n_items, cloud_points, 3] raw clouds, for ``Trainer.train_epoch_raw``."""
+        return self.data
 
 
 EVAL_OVERLAP = 0.575  # the partial eval protocol's expected overlap of the two crops

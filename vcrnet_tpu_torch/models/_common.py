@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,6 +40,7 @@ class FlaxBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.update_stats = True  # off while a rematerialised forward runs again
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
@@ -45,9 +48,65 @@ class FlaxBatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dim=dims)
             var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                    self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """No FlaxBatchNorm of ``model`` updates its running statistics inside
+    the block (a rematerialised forward runs the training forward again)."""
+    norms = [m for m in model.modules() if isinstance(m, FlaxBatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout``: each element kept with probability 1 - rate
+    and scaled by 1 / (1 - rate), the others 0; the mask drawn from
+    ``gen`` (a generator on x's device)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropoutRng:
+    """The explicit generator of a model's dropout masks, on its device.
+    ``seed`` is set for each training step; the model's forward calls
+    :meth:`reseed` on entry, so a recomputed forward draws the same masks."""
+
+    def __init__(self, device):
+        self.generator = torch.Generator(device=device)
+        self.seed = 0
+
+    def reseed(self) -> None:
+        self.generator.manual_seed(self.seed)
+
+
+class Dropout(nn.Module):
+    """Dropout at ``rate`` in training mode from ``rng``'s generator; the
+    identity in eval mode and at rate 0."""
+
+    def __init__(self, rate: float = 0.0, rng: DropoutRng | None = None):
+        super().__init__()
+        if rate > 0 and rng is None:
+            raise ValueError("dropout at a positive rate needs a DropoutRng")
+        self.rate = rate
+        self.rng = rng
+
+    @property
+    def active(self) -> bool:
+        return self.training and self.rate > 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.rng.generator) if self.active else x

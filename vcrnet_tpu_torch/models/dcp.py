@@ -6,7 +6,8 @@ The embedding and the pointer are VCR-Net's modules (``make_embedding``,
 PyTorch, as the JAX package leaves them to XLA outside any Pallas kernel.
 The two clouds are embedded one after the other, never stacked: in training
 mode a BatchNorm embedding updates its running statistics twice per step,
-the second time on top of the first, as in the JAX package.
+the second time on top of the first, as in the JAX package. Dropout as in
+:class:`vcrnet_tpu_torch.models.VCRNet`.
 """
 
 from __future__ import annotations
@@ -17,8 +18,7 @@ from torch import nn
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models._common import FlaxBatchNorm
-from vcrnet_tpu_torch.models.transformer import TransformerPointer
-from vcrnet_tpu_torch.models.vcrnet import compute_dtype, make_embedding
+from vcrnet_tpu_torch.models.vcrnet import compute_dtype, make_embedding, make_pointer
 from vcrnet_tpu_torch.utils.device import resolve_device
 
 
@@ -71,8 +71,8 @@ class DCP(nn.Module):
             raise ValueError(f"unknown pointer: {cfg.pointer}")
         if cfg.head not in ("svd", "mlp"):
             raise ValueError(f"unknown head: {cfg.head}")
-        if cfg.dropout > 0 or cfg.remat or cfg.t3d or cfg.tfea:
-            raise NotImplementedError("not ported yet: dropout, remat, t3d, tfea")
+        if cfg.t3d or cfg.tfea:
+            raise NotImplementedError("not ported yet: t3d, tfea")
         if cfg.int8_eval and cfg.compute_dtype == "bfloat16":
             raise NotImplementedError("not ported yet: int8_eval")
         self.cfg = cfg
@@ -82,12 +82,7 @@ class DCP(nn.Module):
             use_kernels = self.device.type == "cuda" and dtype is not None
         self.use_kernels = use_kernels
         self.emb_nn = make_embedding(cfg)
-        self.pointer = None
-        if cfg.pointer == "transformer":
-            self.pointer = TransformerPointer(
-                cfg.emb_dims, cfg.n_blocks, cfg.n_heads, cfg.ff_dims, dtype=dtype,
-                flash=use_kernels, partial=cfg.partial, overlap2=cfg.overlap2,
-            )
+        self.pointer, self.dropout_rng = make_pointer(cfg, self.device, dtype, use_kernels)
         self.mlp_head = MLPHead(cfg.emb_dims) if cfg.head == "mlp" else None
         self.to(self.device)
 
@@ -98,6 +93,8 @@ class DCP(nn.Module):
         return R, t, a, a
 
     def forward(self, src, tgt):
+        if self.training and self.dropout_rng is not None:
+            self.dropout_rng.reseed()
         src_emb = self.emb_nn(src, fused=self.use_kernels)[0]
         tgt_emb = self.emb_nn(tgt, fused=self.use_kernels)[0]
         if self.pointer is not None:

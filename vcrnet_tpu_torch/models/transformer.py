@@ -2,7 +2,16 @@
 
 One encoder-decoder shared by both directions, pre-norm residual
 sublayers ``x + f(norm(x))``, a final norm after encoder and decoder, and
-torch-style LayerNorm (unbiased std, eps added to the std). No dropout.
+torch-style LayerNorm (unbiased std, eps added to the std).
+
+Dropout at ``dropout`` (``Config.dropout``) in training mode, at the JAX
+package's three sites (transformer.py:299-303, 338-341, 346-350): the
+attention probabilities after the softmax (and the re-mask), the
+feed-forward's hidden activation between ``relu(w_1)`` and ``w_2``, and
+each residual branch ``x + drop(f(norm(x)))``. The masks come from the
+model's :class:`DropoutRng`. Active dropout needs the probabilities
+written out, so a sublayer that drops runs the plain attention, as the JAX
+package does; eval, and rate 0, keep the kernels.
 
 With ``flash=True`` (the CUDA bf16 route) attention runs the packed-head
 kernels through ``ops.attention.attention`` (forward, and the backward
@@ -35,7 +44,7 @@ import math
 import torch
 from torch import nn
 
-from vcrnet_tpu_torch.models._common import dense
+from vcrnet_tpu_torch.models._common import Dropout, DropoutRng, dense
 from vcrnet_tpu_torch.ops.attention import attention
 from vcrnet_tpu_torch.ops.colmass import softmax_colmass
 from vcrnet_tpu_torch.ops.layernorm import layer_norm_torch
@@ -80,7 +89,8 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, dtype=None, flash: bool = False,
                  remask: bool = False, overlap2: float = 1.0,
-                 stream_above: int = STREAM_REMASK_ABOVE):
+                 stream_above: int = STREAM_REMASK_ABOVE, dropout: float = 0.0,
+                 dropout_rng: DropoutRng | None = None):
         super().__init__()
         self.n_heads = n_heads
         self.dtype = dtype
@@ -92,6 +102,7 @@ class MultiHeadAttention(nn.Module):
         self.linear_k = nn.Linear(d_model, d_model)
         self.linear_v = nn.Linear(d_model, d_model)
         self.linear_out = nn.Linear(d_model, d_model)
+        self.attn_drop = Dropout(dropout, dropout_rng)
 
     def forward(self, query, key, value):
         B, nq, d = query.shape
@@ -109,9 +120,10 @@ class MultiHeadAttention(nn.Module):
         q = dense(self.linear_q, query, self.dtype)
         k = dense(self.linear_k, key, self.dtype)
         v = dense(self.linear_v, value, self.dtype)
-        if self.flash and not self.remask:
+        dropping = self.attn_drop.active  # the probabilities are written out
+        if self.flash and not self.remask and not dropping:
             x = attention(q, k, v, sm_scale, h)
-        elif (self.flash and self.remask and nk > self.stream_above
+        elif (self.flash and self.remask and not dropping and nk > self.stream_above
               and nk % 128 == 0 and nq % 128 == 0):
             col_mass = softmax_colmass(q, k, sm_scale, h).sum(dim=1)  # [B, Nk]
             keep = torch.topk(col_mass, int(nk * self.overlap2)).indices
@@ -125,77 +137,89 @@ class MultiHeadAttention(nn.Module):
             p = torch.softmax(scores, dim=-1)
             if self.remask:
                 p = _remask_topk_keys(scores, p, int(nk * self.overlap2))
+            p = self.attn_drop(p)
             x = torch.matmul(p.to(v.dtype).float(), heads(v))
             x = x.transpose(1, 2).reshape(B, nq, d)
         return dense(self.linear_out, x, self.dtype)
 
 
 class FeedForward(nn.Module):
-    """w_2(relu(w_1(x))); with ``flash`` the fused eval kernel where
+    """w_2(drop(relu(w_1(x)))); with ``flash`` the fused eval kernel where
     ``fused_ff_supported`` allows it."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype=None, flash: bool = False):
+    def __init__(self, d_model: int, d_ff: int, dtype=None, flash: bool = False,
+                 dropout: float = 0.0, dropout_rng: DropoutRng | None = None):
         super().__init__()
         self.dtype = dtype
         self.flash = flash
         self.w_1 = nn.Linear(d_model, d_ff)
         self.w_2 = nn.Linear(d_ff, d_model)
+        self.drop = Dropout(dropout, dropout_rng)
 
     def forward(self, x):
         if (self.flash and _eval_only(self)
                 and fused_ff_supported(x.shape[1], self.w_1.in_features, self.w_1.out_features)):
             return fused_ff(x, self.w_1.weight.t(), self.w_1.bias, self.w_2.weight.t(),
                             self.w_2.bias)
-        return dense(self.w_2, torch.relu(dense(self.w_1, x, self.dtype)), self.dtype)
+        h = self.drop(torch.relu(dense(self.w_1, x, self.dtype)))
+        return dense(self.w_2, h, self.dtype)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, n_heads, d_ff, dtype=None, flash=False):
+    def __init__(self, d_model, n_heads, d_ff, dtype=None, flash=False, dropout=0.0,
+                 dropout_rng=None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, flash)
-        self.ff = FeedForward(d_model, d_ff, dtype, flash)
+        drop = dict(dropout=dropout, dropout_rng=dropout_rng)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, flash, **drop)
+        self.ff = FeedForward(d_model, d_ff, dtype, flash, **drop)
         self.norm0 = TorchLayerNorm(d_model)
         self.norm1 = TorchLayerNorm(d_model)
+        self.drop = Dropout(dropout, dropout_rng)  # each residual branch, a mask a call
 
     def forward(self, x):
         y = self.norm0(x)
-        x = x + self.self_attn(y, y, y)
-        return x + self.ff(self.norm1(x))
+        x = x + self.drop(self.self_attn(y, y, y))
+        return x + self.drop(self.ff(self.norm1(x)))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, n_heads, d_ff, dtype=None, flash=False, partial=False,
-                 overlap2=1.0):
+                 overlap2=1.0, dropout=0.0, dropout_rng=None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, flash)
+        drop = dict(dropout=dropout, dropout_rng=dropout_rng)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, flash, **drop)
         self.src_attn = MultiHeadAttention(d_model, n_heads, dtype, flash, remask=partial,
-                                           overlap2=overlap2)
-        self.ff = FeedForward(d_model, d_ff, dtype, flash)
+                                           overlap2=overlap2, **drop)
+        self.ff = FeedForward(d_model, d_ff, dtype, flash, **drop)
         self.norm0 = TorchLayerNorm(d_model)
         self.norm1 = TorchLayerNorm(d_model)
         self.norm2 = TorchLayerNorm(d_model)
+        self.drop = Dropout(dropout, dropout_rng)  # each residual branch, a mask a call
 
     def forward(self, x, memory):
         y = self.norm0(x)
-        x = x + self.self_attn(y, y, y)
-        x = x + self.src_attn(self.norm1(x), memory, memory)
-        return x + self.ff(self.norm2(x))
+        x = x + self.drop(self.self_attn(y, y, y))
+        x = x + self.drop(self.src_attn(self.norm1(x), memory, memory))
+        return x + self.drop(self.ff(self.norm2(x)))
 
 
 class TransformerPointer(nn.Module):
     """(src_emb, tgt_emb) -> (src_delta, tgt_delta): tgt' = decode(tgt |
     encode(src)), src' = decode(src | encode(tgt)), shared weights.
     ``partial`` re-masks the decoder's cross attention to the
-    ``int(Nk * overlap2)`` heaviest keys."""
+    ``int(Nk * overlap2)`` heaviest keys; ``dropout`` > 0 needs
+    ``dropout_rng``."""
 
     def __init__(self, emb_dims=512, n_blocks=1, n_heads=4, ff_dims=1024, dtype=None,
-                 flash=False, partial=False, overlap2=1.0):
+                 flash=False, partial=False, overlap2=1.0, dropout=0.0, dropout_rng=None):
         super().__init__()
+        drop = dict(dropout=dropout, dropout_rng=dropout_rng)
         self.enc_layers = nn.ModuleList(
-            EncoderLayer(emb_dims, n_heads, ff_dims, dtype, flash) for _ in range(n_blocks)
+            EncoderLayer(emb_dims, n_heads, ff_dims, dtype, flash, **drop)
+            for _ in range(n_blocks)
         )
         self.dec_layers = nn.ModuleList(
-            DecoderLayer(emb_dims, n_heads, ff_dims, dtype, flash, partial, overlap2)
+            DecoderLayer(emb_dims, n_heads, ff_dims, dtype, flash, partial, overlap2, **drop)
             for _ in range(n_blocks)
         )
         self.enc_norm = TorchLayerNorm(emb_dims)

@@ -16,6 +16,11 @@ otherwise through the plain PyTorch formulation of the JAX package's XLA
 path. In training mode (``model.train()``) the kernel route's head is
 the differentiable streaming one when ``cfg.streaming_vcp_train`` is
 set, as in the JAX package, and the plain formulation otherwise.
+
+With ``cfg.dropout`` > 0 the pointer drops in training mode, its masks
+drawn from ``model.dropout_rng``, which ``forward`` seeds again on entry
+from its ``seed`` (the trainer sets it each step), so a forward recomputed
+under ``torch.utils.checkpoint`` draws the same masks.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
+from vcrnet_tpu_torch.models._common import DropoutRng
 from vcrnet_tpu_torch.models.embeddings import DGCNN, LPDNet, PointNet
 from vcrnet_tpu_torch.models.heads import vcp_top_k_partial, vcp_top_k_whole
 from vcrnet_tpu_torch.models.transformer import TransformerPointer
@@ -48,14 +54,25 @@ def make_embedding(cfg: Config) -> nn.Module:
     raise ValueError(f"unknown emb_nn: {cfg.emb_nn}")
 
 
+def make_pointer(cfg: Config, device: torch.device, dtype, flash: bool):
+    """(pointer, dropout_rng): the :class:`TransformerPointer` ``cfg.pointer``
+    names (None for ``identity``) and the :class:`DropoutRng` of its dropout
+    on ``device`` (None at rate 0)."""
+    if cfg.pointer != "transformer":
+        return None, None
+    rng = DropoutRng(device) if cfg.dropout > 0 else None
+    return TransformerPointer(
+        cfg.emb_dims, cfg.n_blocks, cfg.n_heads, cfg.ff_dims, dtype=dtype, flash=flash,
+        partial=cfg.partial, overlap2=cfg.overlap2, dropout=cfg.dropout, dropout_rng=rng,
+    ), rng
+
+
 def check_supported(cfg: Config) -> None:
     unsupported = {
         "pointer": cfg.pointer not in ("transformer", "identity"),
         "vcp_nn": cfg.vcp_nn != "topK",
         "t3d": cfg.t3d,
         "tfea": cfg.tfea,
-        "dropout": cfg.dropout > 0,
-        "remat": cfg.remat,
         # the JAX package quantizes the pointer projections only in bf16
         "int8_eval": cfg.int8_eval and cfg.compute_dtype == "bfloat16",
     }
@@ -78,12 +95,7 @@ class VCRNet(nn.Module):
             use_kernels = self.device.type == "cuda" and dtype is not None
         self.use_kernels = use_kernels
         self.emb_nn = make_embedding(cfg)
-        self.pointer = None
-        if cfg.pointer == "transformer":
-            self.pointer = TransformerPointer(
-                cfg.emb_dims, cfg.n_blocks, cfg.n_heads, cfg.ff_dims, dtype=dtype,
-                flash=use_kernels, partial=cfg.partial, overlap2=cfg.overlap2,
-            )
+        self.pointer, self.dropout_rng = make_pointer(cfg, self.device, dtype, use_kernels)
         self.to(self.device)
 
     def embed(self, x, spatial_idx=None, feature_idx=None):
@@ -126,6 +138,8 @@ class VCRNet(nn.Module):
         return vcp_top_k_whole(src_emb, tgt_emb, src, tgt, fused=fused)
 
     def forward(self, src, tgt):
+        if self.training and self.dropout_rng is not None:
+            self.dropout_rng.reseed()
         # both clouds embedded in one call, stacked on the batch axis; not
         # when a BatchNorm embedding trains: stacking would pool the two
         # clouds' batch statistics (LPDNet has none; in eval the running

@@ -12,6 +12,20 @@ partial-overlap mode is not ported (its hard selections need the JAX
 package's zero-gradient handling), so the training step refuses
 ``cfg.partial``.
 
+With ``cfg.dropout`` > 0 the pointer's dropout masks are drawn from the
+model's generator seeded from (``cfg.seed + 0xD0``, step), the JAX
+package's fold. With ``cfg.remat`` the training forward runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint(fwd)``: its activations are recomputed in the backward,
+where the BatchNorm running statistics are not updated a second time and
+the dropout generator is seeded again, so the recompute draws the same
+masks. The epochs feed batches through ``data.pipeline.prefetch``: a
+worker thread builds each batch and pins it (``stage``), the training
+thread copies it to the card without blocking (``to_device``).
+``train_step_raw`` augments raw clouds on the card
+(``data.augment.device_augment_batch``) from a generator seeded from
+(``cfg.seed``, step).
+
 VCR-Net losses (reference vcrnet_model.py:711-720):
   pose:  MSE(R_pred^T R_gt, I) + MSE(t_pred, t_gt)
   point: MSE(R_gt srcK + t_gt, src_corrK)
@@ -30,7 +44,7 @@ everywhere else (the pointer, DGCNN's and PointNet's bias-free convs, the
 MLP head), LayerNorm and BatchNorm scale one and shift zero. ``fit``
 saves and resumes through ``train/checkpoint.py`` and writes the reference's
 TensorBoard scalars through a ``utils/logging.py::MetricsWriter``. The
-raw-cloud on-device augmentation and the LPD/ICP families are not ported.
+LPD/ICP families are not ported.
 """
 
 from __future__ import annotations
@@ -41,10 +55,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
-from vcrnet_tpu_torch.data.synthetic import PAIR_KEYS
+from vcrnet_tpu_torch.data.augment import PAIR_KEYS, device_augment_batch
+from vcrnet_tpu_torch.data.pipeline import prefetch
+from vcrnet_tpu_torch.models._common import frozen_batch_stats
 from vcrnet_tpu_torch.models.dcp import DCP
 from vcrnet_tpu_torch.models.embeddings import LPDNet
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_iter
@@ -53,6 +70,9 @@ from vcrnet_tpu_torch.train.checkpoint import load_fit_state, save_checkpoint, s
 from vcrnet_tpu_torch.train.optim import (
     EARLY_STOP_LR, ReduceLROnPlateau, initial_lr, make_optimizer, set_lr,
 )
+from vcrnet_tpu_torch.utils.rng import fold_seed
+
+DROPOUT_SEED_OFFSET = 0xD0  # the JAX package's dropout key: PRNGKey(seed + 0xD0)
 
 LPDNET_SLOPE = 0.0  # the embedding's leaky slope inside VCR-Net
 
@@ -140,6 +160,7 @@ class Trainer:
         init_like_jax(self.model, cfg.seed if seed is None else seed)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.step = 0
+        self._augment_gen = None  # train_step_raw's generator, made at first use
 
     # ------------------------------------------------------------------
     # loss and metric sums
@@ -226,15 +247,48 @@ class Trainer:
     # steps
     # ------------------------------------------------------------------
 
+    def stage(self, batch: dict) -> dict:
+        """A batch of numpy arrays (or tensors) as f32 host tensors with
+        ``valid`` (default all ones), pinned where the trainer's device is
+        the card: the worker thread's share of the epoch feed. ``label``
+        is dropped."""
+        out = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+               for k, v in batch.items() if k != "label"}
+        if "valid" not in out:
+            out["valid"] = torch.ones(next(iter(out.values())).shape[0])
+        if self.device.type == "cuda":
+            out = {k: v.pin_memory() for k, v in out.items()}
+        return out
+
     def to_device(self, batch: dict) -> dict:
         """numpy or tensor batch -> f32 tensors on the trainer's device,
-        with ``valid`` (default all ones)."""
-        out = {k: torch.as_tensor(batch[k], dtype=torch.float32).to(self.device)
-               for k in PAIR_KEYS}
+        with ``valid`` (default all ones). Copies from pinned tensors
+        (``stage``) do not block the host: they queue on the current
+        stream behind the kernels already issued."""
+        def put(x):
+            return torch.as_tensor(x, dtype=torch.float32).to(self.device, non_blocking=True)
+
+        out = {k: put(batch[k]) for k in PAIR_KEYS}
         valid = batch.get("valid")
         out["valid"] = (torch.ones(out["src"].shape[0], device=self.device) if valid is None
-                        else torch.as_tensor(valid, dtype=torch.float32).to(self.device))
+                        else put(valid))
         return out
+
+    def _train_forward(self, src, tgt):
+        """The model's training forward, under ``torch.utils.checkpoint``
+        with ``cfg.remat``; its recompute updates no running statistics."""
+        if not self.cfg.remat:
+            return self.model(src, tgt)
+        calls = []
+
+        def forward(s, t):
+            calls.append(None)
+            if len(calls) == 1:
+                return self.model(s, t)
+            with frozen_batch_stats(self.model):
+                return self.model(s, t)
+
+        return checkpoint(forward, src, tgt, use_reentrant=False)
 
     def compute_grads(self, batch: dict):
         """Forward in training mode, loss, backward: leaves the gradients
@@ -243,8 +297,11 @@ class Trainer:
             raise NotImplementedError("training in partial-overlap mode is not ported yet")
         b = self.to_device(batch)
         self.model.train()
+        if self.model.dropout_rng is not None:
+            self.model.dropout_rng.seed = fold_seed(self.cfg.seed + DROPOUT_SEED_OFFSET,
+                                                    self.step)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, sums = self.loss_and_sums(self.model(b["src"], b["tgt"]), b)
+        loss, sums = self.loss_and_sums(self._train_forward(b["src"], b["tgt"]), b)
         loss.backward()
         return loss.detach(), sums
 
@@ -255,6 +312,23 @@ class Trainer:
         self.optimizer.step()
         self.step += 1
         return sums
+
+    def train_step_raw(self, batch: dict) -> dict:
+        """One optimizer step on raw clouds (``batch['clouds']`` [B, M, 3],
+        optional ``valid``): the registration pairs are drawn on the
+        trainer's device by ``device_augment_batch`` from a generator seeded
+        from (``cfg.seed``, step). Returns the batch's metric sums."""
+        clouds = torch.as_tensor(batch["clouds"], dtype=torch.float32).to(self.device,
+                                                                         non_blocking=True)
+        if self._augment_gen is None:
+            self._augment_gen = torch.Generator(device=self.device)
+        self._augment_gen.manual_seed(fold_seed(self.cfg.seed, self.step))
+        pairs = device_augment_batch(self._augment_gen, clouds, self.cfg)
+        valid = batch.get("valid")
+        pairs["valid"] = (torch.ones(clouds.shape[0], device=self.device) if valid is None
+                          else torch.as_tensor(valid, dtype=torch.float32).to(
+                              self.device, non_blocking=True))
+        return self.train_step(pairs)
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
@@ -275,14 +349,24 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def train_epoch(self, loader) -> dict:
+        """One epoch of ``train_step`` over a batch iterable, fed through
+        ``prefetch``; returns the epoch's summary."""
         acc = M.EpochAccumulator()
-        for batch in loader:
+        for batch in prefetch(loader, self.stage):
             acc.add(self.train_step(batch))
+        return M.summarize(acc)
+
+    def train_epoch_raw(self, cloud_batches) -> dict:
+        """One epoch of ``train_step_raw`` over an iterable of raw-cloud
+        batches [B, M, 3], fed through ``prefetch``."""
+        acc = M.EpochAccumulator()
+        for batch in prefetch(cloud_batches, lambda c: self.stage({"clouds": c})):
+            acc.add(self.train_step_raw(batch))
         return M.summarize(acc)
 
     def eval_epoch(self, loader) -> dict:
         acc = M.EpochAccumulator()
-        for batch in loader:
+        for batch in prefetch(loader, self.stage):
             acc.add(self.eval_step(batch))
         return M.summarize(acc)
 
