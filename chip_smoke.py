@@ -97,7 +97,29 @@ Phases (any failure raises and the script exits non-zero):
            <= 1/5 of the untrained model's; DCP on DGCNN 15 epochs, <= 0.75 of
            the untrained model's, its kernel route within 0.5 deg (median per
            pair) and 0.01 of the plain route on the trained statistics; the
-           exact launches of both fits.
+           exact launches of both fits;
+14. partial_train  training in partial-overlap mode at full width, bf16:
+           VCR-Net from the committed checkpoint at overlap 0.575 (768
+           points), B = 8, kernels and plain route: a finite loss, every
+           gradient exactly zero, the forward kernels alone launched; after 3
+           steps the routes' parameters equal, no weight moved more than
+           1.01 lr a step; after 20 steps the 73-pair partial protocol served
+           beside the untouched checkpoint (printed); DCP on DGCNN at overlap
+           0.575 and 0.75 from a seeded init: gradient cosine to the plain
+           route >= 0.99, the loss falls over 20 Adam steps, the launches of
+           a step, step time at B = 8 and 64;
+15. icp     Trainer(model="icp").eval_epoch on the synthetic eval set (128
+           pairs, N = 1024, B = 32): rot and trans RMSE, the iterations
+           executed, one batch on the CPU within 1e-3 deg per pair (median);
+           Registrar at iter=0 (net + ICP) on the committed checkpoint: the
+           launches of a 1-pair request as iter=1's, within 0.25 deg of the
+           plain route, latency for 1 / 8 / 64 pairs;
+16. lpd     LPD pretraining at N = 1024 (LPDNet at the slope 0.2 through the
+           edge kernels): gradient cosine to the plain route >= 0.99 at
+           B = 8, the launches of a step, the loss falls over 20 Adam steps,
+           step time at B = 16 and 32; a 2-epoch fit with checkpoints whose
+           best embedding merges into a VCR-Net Trainer bit for bit, which
+           then takes a step.
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -3001,6 +3023,342 @@ def phase_converge():
     return total
 
 
+# ---------------------------------------------------------------------------
+# the last model families: partial-overlap training, ICP and net + ICP, LPD
+# ---------------------------------------------------------------------------
+
+BACKWARD_KERNELS = ("gather_max_bwd", "edge_conv_bwd", "flash_bwd", "vcp_bwd")
+# VCR-Net's partial training step: the forward kernels only (LPDNet's two
+# blocks on the stacked clouds; 4 attentions, the 2 re-masked cross
+# attentions write their scores out; the head is plain), no backward: the
+# loss has no gradient path
+PARTIAL_TRAIN_LAUNCHES = {"knn_gather_max": 1, "edge_conv": 1, "flash_packed": 4}
+# DCP on DGCNN on partial crops: both clouds' kNN, 4 flash attentions and
+# their backward (the re-masked ones are plain)
+DCP_PARTIAL_LAUNCHES = {"knn": 2, "flash_packed": 4, "flash_bwd": 4}
+# LPD's step: LPDNet on the stacked clouds, forward with winners and backward
+LPD_LAUNCHES = {"knn_gather_max": 1, "edge_conv": 1, "edge_conv_bwd": 1, "gather_max_bwd": 1}
+PARTIAL_STEPS = 3          # steps through both routes, parameters held equal
+PARTIAL_FINE_TUNE = 20     # steps before the partial protocol is served again
+PARTIAL_MOVE_FACTOR = 1.01  # a weight-decay-only Adam step moves a weight by <= 1.01 lr
+ICP_CPU_AGREEMENT_DEG = 1e-3  # ICP on the card against the CPU, median per pair
+LPD_FIT_EPOCHS = 2
+
+
+def grad_cosine(cfg, batch, what: str):
+    """Gradients of a kernel-route and a plain-route Trainer of ``cfg``
+    (seed 0) on ``batch``: prints each parameter's cosine and returns
+    (whole-model cosine, kernel-route loss, the two trainers)."""
+    import torch
+
+    from vcrnet_tpu_torch.train import Trainer
+
+    kern = Trainer(cfg, seed=0)
+    plain = Trainer(cfg, seed=0, use_kernels=False)
+    check(kern.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+    loss_k, _ = kern.compute_grads(batch)
+    loss_p, _ = plain.compute_grads(batch)
+    gk, gp = [], []
+    for (name, pk), (_, pp) in zip(kern.model.named_parameters(), plain.model.named_parameters()):
+        gk.append(pk.grad.reshape(-1).float())
+        gp.append(pp.grad.reshape(-1).float())
+        print(f"{what} grad cosine {name}: {_cosine(gk[-1], gp[-1])}", flush=True)
+    cos = _cosine(torch.cat(gk), torch.cat(gp))
+    print(f"{what}: loss kernels {loss_k.item()} plain {loss_p.item()}; whole-model grad cosine "
+          f"{cos}", flush=True)
+    check(math.isfinite(loss_k.item()) and math.isfinite(loss_p.item()), f"{what}: non-finite loss")
+    return cos, loss_k.item(), kern, plain
+
+
+def step_launches(trainer, batch, expected: dict, what: str) -> dict:
+    """The launches of one training step (after the steps already taken)."""
+    import torch
+
+    from vcrnet_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"{what}: launches of one step: {launches}", flush=True)
+    check_launches(launches, expected, what)
+    return launches
+
+
+def losses_fall(trainer, batch, what: str) -> list:
+    """``TRAIN_STEPS`` + 1 Adam steps on one batch; the loss per pair must
+    fall."""
+    losses = []
+    for _ in range(TRAIN_STEPS + 1):
+        sums = trainer.train_step(batch)
+        losses.append((sums["loss"] / sums["count"]).item())
+    print(f"{what}: losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss in the Adam steps")
+    check(losses[-1] < losses[0], f"{what}: loss after {TRAIN_STEPS} steps {losses[-1]} >= "
+          f"first {losses[0]}")
+    return losses
+
+
+def print_step_times(trainer, cfg, batches, what: str) -> None:
+    for b in batches:
+        times = timed_steps_ms(trainer, trainer.to_device(_train_batch(cfg, b, seed=2)))
+        print(f"{what}: step at B={b}: median {statistics.median(times)} ms (5 steps: {times})",
+              flush=True)
+
+
+def phase_partial_train():
+    """Training in partial-overlap mode (ROADMAP A4), full width, bf16:
+
+    1. VCR-Net from the committed checkpoint at overlap 0.575 (768 points),
+       B = 8, through the kernels and the plain route: the loss finite,
+       every gradient exactly zero, no backward kernel launched; after 3
+       steps the two routes' parameters equal, each step moving a weight by
+       at most 1.01 lr (weight decay alone); the step time; after 20 such
+       steps the 73-pair partial protocol (iter=3) served again beside the
+       untouched checkpoint (a record: finite, no limit);
+    2. DCP on DGCNN at overlap 0.575 and 0.75 (768, 885 points) from a
+       seeded init: kernel vs plain gradient cosine >= 0.99 at B = 8, the
+       loss falls over 20 Adam steps, the launches of a step, the step time
+       at B = 8 and 64.
+    Returns the launches of the steps counted."""
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    total = {}
+    state_dict = load_checkpoint(CHECKPOINT)
+    cfg = Config(compute_dtype="bfloat16", num_points=N, partial=True, overlap=0.575)
+    batch = _train_batch(cfg, 8, seed=1)
+    check(batch["src"].shape == (8, cfg.n_cropped, 3) and cfg.n_cropped == 768,
+          f"partial_train: batch {batch['src'].shape}")
+    kern = Trainer(cfg, seed=0)
+    plain = Trainer(cfg, seed=0, use_kernels=False)
+    check(kern.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+    names = [n for n, _ in kern.model.named_parameters()]
+    for tr in (kern, plain):
+        tr.model.load_state_dict(state_dict)
+        loss, _ = tr.compute_grads(batch)
+        print(f"partial_train VCR-Net: loss {loss.item()} (kernels: {tr.model.use_kernels})",
+              flush=True)
+        check(math.isfinite(loss.item()), "partial_train: non-finite loss")
+        check(tr.grads_filled == names, "partial_train: a gradient path reached a parameter")
+        check(all(not p.grad.any() for p in tr.model.parameters()),
+              "partial_train: a gradient is not exactly zero")
+    lr = kern.optimizer.param_groups[0]["lr"]
+    worst = 0.0
+    for i in range(PARTIAL_STEPS):
+        before = [p.detach().clone() for p in kern.model.parameters()]
+        if i == PARTIAL_STEPS - 1:
+            add_launches(total, step_launches(kern, batch, PARTIAL_TRAIN_LAUNCHES,
+                                              "partial_train VCR-Net"))
+        else:
+            kern.train_step(batch)
+        plain.train_step(batch)
+        worst = max(worst, max((p - q).abs().max().item()
+                               for p, q in zip(kern.model.parameters(), before)))
+        check(all(torch.equal(p, q) for p, q in zip(kern.model.parameters(),
+                                                     plain.model.parameters())),
+              f"partial_train: the routes' parameters differ after step {i + 1}")
+    print(f"partial_train VCR-Net: {PARTIAL_STEPS} steps, the routes' parameters equal; the "
+          f"largest move of a weight in a step {worst} (lr {lr})", flush=True)
+    check(worst <= PARTIAL_MOVE_FACTOR * lr, f"partial_train: a weight moved {worst} > "
+          f"{PARTIAL_MOVE_FACTOR} lr in one step")
+    del plain
+    print_step_times(kern, cfg, (8,), "partial_train VCR-Net")
+    while kern.step < PARTIAL_FINE_TUNE:  # the timing took steps too
+        kern.train_step(batch)
+    scfg = Config(compute_dtype="bfloat16", iter=3, num_points=N, partial=True, overlap=0.575)
+    data = shapes_eval_set(sum(REQUESTS), num_points=N, partial=True)
+    requests = split_requests(data, REQUESTS)
+    accs = {}
+    for name, weights in (("untouched checkpoint", state_dict),
+                          (f"after {PARTIAL_FINE_TUNE} partial steps", kern.model.state_dict())):
+        accs[name] = accuracy(*serve_all(Registrar(scfg, weights), requests), data)
+    print(f"partial_train VCR-Net: the partial protocol (73 pairs, iter=3): {accs}", flush=True)
+    check(all(math.isfinite(v) for a in accs.values() for v in a.values()),
+          "partial_train: non-finite accuracy")
+    del kern
+    torch.cuda.empty_cache()
+
+    for overlap, n_crop in ((0.575, 768), (0.75, 885)):
+        what = f"partial_train DCP/DGCNN overlap {overlap}"
+        cfg = Config(model="dcp", emb_nn="dgcnn", compute_dtype="bfloat16", num_points=N,
+                     partial=True, overlap=overlap)
+        batch = _train_batch(cfg, 8, seed=1)
+        check(batch["src"].shape == (8, n_crop, 3), f"{what}: batch {batch['src'].shape}")
+        cos, _, kern, plain = grad_cosine(cfg, batch, what)
+        check(kern.grads_filled == [] and plain.grads_filled == [],
+              f"{what}: a parameter got no gradient")
+        check(cos >= GRAD_COSINE_MIN, f"{what}: kernel vs plain gradient cosine {cos} < "
+              f"{GRAD_COSINE_MIN}")
+        del kern, plain
+        tr = Trainer(cfg, seed=0)
+        losses_fall(tr, batch, what)
+        add_launches(total, step_launches(tr, batch, DCP_PARTIAL_LAUNCHES, what))
+        print_step_times(tr, cfg, BATCHES, what)
+        del tr
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_icp():
+    """ICP and net + ICP (ROADMAP A5):
+
+    1. ``Trainer(model="icp").eval_epoch`` on the synthetic eval set (128
+       pairs, N = 1024, B = 32): rot and trans RMSE, the mean number of
+       iterations executed (of 50), and one batch again on the CPU through
+       the port, within 1e-3 deg per pair (median);
+    2. ``Registrar(Config(iter=0))`` on the committed checkpoint at 1, 8 and
+       64 pairs: the launches of a 1-pair request as iter=1's (the net's
+       pass), rot RMSE through the kernels within 0.25 deg of the plain
+       route, beside iter=1's; latency.
+    Returns the launches of the 1-pair request."""
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.pipeline import make_loaders
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.models.icp import icp_register
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    cfg = Config(model="icp", dataset="synthetic", num_points=N, test_batch_size=32)
+    np.random.seed(0)
+    _, test = make_loaders(cfg)
+    batches = list(test)
+    check(len(test.dataset) == 128 and len(batches) == 4, f"icp: eval set {len(test.dataset)}")
+    tr = Trainer(cfg)
+    check(tr.model is None and tr.optimizer is None, "icp: a parameter-free trainer")
+    tr.eval_epoch(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = tr.eval_epoch(batches)
+    eval_s = time.perf_counter() - t0
+    iters = []
+    for b in batches:
+        src, tgt = (torch.as_tensor(b[k]).to(tr.device) for k in ("src", "tgt"))
+        iters.append(icp_register(src, tgt, max_iterations=cfg.max_iterations,
+                                  with_iters=True)[-1])
+    print(f"icp: eval_epoch over {len(test.dataset)} pairs in {eval_s} s: rot RMSE "
+          f"{summary['rot_ab_RMSE']} deg, trans RMSE {summary['trans_ab_RMSE']}; iterations "
+          f"executed per batch {iters} (mean {statistics.mean(iters)} of {cfg.max_iterations})",
+          flush=True)
+    check(math.isfinite(summary["rot_ab_RMSE"]) and math.isfinite(summary["trans_ab_RMSE"]),
+          "icp: non-finite RMSE")
+    check(all(1 <= n <= cfg.max_iterations for n in iters), f"icp: iterations {iters}")
+    src, tgt = batches[0]["src"], batches[0]["tgt"]
+    on_card = icp_register(torch.as_tensor(src).to(tr.device), torch.as_tensor(tgt).to(tr.device),
+                           with_iters=True)
+    on_cpu = icp_register(torch.as_tensor(src), torch.as_tensor(tgt), with_iters=True)
+    between = pair_rot_errors_deg(on_card[2].double().cpu().numpy(), on_cpu[2].double().numpy())
+    print(f"icp: one batch of 32 on the card and on the CPU: iterations {on_card[-1]} / "
+          f"{on_cpu[-1]}, rotation between them per pair median {float(np.median(between))} max "
+          f"{float(between.max())} deg", flush=True)
+    check(float(np.median(between)) <= ICP_CPU_AGREEMENT_DEG,
+          f"icp: card vs CPU rotations differ by more than {ICP_CPU_AGREEMENT_DEG} deg (median)")
+
+    state_dict = load_checkpoint(CHECKPOINT)
+    data = shapes_eval_set(sum(REQUESTS), num_points=N)
+    requests = split_requests(data, REQUESTS)
+    cfg0 = Config(compute_dtype="bfloat16", iter=0, num_points=N)
+    reg = Registrar(cfg0, state_dict)
+    plain = Registrar(cfg0, state_dict, use_kernels=False)
+    check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+    serve_all(reg, requests)  # warm-up
+    launches = one_request_launches(reg, *requests[0], LAUNCHES_ITER1, "icp net + ICP")
+    acc = accuracy(*serve_all(reg, requests), data)
+    acc_plain = accuracy(*serve_all(plain, requests), data)
+    acc1 = accuracy(*serve_all(Registrar(Config(compute_dtype="bfloat16", iter=1, num_points=N),
+                                         state_dict), requests), data)
+    print(f"icp net + ICP (iter=0): kernels {acc} plain {acc_plain}; iter=1 through the kernels "
+          f"{acc1}; over {len(data['src'])} pairs", flush=True)
+    check(abs(acc["rot_rmse_deg"] - acc_plain["rot_rmse_deg"]) <= PLAIN_AGREEMENT_DEG,
+          f"icp net + ICP: kernel vs plain rot RMSE differ by more than {PLAIN_AGREEMENT_DEG} deg")
+    print_latency(reg, requests, "icp net + ICP")
+    return launches
+
+
+def phase_lpd():
+    """LPD pretraining (ROADMAP A6), full width, bf16, N = 1024: LPDNet at
+    the slope 0.2 through the edge kernels and their backward. Kernel vs
+    plain gradient cosine >= 0.99 at B = 8, the launches of a step, the loss
+    falls over 20 Adam steps, the step time at B = 16 and 32; then a 2-epoch
+    fit with checkpoints, and its best embedding merged into a VCR-Net
+    Trainer (bit-equal) that takes one step. Returns the launches of the
+    step counted."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import Loader, SyntheticDataset
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train.checkpoint import merge_pretrained_embedding
+
+    cfg = Config(model="lpd", compute_dtype="bfloat16", num_points=N, batch_size=16,
+                 test_batch_size=16)
+    batch = _train_batch(cfg, 8, seed=1)
+    cos, _, kern, plain = grad_cosine(cfg, batch, "lpd")
+    check(kern.model.emb_nn.slope == 0.2, "lpd: LPDNet not at the slope 0.2")
+    check(kern.grads_filled == [] and plain.grads_filled == [], "lpd: a parameter got no gradient")
+    check(cos >= GRAD_COSINE_MIN, f"lpd: kernel vs plain gradient cosine {cos} < {GRAD_COSINE_MIN}")
+    del kern, plain
+    tr = Trainer(cfg, seed=0)
+    losses_fall(tr, batch, "lpd")
+    launches = step_launches(tr, batch, LPD_LAUNCHES, "lpd")
+    print_step_times(tr, cfg, (16, 32), "lpd")
+    del tr
+    torch.cuda.empty_cache()
+
+    np.random.seed(0)  # training pairs draw from the global generator
+    train = Loader(SyntheticDataset(cfg, "train", n_items=64, cloud_points=2 * N, seed=40,
+                                    kind="shapes"), 16, shuffle=True, drop_last=True)
+    test = Loader(SyntheticDataset(cfg, "test", n_items=32, cloud_points=2 * N, seed=41,
+                                   kind="shapes"), 16)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lpd_", dir=os.path.join(HERE, "build"))
+    try:
+        lpd = Trainer(cfg, seed=0)
+        t0 = time.perf_counter()
+        history = lpd.fit(train, test, epochs=LPD_FIT_EPOCHS, log=lambda s: None,
+                          checkpoint_dir=tmp)
+        fit_s = time.perf_counter() - t0
+        print(f"lpd: fit of {LPD_FIT_EPOCHS} epochs ({len(train)} steps each) in {fit_s} s: "
+              + "; ".join(f"epoch {h['epoch']} lr {h['lr']} train loss {h['train']['loss']} "
+                          f"test loss {h['test']['loss']} mse {h['test']['mse']} mae "
+                          f"{h['test']['mae']}" for h in history), flush=True)
+        check(len(history) == LPD_FIT_EPOCHS and all(math.isfinite(h["test"]["loss"])
+                                                     for h in history), "lpd: the fit failed")
+        check(all(h["lr"] == cfg.lr for h in history), "lpd: MultiStepLR moved before epoch 75")
+        saved = torch.load(os.path.join(tmp, "model.best.pt"), map_location="cpu",
+                           weights_only=True)["model"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emb = {k[len("emb_nn."):]: v for k, v in saved.items() if k.startswith("emb_nn.")}
+    vcr = Trainer(Config(compute_dtype="bfloat16", num_points=N), seed=0)
+    vcr.model.load_state_dict(merge_pretrained_embedding(vcr.model.state_dict(), emb))
+    merged = {k: v for k, v in vcr.model.state_dict().items() if k.startswith("emb_nn.")}
+    check(len(merged) == len(emb) == 12 and all(
+        torch.equal(v.cpu(), emb[k[len("emb_nn."):]]) for k, v in merged.items()),
+          "lpd: the merged embedding is not the LPD checkpoint's")
+    sums = vcr.train_step(batch)
+    loss = (sums["loss"] / sums["count"]).item()
+    print(f"lpd: the embedding of model.best merged into a VCR-Net Trainer ({len(emb)} tensors, "
+          f"bit-equal); its first step's loss {loss}", flush=True)
+    check(math.isfinite(loss), "lpd: non-finite VCR-Net loss after the merge")
+    return launches
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -3045,7 +3403,7 @@ def print_ptxas_reports(procs: dict) -> None:
 
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
-          "fused_pointer", "data", "regularise", "converge")
+          "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd")
 
 
 def main() -> int:
@@ -3111,6 +3469,12 @@ def main() -> int:
             launches[name] = phase_regularise()
         elif name == "converge":
             launches[name] = phase_converge()
+        elif name == "partial_train":
+            launches[name] = phase_partial_train()
+        elif name == "icp":
+            launches[name] = phase_icp()
+        elif name == "lpd":
+            launches[name] = phase_lpd()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -3171,6 +3535,9 @@ def main() -> int:
             "launches_data": launches["data"].get(name, 0),
             "launches_regularise": launches["regularise"].get(name, 0),
             "launches_converge": launches["converge"].get(name, 0),
+            "launches_partial_train": launches["partial_train"].get(name, 0),
+            "launches_icp": launches["icp"].get(name, 0),
+            "launches_lpd": launches["lpd"].get(name, 0),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

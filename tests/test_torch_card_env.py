@@ -2,11 +2,14 @@
 which has neither h5py nor tensorboardX nor flax (nor, for the port, any
 use of JAX): a subprocess in which those packages cannot be imported (a
 ``sys.meta_path`` finder ahead of every other raises ``ImportError`` for
-them) imports every module of the port and chip_smoke.py, runs the
-synthetic datasets and loaders, the synthetic fallback of ModelNet40, the
-velodyne frames written and read back without h5py, an epoch of training
-through prefetch and one on raw clouds, and finds that the ModelNet40 and
-KITTI readers raise an ImportError that names h5py."""
+them) imports every module of the port and chip_smoke.py (and, by name,
+the ICP, LPD and FPS modules and what chip_smoke.py's partial_train, icp
+and lpd phases call), runs the synthetic datasets and loaders, the
+synthetic fallback of ModelNet40, the velodyne frames written and read
+back without h5py, an epoch of training through prefetch and one on raw
+clouds, a partial-overlap step, an LPD epoch with a checkpoint merged into
+VCR-Net, ICP and net + ICP evals, and finds that the ModelNet40 and KITTI
+readers raise an ImportError that names h5py."""
 
 import os
 import subprocess
@@ -43,8 +46,15 @@ import vcrnet_tpu_torch
 for m in pkgutil.walk_packages(vcrnet_tpu_torch.__path__, "vcrnet_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+from chip_smoke import grad_cosine, phase_icp, phase_lpd, phase_partial_train
 
 from vcrnet_tpu_torch.config import Config
+from vcrnet_tpu_torch.models.icp import icp_register, nearest_neighbor_corr
+from vcrnet_tpu_torch.models.lpd import LPD, lpd_loss
+from vcrnet_tpu_torch.models.vcrnet import vcrnet_icp
+from vcrnet_tpu_torch.ops.fps import farthest_point_sample
+from vcrnet_tpu_torch.serve import Registrar
+from vcrnet_tpu_torch.train.checkpoint import merge_pretrained_embedding, save_checkpoint
 from vcrnet_tpu_torch.data import fixtures, pipeline
 from vcrnet_tpu_torch.data.kitti import KITTI, read_velodyne_bin
 from vcrnet_tpu_torch.data.modelnet40 import ModelNet40
@@ -94,6 +104,24 @@ summary = trainer.train_epoch(pipeline.Loader(small, 4, shuffle=True, drop_last=
 assert np.isfinite(summary["loss"]), summary
 summary = trainer.train_epoch_raw(small.raw_clouds().reshape(2, 4, 64, 3))
 assert np.isfinite(summary["loss"]) and trainer.step == 4, summary
+
+partial = Trainer(Config(partial=True, overlap=0.575, **tiny), device="cpu", seed=0)
+pairs = SyntheticDataset(partial.cfg, n_items=4, cloud_points=64)
+partial.train_epoch(pipeline.Loader(pairs, 4))
+assert len(partial.grads_filled) == len(list(partial.model.parameters()))
+
+lpd = Trainer(Config(model="lpd", **tiny), device="cpu", seed=0)
+summary = lpd.train_epoch(pipeline.Loader(small, 4))
+assert np.isfinite(summary["loss"]) and "mse" in summary, summary
+path = save_checkpoint(tmp, "lpd", lpd)
+emb = lpd.model.emb_nn.state_dict()
+trainer.model.load_state_dict(merge_pretrained_embedding(trainer.model.state_dict(), emb))
+
+icp = Trainer(Config(model="icp", **tiny), device="cpu")
+assert np.isfinite(icp.eval_epoch(pipeline.Loader(small, 4))["rot_ab_RMSE"])
+net_icp = Registrar(Config(iter=0, **tiny), trainer.model.state_dict(), device="cpu")
+clouds = small.raw_clouds()[:2, :32]
+assert np.isfinite(net_icp.register(clouds, clouds)["R"]).all()
 
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad

@@ -37,6 +37,7 @@ from vcrnet_tpu_torch.models import DCP, VCRNet, vcrnet_iter
 from vcrnet_tpu_torch.models import embeddings as emb
 from vcrnet_tpu_torch.models._common import FlaxBatchNorm
 from vcrnet_tpu_torch.models.dcp import MLPHead, svd_head_corr
+from vcrnet_tpu_torch.models.lpd import LPD
 from vcrnet_tpu_torch.ops import dgcnn, graph, knn
 from vcrnet_tpu_torch.ops._common import SMEM_LIMIT
 from vcrnet_tpu_torch.serve import Registrar
@@ -601,10 +602,10 @@ def test_init_follows_jax_distributions_for_the_new_modules(kw):
         elif ref.numel() >= 256:  # enough entries for a spread to mean something
             assert 0.8 < float(val.std() / ref.std()) < 1.25, name
             assert float(val.abs().max()) <= 1.3 * float(ref.abs().max()), name
-    with pytest.raises(NotImplementedError, match="lpd"):
-        Trainer(Config(**NARROW, model="lpd"), device="cpu")
-    with pytest.raises(NotImplementedError, match="icp"):
-        Trainer(Config(**NARROW, model="icp"), device="cpu")
+    lpd = Trainer(Config(**NARROW, model="lpd"), device="cpu")  # ported, tests/test_torch_lpd.py
+    assert isinstance(lpd.model, LPD) and lpd.model.emb_nn.slope == 0.2
+    icp = Trainer(Config(**NARROW, model="icp"), device="cpu")  # tests/test_torch_icp.py
+    assert icp.model is None and icp.optimizer is None
 
 
 @pytest.mark.parametrize("n_iter", [1, 3])

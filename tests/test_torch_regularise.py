@@ -288,6 +288,12 @@ def test_remat_trains_the_same_parameters_over_steps():
 
 
 def test_partial_training_is_still_refused():
+    """No longer refused: partial mode with remat and dropout runs the
+    forward (under the checkpoint) and, its loss having no gradient path,
+    no backward; every gradient is zero, as in the JAX package."""
     cfg = Config(**NARROW, partial=True, overlap=0.575, remat=True, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="partial"):
-        Trainer(cfg, device="cpu").compute_grads(_batch(JConfig(**NARROW)))
+    tr = Trainer(cfg, device="cpu")
+    loss, _ = tr.compute_grads(_batch(JConfig(**NARROW, partial=True, overlap=0.575)))
+    assert np.isfinite(float(loss)) and not loss.requires_grad
+    assert tr.grads_filled == [n for n, _ in tr.model.named_parameters()]
+    assert all(torch.equal(p.grad, torch.zeros_like(p)) for p in tr.model.parameters())

@@ -172,12 +172,16 @@ def test_synthetic_loader_matches_jax_batches():
 
 
 def test_partial_dropout_and_remat_are_refused():
-    """Training in partial-overlap mode is still refused; dropout and remat
-    are ported (tests/test_torch_regularise.py) and no longer refused."""
+    """None of the three is refused any more: training in partial-overlap
+    mode takes the JAX package's step on zero gradients
+    (tests/test_torch_partial_train.py), dropout and remat are ported
+    (tests/test_torch_regularise.py)."""
     cfg = Config(**NARROW, partial=True, overlap=0.575)
-    pair = make_pair_from_cloud(np.zeros((80, 3), np.float32), 0, cfg)
-    with pytest.raises(NotImplementedError, match="partial"):
-        Trainer(cfg, device="cpu").train_step(collate([pair]))
+    pair = make_pair_from_cloud(np.random.RandomState(0).rand(80, 3).astype(np.float32), 0, cfg)
+    tr = Trainer(cfg, device="cpu")
+    sums = tr.train_step(collate([pair]))
+    assert tr.step == 1 and np.isfinite(float(sums["loss"]))
+    assert tr.grads_filled == [n for n, _ in tr.model.named_parameters()]
     for kw in (dict(dropout=0.1), dict(remat=True)):
         tr = Trainer(Config(**NARROW, **kw), device="cpu")
         assert (tr.cfg.dropout, tr.cfg.remat) == (kw.get("dropout", 0.0), kw.get("remat", False))

@@ -1,12 +1,13 @@
-"""VCR-Net assembly and the eval-time refinement loop (counterpart of
-vcrnet_tpu/models/vcrnet.py:81-371), for eval and training.
+"""VCR-Net assembly and the eval-time refinement loops (counterpart of
+vcrnet_tpu/models/vcrnet.py:81-384), for eval and training.
 
 embed -> transformer pointer (residual) -> VCP head -> Procrustes SVD.
 The port covers the LPDNet, DGCNN and PointNet embeddings (without
 LPDNet's T-Nets), the transformer or identity pointer
 and the topK head, whole and partial-overlap (``cfg.partial``: the
 decoder's cross attention re-masks its keys and the head selects the
-likely-overlap points), and the refinement loop with all its caches.
+likely-overlap points), the refinement loop with all its caches, and net
++ ICP (``vcrnet_icp``, ``cfg.iter == 0``).
 
 Routes: with ``use_kernels`` (default: a CUDA device and
 ``compute_dtype="bfloat16"``, where the JAX package runs its Pallas
@@ -33,6 +34,7 @@ from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models._common import DropoutRng
 from vcrnet_tpu_torch.models.embeddings import DGCNN, LPDNet, PointNet
 from vcrnet_tpu_torch.models.heads import vcp_top_k_partial, vcp_top_k_whole
+from vcrnet_tpu_torch.models.icp import icp_register
 from vcrnet_tpu_torch.models.transformer import TransformerPointer
 from vcrnet_tpu_torch.utils.device import resolve_device
 
@@ -41,16 +43,22 @@ def compute_dtype(cfg: Config) -> torch.dtype | None:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
-def make_embedding(cfg: Config) -> nn.Module:
+LPDNET_SLOPE = 0.0  # LPDNet's leaky slope inside VCR-Net and DCP
+LPD_PRETRAIN_SLOPE = 0.2  # and in LPD pretraining
+
+
+def make_embedding(cfg: Config, for_lpd_pretrain: bool = False) -> nn.Module:
     """The embedding ``cfg.emb_nn`` names (vcrnet_tpu/models/vcrnet.py:
-    make_embedding). Each returns (embedding, spatial_idx, feature_idx) and
-    takes the selections back, where it has them."""
+    make_embedding); LPDNet at the slope 0.2 with ``for_lpd_pretrain``, 0
+    otherwise. Each returns (embedding, spatial_idx, feature_idx) and takes
+    the selections back, where it has them."""
     if cfg.emb_nn == "pointnet":
         return PointNet(cfg.emb_dims)
     if cfg.emb_nn == "dgcnn":
         return DGCNN(cfg.emb_dims, dtype=compute_dtype(cfg))
     if cfg.emb_nn == "lpdnet":
-        return LPDNet(cfg.emb_dims, negative_slope=0.0, dtype=compute_dtype(cfg))
+        slope = LPD_PRETRAIN_SLOPE if for_lpd_pretrain else LPDNET_SLOPE
+        return LPDNet(cfg.emb_dims, negative_slope=slope, dtype=compute_dtype(cfg))
     raise ValueError(f"unknown emb_nn: {cfg.emb_nn}")
 
 
@@ -213,3 +221,18 @@ def vcrnet_iter(model: VCRNet, src, tgt, n_iter: int):
             R_final, t_final = geometry.compose_transforms(R_ab, t_ab, R_final, t_final)
     R_ba, t_ba = geometry.invert_transform(R_final, t_final)
     return out[0], out[1], R_final, t_final, R_ba, t_ba
+
+
+def vcrnet_icp(model: VCRNet, src, tgt, max_iterations: int):
+    """The net once, then classical ICP from where it left the source,
+    the two transforms composed (reference vcrnetIcpNet,
+    vcrnet_model.py:46-62). The net's pass is ``vcrnet_iter`` at one
+    iteration, the same function as ``model(src, tgt)`` in eval mode, on
+    the serving route's launches. Returns (srcK, src_corrK, R_ab, t_ab,
+    R_ba, t_ba)."""
+    src_k, src_corr_k, R_ab, t_ab, _, _ = vcrnet_iter(model, src, tgt, 1)
+    moved = geometry.transform_points(src, R_ab, t_ab)
+    _, _, R_icp, t_icp, _, _ = icp_register(moved, tgt, max_iterations=max_iterations)
+    R_ab, t_ab = geometry.compose_transforms(R_icp, t_icp, R_ab, t_ab)
+    R_ba, t_ba = geometry.invert_transform(R_ab, t_ab)
+    return src_k, src_corr_k, R_ab, t_ab, R_ba, t_ba

@@ -1,4 +1,5 @@
-"""Graph primitives: pairwise distances, kNN selection, neighbour gathers.
+"""Graph primitives: pairwise distances, kNN and kFN selection, neighbour
+gathers.
 
 PyTorch counterpart of vcrnet_tpu/ops/graph.py (the XLA formulation).
 Channels-last [B, N, C] throughout. ``knn(method="exact")`` keeps the JAX
@@ -54,6 +55,14 @@ def knn(x: torch.Tensor, k: int, method: str = "auto") -> torch.Tensor:
         raise ValueError(f"unknown knn method {method!r}")
     with torch.no_grad():
         return select_topk(neg_pairwise_sqdist(x), k + 1)[..., 1:]
+
+
+def kfn(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices [B, N, k] (int32) of the k FARTHEST points of each point
+    (the LPD triplet loss's hard negatives): the top k of the squared
+    distances, ties to the smaller column (vcrnet_tpu/ops/graph.py:kfn)."""
+    with torch.no_grad():
+        return select_topk(pairwise_sqdist(x), k)
 
 
 def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,12 @@ sizes by repeating their first pair (the JAX package compiles one program
 per bucket; here the ladder keeps the kernels' batch shapes to a small
 set), oversized clouds are subsampled deterministically to
 ``cfg.n_cropped`` points (``cfg.num_points``, or its partial-overlap crop),
-the request runs ``cfg.iter`` refinement passes, and batches above the top bucket are split. Padding
-rows never reach the results: registration has no cross-pair coupling.
+the request runs ``cfg.iter`` refinement passes (net + ICP at
+``cfg.iter == 0``, ``cfg.max_iterations`` ICP iterations at most), and
+batches above the top bucket are split. Padding
+rows never reach the results: registration has no cross-pair coupling,
+but for ICP's stop, a batch-mean predicate, in which the padding rows take
+part, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 
 from vcrnet_tpu_torch.config import Config
-from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_iter
+from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_icp, vcrnet_iter
 
 
 class Registrar:
@@ -41,8 +45,6 @@ class Registrar:
     ):
         if not buckets or list(buckets) != sorted(set(buckets)):
             raise ValueError("buckets must be sorted, unique, non-empty")
-        if cfg.iter < 1:
-            raise NotImplementedError("cfg.iter == 0 (net + ICP) is not ported yet")
         self.cfg = cfg
         self.model = VCRNet(cfg, device=device, use_kernels=use_kernels)
         self.model.load_state_dict(state_dict)
@@ -98,10 +100,12 @@ class Registrar:
             src = np.concatenate([src, np.repeat(src[:1], bucket - b, axis=0)])
             tgt = np.concatenate([tgt, np.repeat(tgt[:1], bucket - b, axis=0)])
         dev = self.model.device
-        _, _, R_ab, t_ab, R_ba, t_ba = vcrnet_iter(
-            self.model, torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev),
-            self.cfg.iter,
-        )
+        src, tgt = torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev)
+        if self.cfg.iter > 0:
+            out = vcrnet_iter(self.model, src, tgt, self.cfg.iter)
+        else:
+            out = vcrnet_icp(self.model, src, tgt, self.cfg.max_iterations)
+        _, _, R_ab, t_ab, R_ba, t_ba = out
         # one device-to-host copy for all four results
         flat = torch.cat([R_ab.reshape(bucket, 9), t_ab, R_ba.reshape(bucket, 9), t_ba], 1)
         flat = flat.cpu().numpy()[:b]

@@ -1,5 +1,6 @@
-"""Training engine for VCR-Net and DCP (counterpart of
-vcrnet_tpu/train/engine.py, ``model="vcrnet"`` and ``model="dcp"``).
+"""Training engine for the four model families (counterpart of
+vcrnet_tpu/train/engine.py): ``model="vcrnet"``, ``"dcp"``, ``"lpd"``
+(LPDNet pretraining) and ``"icp"`` (parameter-free, eval only).
 
 One step is the JAX package's ``Trainer._train_step_impl``: forward (the
 model in training mode; LPDNet embeds both clouds in one stacked call, a
@@ -7,10 +8,18 @@ BatchNorm embedding one after the other, updating its running statistics
 twice), loss, gradients (on the kernel route the backward kernels of
 ``ops``), and the optimizer update; the metric sums of the batch stay on
 the device and are added up per epoch. VCR-Net's eval runs ``vcrnet_iter``
-at ``cfg.iter``, whole or partial-overlap; DCP's is one pass. Training in
-partial-overlap mode is not ported (its hard selections need the JAX
-package's zero-gradient handling), so the training step refuses
-``cfg.partial``.
+at ``cfg.iter``, or net + ICP (``vcrnet_icp``) at ``cfg.iter == 0``, whole
+or partial-overlap; DCP's and LPD's are one pass, ICP's ``icp_register``
+with DCP's sums.
+
+The gradient is JAX's dense tree: a parameter that no gradient path
+reaches gets a zero gradient, and the optimizer steps on it (its weight
+decay moves it). In partial-overlap mode VCR-Net's head outputs are all
+gathers, so no gradient reaches any parameter and its loss has none to
+give: the step runs no backward and Adam sees only the weight decay, each
+weight moving by about lr towards zero, as in the JAX package (whose
+notes record that partial-mode gradients are zero). DCP on partial crops
+has real gradients, through the re-masked cross attention.
 
 With ``cfg.dropout`` > 0 the pointer's dropout masks are drawn from the
 model's generator seeded from (``cfg.seed + 0xD0``, step), the JAX
@@ -19,9 +28,11 @@ package's fold. With ``cfg.remat`` the training forward runs under
 ``jax.checkpoint(fwd)``: its activations are recomputed in the backward,
 where the BatchNorm running statistics are not updated a second time and
 the dropout generator is seeded again, so the recompute draws the same
-masks. The epochs feed batches through ``data.pipeline.prefetch``: a
-worker thread builds each batch and pins it (``stage``), the training
-thread copies it to the card without blocking (``to_device``).
+masks (LPD pretraining runs neither, as in the JAX package, which applies
+its LPD model outside ``_apply``). The epochs feed batches through
+``data.pipeline.prefetch``: a worker thread builds each batch and pins it
+(``stage``), the training thread copies it to the card without blocking
+(``to_device``).
 ``train_step_raw`` augments raw clouds on the card
 (``data.augment.device_augment_batch``) from a generator seeded from
 (``cfg.seed``, step).
@@ -37,14 +48,19 @@ DCP losses (reference dcp_model.py:405-416):
   point: MSE(R_pred src + t_pred, src_corr)
 with the cycle term (x0.1) INSIDE the loss that is differentiated.
 
+LPD loss (reference lpdnet_model.py:191-229): the lazy triplet loss over
+32 FPS anchors with 8 hard negatives each, plus 0.03 x the embedding-norm
+regulariser, per sample; its sums are ``loss``, ``mse``, ``mae``, ``count``.
+
 Parameters are initialised from the JAX package's distributions (the
-same distributions, not the same bits): kaiming-uniform at the LPDNet
-slope with zero bias in LPDNet, lecun-normal (truncated) with zero bias
+same distributions, not the same bits): kaiming-uniform at the LPDNet's
+own slope with zero bias in LPDNet, lecun-normal (truncated) with zero bias
 everywhere else (the pointer, DGCNN's and PointNet's bias-free convs, the
 MLP head), LayerNorm and BatchNorm scale one and shift zero. ``fit``
 saves and resumes through ``train/checkpoint.py`` and writes the reference's
-TensorBoard scalars through a ``utils/logging.py::MetricsWriter``. The
-LPD/ICP families are not ported.
+TensorBoard scalars through a ``utils/logging.py::MetricsWriter``; LPD's
+``fit`` steps ``MultiStepLR([75, 150, 200], 0.1)`` and keeps the best
+``loss``.
 """
 
 from __future__ import annotations
@@ -64,27 +80,30 @@ from vcrnet_tpu_torch.data.pipeline import prefetch
 from vcrnet_tpu_torch.models._common import frozen_batch_stats
 from vcrnet_tpu_torch.models.dcp import DCP
 from vcrnet_tpu_torch.models.embeddings import LPDNet
-from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_iter
+from vcrnet_tpu_torch.models.icp import icp_register
+from vcrnet_tpu_torch.models.lpd import LPD, lpd_loss
+from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_icp, vcrnet_iter
 from vcrnet_tpu_torch.train import metrics as M
 from vcrnet_tpu_torch.train.checkpoint import load_fit_state, save_checkpoint, save_fit_state
 from vcrnet_tpu_torch.train.optim import (
-    EARLY_STOP_LR, ReduceLROnPlateau, initial_lr, make_optimizer, set_lr,
+    EARLY_STOP_LR, MultiStepLR, ReduceLROnPlateau, initial_lr, make_optimizer, set_lr,
 )
+from vcrnet_tpu_torch.utils.device import resolve_device
 from vcrnet_tpu_torch.utils.rng import fold_seed
 
 DROPOUT_SEED_OFFSET = 0xD0  # the JAX package's dropout key: PRNGKey(seed + 0xD0)
-
-LPDNET_SLOPE = 0.0  # the embedding's leaky slope inside VCR-Net
+MODELS = {"vcrnet": VCRNet, "dcp": DCP, "lpd": LPD, "icp": None}
 
 
 def init_like_jax(model: nn.Module, seed: int) -> None:
-    """Draw every Linear of ``model`` (a VCRNet or a DCP) from the JAX
+    """Draw every Linear of ``model`` (a VCRNet, DCP or LPD) from the JAX
     package's init distributions with a torch generator seeded by
-    ``seed``. Norm layers keep their construction values (scale 1, shift
-    0; running mean 0, variance 1)."""
+    ``seed``; an LPDNet's kaiming gain at its own slope (0 in VCR-Net and
+    DCP, 0.2 in LPD). Norm layers keep their construction values (scale 1,
+    shift 0; running mean 0, variance 1)."""
     g = torch.Generator().manual_seed(seed)
-    gain = math.sqrt(2.0 / (1.0 + LPDNET_SLOPE ** 2))
     lpdnet = isinstance(model.emb_nn, LPDNet)
+    gain = math.sqrt(2.0 / (1.0 + model.emb_nn.slope ** 2)) if lpdnet else None
     with torch.no_grad():
         for name, mod in model.named_modules():
             if not isinstance(mod, nn.Linear):
@@ -144,22 +163,25 @@ class Trainer:
     >>> sums = trainer.train_step(batch)            # numpy batch from a Loader
     >>> history = trainer.fit(train_loader, test_loader, epochs=2, checkpoint_dir="ckpt")
 
-    ``cfg.model`` picks :class:`VCRNet` or :class:`DCP`. ``device``
+    ``cfg.model`` picks :class:`VCRNet`, :class:`DCP` or :class:`LPD`;
+    ``"icp"`` has no model and no optimizer (eval only). ``device``
     defaults to ``"cuda"`` and raises where there is none; ``use_kernels``
     is passed to the model; ``seed`` (default ``cfg.seed``) draws the
     initial parameters."""
 
     def __init__(self, cfg: Config, device=None, use_kernels: bool | None = None,
                  seed: int | None = None):
-        if cfg.model not in ("vcrnet", "dcp"):
-            raise NotImplementedError(f"model={cfg.model!r} is not ported yet")
+        if cfg.model not in MODELS:
+            raise ValueError(f"unknown model: {cfg.model}")
         self.cfg = cfg
-        model_cls = DCP if cfg.model == "dcp" else VCRNet
-        self.model = model_cls(cfg, device=device, use_kernels=use_kernels)
-        self.device = self.model.device
-        init_like_jax(self.model, cfg.seed if seed is None else seed)
-        self.optimizer = make_optimizer(cfg, self.model.parameters())
+        self.model = self.optimizer = None
+        self.device = resolve_device(device)
+        if cfg.model != "icp":
+            self.model = MODELS[cfg.model](cfg, device=self.device, use_kernels=use_kernels)
+            init_like_jax(self.model, cfg.seed if seed is None else seed)
+            self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.step = 0
+        self.grads_filled: list = []  # compute_grads: parameters no gradient reached
         self._augment_gen = None  # train_step_raw's generator, made at first use
 
     # ------------------------------------------------------------------
@@ -169,10 +191,27 @@ class Trainer:
     def loss_and_sums(self, out, batch: dict):
         """(loss, sums): the batch loss (differentiable) and the metric
         sums of the batch (detached), weighted by ``batch['valid']``, from
-        the model's output tuple."""
-        if self.cfg.model == "dcp":
+        the model's output tuple (LPD: the two embeddings)."""
+        if self.cfg.model in ("dcp", "icp"):
             return self._dcp_loss_and_sums(out, batch)
+        if self.cfg.model == "lpd":
+            return self._lpd_loss_and_sums(out, batch)
         return self._vcrnet_loss_and_sums(out, batch)
+
+    def _lpd_loss_and_sums(self, out, batch: dict):
+        src_emb, tgt_emb = out
+        valid = batch["valid"]
+        loss_ps = lpd_loss(batch["src"], src_emb, tgt_emb, per_sample=True)
+        loss = _weighted_mean(loss_ps, valid)
+        with torch.no_grad():
+            diff = src_emb.float() - tgt_emb.float()
+            sums = {
+                "loss": (loss_ps * valid).sum(),
+                "mse": ((diff ** 2).mean(dim=(1, 2)) * valid).sum(),
+                "mae": (diff.abs().mean(dim=(1, 2)) * valid).sum(),
+                "count": valid.sum(),
+            }
+        return loss, {k: v.detach() for k, v in sums.items()}
 
     def _pose_sums(self, out_rt, batch: dict) -> dict:
         """The rotation / translation error sums of both directions."""
@@ -274,11 +313,18 @@ class Trainer:
                         else put(valid))
         return out
 
+    def _forward(self, src, tgt):
+        """The model's output tuple (LPD: the two embeddings alone)."""
+        if self.cfg.model == "lpd":
+            return self.model.embed_pair(src, tgt)
+        return self.model(src, tgt)
+
     def _train_forward(self, src, tgt):
         """The model's training forward, under ``torch.utils.checkpoint``
-        with ``cfg.remat``; its recompute updates no running statistics."""
-        if not self.cfg.remat:
-            return self.model(src, tgt)
+        with ``cfg.remat`` (not for LPD); its recompute updates no running
+        statistics."""
+        if not self.cfg.remat or self.cfg.model == "lpd":
+            return self._forward(src, tgt)
         calls = []
 
         def forward(s, t):
@@ -290,19 +336,31 @@ class Trainer:
 
         return checkpoint(forward, src, tgt, use_reentrant=False)
 
+    def _check_trainable(self) -> None:
+        if self.model is None:
+            raise ValueError(f"{self.cfg.model} can't be trained")
+
     def compute_grads(self, batch: dict):
         """Forward in training mode, loss, backward: leaves the gradients
-        in the parameters' ``.grad`` and returns (loss, sums)."""
-        if self.cfg.partial:
-            raise NotImplementedError("training in partial-overlap mode is not ported yet")
+        in the parameters' ``.grad`` and returns (loss, sums). A loss with
+        no gradient path (VCR-Net in partial mode) runs no backward; every
+        parameter whose gradient is then None gets zeros (their names in
+        ``grads_filled``), JAX's dense gradient tree."""
+        self._check_trainable()
         b = self.to_device(batch)
         self.model.train()
-        if self.model.dropout_rng is not None:
+        if getattr(self.model, "dropout_rng", None) is not None:
             self.model.dropout_rng.seed = fold_seed(self.cfg.seed + DROPOUT_SEED_OFFSET,
                                                     self.step)
         self.optimizer.zero_grad(set_to_none=True)
         loss, sums = self.loss_and_sums(self._train_forward(b["src"], b["tgt"]), b)
-        loss.backward()
+        if loss.requires_grad:
+            loss.backward()
+        self.grads_filled = []
+        for name, p in self.model.named_parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+                self.grads_filled.append(name)
         return loss.detach(), sums
 
     def train_step(self, batch: dict) -> dict:
@@ -330,18 +388,27 @@ class Trainer:
                               self.device, non_blocking=True))
         return self.train_step(pairs)
 
+    def _icp(self, b: dict):
+        """ICP's output in DCP's layout: (R_ab, t_ab, R_ba, t_ba, src, src)."""
+        R_ab, t_ab, R_ba, t_ba = icp_register(b["src"], b["tgt"],
+                                              max_iterations=self.cfg.max_iterations)[2:]
+        return R_ab, t_ab, R_ba, t_ba, b["src"], b["src"]
+
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
         """Metric sums of ``batch`` in eval mode (running statistics
-        frozen): VCR-Net through ``vcrnet_iter`` at ``cfg.iter``, DCP in
-        one pass."""
+        frozen): VCR-Net through ``vcrnet_iter`` at ``cfg.iter`` (net +
+        ICP at 0), DCP and LPD in one pass, ICP by ``icp_register``."""
         b = self.to_device(batch)
+        if self.cfg.model == "icp":
+            return self.loss_and_sums(self._icp(b), b)[1]
         self.model.eval()
-        if self.cfg.model == "dcp":
-            return self.loss_and_sums(self.model(b["src"], b["tgt"]), b)[1]
-        if self.cfg.iter < 1:
-            raise NotImplementedError("cfg.iter == 0 (net + ICP) is not ported yet")
-        out = vcrnet_iter(self.model, b["src"], b["tgt"], self.cfg.iter)
+        if self.cfg.model != "vcrnet":
+            return self.loss_and_sums(self._forward(b["src"], b["tgt"]), b)[1]
+        if self.cfg.iter > 0:
+            out = vcrnet_iter(self.model, b["src"], b["tgt"], self.cfg.iter)
+        else:
+            out = vcrnet_icp(self.model, b["src"], b["tgt"], self.cfg.max_iterations)
         return self.loss_and_sums(out, b)[1]
 
     # ------------------------------------------------------------------
@@ -374,14 +441,18 @@ class Trainer:
     def _per_sample_errors(self, batch: dict):
         """Per-sample squared errors of the A->B prediction in eval mode:
         rotation (euler z-y-x, degrees) and translation, and ``valid``; the
-        reference's worst-case mining (testVCRNet:808-813)."""
+        reference's worst-case mining (testVCRNet:808-813). VCR-Net at
+        ``cfg.iter == 0`` mines the net's one pass, as the JAX package does."""
         b = self.to_device(batch)
-        self.model.eval()
-        if self.cfg.model == "vcrnet":
-            if self.cfg.iter < 1:
-                raise NotImplementedError("cfg.iter == 0 (net + ICP) is not ported yet")
-            R_ab, t_ab = vcrnet_iter(self.model, b["src"], b["tgt"], self.cfg.iter)[2:4]
+        if self.cfg.model == "lpd":
+            raise ValueError("lpd predicts no transform to mine")
+        if self.cfg.model == "icp":
+            R_ab, t_ab = self._icp(b)[:2]
+        elif self.cfg.model == "vcrnet":
+            self.model.eval()
+            R_ab, t_ab = vcrnet_iter(self.model, b["src"], b["tgt"], max(self.cfg.iter, 1))[2:4]
         else:
+            self.model.eval()
             R_ab, t_ab = self.model(b["src"], b["tgt"])[:2]
         e_pred = geometry.mat_to_euler_zyx(R_ab, degrees=True)
         rot_se = ((e_pred - torch.rad2deg(b["euler_ab"])) ** 2).sum(-1)
@@ -410,7 +481,8 @@ class Trainer:
             metrics_writer=None) -> list:
         """Epochs of training and eval (vcrnet_tpu/train/engine.py:fit): the
         plateau scheduler stepped on the best test loss (VCR-Net:
-        ``loss_pose``, patience 10; DCP: ``loss``, patience 5), the early
+        ``loss_pose``, patience 10; DCP: ``loss``, patience 5), LPD's
+        ``MultiStepLR`` once an epoch (best loss ``loss``), the early
         stop at lr <= 1.1e-6. With ``checkpoint_dir``: resume from its
         ``fit_state.json`` (the epoch after the saved one, the scheduler
         and its learning rate, the best loss; the caller restores the model
@@ -420,9 +492,14 @@ class Trainer:
         ``metrics_writer``: the reference's scalar matrix for train, test
         and best_test, the pose losses and the learning rate. Returns the
         per-epoch history of this call."""
+        self._check_trainable()
         epochs = self.cfg.epochs if epochs is None else epochs
-        dcp = self.cfg.model == "dcp"
-        sched = ReduceLROnPlateau(initial_lr(self.cfg), patience=5 if dcp else 10)
+        lpd = self.cfg.model == "lpd"
+        if lpd:
+            sched = MultiStepLR(initial_lr(self.cfg))
+        else:
+            sched = ReduceLROnPlateau(initial_lr(self.cfg),
+                                      patience=5 if self.cfg.model == "dcp" else 10)
         best_loss = float("inf")
         best_sum: dict = {}
         start_epoch = 0
@@ -438,13 +515,14 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             train_sum = self.train_epoch(train_loader)
             test_sum = self.eval_epoch(test_loader)
-            test_loss = test_sum.get("loss" if dcp else "loss_pose", test_sum.get("loss", 0.0))
+            key = "loss_pose" if self.cfg.model == "vcrnet" else "loss"
+            test_loss = test_sum.get(key, test_sum.get("loss", 0.0))
             if test_loss <= best_loss:
                 best_loss = test_loss
                 best_sum = test_sum
                 if checkpoint_dir is not None:
                     save_checkpoint(checkpoint_dir, "model.best", self)
-            lr = sched.step(best_loss)  # the reference steps on the BEST loss
+            lr = sched.step(None if lpd else best_loss)  # the reference steps on the BEST loss
             set_lr(self.optimizer, lr)
             history.append({"epoch": epoch, "lr": lr, "train": train_sum, "test": test_sum})
             if metrics_writer is not None:

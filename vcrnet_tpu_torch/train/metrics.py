@@ -95,7 +95,7 @@ def summarize(acc: EpochAccumulator) -> dict:
     put("trans_ba", "t_se_ba", "t_ae_ba", n3)
     put("point_ab", "p_se_ab", "p_ae_ab", n)
     put("point_ba", "p_se_ba", "p_ae_ba", n)
-    for key in ("loss", "loss_pose", "cycle_loss"):
+    for key in ("loss", "loss_pose", "cycle_loss", "mse", "mae"):
         if key in acc.sums:
             out[key] = acc[key] / n
     return out
