@@ -3359,6 +3359,289 @@ def phase_lpd():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dist and att heads and the T-Nets (ROADMAP A7), and the port's CLI (A8b)
+# ---------------------------------------------------------------------------
+
+HEADS_ROUTE_DEG = {1: 0.25, 3: 0.1}  # att at its identity init against the topK head
+# dist and att are plain PyTorch on the kernel route: a step or a request
+# launches what the topK head's does but the soft-correspondence kernels
+HEAD_TRAIN_LAUNCHES = {k: n for k, n in TRAIN_LAUNCHES.items() if k not in ("vcp_stream",
+                                                                             "vcp_bwd")}
+TNETS = dict(t3d=True, tfea=True)
+TNET_BATCHNORMS = 10  # five in each T-Net
+TNET_ROUTE_ROT_DEG = 0.5  # median rotation between the routes' results per pair, as dgcnn
+# DCP and LPD embed the two clouds in two calls with a T-Net: every edge kernel twice
+DCP_TNET_LAUNCHES = {"knn_gather_max": 2, "edge_conv": 2, "flash_packed": 6,
+                     "gather_max_bwd": 2, "edge_conv_bwd": 2, "flash_bwd": 6}
+LPD_TNET_LAUNCHES = {"knn_gather_max": 2, "edge_conv": 2, "gather_max_bwd": 2, "edge_conv_bwd": 2}
+CLI_ROUTE_DEG = 0.1  # the CLI's iter=3 eval through the kernels against --no-use_kernels
+
+
+def att_state_dict(state_dict: dict) -> dict:
+    """The committed checkpoint with VcpAtt's projections at their identity
+    init (the checkpoint was trained with the topK head)."""
+    from vcrnet_tpu_torch.models.heads import VcpAtt
+
+    eye = {f"vcp_att.{k}": v for k, v in VcpAtt(512).state_dict().items()}
+    return {**state_dict, **eye}
+
+
+def train_head_config(cfg, what: str, expected: dict):
+    """A training configuration's four checks (full width, bf16, N = 1024):
+    kernel vs plain gradient cosine >= 0.99 at B = 8, the loss falling over
+    20 Adam steps, the launches of a step (and the running statistics'
+    updates in it, returned with them), the step time at B = 8 and 64.
+    Returns (trainer, launches, BatchNorm updates of the step)."""
+    import torch
+
+    from vcrnet_tpu_torch.models._common import FlaxBatchNorm
+    from vcrnet_tpu_torch.train import Trainer
+
+    batch = _train_batch(cfg, 8, seed=1)
+    cos, _, kern, plain = grad_cosine(cfg, batch, what)
+    check(kern.grads_filled == [] and plain.grads_filled == [],
+          f"{what}: a parameter got no gradient")
+    check(cos >= GRAD_COSINE_MIN, f"{what}: kernel vs plain gradient cosine {cos} < "
+          f"{GRAD_COSINE_MIN}")
+    del kern, plain
+    tr = Trainer(cfg, seed=0)
+    losses_fall(tr, batch, what)
+    updates = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: updates.append(mod.update_stats))
+             for m in tr.model.modules() if isinstance(m, FlaxBatchNorm)]
+    launches = step_launches(tr, batch, expected, what)
+    for h in hooks:
+        h.remove()
+    print_step_times(tr, cfg, BATCHES, what)
+    torch.cuda.empty_cache()
+    return tr, launches, sum(updates)
+
+
+def phase_heads():
+    """The dist and att heads and LPDNet's T-Nets (ROADMAP A7), full width,
+    bf16, N = 1024:
+
+    1. att on the committed checkpoint (VcpAtt at its identity init) served
+       through Registrar over the 73 pairs: rot RMSE within 0.25 deg
+       (iter=1) and 0.1 deg (iter=3) of the topK head on the same pairs; the
+       launches of a 1-pair request: the topK request's without vcp_stream;
+    2. dist and att from a seeded init: gradient cosine to the plain route,
+       the loss falling over 20 Adam steps, the launches of a step, the step
+       time at B = 8 and 64;
+    3. VCR-Net with t3d and tfea: the same four checks, the T-Nets' running
+       statistics updated once a step (both clouds in one stacked call);
+       after the steps served at iter=3 through both routes (median rotation
+       between them per pair <= 0.5 deg), and the share of DG-block rows
+       whose selection on the kernel route's bf16-rounded kNN space equals
+       the plain route's f32 selection, printed;
+    4. DCP and LPD with both T-Nets: gradient cosine >= 0.99 and the launches
+       of one step (two embedding calls).
+    Returns the launches of the steps and requests counted."""
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    total = {}
+    state_dict = load_checkpoint(CHECKPOINT)
+    data = shapes_eval_set(sum(REQUESTS), num_points=N)
+    requests = split_requests(data, REQUESTS)
+    for n_iter, base in ((1, LAUNCHES_ITER1), (3, LAUNCHES_ITER3)):
+        top = Registrar(Config(compute_dtype="bfloat16", iter=n_iter, num_points=N), state_dict)
+        att = Registrar(Config(compute_dtype="bfloat16", iter=n_iter, num_points=N,
+                               vcp_nn="att"), att_state_dict(state_dict))
+        check(att.model.use_kernels, "heads: att not on the kernel route")
+        serve_all(att, requests)  # warm-up
+        add_launches(total, one_request_launches(att, *requests[0], {**base, "vcp_stream": 0},
+                                                 f"heads att iter={n_iter}"))
+        acc_att = accuracy(*serve_all(att, requests), data)
+        acc_top = accuracy(*serve_all(top, requests), data)
+        diff = abs(acc_att["rot_rmse_deg"] - acc_top["rot_rmse_deg"])
+        print(f"heads att on the checkpoint, iter={n_iter}: att {acc_att} topK {acc_top}; rot "
+              f"RMSE differs by {diff} deg", flush=True)
+        check(diff <= HEADS_ROUTE_DEG[n_iter], f"heads att iter={n_iter}: rot RMSE {diff} deg "
+              f"from the topK head's (> {HEADS_ROUTE_DEG[n_iter]})")
+        print_latency(att, requests[:1], f"heads att iter={n_iter}")
+    del top, att
+
+    for vcp_nn in ("dist", "att"):
+        cfg = Config(compute_dtype="bfloat16", num_points=N, vcp_nn=vcp_nn)
+        _, launches, _ = train_head_config(cfg, f"heads {vcp_nn}", HEAD_TRAIN_LAUNCHES)
+        add_launches(total, launches)
+        torch.cuda.empty_cache()
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N, **TNETS)
+    tr, launches, updates = train_head_config(cfg, "heads t-nets", TRAIN_LAUNCHES)
+    add_launches(total, launches)
+    print(f"heads t-nets: BatchNorm updates in one step {updates} ({TNET_BATCHNORMS} "
+          f"BatchNorms, both clouds in one stacked call)", flush=True)
+    check(updates == TNET_BATCHNORMS, f"heads t-nets: {updates} BatchNorm updates in a step, "
+          f"expected {TNET_BATCHNORMS}")
+    weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    scfg = Config(compute_dtype="bfloat16", iter=3, num_points=N, **TNETS)
+    reg = Registrar(scfg, weights)
+    plain = Registrar(scfg, weights, use_kernels=False)
+    check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+    serve_all(reg, requests)  # warm-up
+    add_launches(total, one_request_launches(reg, *requests[0], LAUNCHES_ITER3,
+                                             "heads t-nets iter=3"))
+    R, t = serve_all(reg, requests)
+    R_p, t_p = serve_all(plain, requests)
+    between = pair_rot_errors_deg(R, R_p.astype(np.float64))
+    print(f"heads t-nets iter=3: rotation between the routes' results per pair: median "
+          f"{float(np.median(between))} max {float(between.max())} deg; max |dt| "
+          f"{float(np.abs(t - t_p).max())}; kernels {accuracy(R, t, data)} plain "
+          f"{accuracy(R_p, t_p, data)}", flush=True)
+    check(float(np.median(between)) <= TNET_ROUTE_ROT_DEG, f"heads t-nets: routes differ by "
+          f"more than {TNET_ROUTE_ROT_DEG} deg (median)")
+    with torch.inference_mode():
+        src = torch.from_numpy(data["src"]).to(reg.model.device)
+        idx_k = reg.model.emb_nn(src, fused=True)[2]
+        idx_p = reg.model.emb_nn(src, fused=False)[2]
+    agree = same_rows(idx_k, idx_p)
+    print(f"heads t-nets: DG-block rows whose selection on the bf16-rounded kNN space equals "
+          f"the plain route's f32 selection: {agree} of {idx_k.shape[0] * idx_k.shape[1]} rows "
+          f"({len(data['src'])} clouds)", flush=True)
+    print_latency(reg, requests, "heads t-nets iter=3")
+    del reg, plain
+    torch.cuda.empty_cache()
+
+    for model, expected in (("dcp", DCP_TNET_LAUNCHES), ("lpd", LPD_TNET_LAUNCHES)):
+        what = f"heads t-nets {model}"
+        cfg = Config(model=model, compute_dtype="bfloat16", num_points=N, **TNETS)
+        batch = _train_batch(cfg, 8, seed=1)
+        cos, _, kern, plain = grad_cosine(cfg, batch, what)
+        check(kern.grads_filled == [] and plain.grads_filled == [],
+              f"{what}: a parameter got no gradient")
+        check(cos >= GRAD_COSINE_MIN, f"{what}: kernel vs plain gradient cosine {cos} < "
+              f"{GRAD_COSINE_MIN}")
+        del plain
+        add_launches(total, step_launches(kern, batch, expected, what))
+        del kern
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_cli():
+    """The port's CLI (ROADMAP A8b), called in this process
+    (``vcrnet_tpu_torch.cli.main``) from a scratch working directory:
+
+    1. ``--eval --iter 3 --compute_dtype bfloat16 --dataset synthetic_shapes
+       --model_path <the committed checkpoint>``: its printed summary equals
+       ``Trainer.eval_epoch`` on the same loader's, and its rot RMSE lies
+       within 0.1 deg of the same call with ``--no-use_kernels``; the
+       launches of the eval;
+    2. a one-epoch fit at full width, bf16, N = 1024, B = 8 with its run
+       directory, ``history.json`` and ``models/``; its launches;
+    3. ``--model icp`` without ``--eval`` prints "icp can't be trained";
+    4. ``--emb_dims 64`` exits with the attention gate's message.
+    Returns the launches of the eval and the fit."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vcrnet_tpu_torch import cli, ops
+    from vcrnet_tpu_torch.data.pipeline import make_loaders
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train.checkpoint import load_checkpoint
+
+    total = {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(HERE, "build"))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        argv = ["--eval", "--iter", "3", "--compute_dtype", "bfloat16", "--dataset",
+                "synthetic_shapes", "--model_path", CHECKPOINT]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        np.random.seed(cfg.seed)
+        _, test = make_loaders(cfg)
+        ref = Trainer(cfg)
+        load_checkpoint(CHECKPOINT, ref)
+        want = ref.eval_epoch(test)
+        del ref
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = cli.main(argv)
+        eval_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        printed = json.dumps(got, indent=2, default=float)
+        runs = sorted(os.listdir(os.path.join("checkpoints", "test")))
+        log = open(os.path.join("checkpoints", "test", runs[-1], "run.log")).read()
+        print(f"cli eval (iter=3, {len(test.dataset)} pairs, {len(test)} batches) in {eval_s} s: "
+              f"rot_ab_RMSE {got['rot_ab_RMSE']} trans_ab_RMSE {got['trans_ab_RMSE']}; "
+              f"launches {launches}", flush=True)
+        check(printed in log and "==FINAL TEST==" in log and log.rstrip().endswith("FINISH"),
+              "cli eval: the summary is not in run.log")
+        check(printed == json.dumps(want, indent=2, default=float),
+              f"cli eval: the summary differs from Trainer.eval_epoch's: {got} vs {want}")
+        check_launches(launches, {k: n * len(test) for k, n in LAUNCHES_ITER3.items()},
+                       "cli eval")
+        add_launches(total, launches)
+        plain = cli.main(argv + ["--no-use_kernels"])
+        diff = abs(plain["rot_ab_RMSE"] - got["rot_ab_RMSE"])
+        print(f"cli eval --no-use_kernels: rot_ab_RMSE {plain['rot_ab_RMSE']}; the routes "
+              f"differ by {diff} deg", flush=True)
+        check(diff <= CLI_ROUTE_DEG, f"cli eval: kernels vs --no-use_kernels {diff} deg > "
+              f"{CLI_ROUTE_DEG}")
+
+        fit_argv = ["--compute_dtype", "bfloat16", "--dataset", "synthetic_shapes", "--epochs",
+                    "1", "--batch_size", "8", "--num_points", str(N)]
+        fcfg = cli.config_from_args(cli.build_parser().parse_args(fit_argv))
+        train, test = make_loaders(fcfg)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = cli.main(fit_argv)
+        fit_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        run = os.path.join("checkpoints", "train", sorted(os.listdir(
+            os.path.join("checkpoints", "train")))[-1])
+        saved = sorted(os.listdir(os.path.join(run, "models")))
+        print(f"cli fit of one epoch ({len(train)} steps of 8, {len(test.dataset)} test pairs) "
+              f"in {fit_s} s: {history}; {run}: {sorted(os.listdir(run))}, models/ {saved}; "
+              f"launches {launches}", flush=True)
+        check(len(history) == 1 and math.isfinite(history[0]["test"]["loss_pose"]),
+              "cli fit: no finite test loss")
+        check(json.load(open(os.path.join(run, "history.json")))[0]["epoch"] == 0,
+              "cli fit: history.json")
+        check({"model.0.pt", "model.best.pt", "fit_state.json"} <= set(saved),
+              "cli fit: models/ lacks a checkpoint")
+        check_launches(launches, {k: TRAIN_LAUNCHES.get(k, 0) * len(train)
+                                  + LAUNCHES_ITER1.get(k, 0) * len(test)
+                                  for k in set(TRAIN_LAUNCHES) | set(LAUNCHES_ITER1)},
+                       "cli fit")
+        add_launches(total, launches)
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = cli.main(["--model", "icp", "--dataset", "synthetic_shapes"])
+        print(f"cli --model icp: {out.getvalue().splitlines()[-1]!r}", flush=True)
+        check(result is None and "icp can't be trained" in out.getvalue(),
+              "cli: icp trained")
+        try:
+            cli.main(["--emb_dims", "64", "--compute_dtype", "bfloat16", "--dataset",
+                      "synthetic_shapes"])
+        except SystemExit as refusal:
+            message = str(refusal)
+        else:
+            message = ""
+        print(f"cli --emb_dims 64: {message!r}", flush=True)
+        check("ops/attention.py::flash_packed_supported" in message and "dk = 128" in message,
+              "cli: --emb_dims 64 was not refused by the attention gate")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -3403,7 +3686,8 @@ def print_ptxas_reports(procs: dict) -> None:
 
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
-          "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd")
+          "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd", "heads",
+          "cli")
 
 
 def main() -> int:
@@ -3475,6 +3759,10 @@ def main() -> int:
             launches[name] = phase_icp()
         elif name == "lpd":
             launches[name] = phase_lpd()
+        elif name == "heads":
+            launches[name] = phase_heads()
+        elif name == "cli":
+            launches[name] = phase_cli()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -3538,6 +3826,8 @@ def main() -> int:
             "launches_partial_train": launches["partial_train"].get(name, 0),
             "launches_icp": launches["icp"].get(name, 0),
             "launches_lpd": launches["lpd"].get(name, 0),
+            "launches_heads": launches["heads"].get(name, 0),
+            "launches_cli": launches["cli"].get(name, 0),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

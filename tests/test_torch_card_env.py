@@ -1,34 +1,45 @@
 """The port and chip_smoke.py on an installation like the card's machine,
 which has neither h5py nor tensorboardX nor flax (nor, for the port, any
-use of JAX): a subprocess in which those packages cannot be imported (a
-``sys.meta_path`` finder ahead of every other raises ``ImportError`` for
-them) imports every module of the port and chip_smoke.py (and, by name,
+use of JAX or pandas): a subprocess in which those packages cannot be
+imported (a ``sys.meta_path`` finder ahead of every other gives them a
+loader that raises ``ImportError``) imports every module of the port and chip_smoke.py (and, by name,
 the ICP, LPD and FPS modules and what chip_smoke.py's partial_train, icp
 and lpd phases call), runs the synthetic datasets and loaders, the
 synthetic fallback of ModelNet40, the velodyne frames written and read
 back without h5py, an epoch of training through prefetch and one on raw
 clouds, a partial-overlap step, an LPD epoch with a checkpoint merged into
-VCR-Net, ICP and net + ICP evals, and finds that the ModelNet40 and KITTI
-readers raise an ImportError that names h5py."""
+VCR-Net, ICP and net + ICP evals, the port's CLI (its ``--help``, and ICP
+refusing to train) with pandas blocked too, and finds that the ModelNet40
+and KITTI readers raise an ImportError that names h5py."""
 
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("h5py", "tensorboardX", "jax", "jaxlib", "flax", "optax")
+BLOCKED = ("h5py", "tensorboardX", "jax", "jaxlib", "flax", "optax", "pandas")
 
 CHILD = r'''
-import importlib, importlib.abc, os, pkgutil, sys, tempfile
+import importlib, importlib.abc, importlib.machinery, os, pkgutil, sys, tempfile
 
 BLOCKED = %r
 
 
-class Absent(importlib.abc.MetaPathFinder):
+class Absent(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """A spec without an origin whose loader raises ImportError: an import
+    fails, and a probe such as torch._dynamo's of pandas (find_spec, then
+    the spec's origin) finds nothing to read."""
+
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in BLOCKED:
-            raise ImportError(f"No module named {name!r}")
+            return importlib.machinery.ModuleSpec(name, self)
         return None
+
+    def create_module(self, spec):
+        raise ImportError(f"No module named {spec.name!r}")
+
+    def exec_module(self, module):
+        pass
 
 
 sys.meta_path.insert(0, Absent())
@@ -46,7 +57,7 @@ import vcrnet_tpu_torch
 for m in pkgutil.walk_packages(vcrnet_tpu_torch.__path__, "vcrnet_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-from chip_smoke import grad_cosine, phase_icp, phase_lpd, phase_partial_train
+from chip_smoke import grad_cosine, phase_cli, phase_heads, phase_icp, phase_lpd, phase_partial_train
 
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models.icp import icp_register, nearest_neighbor_corr
@@ -122,6 +133,19 @@ assert np.isfinite(icp.eval_epoch(pipeline.Loader(small, 4))["rot_ab_RMSE"])
 net_icp = Registrar(Config(iter=0, **tiny), trainer.model.state_dict(), device="cpu")
 clouds = small.raw_clouds()[:2, :32]
 assert np.isfinite(net_icp.register(clouds, clouds)["R"]).all()
+
+import contextlib, io
+from vcrnet_tpu_torch import cli
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "--use_kernels" in out.getvalue() and "--device" in out.getvalue(), out.getvalue()
+os.chdir(tmp)
+assert cli.main(["--model", "icp", "--dataset", "synthetic", "--num_points", "32",
+                 "--device", "cpu"]) is None
 
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad

@@ -433,7 +433,7 @@ def test_dcp_forward_matches_jax_in_eval_and_training(variant):
 
 def test_dcp_refuses_unknown_parts():
     for kw, err in ((dict(pointer="rnn"), ValueError), (dict(head="quat"), ValueError),
-                    (dict(t3d=True), NotImplementedError), (dict(emb_nn="cnn"), ValueError)):
+                    (dict(int8_eval=True, compute_dtype="bfloat16"), NotImplementedError), (dict(emb_nn="cnn"), ValueError)):
         with pytest.raises(err):
             DCP(Config(**NARROW, model="dcp", **kw), device="cpu")
 

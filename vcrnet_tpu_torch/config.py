@@ -133,7 +133,9 @@ class Config:
     # instead of the plain formulation that writes the [B, Ns, Nt]
     # probabilities out; the same math, kept as the control arm
     remat: bool = False  # training: recompute the embedding and pointer
-    # activations in the backward; not ported yet (the models refuse it)
+    # activations in the backward (Trainer runs the forward under
+    # torch.utils.checkpoint); exact: the recompute updates no running
+    # statistics and draws the same dropout masks
     mesh_shape: Optional[int] = None  # data-parallel devices; ignored: the
     # port runs on one device (ROADMAP A9)
 

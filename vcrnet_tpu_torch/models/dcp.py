@@ -5,8 +5,9 @@ The embedding and the pointer are VCR-Net's modules (``make_embedding``,
 ``TransformerPointer``) with their kernel routes; the two heads are plain
 PyTorch, as the JAX package leaves them to XLA outside any Pallas kernel.
 The two clouds are embedded one after the other, never stacked: in training
-mode a BatchNorm embedding updates its running statistics twice per step,
-the second time on top of the first, as in the JAX package. Dropout as in
+mode a BatchNorm embedding (DGCNN, PointNet, LPDNet with a T-Net) updates
+its running statistics twice per step, the second time on top of the
+first, as in the JAX package. Dropout as in
 :class:`vcrnet_tpu_torch.models.VCRNet`.
 """
 
@@ -18,6 +19,7 @@ from torch import nn
 from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models._common import FlaxBatchNorm
+from vcrnet_tpu_torch.models.heads import vcp_by_dis
 from vcrnet_tpu_torch.models.vcrnet import compute_dtype, make_embedding, make_pointer
 from vcrnet_tpu_torch.utils.device import resolve_device
 
@@ -48,14 +50,9 @@ class MLPHead(nn.Module):
 
 def svd_head_corr(src_emb, tgt_emb, src, tgt):
     """DCP's scaled-dot soft correspondence + Procrustes -> (R, t, src,
-    src_corr). Scores and softmax in the embeddings' dtype, the
-    correspondence product in f32 (the promotion of bf16 scores and f32
-    points)."""
-    d_k = src_emb.shape[-1]
-    scores = torch.matmul(src_emb, tgt_emb.transpose(1, 2)) / d_k ** 0.5
-    scores = torch.softmax(scores, dim=2)
-    dt = torch.promote_types(scores.dtype, tgt.dtype)
-    src_corr = torch.matmul(scores.to(dt), tgt.to(dt))
+    src_corr): the correspondence of ``vcp_nn="dist"``
+    (``models/heads.py::vcp_by_dis``), then the SVD solve."""
+    src, src_corr = vcp_by_dis(src_emb, tgt_emb, src, tgt)
     R, t = geometry.procrustes(src, src_corr)
     return R, t, src, src_corr
 
@@ -71,8 +68,6 @@ class DCP(nn.Module):
             raise ValueError(f"unknown pointer: {cfg.pointer}")
         if cfg.head not in ("svd", "mlp"):
             raise ValueError(f"unknown head: {cfg.head}")
-        if cfg.t3d or cfg.tfea:
-            raise NotImplementedError("not ported yet: t3d, tfea")
         if cfg.int8_eval and cfg.compute_dtype == "bfloat16":
             raise NotImplementedError("not ported yet: int8_eval")
         self.cfg = cfg

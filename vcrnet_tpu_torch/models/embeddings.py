@@ -1,5 +1,5 @@
-"""Point embeddings: LPDNet, DGCNN and PointNet (counterpart of
-vcrnet_tpu/models/embeddings.py).
+"""Point embeddings: LPDNet (with its optional T-Nets), DGCNN and PointNet
+(counterpart of vcrnet_tpu/models/embeddings.py).
 
 Channels-last [B, N, C]; every kernel-size-1 conv is a Linear whose
 parameter names match the flax tree (see utils/params.py). LPDNet's two
@@ -54,21 +54,69 @@ class SplitEdgeDense(nn.Linear):
         return torch.matmul(x, w[:, :c].t()), torch.matmul(x, w[:, c:].t()) + b
 
 
+class TransformNet(nn.Module):
+    """PointNet's k x k alignment (T-Net; reference lpdnet_model.py:19-70):
+    [B, N, k] -> [B, k, k]. Three convs, each with BatchNorm and ReLU, a max
+    over the points, fc1 and fc2 with BatchNorm and ReLU, then fc3 plus the
+    identity. f32 throughout, as the JAX package's flax layers without a
+    dtype promote a bf16 input with their f32 parameters; its BatchNorms
+    update their running statistics in training mode."""
+
+    def __init__(self, k: int = 3):
+        super().__init__()
+        self.k = k
+        for i, (c_in, c_out) in enumerate(((k, 64), (64, 128), (128, 1024)), start=1):
+            setattr(self, f"conv{i}", nn.Linear(c_in, c_out))
+            setattr(self, f"bn{i}", FlaxBatchNorm(c_out))
+        self.fc1 = nn.Linear(1024, 512)
+        self.bn4 = FlaxBatchNorm(512)
+        self.fc2 = nn.Linear(512, 256)
+        self.bn5 = FlaxBatchNorm(256)
+        self.fc3 = nn.Linear(256, k * k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        for i in range(1, 4):
+            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+        x = x.amax(dim=1)  # [B, 1024]
+        x = torch.relu(self.bn4(self.fc1(x)))
+        x = torch.relu(self.bn5(self.fc2(x)))
+        eye = torch.eye(self.k, dtype=x.dtype, device=x.device).reshape(1, -1)
+        return (self.fc3(x) + eye).reshape(-1, self.k, self.k)
+
+
 class LPDNet(nn.Module):
-    """[B, N, 3] -> [B, N, emb_dims] (without the optional T-Nets)."""
+    """[B, N, 3] -> [B, N, emb_dims]. ``t3d`` puts a 3 x 3 T-Net
+    (``t_net3d``) before ``conv1_lpd``, ``tfea`` a 64 x 64 one (``t_net_fea``)
+    after ``conv2_lpd``; each multiplies its input by the transform it
+    predicts, in f32. The SN block's kNN stays on the xyz from before the
+    3 x 3 transform, so a refinement loop's cached spatial selection stays
+    exact. With a T-Net LPDNet has BatchNorm statistics."""
 
     def __init__(self, emb_dims: int = 512, k: int = 20, negative_slope: float = 0.0,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, t3d: bool = False, tfea: bool = False):
         super().__init__()
         self.k = k
         self.slope = negative_slope
         self.dtype = dtype
+        if t3d:
+            self.t_net3d = TransformNet(3)
         self.conv1_lpd = nn.Linear(3, 64)
         self.conv2_lpd = nn.Linear(64, 64)
+        if tfea:
+            self.t_net_fea = TransformNet(64)
         self.convDG1 = SplitEdgeDense(64, 128)
         self.convDG2 = nn.Linear(128, 128)
         self.convSN1 = SplitEdgeDense(128, 256)
         self.conv3_lpd = nn.Linear(512, emb_dims)
+
+    @property
+    def t3d(self) -> bool:
+        return hasattr(self, "t_net3d")
+
+    @property
+    def tfea(self) -> bool:
+        return hasattr(self, "t_net_fea")
 
     def forward(self, x: torch.Tensor, spatial_idx: torch.Tensor | None = None,
                 feature_idx: torch.Tensor | None = None, fused: bool = False):
@@ -79,11 +127,17 @@ class LPDNet(nn.Module):
         back); a passed ``feature_idx`` is an approximation once the cloud
         has moved (Config.reuse_feature_knn), and is eval only on the
         fused route. ``fused`` selects the kernel route, whose selections
-        are the kernels' own."""
+        are the kernels' own. After ``t_net_fea`` the kNN space is f32: the
+        kernel route selects on it rounded to the compute dtype (the edge
+        kernel takes bf16), the plain route on the f32 values."""
         dt, k = self.dtype, self.k
         x_xyz = x
+        if self.t3d:
+            x = torch.matmul(x.float(), self.t_net3d(x))
         x = leaky(dense(self.conv1_lpd, x, dt), self.slope)
         x = leaky(dense(self.conv2_lpd, x, dt), self.slope)
+        if self.tfea:
+            x = torch.matmul(x.float(), self.t_net_fea(x))
 
         a, h = self.convDG1.split(x, dt)
         w2, b2 = self.convDG2.weight.t(), self.convDG2.bias
@@ -94,8 +148,9 @@ class LPDNet(nn.Module):
                 feature_idx, a, h, w2.contiguous(), b2, negative_slope=self.slope
             )
         elif fused:
+            x_knn = x.to(dt) if dt is not None else x
             x1, x2, feature_idx = edge_conv(
-                x, a, h, w2.contiguous(), b2, k=k, negative_slope=self.slope
+                x_knn, a, h, w2.contiguous(), b2, k=k, negative_slope=self.slope
             )
         else:
             if feature_idx is None:

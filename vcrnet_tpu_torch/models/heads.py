@@ -1,11 +1,12 @@
-"""Virtual-correspondence heads, whole and partial-overlap mode
-(counterparts of vcrnet_tpu/models/heads.py:vcp_top_k_whole and
-vcp_top_k_partial and the head choice of
+"""Virtual-correspondence heads: topK (whole and partial-overlap), dist
+and att (counterparts of vcrnet_tpu/models/heads.py and the head choice of
 vcrnet_tpu/models/vcrnet.py:VCRNet._vcp)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from vcrnet_tpu_torch.ops.graph import neg_pairwise_sqdist
 from vcrnet_tpu_torch.ops.vcp import soft_correspondence_vjp
@@ -22,6 +23,51 @@ def vcp_top_k_whole(src_emb, tgt_emb, src, tgt, fused: bool = False):
         return src, soft_correspondence_vjp(src_emb, tgt_emb, tgt)
     scores = torch.softmax(neg_pairwise_sqdist(src_emb, tgt_emb), dim=2)
     return src, torch.matmul(scores, tgt.float())
+
+
+def vcp_by_dis(src_emb, tgt_emb, src, tgt):
+    """(srcK, src_corrK) by the scaled dot product (``vcp_nn="dist"``,
+    reference VcpByDis): softmax_j(e_i . f_j / sqrt(d)) over the target
+    points, then the weighted target points. The scores and the softmax in
+    the embeddings' dtype, divided by sqrt(d) rounded to that dtype, as the
+    JAX package divides; the correspondence product in the promotion of
+    that dtype and the points' (f32 for f32 points). DCP's SVD head is the
+    same correspondence (``models/dcp.py::svd_head_corr``)."""
+    d_k = src_emb.shape[-1]
+    scale = torch.full((), float(d_k), dtype=src_emb.dtype, device=src_emb.device).sqrt()
+    scores = torch.matmul(src_emb, tgt_emb.transpose(1, 2)) / scale
+    scores = torch.softmax(scores, dim=2)
+    dt = torch.promote_types(scores.dtype, tgt.dtype)
+    return src, torch.matmul(scores.to(dt), tgt.to(dt))
+
+
+class VcpAtt(nn.Module):
+    """(srcK, src_corrK) by a learned distance attention (``vcp_nn="att"``,
+    reference VcpAtt): q = linear_emb_q(e), k = linear_emb_k(f), then the
+    softmax(-|q_i - k_j|^2)-weighted target points. Both projections start
+    at the identity with zero bias, so at init this is the topK head's
+    whole-mode formulation. f32 throughout, as the JAX package's flax
+    ``Dense`` (no dtype) promotes bf16 embeddings with its f32 parameters;
+    the reference's two 3-d projections, unused in its forward, are not
+    created."""
+
+    def __init__(self, emb_dims: int = 512):
+        super().__init__()
+        self.linear_emb_q = nn.Linear(emb_dims, emb_dims)
+        self.linear_emb_k = nn.Linear(emb_dims, emb_dims)
+        self.reset_identity()
+
+    def reset_identity(self) -> None:
+        with torch.no_grad():
+            for layer in (self.linear_emb_q, self.linear_emb_k):
+                layer.weight.copy_(torch.eye(*layer.weight.shape))
+                layer.bias.zero_()
+
+    def forward(self, src_emb, tgt_emb, src, tgt):
+        q = F.linear(src_emb.float(), self.linear_emb_q.weight, self.linear_emb_q.bias)
+        k = F.linear(tgt_emb.float(), self.linear_emb_k.weight, self.linear_emb_k.bias)
+        scores = torch.softmax(neg_pairwise_sqdist(q, k), dim=2)
+        return src, torch.matmul(scores, tgt.float())
 
 
 def _take(arr, idx):

@@ -81,8 +81,6 @@ class LPD(nn.Module):
         super().__init__()
         if cfg.emb_nn != "lpdnet":
             raise ValueError(f"LPD pretrains the LPDNet embedding, not {cfg.emb_nn!r}")
-        if cfg.t3d or cfg.tfea:
-            raise NotImplementedError("not ported yet: t3d, tfea")
         self.cfg = cfg
         self.device = resolve_device(device)
         if use_kernels is None:
@@ -92,10 +90,17 @@ class LPD(nn.Module):
         self.to(self.device)
 
     def embed_pair(self, src, tgt):
-        """(src_emb, tgt_emb): both clouds embedded in one call, stacked on
-        the batch axis (LPDNet embeds each cloud alone and has no batch
-        statistics, so this equals two calls)."""
-        emb = self.emb_nn(torch.cat([src, tgt], dim=0), fused=self.use_kernels)[0]
+        """(src_emb, tgt_emb): without a T-Net both clouds embedded in one
+        call, stacked on the batch axis (LPDNet embeds each cloud alone and
+        has no batch statistics, so this equals two calls); with one, two
+        calls, as the JAX package makes them: in training mode the T-Net's
+        running statistics are updated twice, the second time on top of the
+        first."""
+        emb_nn = self.emb_nn
+        if emb_nn.t3d or emb_nn.tfea:
+            return (emb_nn(src, fused=self.use_kernels)[0],
+                    emb_nn(tgt, fused=self.use_kernels)[0])
+        emb = emb_nn(torch.cat([src, tgt], dim=0), fused=self.use_kernels)[0]
         return emb.chunk(2, dim=0)
 
     def forward(self, src, tgt):

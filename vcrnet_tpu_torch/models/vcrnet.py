@@ -2,12 +2,15 @@
 vcrnet_tpu/models/vcrnet.py:81-384), for eval and training.
 
 embed -> transformer pointer (residual) -> VCP head -> Procrustes SVD.
-The port covers the LPDNet, DGCNN and PointNet embeddings (without
-LPDNet's T-Nets), the transformer or identity pointer
-and the topK head, whole and partial-overlap (``cfg.partial``: the
-decoder's cross attention re-masks its keys and the head selects the
-likely-overlap points), the refinement loop with all its caches, and net
-+ ICP (``vcrnet_icp``, ``cfg.iter == 0``).
+The port covers the LPDNet (with its T-Nets, ``cfg.t3d`` / ``cfg.tfea``),
+DGCNN and PointNet embeddings, the transformer or identity pointer, the
+topK head, whole and partial-overlap (``cfg.partial``: the decoder's cross
+attention re-masks its keys and the head selects the likely-overlap
+points), the ``dist`` and ``att`` heads (plain PyTorch on both routes, as
+the JAX package runs them outside any Pallas kernel; they take the whole
+clouds in partial mode too, where the pointer still re-masks), the
+refinement loop with all its caches, and net + ICP (``vcrnet_icp``,
+``cfg.iter == 0``).
 
 Routes: with ``use_kernels`` (default: a CUDA device and
 ``compute_dtype="bfloat16"``, where the JAX package runs its Pallas
@@ -33,7 +36,9 @@ from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models._common import DropoutRng
 from vcrnet_tpu_torch.models.embeddings import DGCNN, LPDNet, PointNet
-from vcrnet_tpu_torch.models.heads import vcp_top_k_partial, vcp_top_k_whole
+from vcrnet_tpu_torch.models.heads import (
+    VcpAtt, vcp_by_dis, vcp_top_k_partial, vcp_top_k_whole,
+)
 from vcrnet_tpu_torch.models.icp import icp_register
 from vcrnet_tpu_torch.models.transformer import TransformerPointer
 from vcrnet_tpu_torch.utils.device import resolve_device
@@ -58,7 +63,8 @@ def make_embedding(cfg: Config, for_lpd_pretrain: bool = False) -> nn.Module:
         return DGCNN(cfg.emb_dims, dtype=compute_dtype(cfg))
     if cfg.emb_nn == "lpdnet":
         slope = LPD_PRETRAIN_SLOPE if for_lpd_pretrain else LPDNET_SLOPE
-        return LPDNet(cfg.emb_dims, negative_slope=slope, dtype=compute_dtype(cfg))
+        return LPDNet(cfg.emb_dims, negative_slope=slope, dtype=compute_dtype(cfg),
+                      t3d=cfg.t3d, tfea=cfg.tfea)
     raise ValueError(f"unknown emb_nn: {cfg.emb_nn}")
 
 
@@ -76,17 +82,13 @@ def make_pointer(cfg: Config, device: torch.device, dtype, flash: bool):
 
 
 def check_supported(cfg: Config) -> None:
-    unsupported = {
-        "pointer": cfg.pointer not in ("transformer", "identity"),
-        "vcp_nn": cfg.vcp_nn != "topK",
-        "t3d": cfg.t3d,
-        "tfea": cfg.tfea,
-        # the JAX package quantizes the pointer projections only in bf16
-        "int8_eval": cfg.int8_eval and cfg.compute_dtype == "bfloat16",
-    }
-    bad = [name for name, is_bad in unsupported.items() if is_bad]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.pointer not in ("transformer", "identity"):
+        raise ValueError(f"unknown pointer: {cfg.pointer}")
+    if cfg.vcp_nn not in ("topK", "dist", "att"):
+        raise ValueError(f"unknown vcp_nn: {cfg.vcp_nn}")
+    # the JAX package quantizes the pointer projections only in bf16
+    if cfg.int8_eval and cfg.compute_dtype == "bfloat16":
+        raise NotImplementedError("not ported yet: int8_eval")
 
 
 class VCRNet(nn.Module):
@@ -104,6 +106,8 @@ class VCRNet(nn.Module):
         self.use_kernels = use_kernels
         self.emb_nn = make_embedding(cfg)
         self.pointer, self.dropout_rng = make_pointer(cfg, self.device, dtype, use_kernels)
+        if cfg.vcp_nn == "att":
+            self.vcp_att = VcpAtt(cfg.emb_dims)
         self.to(self.device)
 
     def embed(self, x, spatial_idx=None, feature_idx=None):
@@ -134,6 +138,10 @@ class VCRNet(nn.Module):
         return src_k, src_corr_k, R_ab, t_ab, R_ba, t_ba
 
     def _vcp(self, src_emb, tgt_emb, src, tgt):
+        if self.cfg.vcp_nn == "dist":
+            return vcp_by_dis(src_emb, tgt_emb, src, tgt)
+        if self.cfg.vcp_nn == "att":
+            return self.vcp_att(src_emb, tgt_emb, src, tgt)
         if self.cfg.partial:
             return vcp_top_k_partial(src_emb, tgt_emb, src, tgt, self.cfg.overlap2)
         fused = self.use_kernels and (not self.training or self.cfg.streaming_vcp_train)
@@ -150,8 +158,11 @@ class VCRNet(nn.Module):
             self.dropout_rng.reseed()
         # both clouds embedded in one call, stacked on the batch axis; not
         # when a BatchNorm embedding trains: stacking would pool the two
-        # clouds' batch statistics (LPDNet has none; in eval the running
-        # statistics make stacking exact)
+        # clouds' batch statistics (in eval the running statistics make
+        # stacking exact). LPDNet stacks in training too, as the JAX package
+        # does: with a T-Net the two clouds share its batch statistics and
+        # update them once a step, where the reference makes two calls
+        # (ROADMAP C)
         if self.cfg.emb_nn == "lpdnet" or not self.training:
             emb = self.embed(torch.cat([src, tgt], dim=0))[0]
             src_emb, tgt_emb = emb.chunk(2, dim=0)

@@ -406,7 +406,23 @@ def merge_params(params: dict, converted: dict, *, min_leaves: int = 1,
 def merge_pretrained_embedding(params: dict, emb_params: dict) -> dict:
     """Graft an LPDNet ``state_dict`` (e.g. from :func:`load_t7_lpdnet`)
     into a model ``state_dict`` under ``emb_nn.`` (non-strict); raises when
-    nothing merges."""
+    nothing merges.
+
+    An embedding with a T-Net (``t_net3d.*`` / ``t_net_fea.*``) that the
+    model has too is refused with a ``ValueError``: the JAX package's merge
+    descends one level of the parameter tree and raises an
+    ``AttributeError`` on a T-Net's nested layers, so no merged result
+    exists to hold the port to (ROADMAP C). The twelve LPDNet tensors
+    without T-Nets merge as before."""
+    tnet = sorted(k for k in emb_params
+                  if k.split(".")[0] in ("t_net3d", "t_net_fea") and f"emb_nn.{k}" in params)
+    if tnet:
+        raise ValueError(
+            "merge_pretrained_embedding does not merge a T-Net "
+            f"({sorted({k.split('.')[0] for k in tnet})}): the JAX package's merge "
+            "(vcrnet_tpu/train/checkpoint.py:merge_pretrained_embedding) descends one level "
+            "of the tree and raises an AttributeError on a T-Net's nested layers; load the "
+            "whole checkpoint with load_checkpoint instead")
     out = dict(params)
     n_merged = 0
     for key, value in emb_params.items():

@@ -3,9 +3,10 @@ vcrnet_tpu/train/engine.py): ``model="vcrnet"``, ``"dcp"``, ``"lpd"``
 (LPDNet pretraining) and ``"icp"`` (parameter-free, eval only).
 
 One step is the JAX package's ``Trainer._train_step_impl``: forward (the
-model in training mode; LPDNet embeds both clouds in one stacked call, a
-BatchNorm embedding one after the other, updating its running statistics
-twice), loss, gradients (on the kernel route the backward kernels of
+model in training mode; VCR-Net's LPDNet embeds both clouds in one stacked
+call, with a T-Net updating its running statistics once; DCP's embedding,
+another BatchNorm embedding of VCR-Net and LPD's LPDNet with a T-Net one
+after the other, updating them twice), loss, gradients (on the kernel route the backward kernels of
 ``ops``), and the optimizer update; the metric sums of the batch stay on
 the device and are added up per epoch. VCR-Net's eval runs ``vcrnet_iter``
 at ``cfg.iter``, or net + ICP (``vcrnet_icp``) at ``cfg.iter == 0``, whole
@@ -54,9 +55,11 @@ regulariser, per sample; its sums are ``loss``, ``mse``, ``mae``, ``count``.
 
 Parameters are initialised from the JAX package's distributions (the
 same distributions, not the same bits): kaiming-uniform at the LPDNet's
-own slope with zero bias in LPDNet, lecun-normal (truncated) with zero bias
-everywhere else (the pointer, DGCNN's and PointNet's bias-free convs, the
-MLP head), LayerNorm and BatchNorm scale one and shift zero. ``fit``
+own slope with zero bias in LPDNet (its T-Nets' convs too, their fc layers
+normal(1e-3)), the identity for ``VcpAtt``'s projections, lecun-normal
+(truncated) with zero bias everywhere else (the pointer, DGCNN's and
+PointNet's bias-free convs, the MLP head), LayerNorm and BatchNorm scale
+one and shift zero. ``fit``
 saves and resumes through ``train/checkpoint.py`` and writes the reference's
 TensorBoard scalars through a ``utils/logging.py::MetricsWriter``; LPD's
 ``fit`` steps ``MultiStepLR([75, 150, 200], 0.1)`` and keeps the best
@@ -80,6 +83,7 @@ from vcrnet_tpu_torch.data.pipeline import prefetch
 from vcrnet_tpu_torch.models._common import frozen_batch_stats
 from vcrnet_tpu_torch.models.dcp import DCP
 from vcrnet_tpu_torch.models.embeddings import LPDNet
+from vcrnet_tpu_torch.models.heads import VcpAtt
 from vcrnet_tpu_torch.models.icp import icp_register
 from vcrnet_tpu_torch.models.lpd import LPD, lpd_loss
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_icp, vcrnet_iter
@@ -91,6 +95,7 @@ from vcrnet_tpu_torch.train.optim import (
 from vcrnet_tpu_torch.utils.device import resolve_device
 from vcrnet_tpu_torch.utils.rng import fold_seed
 
+TNET_FC_STD = 1e-3  # a T-Net's fc layers (vcrnet_tpu/models/embeddings.py:TransformNet)
 DROPOUT_SEED_OFFSET = 0xD0  # the JAX package's dropout key: PRNGKey(seed + 0xD0)
 MODELS = {"vcrnet": VCRNet, "dcp": DCP, "lpd": LPD, "icp": None}
 
@@ -99,22 +104,28 @@ def init_like_jax(model: nn.Module, seed: int) -> None:
     """Draw every Linear of ``model`` (a VCRNet, DCP or LPD) from the JAX
     package's init distributions with a torch generator seeded by
     ``seed``; an LPDNet's kaiming gain at its own slope (0 in VCR-Net and
-    DCP, 0.2 in LPD). Norm layers keep their construction values (scale 1,
-    shift 0; running mean 0, variance 1)."""
+    DCP, 0.2 in LPD), its T-Nets' convs too, their fc layers normal(1e-3).
+    ``VcpAtt``'s projections stay the identity. Biases zero; norm layers
+    keep their construction values (scale 1, shift 0; running mean 0,
+    variance 1)."""
     g = torch.Generator().manual_seed(seed)
     lpdnet = isinstance(model.emb_nn, LPDNet)
     gain = math.sqrt(2.0 / (1.0 + model.emb_nn.slope ** 2)) if lpdnet else None
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if not isinstance(mod, nn.Linear):
+            if isinstance(mod, VcpAtt):
+                mod.reset_identity()
+            if not isinstance(mod, nn.Linear) or name.startswith("vcp_att."):
                 continue
             fan_in = mod.weight.shape[1]
-            if lpdnet and name.startswith("emb_nn."):
+            w = torch.empty(mod.weight.shape)
+            if lpdnet and ".t_net" in name and name.rsplit(".", 1)[1].startswith("fc"):
+                w.normal_(0.0, TNET_FC_STD, generator=g)
+            elif lpdnet and name.startswith("emb_nn."):
                 bound = gain * math.sqrt(3.0 / fan_in)
-                w = torch.empty(mod.weight.shape).uniform_(-bound, bound, generator=g)
+                w.uniform_(-bound, bound, generator=g)
             else:  # lecun_normal: N(0, 1/fan_in) truncated at 2 std, rescaled
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(mod.weight.shape)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
             mod.weight.copy_(w)
             if mod.bias is not None:
