@@ -119,7 +119,15 @@ Phases (any failure raises and the script exits non-zero):
            B = 8, the launches of a step, the loss falls over 20 Adam steps,
            step time at B = 16 and 32; a 2-epoch fit with checkpoints whose
            best embedding merges into a VCR-Net Trainer bit for bit, which
-           then takes a step.
+           then takes a step;
+17. heads   the dist and att heads and LPDNet's T-Nets (phase_heads);
+18. cli     the port's CLI: an iter=3 eval of the checkpoint and a one-epoch
+           fit (phase_cli);
+19. export  Registrar.warmup over the seven buckets, the bucket-8 iter=3
+           artifact (torch.export, the kernels as vcrnet_torch ops) bit for
+           bit against the live Registrar here and in a fresh process without
+           model code, every other forward op from an artifact with its
+           launch table, and the op dispatcher's cost (phase_export).
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -165,6 +173,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3642,6 +3651,383 @@ def phase_cli():
     return total
 
 
+# ---------------------------------------------------------------------------
+# the rest of the serving API: warmup, compiled_buckets and exported artifacts
+# ---------------------------------------------------------------------------
+
+EXPORT_BUCKET = 8       # the main artifact: bucket 8 at iter=3 exact
+EXPORT_REQUESTS = 9     # requests of 8 pairs: the first 72 of the 73 pairs
+# PR 12's per-request latencies of the serve and refine phases (ms, 1 / 8 / 64
+# pairs; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+PR12_LATENCY_MS = {1: (6.87, 6.38, 24.21), 3: (18.38, 13.78, 59.79)}
+# the other forward ops in an artifact: (name, Config fields, bucket, the
+# environment while tracing, the launches of one request); DGCNN and the fused
+# pointer at iter=1, whose graphs trace in less than half iter=3's time
+EXPORT_CONFIGS = (
+    ("reuse_refresh1", dict(iter=3, num_points=N, **REFINE_CONFIGS["reuse_refresh1"][0]), 1,
+     {}, {**LAUNCHES_ITER3, **REFINE_CONFIGS["reuse_refresh1"][1]}),
+    ("partial 3072", dict(iter=3, num_points=NUM_POINTS_LARGE, partial=True, overlap=0.575), 8,
+     {}, LAUNCHES_PARTIAL_LARGE),
+    ("dgcnn", dict(iter=1, num_points=N, emb_nn="dgcnn"), 1, {}, DGCNN_SERVE_LAUNCHES[1]),
+    ("fused pointer", dict(iter=1, num_points=N), 1, {"VCRNET_FUSED_POINTER": "1"},
+     FUSED_LAUNCHES[1]),
+)
+# a fresh process loads an artifact with the port's model code unimportable
+FRESH_LOAD = r'''
+import importlib.abc, importlib.machinery, json, sys
+
+MODEL_CODE = tuple(f"vcrnet_tpu_torch.{m}" for m in ("models", "config", "train", "data"))
+
+
+class Absent(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, name, path, target=None):
+        if any(name == m or name.startswith(m + ".") for m in MODEL_CODE):
+            return importlib.machinery.ModuleSpec(name, self)
+        return None
+
+    def create_module(self, spec):
+        raise ImportError(f"No module named {spec.name!r}")
+
+    def exec_module(self, module):
+        pass
+
+
+sys.meta_path.insert(0, Absent())
+import numpy as np
+import torch
+
+from vcrnet_tpu_torch import ops
+from vcrnet_tpu_torch.exported import load_exported
+
+torch.backends.cuda.matmul.allow_tf32 = False
+reg = load_exported(sys.argv[1])
+clouds = np.load(sys.argv[2])
+ops.reset_launch_counts()
+outs = [reg.register(s, t) for s, t in zip(clouds["src"], clouds["tgt"])]
+np.savez(sys.argv[3], R=np.stack([o["R"] for o in outs]), t=np.stack([o["t"] for o in outs]))
+loaded = sorted(m for m in sys.modules if m.startswith("vcrnet_tpu_torch."))
+print(json.dumps({"device": str(reg.device), "launches": ops.launch_counts(), "modules": loaded}))
+'''
+# the same artifact where no card is visible: the load must fail
+NO_CARD_LOAD = r'''
+import sys
+from vcrnet_tpu_torch.exported import load_exported
+reg = load_exported(sys.argv[1])
+print("loaded on", reg.device, "and registered", reg.register(*[__import__("numpy").zeros(
+    (reg.batch, reg.n_points, 3), "float32")] * 2)["R"].shape)
+'''
+
+
+def start_logged(cmd, log: str, env):
+    """Start ``cmd`` from the checkout with its stdout and stderr in files
+    (``log``.out, ``log``.err), so that no pipe fills while it runs."""
+    with open(log + ".out", "w") as out, open(log + ".err", "w") as err:
+        return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out, stderr=err, text=True)
+
+
+def finish_logged(proc, log: str, timeout: float = 600) -> tuple:
+    """Wait for a :func:`start_logged` process; its (stdout, stderr)."""
+    proc.wait(timeout=timeout)
+    with open(log + ".out") as out, open(log + ".err") as err:
+        return out.read(), err.read()
+
+
+def export_checked(reg, bucket: int, expected: dict, what: str, path=None):
+    """Export ``bucket``, load the bytes, and hold the graph's op nodes to
+    ``expected``. Returns (loaded artifact, bytes, export seconds)."""
+    from vcrnet_tpu_torch.exported import load_exported
+    from vcrnet_tpu_torch.ops.library import op_counts
+
+    t0 = time.perf_counter()
+    blob = reg.export_bucket(bucket, path=path)
+    seconds = time.perf_counter() - t0
+    loaded = load_exported(blob)
+    nodes = op_counts(loaded.program.graph)
+    print(f"export {what}: bucket {bucket}, {len(blob)} bytes, exported in {seconds} s; "
+          f"op nodes of the graph: {nodes}", flush=True)
+    check(nodes == {k: n for k, n in expected.items() if n}, f"export {what}: op nodes {nodes}, "
+          f"expected {expected}")
+    check((loaded.batch, loaded.n_points) == (bucket, reg.n_points) and loaded.device.type == "cuda",
+          f"export {what}: artifact takes {loaded.batch, loaded.n_points} on {loaded.device}")
+    return loaded, blob, seconds
+
+
+def artifact_launches(loaded, src, tgt, expected: dict, what: str) -> tuple:
+    """One call of a loaded artifact: (its results, its launches), the
+    launches held to ``expected``."""
+    import torch
+
+    from vcrnet_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = loaded.register(src, tgt)
+    launches = ops.launch_counts()
+    print(f"export {what}: launches of one artifact call: {launches}", flush=True)
+    check_launches(launches, expected, f"export {what}")
+    return out, launches
+
+
+def same_results(got: dict, want: dict, what: str) -> None:
+    import numpy as np
+
+    diff = max(float(np.abs(got[k] - want[k]).max()) for k in ("R", "t"))
+    equal = all(np.array_equal(got[k], want[k]) for k in ("R", "t"))
+    print(f"export {what}: artifact against the live Registrar: bit-equal {equal}, "
+          f"max |diff| {diff}", flush=True)
+    check(equal, f"export {what}: R and t differ from the live Registrar's by {diff}")
+
+
+def call_us(fn, reps: int = 2000) -> float:
+    """Host time of one call in microseconds, over ``reps`` calls in a row."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+# the op handle and the implementation behind it, by module: the pairs that
+# direct_calls swaps to take the dispatcher out of a wrapper's path
+OP_IMPLS = {"attention": ("flash_packed",), "colmass": ("softmax_colmass",),
+            "dgcnn": ("dgcnn_eval",), "knn": ("knn",),
+            "edgeconv": ("knn_gather_max", "gather_max_from_idx", "edge_conv",
+                         "edge_conv_from_idx"),
+            "pointer": ("fused_mha", "fused_ff"), "vcp": ("vcp_stream",)}
+
+
+class direct_calls:
+    """While active, each wrapper calls its op's implementation as a plain
+    Python function, around torch's dispatcher: the path the wrappers took
+    before the kernels were ops. For measuring the dispatcher's cost."""
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for mod_name, names in OP_IMPLS.items():
+            mod = importlib.import_module(f"vcrnet_tpu_torch.ops.{mod_name}")
+            for name in names:
+                self.saved.append((mod, f"_{name}_op", getattr(mod, f"_{name}_op")))
+                setattr(mod, f"_{name}_op", getattr(mod, f"_{name}_impl"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, op in self.saved:
+            setattr(mod, attr, op)
+
+
+def print_dispatch_cost(state_dict, requests) -> None:
+    """One op call against one call of its implementation with the
+    dispatcher bypassed and one bare extension call (flash_packed at B = 1,
+    64 rows, one head: a launch the host outruns), then the 1 / 8 / 64-pair
+    latencies at iter=1 and iter=3 through the ops and with the dispatcher
+    bypassed, in turns (ops, bypassed, bypassed, ops), beside PR 12's."""
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.ops import _build, attention
+    from vcrnet_tpu_torch.serve import Registrar
+
+    q = torch.randn(1, 64, 128, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    ext = _build.extension()
+    calls = {
+        "op": lambda: attention._flash_packed_op(q, q, q, 0.1, 1, False, None),
+        "implementation": lambda: attention._flash_packed_impl(q, q, q, 0.1, 1, False, None),
+        "extension": lambda: ext.flash_packed(q, q, q, out, None, 64, 1, 0.1),
+    }
+    times = {name: [] for name in calls}
+    for name in ("op", "implementation", "extension", "extension", "implementation", "op"):
+        times[name].append(call_us(calls[name]))
+    print(f"export dispatch: host time of one flash_packed call, us (two runs of 2000 each, in "
+          f"turns): {times}; the dispatcher adds "
+          f"{statistics.mean(times['op']) - statistics.mean(times['implementation'])} us a "
+          f"launch", flush=True)
+    for n_iter in (1, 3):
+        reg = Registrar(Config(compute_dtype="bfloat16", iter=n_iter, num_points=N), state_dict)
+        reg.warmup([len(src) for src, _ in requests])
+        lat = {"ops": {}, "bypassed": {}}
+        for route in ("ops", "bypassed", "bypassed", "ops"):
+            with direct_calls() if route == "bypassed" else contextlib.nullcontext():
+                for src, tgt in requests:
+                    runs = []
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        reg.register(src, tgt)
+                        runs.append((time.perf_counter() - t0) * 1e3)
+                    lat[route].setdefault(len(src), []).append(statistics.median(runs))
+        for (b, ops_ms), pr12 in zip(lat["ops"].items(), PR12_LATENCY_MS[n_iter]):
+            print(f"export dispatch iter={n_iter}: request of {b} pairs: median latency through "
+                  f"the ops {ops_ms} ms, dispatcher bypassed {lat['bypassed'][b]} ms (two turns "
+                  f"each); PR 12: {pr12} ms", flush=True)
+        del reg
+
+
+def phase_export():
+    """The rest of the serving API (ROADMAP A8c), full width, bf16, the
+    committed checkpoint:
+
+    1. ``Registrar.warmup()`` at iter=3 over all seven buckets: each bucket's
+       first run and its second, timed; ``compiled_buckets`` lists all seven;
+    2. bucket 8 at iter=3 exact exported to bytes and to a file (size and
+       export time printed): its graph's op nodes equal LAUNCHES_ITER3, as
+       do the launches of one call of the loaded artifact; the first 72 of
+       the 73 pairs in 9 requests through the artifact loaded here and in a
+       fresh process in which the port's models, config, train and data
+       cannot be imported, R and t equal to the live Registrar's bit for bit;
+       iter=0 refuses to export; the artifact fails to load in a process
+       that sees no card;
+    3. reuse refresh 1 (edge_conv_from_idx), partial at 3072 points
+       (softmax_colmass), VCR-Net on DGCNN with seeded weights (knn,
+       dgcnn_eval; iter=1) and VCRNET_FUSED_POINTER=1 while tracing
+       (fused_mha, fused_ff; iter=1; the variable unset when the artifact
+       runs), while the two processes of 2 run: op nodes and
+       the launches of one artifact call equal their launch tables, results
+       equal the live Registrar's;
+    4. the dispatcher's cost: one op call against its implementation called
+       directly and a bare extension call, and the 1 / 8 / 64-pair latencies
+       at iter=1 and iter=3 with the dispatcher in and bypassed, in turns,
+       beside PR 12's.
+    Returns the launches of the artifact calls."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.models import VCRNet
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    state_dict = load_checkpoint(CHECKPOINT)
+    tmp = tempfile.mkdtemp(prefix="export_", dir=os.path.join(HERE, "build"))
+    total, procs = {}, []
+    try:
+        # --- 1. warmup over the seven buckets
+        reg = Registrar(Config(compute_dtype="bfloat16", iter=3, num_points=N), state_dict)
+        check(reg.compiled_buckets == [], "a fresh Registrar lists buckets that have not run")
+        first, second = {}, {}
+        for runs in (first, second):
+            for bucket in reg._buckets:
+                t0 = time.perf_counter()
+                reg.warmup([bucket])
+                runs[bucket] = (time.perf_counter() - t0) * 1e3
+        print(f"export warmup iter=3: first run of each bucket {first} ms; second {second} ms",
+              flush=True)
+        check(reg.compiled_buckets == [1, 2, 4, 8, 16, 32, 64],
+              f"warmup left compiled_buckets at {reg.compiled_buckets}")
+
+        # --- 2. the main artifact: bucket 8, iter=3 exact
+        data = shapes_eval_set(sum(REQUESTS), num_points=N)
+        n = EXPORT_BUCKET * EXPORT_REQUESTS
+        src = data["src"][:n].reshape(EXPORT_REQUESTS, EXPORT_BUCKET, N, 3)
+        tgt = data["tgt"][:n].reshape(EXPORT_REQUESTS, EXPORT_BUCKET, N, 3)
+        path = os.path.join(tmp, "bucket8_iter3.pt2")
+        loaded, blob, _ = export_checked(reg, EXPORT_BUCKET, LAUNCHES_ITER3, "iter=3 bucket 8",
+                                         path=path)
+        with open(path, "rb") as fh:
+            check(fh.read() == blob, "export: the file and the bytes differ")
+        live = [reg.register(s, t) for s, t in zip(src, tgt)]
+        _, launches = artifact_launches(loaded, src[0], tgt[0], LAUNCHES_ITER3, "iter=3 bucket 8")
+        total = dict(launches)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = [loaded.register(s, t) for s, t in zip(src, tgt)]
+        add_launches(total, ops.launch_counts())
+        stack = {k: np.stack([o[k] for o in got]) for k in ("R", "t")}
+        want = {k: np.stack([o[k] for o in live]) for k in ("R", "t")}
+        same_results(stack, want, "iter=3 bucket 8, 72 pairs in this process")
+        acc = accuracy(stack["R"].reshape(n, 3, 3), stack["t"].reshape(n, 3),
+                       {k: v[:n] for k, v in data.items()})
+        print(f"export iter=3 bucket 8: the artifact's accuracy over {n} pairs: {acc}", flush=True)
+        check(acc["rot_rmse_deg"] <= ROT_LIMIT_ITER3_DEG, f"export: rot RMSE {acc}")
+
+        # a fresh process, and one that sees no card, load the artifact while
+        # this one exports the others
+        clouds = os.path.join(tmp, "clouds.npz")
+        np.savez(clouds, src=src, tgt=tgt)
+        results = os.path.join(tmp, "fresh.npz")
+        t_fresh = time.perf_counter()
+        fresh = start_logged([sys.executable, "-c", FRESH_LOAD, path, clouds, results],
+                             os.path.join(tmp, "fresh"), dict(os.environ, PYTHONPATH=HERE))
+        no_card = start_logged([sys.executable, "-c", NO_CARD_LOAD, path],
+                               os.path.join(tmp, "no_card"),
+                               dict(os.environ, PYTHONPATH=HERE, CUDA_VISIBLE_DEVICES=""))
+        procs += [fresh, no_card]
+        try:
+            Registrar(Config(compute_dtype="bfloat16", iter=0, num_points=N),
+                      state_dict).export_bucket(1)
+        except ValueError as e:
+            print(f"export iter=0: export_bucket refuses net + ICP: {e}", flush=True)
+            check("host" in str(e), f"export iter=0: the refusal does not name its reason: {e}")
+        else:
+            raise RuntimeError("export iter=0: export_bucket exported net + ICP")
+        del reg, loaded, live, got
+
+        # --- 3. the other forward ops in an artifact
+        for what, fields, bucket, env, expected in EXPORT_CONFIGS:
+            cfg = Config(compute_dtype="bfloat16", **fields)
+            weights = state_dict
+            if cfg.emb_nn == "dgcnn":  # the repository has no DGCNN weights: a seeded init
+                torch.manual_seed(0)
+                weights = VCRNet(cfg).state_dict()
+            if cfg.partial:
+                pairs = shapes_eval_set(bucket, num_points=NUM_POINTS_LARGE,
+                                        cloud_points=NUM_POINTS_LARGE + 3, partial=True)
+                s, t = pairs["src"], pairs["tgt"]
+            else:
+                s, t = src[0][:bucket], tgt[0][:bucket]
+            reg = Registrar(cfg, weights, buckets=(bucket,))
+            os.environ.update(env)
+            try:
+                loaded, _, _ = export_checked(reg, bucket, expected, what)
+                live = reg.register(s, t)
+            finally:
+                for key in env:
+                    del os.environ[key]
+            # the environment is back as it was: the artifact keeps its route
+            got, launches = artifact_launches(loaded, s, t, expected, what)
+            add_launches(total, launches)
+            same_results(got, live, what)
+            del reg, loaded
+        torch.cuda.empty_cache()
+
+        out, err = finish_logged(fresh, os.path.join(tmp, "fresh"))
+        check(fresh.returncode == 0, f"export: the fresh process failed:\n{out}\n{err}")
+        report = json.loads(out.strip().splitlines()[-1])
+        print(f"export fresh process (ended {time.perf_counter() - t_fresh} s after its start): "
+              f"{report}", flush=True)
+        check(not any(m.split(".")[1] in ("models", "config", "train", "data")
+                      for m in report["modules"]), "export: the fresh process loaded model code")
+        check_launches(report["launches"], {k: v * EXPORT_REQUESTS for k, v in LAUNCHES_ITER3.items()},
+                       "export fresh process, 9 requests")
+        same_results(dict(np.load(results)), want, "iter=3 bucket 8, 72 pairs in a fresh process")
+        out, err = finish_logged(no_card, os.path.join(tmp, "no_card"))
+        last = (err.strip().splitlines() or [""])[-1]
+        print(f"export without a visible card: exit {no_card.returncode}: {last}", flush=True)
+        check(no_card.returncode != 0 and "loaded on" not in out,
+              f"export: the card's artifact loaded where no card is visible:\n{out}")
+
+        # --- 4. the dispatcher's cost
+        print_dispatch_cost(state_dict, split_requests(data, REQUESTS))
+    finally:
+        for proc in procs:  # stopped, where a check failed before they were read
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -3687,7 +4073,7 @@ def print_ptxas_reports(procs: dict) -> None:
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
           "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd", "heads",
-          "cli")
+          "cli", "export")
 
 
 def main() -> int:
@@ -3763,6 +4149,8 @@ def main() -> int:
             launches[name] = phase_heads()
         elif name == "cli":
             launches[name] = phase_cli()
+        elif name == "export":
+            launches[name] = phase_export()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -3828,6 +4216,7 @@ def main() -> int:
             "launches_lpd": launches["lpd"].get(name, 0),
             "launches_heads": launches["heads"].get(name, 0),
             "launches_cli": launches["cli"].get(name, 0),
+            "launches_export": launches["export"].get(name, 0),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

@@ -19,7 +19,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("h5py", "tensorboardX", "jax", "jaxlib", "flax", "optax", "pandas")
 
-CHILD = r'''
+# the preamble of each child: the names in BLOCKED (formatted in), and every
+# module under one of them, cannot be imported
+FINDER = r'''
 import importlib, importlib.abc, importlib.machinery, os, pkgutil, sys, tempfile
 
 BLOCKED = %r
@@ -31,7 +33,7 @@ class Absent(importlib.abc.MetaPathFinder, importlib.abc.Loader):
     the spec's origin) finds nothing to read."""
 
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in BLOCKED:
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
             return importlib.machinery.ModuleSpec(name, self)
         return None
 
@@ -50,7 +52,9 @@ for name in BLOCKED:
         pass
     else:
         raise SystemExit(f"{name} imported")
+'''
 
+CHILD = FINDER % (BLOCKED,) + r'''
 import numpy as np
 
 import vcrnet_tpu_torch
@@ -150,12 +154,75 @@ assert cli.main(["--model", "icp", "--dataset", "synthetic", "--num_points", "32
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("card env ok")
-''' % (BLOCKED,)
+'''
+
+# the JAX package's artifact needs no model code, config or checkpoint at the
+# destination; the port's needs its op library (vcrnet_tpu_torch.ops) alone
+MODEL_CODE = tuple(f"vcrnet_tpu_torch.{m}" for m in ("models", "config", "train", "data"))
+
+LOADER = FINDER % (BLOCKED + MODEL_CODE,) + r'''
+import numpy as np
+
+from vcrnet_tpu_torch.exported import load_exported
+
+for name in ("vcrnet_tpu_torch.serve", "vcrnet_tpu_torch.models.vcrnet"):
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        pass
+    else:
+        raise SystemExit(f"{name} imported")
+want = np.load(sys.argv[2])
+reg = load_exported(sys.argv[1])
+out = reg.register(want["src"], want["tgt"])
+for key in ("R", "t", "R_inv", "t_inv"):
+    assert np.array_equal(out[key], want[key]), key
+bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not bad, bad
+print("loaded without model code")
+'''
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    env.pop("VCRNET_DATA", None)
+    return env
 
 
 def test_the_port_runs_without_h5py_tensorboardx_or_jax(tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    env.pop("VCRNET_DATA", None)
-    r = subprocess.run([sys.executable, "-c", CHILD], cwd=str(tmp_path), env=env,
+    r = subprocess.run([sys.executable, "-c", CHILD], cwd=str(tmp_path), env=_env(),
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0 and "card env ok" in r.stdout, r.stdout + r.stderr
+
+
+def test_an_exported_artifact_loads_without_model_code(tmp_path):
+    """A bucket exported here on the CPU (the kernel route: the graph calls
+    the vcrnet_torch ops) loads in a subprocess where the port's models,
+    config, train and data packages cannot be imported, nor JAX, h5py,
+    tensorboardX or flax, and reproduces the live Registrar bit for bit."""
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.models import VCRNet
+    from vcrnet_tpu_torch.serve import Registrar
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        torch.manual_seed(0)
+        cfg = Config(num_points=32, emb_dims=64, ff_dims=128, n_heads=2, iter=2)
+        reg = Registrar(cfg, VCRNet(cfg, device="cpu").state_dict(), buckets=(2,),
+                        device="cpu", use_kernels=True)
+        path = str(tmp_path / "bucket2.pt2")
+        reg.export_bucket(2, path=path)
+        rng = np.random.RandomState(0)
+        src = rng.rand(2, 32, 3).astype(np.float32) - 0.5
+        tgt = src[:, ::-1] + np.float32(0.1)
+        np.savez(tmp_path / "want.npz", src=src, tgt=tgt, **reg.register(src, tgt))
+    finally:
+        torch.set_num_threads(n)
+    r = subprocess.run([sys.executable, "-c", LOADER, path, str(tmp_path / "want.npz")],
+                       cwd=str(tmp_path), env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and "loaded without model code" in r.stdout, r.stdout + r.stderr

@@ -1,4 +1,8 @@
-"""Graph ops, LayerNorm and the Hopper kernels with their plain versions."""
+"""Graph ops, LayerNorm and the Hopper kernels with their plain versions.
+
+Importing this package defines the eleven forward kernels as torch ops of
+the ``vcrnet_torch`` library (``ops/library.py``), which an exported
+serving artifact calls by name."""
 
 from vcrnet_tpu_torch.ops.attention import flash_bwd, flash_mha_packed
 from vcrnet_tpu_torch.ops.colmass import softmax_colmass

@@ -25,8 +25,9 @@ def kernel_route(*tensors: torch.Tensor) -> bool:
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     """Raise unless ``t`` has ``dtype``, matches ``shape`` (None entries
-    match any size), is contiguous and 32-byte aligned (the kernels use
-    16-byte vector loads and warp-level mma tiles)."""
+    match any size) and is contiguous. Reads no data, so it runs on the
+    fake tensors of a trace too; :func:`check_aligned` checks the data
+    where the kernel is launched."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(
@@ -35,8 +36,14 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 32:
-        raise ValueError(f"{name}: data must be 32-byte aligned")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's data is 32-byte aligned (the kernels use
+    16-byte vector loads and warp-level mma tiles)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 32:
+            raise ValueError(f"{name}: data must be 32-byte aligned")
 
 
 def knn_scores(x: torch.Tensor) -> torch.Tensor:

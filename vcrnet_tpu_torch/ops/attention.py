@@ -8,7 +8,9 @@ backward ``_bwd_fused`` (its training forward, the stock TPU flash kernel
 A CUDA tensor launches ``csrc/flash_packed.cu`` / ``csrc/flash_bwd.cu``
 (or raises); a CPU tensor runs the ``*_ref`` plain version. Each wrapper
 counts its launches in ``.launches``; ``attention`` is the differentiable
-entry point, which the model calls in eval and in training.
+entry point, which the model calls in eval and in training. The forward runs
+through the op ``vcrnet_torch::flash_packed`` (``ops/library.py``), the
+backward calls the extension directly.
 
 ``nk_valid`` is the count of real keys when k and v carry padding rows
 behind them (the counterpart of ``nk_valid`` in pallas_attention.py:
@@ -26,8 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vcrnet_tpu_torch.ops import _build
-from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route, upcast
+from vcrnet_tpu_torch.ops import _build, library
+from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route, upcast
 
 HEAD_DIM = 128  # the kernels' dk
 
@@ -88,26 +90,52 @@ def flash_mha_packed(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = 
                      nk_valid: int | None = None):
     """Packed-head attention; see the module docstring. The kernel takes
     bf16 with :func:`flash_packed_supported` shapes; with ``nk_valid`` the
-    rows of k and v at or beyond it must be finite (zeros)."""
+    rows of k and v at or beyond it must be finite (zeros). Runs the op
+    ``vcrnet_torch::flash_packed``."""
+    if kernel_route(q, k, v):
+        B, nq, d = q.shape
+        nk = k.shape[1]
+        _check_nk_valid(nk_valid, nk)
+        if not flash_packed_supported(nq, nk, d, n_heads):
+            raise ValueError(
+                f"flash_mha_packed kernel does not take nq={nq} nk={nk} d_model={d} "
+                f"heads={n_heads}"
+            )
+        check_tensor("q", q, torch.bfloat16, (B, nq, d))
+        check_tensor("k", k, torch.bfloat16, (B, nk, d))
+        check_tensor("v", v, torch.bfloat16, (B, nk, d))
+    out, lse = _flash_packed_op(q, k, v, float(sm_scale), n_heads, return_lse, nk_valid)
+    return (out, lse) if return_lse else out
+
+
+def _flash_packed_impl(q, k, v, sm_scale: float, n_heads: int, return_lse: bool,
+                       nk_valid: int | None):
     if not kernel_route(q, k, v):
-        return flash_mha_packed_ref(q, k, v, sm_scale, n_heads, return_lse, nk_valid)
-    B, nq, d = q.shape
-    nk = k.shape[1]
-    _check_nk_valid(nk_valid, nk)
-    if not flash_packed_supported(nq, nk, d, n_heads):
-        raise ValueError(
-            f"flash_mha_packed kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
-        )
-    check_tensor("q", q, torch.bfloat16, (B, nq, d))
-    check_tensor("k", k, torch.bfloat16, (B, nk, d))
-    check_tensor("v", v, torch.bfloat16, (B, nk, d))
+        out = flash_mha_packed_ref(q, k, v, sm_scale, n_heads, return_lse, nk_valid)
+        return out if return_lse else (out, library.empty_output(q, library.stat_dtype(q)))
+    check_aligned(q=q, k=k, v=v)
+    B, nq, _ = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((B, n_heads, nq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    _build.extension().flash_packed(q, k, v, out, lse, nk if nk_valid is None else nk_valid,
-                                    n_heads, float(sm_scale))
+    _build.extension().flash_packed(q, k, v, out, lse, k.shape[1] if nk_valid is None else nk_valid,
+                                    n_heads, sm_scale)
     flash_mha_packed.launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse if return_lse else library.empty_output(q, torch.float32)
+
+
+def _flash_packed_fake(q, k, v, sm_scale: float, n_heads: int, return_lse: bool,
+                       nk_valid: int | None):
+    B, nq, _ = q.shape
+    lse_shape = (B, n_heads, nq) if return_lse else (0,)
+    return q.new_empty(q.shape), q.new_empty(lse_shape, dtype=library.stat_dtype(q))
+
+
+_flash_packed_op = library.define(
+    "flash_packed",
+    "(Tensor q, Tensor k, Tensor v, float sm_scale, int n_heads, bool return_lse, "
+    "int? nk_valid) -> (Tensor, Tensor)",
+    _flash_packed_impl, _flash_packed_fake)
 
 
 flash_mha_packed.launches = 0
@@ -151,6 +179,7 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
     check_tensor("lse", lse, torch.float32, (B, n_heads, nq))
     if nq % 64:  # the kernels read whole 64-value tiles of lse: +inf past Nq gives p = 0
         lse = F.pad(lse, (0, -nq % 64), value=float("inf"))
+    check_aligned(q=q, k=k, v=v, o=o, lse=lse, do=do)
     delta = torch.empty_like(lse)  # the kernels' scratch, 0 past Nq
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.extension().flash_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, n_heads,

@@ -23,8 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from vcrnet_tpu_torch.ops import _build
-from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route
+from vcrnet_tpu_torch.ops import _build, library
+from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route
 from vcrnet_tpu_torch.ops.attention import HEAD_DIM, _scores
 
 
@@ -43,24 +43,42 @@ def softmax_colmass_ref(q, k, sm_scale: float, n_heads: int):
 
 def softmax_colmass(q: torch.Tensor, k: torch.Tensor, sm_scale: float, n_heads: int):
     """Column masses [B, H, Nk] f32; see the module docstring. The kernel
-    takes bf16 with :func:`colmass_supported` shapes."""
+    takes bf16 with :func:`colmass_supported` shapes. Runs the op
+    ``vcrnet_torch::softmax_colmass``."""
+    if kernel_route(q, k):
+        B, nq, d = q.shape
+        nk = k.shape[1]
+        if not colmass_supported(nq, nk, d, n_heads):
+            raise ValueError(
+                f"softmax_colmass kernel takes dk == {HEAD_DIM}, "
+                f"got nq={nq} nk={nk} d_model={d} heads={n_heads}"
+            )
+        check_tensor("q", q, torch.bfloat16, (B, nq, d))
+        check_tensor("k", k, torch.bfloat16, (B, nk, d))
+    return _softmax_colmass_op(q, k, float(sm_scale), n_heads)
+
+
+def _softmax_colmass_impl(q, k, sm_scale: float, n_heads: int):
     if not kernel_route(q, k):
         return softmax_colmass_ref(q, k, sm_scale, n_heads)
-    B, nq, d = q.shape
+    check_aligned(q=q, k=k)
+    B, nq, _ = q.shape
     nk = k.shape[1]
-    if not colmass_supported(nq, nk, d, n_heads):
-        raise ValueError(
-            f"softmax_colmass kernel takes dk == {HEAD_DIM}, "
-            f"got nq={nq} nk={nk} d_model={d} heads={n_heads}"
-        )
-    check_tensor("q", q, torch.bfloat16, (B, nq, d))
-    check_tensor("k", k, torch.bfloat16, (B, nk, d))
     # scratch of the row logsumexps, read back in whole 64-query tiles
     lse = torch.empty((B, n_heads, nq + -nq % 64), dtype=torch.float32, device=q.device)
     out = torch.empty((B, n_heads, nk), dtype=torch.float32, device=q.device)
-    _build.extension().softmax_colmass(q, k, lse, out, n_heads, float(sm_scale))
+    _build.extension().softmax_colmass(q, k, lse, out, n_heads, sm_scale)
     softmax_colmass.launches += 1
     return out
+
+
+def _softmax_colmass_fake(q, k, sm_scale: float, n_heads: int):
+    return q.new_empty((q.shape[0], n_heads, k.shape[1]), dtype=library.stat_dtype(q))
+
+
+_softmax_colmass_op = library.define(
+    "softmax_colmass", "(Tensor q, Tensor k, float sm_scale, int n_heads) -> Tensor",
+    _softmax_colmass_impl, _softmax_colmass_fake)
 
 
 softmax_colmass.launches = 0

@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from vcrnet_tpu_torch.ops import _build
-from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route
+from vcrnet_tpu_torch.ops import _build, library
+from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route
 from vcrnet_tpu_torch.ops.graph import gather_neighbors
 
 STAGE_WIDTHS = ((6, 64), (64, 64), (64, 128), (128, 256))
@@ -98,32 +98,50 @@ def fused_dgcnn_eval(x: torch.Tensor, idx: torch.Tensor, folded, emb_dims: int) 
     """x [B, N, 3] (any float dtype), idx [B, N, k] int32 with entries in
     [0, N), folded = :func:`fold_dgcnn_eval_params` -> [B, N, emb_dims] f32.
     The kernel takes :func:`fused_dgcnn_supported` shapes and raises on any
-    other, as the Pallas wrapper does on an N it cannot tile."""
+    other, as the Pallas wrapper does on an N it cannot tile. Runs the op
+    ``vcrnet_torch::dgcnn_eval`` (``folded`` flattened to w1, b1, ..., w5,
+    b5)."""
     tensors = [t for pair in folded for t in pair]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors)):
         raise RuntimeError("fused_dgcnn_eval has no backward; call it under torch.no_grad()")
-    if not kernel_route(x, idx, *tensors):
-        return fused_dgcnn_eval_ref(x, idx, folded, emb_dims)
+    if kernel_route(x, idx, *tensors):
+        B, N, _ = x.shape
+        k = idx.shape[-1]
+        if not fused_dgcnn_supported(N, k, emb_dims):
+            raise ValueError(
+                f"fused_dgcnn_eval kernel does not take N={N} k={k} emb_dims={emb_dims} "
+                f"(emb_dims % 128 == 0, 0 < k < N)"
+            )
+        x = x.float().contiguous()
+        check_tensor("x", x, torch.float32, (B, N, 3))
+        check_tensor("idx", idx, torch.int32, (B, N, k))
+        tensors = []
+        for (w, b), shape in zip(folded, STAGE_WIDTHS + ((CAT_WIDTH, emb_dims),)):
+            w, b = w.to(torch.bfloat16).contiguous(), b.float().contiguous()
+            check_tensor("folded weight", w, torch.bfloat16, shape)
+            check_tensor("folded bias", b, torch.float32, shape[1:])
+            tensors += [w, b]
+    return _dgcnn_eval_op(x, idx, tensors, emb_dims)
+
+
+def _dgcnn_eval_impl(x, idx, folded, emb_dims: int):
+    if not kernel_route(x, idx, *folded):
+        return fused_dgcnn_eval_ref(x, idx, list(zip(folded[::2], folded[1::2])), emb_dims)
+    check_aligned(x=x, idx=idx, **{f"folded[{i}]": t for i, t in enumerate(folded)})
     B, N, _ = x.shape
-    k = idx.shape[-1]
-    if not fused_dgcnn_supported(N, k, emb_dims):
-        raise ValueError(
-            f"fused_dgcnn_eval kernel does not take N={N} k={k} emb_dims={emb_dims} "
-            f"(emb_dims % 128 == 0, 0 < k < N)"
-        )
-    x = x.float().contiguous()
-    check_tensor("x", x, torch.float32, (B, N, 3))
-    check_tensor("idx", idx, torch.int32, (B, N, k))
-    args = []
-    for (w, b), shape in zip(folded, STAGE_WIDTHS + ((CAT_WIDTH, emb_dims),)):
-        w, b = w.to(torch.bfloat16).contiguous(), b.float().contiguous()
-        check_tensor("folded weight", w, torch.bfloat16, shape)
-        check_tensor("folded bias", b, torch.float32, shape[1:])
-        args += [w, b]
     out = torch.empty((B, N, emb_dims), dtype=torch.float32, device=x.device)
-    _build.extension().dgcnn_eval(x, idx, args, out)
+    _build.extension().dgcnn_eval(x, idx, folded, out)
     fused_dgcnn_eval.launches += 1
     return out
+
+
+def _dgcnn_eval_fake(x, idx, folded, emb_dims: int):
+    return x.new_empty((*x.shape[:2], emb_dims), dtype=torch.float32)
+
+
+_dgcnn_eval_op = library.define(
+    "dgcnn_eval", "(Tensor x, Tensor idx, Tensor[] folded, int emb_dims) -> Tensor",
+    _dgcnn_eval_impl, _dgcnn_eval_fake)
 
 
 fused_dgcnn_eval.launches = 0

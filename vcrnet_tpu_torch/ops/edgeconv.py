@@ -18,7 +18,11 @@ A CUDA tensor launches the kernel in ``csrc/`` (or raises); a CPU tensor
 runs the ``*_ref`` plain version. Both select by exact f32 comparison with
 ties to the smaller column and mask the diagonal, and both gather the
 exact values: the TPU's int8 one-hot gather (``int8_gather=True`` there)
-is not reproduced. Each wrapper counts its launches in ``.launches``.
+is not reproduced. Each wrapper counts its launches in ``.launches``. The
+four forward wrappers run through the ops ``vcrnet_torch::knn_gather_max``,
+``edge_conv``, ``gather_max_from_idx`` and ``edge_conv_from_idx``
+(``ops/library.py``); the two backward wrappers call the extension
+directly.
 
 The from-idx pair serves the refinement loop, which computes a selection
 once and passes it back: given the fused kernels' own idx they return the
@@ -37,9 +41,9 @@ from __future__ import annotations
 
 import torch
 
-from vcrnet_tpu_torch.ops import _build
+from vcrnet_tpu_torch.ops import _build, library
 from vcrnet_tpu_torch.ops._common import (
-    SMEM_LIMIT, check_tensor, kernel_route, knn_scores, leaky, select_topk,
+    SMEM_LIMIT, check_aligned, check_tensor, kernel_route, knn_scores, leaky, select_topk,
 )
 from vcrnet_tpu_torch.ops.graph import gather_neighbors
 
@@ -109,25 +113,46 @@ def fused_knn_gather_max(x: torch.Tensor, values: torch.Tensor, k: int = 20,
     int32[, win [B, N, F] uint8 with ``winners``]): per point, the
     channel-wise max of ``values`` over its k nearest neighbours in x (self
     excluded). The kernel takes bf16 values and the shapes
-    :func:`knn_gather_max_supported` takes."""
+    :func:`knn_gather_max_supported` takes. Runs the op
+    ``vcrnet_torch::knn_gather_max``."""
+    if kernel_route(x, values):
+        B, N, _ = x.shape
+        F = values.shape[-1]
+        check_tensor("x", x, torch.float32, (B, N, 3))
+        check_tensor("values", values, torch.bfloat16, (B, N, F))
+        if not knn_gather_max_supported(N, F, k):
+            raise ValueError(
+                f"knn_gather_max kernel takes F % 8 == 0 and k in [1, 32] below N, "
+                f"got F={F} k={k} N={N}"
+            )
+    out, idx, win = _knn_gather_max_op(x, values, k, winners)
+    return (out, idx, win) if winners else (out, idx)
+
+
+def _knn_gather_max_impl(x, values, k: int, winners: bool):
     if not kernel_route(x, values):
-        return fused_knn_gather_max_ref(x, values, k, winners=winners)
-    B, N, _ = x.shape
-    F = values.shape[-1]
-    check_tensor("x", x, torch.float32, (B, N, 3))
-    check_tensor("values", values, torch.bfloat16, (B, N, F))
-    if not knn_gather_max_supported(N, F, k):
-        raise ValueError(
-            f"knn_gather_max kernel takes F % 8 == 0 and k in [1, 32] below N, "
-            f"got F={F} k={k} N={N}"
-        )
+        out, idx, *win = fused_knn_gather_max_ref(x, values, k, winners=winners)
+        return out, idx, win[0] if winners else library.empty_output(values, torch.uint8)
+    check_aligned(x=x, values=values)
+    B, N, F = values.shape
     norms = (x * x).sum(-1)
     out = torch.empty_like(values)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)
     win = torch.empty((B, N, F), dtype=torch.uint8, device=x.device) if winners else None
     _build.extension().knn_gather_max(x, norms, values, out, idx, win, k)
     fused_knn_gather_max.launches += 1
-    return (out, idx, win) if winners else (out, idx)
+    return out, idx, win if winners else library.empty_output(values, torch.uint8)
+
+
+def _knn_gather_max_fake(x, values, k: int, winners: bool):
+    B, N, F = values.shape
+    return (values.new_empty((B, N, F)), x.new_empty((B, N, k), dtype=torch.int32),
+            values.new_empty((B, N, F) if winners else (0,), dtype=torch.uint8))
+
+
+_knn_gather_max_op = library.define(
+    "knn_gather_max", "(Tensor x, Tensor values, int k, bool winners) -> (Tensor, Tensor, Tensor)",
+    _knn_gather_max_impl, _knn_gather_max_fake)
 
 
 fused_knn_gather_max.launches = 0
@@ -157,6 +182,7 @@ def gather_max_bwd(idx: torch.Tensor, win: torch.Tensor, ct: torch.Tensor) -> to
             f"gather_max_bwd kernel takes F % 8 == 0, k in [1, 32] below N and "
             f"N <= {SMEM_LIMIT // 32}, got F={F} k={k} N={N}"
         )
+    check_aligned(idx=idx, win=win, ct=ct)
     dv = torch.empty((B, N, F), dtype=torch.float32, device=ct.device)  # every element written
     _build.extension().gather_max_bwd(idx, win, ct, dv)
     gather_max_bwd.launches += 1
@@ -196,23 +222,41 @@ def fused_gather_max_from_idx(idx: torch.Tensor, values: torch.Tensor, winners: 
     """idx [B, N, k] int32 with entries in [0, N), values [B, N, F] -> out
     [B, N, F] (or (out, win [B, N, F] uint8) with ``winners``): out[b, i] =
     channel-wise max of values[b, idx[b, i, :]]. The kernel takes bf16
-    values with F % 8 == 0 and k <= 32."""
+    values with F % 8 == 0 and k <= 32. Runs the op
+    ``vcrnet_torch::gather_max_from_idx``."""
+    if kernel_route(idx, values):
+        B, N, F = values.shape
+        k = idx.shape[-1]
+        check_tensor("idx", idx, torch.int32, (B, N, k))
+        check_tensor("values", values, torch.bfloat16, (B, N, F))
+        if not gather_max_from_idx_supported(N, F, k):
+            raise ValueError(
+                f"gather_max_from_idx kernel takes k in [1, 32] and F % 8 == 0, got k={k} F={F}"
+            )
+    out, win = _gather_max_from_idx_op(idx, values, winners)
+    return (out, win) if winners else out
+
+
+def _gather_max_from_idx_impl(idx, values, winners: bool):
     if not kernel_route(idx, values):
         out, _, *win = fused_knn_gather_max_ref(None, values, idx=idx, winners=winners)
-        return (out, *win) if winners else out
-    B, N, F = values.shape
-    k = idx.shape[-1]
-    check_tensor("idx", idx, torch.int32, (B, N, k))
-    check_tensor("values", values, torch.bfloat16, (B, N, F))
-    if not gather_max_from_idx_supported(N, F, k):
-        raise ValueError(
-            f"gather_max_from_idx kernel takes k in [1, 32] and F % 8 == 0, got k={k} F={F}"
-        )
+        return out, win[0] if winners else library.empty_output(values, torch.uint8)
+    check_aligned(idx=idx, values=values)
     out = torch.empty_like(values)
-    win = torch.empty((B, N, F), dtype=torch.uint8, device=idx.device) if winners else None
+    win = torch.empty(values.shape, dtype=torch.uint8, device=idx.device) if winners else None
     _build.extension().gather_max_from_idx(idx, values, out, win)
     fused_gather_max_from_idx.launches += 1
-    return (out, win) if winners else out
+    return out, win if winners else library.empty_output(values, torch.uint8)
+
+
+def _gather_max_from_idx_fake(idx, values, winners: bool):
+    return (values.new_empty(values.shape),
+            values.new_empty(values.shape if winners else (0,), dtype=torch.uint8))
+
+
+_gather_max_from_idx_op = library.define(
+    "gather_max_from_idx", "(Tensor idx, Tensor values, bool winners) -> (Tensor, Tensor)",
+    _gather_max_from_idx_impl, _gather_max_from_idx_fake)
 
 
 fused_gather_max_from_idx.launches = 0
@@ -267,21 +311,34 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     """x [B, N, C] (the kNN space), a/h [B, N, F], w2 [F, F] (in, out),
     b2 [F] -> (x1, x2 [B, N, F] in a's dtype, idx [B, N, k] int32[, win1,
     win2 [B, N, F] uint8 with ``winners``]). The kernel takes bf16
-    throughout, F = 128 and the shapes :func:`edge_conv_supported` takes."""
+    throughout, F = 128 and the shapes :func:`edge_conv_supported` takes.
+    Runs the op ``vcrnet_torch::edge_conv``."""
+    if kernel_route(x, a, h, w2, b2):
+        B, N, C = x.shape
+        bf16 = torch.bfloat16
+        if not edge_conv_supported(N, C, k):
+            raise ValueError(
+                f"edge_conv kernel takes C in (32, 64, 128) and k in [1, 32] below N, "
+                f"got C={C} N={N} k={k}"
+            )
+        check_tensor("x", x, bf16, (B, N, C))
+        for name, t in (("a", a), ("h", h)):
+            check_tensor(name, t, bf16, (B, N, 128))
+        check_tensor("w2", w2, bf16, (128, 128))
+        check_tensor("b2", b2, bf16, (128,))
+    x1, x2, idx, win1, win2 = _edge_conv_op(x, a, h, w2, b2, k, float(negative_slope), winners)
+    return (x1, x2, idx, win1, win2) if winners else (x1, x2, idx)
+
+
+def _edge_conv_impl(x, a, h, w2, b2, k: int, negative_slope: float, winners: bool):
     if not kernel_route(x, a, h, w2, b2):
-        return fused_edge_conv_ref(x, a, h, w2, b2, k, negative_slope, winners=winners)
-    B, N, C = x.shape
-    bf16 = torch.bfloat16
-    if not edge_conv_supported(N, C, k):
-        raise ValueError(
-            f"edge_conv kernel takes C in (32, 64, 128) and k in [1, 32] below N, "
-            f"got C={C} N={N} k={k}"
-        )
-    check_tensor("x", x, bf16, (B, N, C))
-    for name, t in (("a", a), ("h", h)):
-        check_tensor(name, t, bf16, (B, N, 128))
-    check_tensor("w2", w2, bf16, (128, 128))
-    check_tensor("b2", b2, bf16, (128,))
+        x1, x2, idx, *wins = fused_edge_conv_ref(x, a, h, w2, b2, k, negative_slope,
+                                                 winners=winners)
+        if not winners:
+            wins = [library.empty_output(a, torch.uint8) for _ in range(2)]
+        return x1, x2, idx, wins[0], wins[1]
+    check_aligned(x=x, a=a, h=h, w2=w2, b2=b2)
+    B, N, _ = x.shape
     norms = x.float().square().sum(-1)
     if N % 64:  # the kernel reads whole 64-key tiles: keys past N get an infinite norm
         norms = torch.nn.functional.pad(norms, (0, -N % 64), value=float("inf"))
@@ -292,11 +349,27 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     if winners:
         win1 = torch.empty((B, N, 128), dtype=torch.uint8, device=x.device)
         win2 = torch.empty_like(win1)
-    _build.extension().edge_conv(
-        x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, k, float(negative_slope)
-    )
+    _build.extension().edge_conv(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, k,
+                                 negative_slope)
     fused_edge_conv.launches += 1
-    return (x1, x2, idx, win1, win2) if winners else (x1, x2, idx)
+    if not winners:  # two placeholders: an op's outputs may not alias each other
+        win1, win2 = (library.empty_output(a, torch.uint8) for _ in range(2))
+    return x1, x2, idx, win1, win2
+
+
+def _edge_conv_fake(x, a, h, w2, b2, k: int, negative_slope: float, winners: bool):
+    B, N, F = a.shape
+    win_shape = (B, N, F) if winners else (0,)
+    return (a.new_empty((B, N, F)), a.new_empty((B, N, F)),
+            x.new_empty((B, N, k), dtype=torch.int32),
+            a.new_empty(win_shape, dtype=torch.uint8), a.new_empty(win_shape, dtype=torch.uint8))
+
+
+_edge_conv_op = library.define(
+    "edge_conv",
+    "(Tensor x, Tensor a, Tensor h, Tensor w2, Tensor b2, int k, float negative_slope, "
+    "bool winners) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _edge_conv_impl, _edge_conv_fake)
 
 
 fused_edge_conv.launches = 0
@@ -312,25 +385,43 @@ def edge_conv_from_idx(idx, a, h, w2, b2, negative_slope: float = 0.0):
     (in, out), b2 [F] -> (x1, x2 [B, N, F] in a's dtype): the DG block over
     the given selection. Eval only: it has no backward and raises where a
     gradient is wanted. The kernel takes bf16 throughout, F = 128 and the
-    shapes :func:`edge_conv_from_idx_supported` takes."""
+    shapes :func:`edge_conv_from_idx_supported` takes. Runs the op
+    ``vcrnet_torch::edge_conv_from_idx``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a, h, w2, b2)):
         raise RuntimeError("edge_conv_from_idx has no backward; call it under torch.no_grad()")
+    if kernel_route(idx, a, h, w2, b2):
+        B, N, k = idx.shape
+        bf16 = torch.bfloat16
+        if not edge_conv_from_idx_supported(N, k):
+            raise ValueError(f"edge_conv_from_idx kernel takes k in [1, 32], got N={N} k={k}")
+        check_tensor("idx", idx, torch.int32, (B, N, k))
+        for name, t in (("a", a), ("h", h)):
+            check_tensor(name, t, bf16, (B, N, 128))
+        check_tensor("w2", w2, bf16, (128, 128))
+        check_tensor("b2", b2, bf16, (128,))
+    return _edge_conv_from_idx_op(idx, a, h, w2, b2, float(negative_slope))
+
+
+def _edge_conv_from_idx_impl(idx, a, h, w2, b2, negative_slope: float):
     if not kernel_route(idx, a, h, w2, b2):
         return edge_conv_from_idx_ref(idx, a, h, w2, b2, negative_slope)
-    B, N, k = idx.shape
-    bf16 = torch.bfloat16
-    if not edge_conv_from_idx_supported(N, k):
-        raise ValueError(f"edge_conv_from_idx kernel takes k in [1, 32], got N={N} k={k}")
-    check_tensor("idx", idx, torch.int32, (B, N, k))
-    for name, t in (("a", a), ("h", h)):
-        check_tensor(name, t, bf16, (B, N, 128))
-    check_tensor("w2", w2, bf16, (128, 128))
-    check_tensor("b2", b2, bf16, (128,))
+    check_aligned(idx=idx, a=a, h=h, w2=w2, b2=b2)
     x1 = torch.empty_like(a)
     x2 = torch.empty_like(a)
-    _build.extension().edge_conv_from_idx(idx, a, h, w2, b2, x1, x2, float(negative_slope))
+    _build.extension().edge_conv_from_idx(idx, a, h, w2, b2, x1, x2, negative_slope)
     edge_conv_from_idx.launches += 1
     return x1, x2
+
+
+def _edge_conv_from_idx_fake(idx, a, h, w2, b2, negative_slope: float):
+    return a.new_empty(a.shape), a.new_empty(a.shape)
+
+
+_edge_conv_from_idx_op = library.define(
+    "edge_conv_from_idx",
+    "(Tensor idx, Tensor a, Tensor h, Tensor w2, Tensor b2, float negative_slope) "
+    "-> (Tensor, Tensor)",
+    _edge_conv_from_idx_impl, _edge_conv_from_idx_fake)
 
 
 edge_conv_from_idx.launches = 0
@@ -382,6 +473,7 @@ def edge_conv_bwd(idx, win1, win2, a, h, w2, x2, ct1, ct2, negative_slope: float
         raise ValueError(
             f"edge_conv_bwd kernel takes k in [1, 32] below N, got N={N} k={k}"
         )
+    check_aligned(idx=idx, win1=win1, win2=win2, a=a, h=h, w2=w2, x2=x2, ct1=ct1, ct2=ct2)
     dev = idx.device
     f32 = torch.float32
     da = torch.zeros((B, N, 128), dtype=f32, device=dev)

@@ -27,8 +27,8 @@ import os
 
 import torch
 
-from vcrnet_tpu_torch.ops import _build
-from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_tensor, kernel_route
+from vcrnet_tpu_torch.ops import _build, library
+from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_aligned, check_tensor, kernel_route
 
 HEAD_DIM = 128  # the attention kernel's dk
 MAX_D_MODEL = 512  # the widest sublayer whose kernels are held to the plain version on the card
@@ -128,32 +128,52 @@ def fused_mha(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int) -> torch.Te
     """yq [B, Nq, D], ykv [B, Nk, D] (pass yq for self-attention), weights
     [D, D] (in, out) and biases [D] in any float dtype -> [B, Nq, D] bf16:
     the whole sublayer before the residual. The kernel takes dk == 128,
-    D <= 512 and any lengths."""
+    D <= 512 and any lengths. Runs the op ``vcrnet_torch::fused_mha``."""
     tensors = (yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo)
     _refuse_grad("fused_mha", tensors)
+    if kernel_route(*tensors):
+        B, nq, d = yq.shape
+        nk = ykv.shape[1]
+        if (d % n_heads or d // n_heads != HEAD_DIM or d > MAX_D_MODEL
+                or pointer_mha_smem_bytes(d) > SMEM_LIMIT):
+            raise ValueError(
+                f"fused_mha kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
+            )
+        yq_b = _bf(yq).contiguous()
+        ykv_b = yq_b if ykv is yq else _bf(ykv).contiguous()
+        check_tensor("yq", yq_b, torch.bfloat16, (B, nq, d))
+        check_tensor("ykv", ykv_b, torch.bfloat16, (B, nk, d))
+        params = []
+        for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv), ("o", wo, bo)):
+            w, b = _bf(w).contiguous(), _bf(b).contiguous()
+            check_tensor(f"w{name}", w, torch.bfloat16, (d, d))
+            check_tensor(f"b{name}", b, torch.bfloat16, (d,))
+            params += [w, b]
+        tensors = (yq_b, ykv_b, *params)
+    return _fused_mha_op(*tensors, n_heads)
+
+
+def _fused_mha_impl(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int):
+    tensors = (yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo)
     if not kernel_route(*tensors):
         return fused_mha_ref(*tensors, n_heads)
-    B, nq, d = yq.shape
-    nk = ykv.shape[1]
-    if (d % n_heads or d // n_heads != HEAD_DIM or d > MAX_D_MODEL
-            or pointer_mha_smem_bytes(d) > SMEM_LIMIT):
-        raise ValueError(
-            f"fused_mha kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
-        )
-    yq_b = _bf(yq).contiguous()
-    ykv_b = yq_b if ykv is yq else _bf(ykv).contiguous()
-    check_tensor("yq", yq_b, torch.bfloat16, (B, nq, d))
-    check_tensor("ykv", ykv_b, torch.bfloat16, (B, nk, d))
-    params = []
-    for name, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv), ("o", wo, bo)):
-        w, b = _bf(w).contiguous(), _bf(b).contiguous()
-        check_tensor(f"w{name}", w, torch.bfloat16, (d, d))
-        check_tensor(f"b{name}", b, torch.bfloat16, (d,))
-        params += [w, b]
-    out = torch.empty_like(yq_b)
-    _build.extension().pointer_mha(yq_b, ykv_b, *params, out, n_heads)
+    check_aligned(**dict(zip(("yq", "ykv", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"),
+                             tensors)))
+    out = torch.empty_like(yq)
+    _build.extension().pointer_mha(*tensors, out, n_heads)
     fused_mha.launches += 1
     return out
+
+
+def _fused_mha_fake(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int):
+    return yq.new_empty(yq.shape, dtype=torch.bfloat16)
+
+
+_fused_mha_op = library.define(
+    "fused_mha",
+    "(Tensor yq, Tensor ykv, Tensor wq, Tensor bq, Tensor wk, Tensor bk, Tensor wv, Tensor bv, "
+    "Tensor wo, Tensor bo, int n_heads) -> Tensor",
+    _fused_mha_impl, _fused_mha_fake)
 
 
 fused_mha.launches = 0
@@ -168,26 +188,39 @@ def fused_ff_ref(y, w1, b1, w2, b2) -> torch.Tensor:
 def fused_ff(y, w1, b1, w2, b2) -> torch.Tensor:
     """y [B, N, D], w1 [D, F], b1 [F], w2 [F, D], b2 [D] in any float dtype
     -> [B, N, D] bf16. The kernels take D % 128 == 0, F % 128 == 0,
-    D <= 512 and F <= 4096, any number of rows."""
+    D <= 512 and F <= 4096, any number of rows. Runs the op
+    ``vcrnet_torch::fused_ff``."""
     tensors = (y, w1, b1, w2, b2)
     _refuse_grad("fused_ff", tensors)
-    if not kernel_route(*tensors):
-        return fused_ff_ref(*tensors)
-    B, n, d = y.shape
-    f = w1.shape[1]
-    if not _ff_widths_held(d, f):
-        raise ValueError(f"fused_ff kernel does not take d_model={d} d_ff={f}")
-    y_b = _bf(y).contiguous()
-    w1, b1, w2, b2 = (_bf(t).contiguous() for t in (w1, b1, w2, b2))
-    check_tensor("y", y_b, torch.bfloat16, (B, n, d))
-    check_tensor("w1", w1, torch.bfloat16, (d, f))
-    check_tensor("b1", b1, torch.bfloat16, (f,))
-    check_tensor("w2", w2, torch.bfloat16, (f, d))
-    check_tensor("b2", b2, torch.bfloat16, (d,))
-    out = torch.empty_like(y_b)
-    _build.extension().pointer_ff(y_b, w1, b1, w2, b2, out)
+    if kernel_route(*tensors):
+        B, n, d = y.shape
+        f = w1.shape[1]
+        if not _ff_widths_held(d, f):
+            raise ValueError(f"fused_ff kernel does not take d_model={d} d_ff={f}")
+        tensors = tuple(_bf(t).contiguous() for t in tensors)
+        for name, t, shape in zip(("y", "w1", "b1", "w2", "b2"), tensors,
+                                  ((B, n, d), (d, f), (f,), (f, d), (d,))):
+            check_tensor(name, t, torch.bfloat16, shape)
+    return _fused_ff_op(*tensors)
+
+
+def _fused_ff_impl(y, w1, b1, w2, b2):
+    if not kernel_route(y, w1, b1, w2, b2):
+        return fused_ff_ref(y, w1, b1, w2, b2)
+    check_aligned(y=y, w1=w1, b1=b1, w2=w2, b2=b2)
+    out = torch.empty_like(y)
+    _build.extension().pointer_ff(y, w1, b1, w2, b2, out)
     fused_ff.launches += 1
     return out
+
+
+def _fused_ff_fake(y, w1, b1, w2, b2):
+    return y.new_empty(y.shape, dtype=torch.bfloat16)
+
+
+_fused_ff_op = library.define(
+    "fused_ff", "(Tensor y, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    _fused_ff_impl, _fused_ff_fake)
 
 
 fused_ff.launches = 0

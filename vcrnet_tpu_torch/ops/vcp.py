@@ -11,15 +11,17 @@ vcrnet_tpu/ops/pallas_vcp.py:streaming_soft_correspondence:
 ``csrc/vcp_stream.cu`` / ``csrc/vcp_bwd.cu`` (or raises); a CPU tensor runs
 the ``*_ref`` plain version. Each wrapper counts its launches in
 ``.launches``; ``soft_correspondence_vjp`` is the differentiable entry
-point, which the model calls in eval and in training.
+point, which the model calls in eval and in training. The forward runs
+through the op ``vcrnet_torch::vcp_stream`` (``ops/library.py``), the
+backward calls the extension directly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vcrnet_tpu_torch.ops import _build
-from vcrnet_tpu_torch.ops._common import check_tensor, kernel_route, upcast
+from vcrnet_tpu_torch.ops import _build, library
+from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route, upcast
 
 
 def _scores(src_emb, tgt_emb):
@@ -51,16 +53,27 @@ def streaming_supported(ns: int, nt: int, e: int) -> bool:
 def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = False):
     """src_emb [B, Ns, E], tgt_emb [B, Nt, E], tgt [B, Nt, 3] -> [B, Ns, 3]
     f32 (and the row logsumexp [B, Ns] f32 with ``return_lse``). The kernel
-    takes bf16 embeddings, f32 tgt, and :func:`streaming_supported` shapes."""
+    takes bf16 embeddings, f32 tgt, and :func:`streaming_supported` shapes.
+    Runs the op ``vcrnet_torch::vcp_stream``."""
+    if kernel_route(src_emb, tgt_emb, tgt):
+        B, ns, e = src_emb.shape
+        nt = tgt_emb.shape[1]
+        if not streaming_supported(ns, nt, e):
+            raise ValueError(f"vcp kernel does not take Ns={ns} Nt={nt} E={e}")
+        check_tensor("src_emb", src_emb, torch.bfloat16, (B, ns, e))
+        check_tensor("tgt_emb", tgt_emb, torch.bfloat16, (B, nt, e))
+        check_tensor("tgt", tgt, torch.float32, (B, nt, 3))
+    out, lse = _vcp_stream_op(src_emb, tgt_emb, tgt, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _vcp_stream_impl(src_emb, tgt_emb, tgt, return_lse: bool):
     if not kernel_route(src_emb, tgt_emb, tgt):
-        return streaming_soft_correspondence_ref(src_emb, tgt_emb, tgt, return_lse)
-    B, ns, e = src_emb.shape
+        out = streaming_soft_correspondence_ref(src_emb, tgt_emb, tgt, return_lse)
+        return out if return_lse else (out, library.empty_output(out, out.dtype))
+    check_aligned(src_emb=src_emb, tgt_emb=tgt_emb, tgt=tgt)
+    B, ns, _ = src_emb.shape
     nt = tgt_emb.shape[1]
-    if not streaming_supported(ns, nt, e):
-        raise ValueError(f"vcp kernel does not take Ns={ns} Nt={nt} E={e}")
-    check_tensor("src_emb", src_emb, torch.bfloat16, (B, ns, e))
-    check_tensor("tgt_emb", tgt_emb, torch.bfloat16, (B, nt, e))
-    check_tensor("tgt", tgt, torch.float32, (B, nt, 3))
     f32 = torch.float32
     # x, y, z, |f|^2 of whole 64-key tiles (the kernel's packing pass
     # fills the entries past Nt with (0, 0, 0, +inf))
@@ -69,7 +82,19 @@ def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = Fals
     lse = torch.empty((B, ns), dtype=f32, device=tgt.device) if return_lse else None
     _build.extension().vcp_stream(src_emb, tgt_emb, tgt, keys, out, lse)
     streaming_soft_correspondence.launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse if return_lse else library.empty_output(out, f32)
+
+
+def _vcp_stream_fake(src_emb, tgt_emb, tgt, return_lse: bool):
+    B, ns, _ = src_emb.shape
+    dtype = library.stat_dtype(src_emb)
+    return (tgt.new_empty((B, ns, 3), dtype=dtype),
+            tgt.new_empty((B, ns) if return_lse else (0,), dtype=dtype))
+
+
+_vcp_stream_op = library.define(
+    "vcp_stream", "(Tensor src_emb, Tensor tgt_emb, Tensor tgt, bool return_lse) -> (Tensor, Tensor)",
+    _vcp_stream_impl, _vcp_stream_fake)
 
 
 streaming_soft_correspondence.launches = 0
@@ -124,6 +149,7 @@ def vcp_bwd(src_emb, tgt_emb, tgt, corr, lse, dcorr):
     # packing passes), and lse, +inf past Ns
     keys = torch.empty((B, nt + -nt % 64, 4), dtype=f32, device=tgt.device)
     rows = torch.empty((B, ns + -ns % 64, 4), dtype=f32, device=tgt.device)
+    check_aligned(src_emb=src_emb, tgt_emb=tgt_emb, tgt=tgt, corr=corr, lse=lse, dcorr=dcorr)
     if ns % 64:
         lse = torch.nn.functional.pad(lse, (0, -ns % 64), value=float("inf"))
     d_src = torch.empty((B, ns, e), dtype=f32, device=tgt.device)

@@ -1,5 +1,5 @@
 """Registration server around a trained VCRNet (counterpart of
-vcrnet_tpu/serve.py:Registrar).
+vcrnet_tpu/serve.py).
 
 Numpy in, numpy out. Request batches are padded up a ladder of bucket
 sizes by repeating their first pair (the JAX package compiles one program
@@ -12,17 +12,46 @@ batches above the top bucket are split. Padding
 rows never reach the results: registration has no cross-pair coupling,
 but for ICP's stop, a batch-mean predicate, in which the padding rows take
 part, as in the JAX package.
+
+One bucket's forward is a :class:`BucketForward` module: the Registrar
+runs it, and :meth:`Registrar.export_bucket` exports it through
+``torch.export`` into an artifact that :func:`load_exported` (module
+``exported``, which needs no model code) turns back into a server of that
+bucket.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from vcrnet_tpu_torch.config import Config
+from vcrnet_tpu_torch.exported import ExportedRegistrar, load_exported, results_to_numpy
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_icp, vcrnet_iter
+
+__all__ = ["BucketForward", "ExportedRegistrar", "Registrar", "load_exported"]
+
+
+class BucketForward(nn.Module):
+    """(src, tgt) [b, n, 3] -> (R_ab, t_ab, R_ba, t_ba): ``vcrnet_iter`` at
+    ``cfg.iter`` passes, or ``vcrnet_icp`` at ``cfg.iter == 0`` (the
+    function the JAX Registrar jits per bucket, vcrnet_tpu/serve.py:117-131)."""
+
+    def __init__(self, model: VCRNet):
+        super().__init__()
+        self.model = model
+
+    def forward(self, src: torch.Tensor, tgt: torch.Tensor):
+        cfg = self.model.cfg
+        if cfg.iter > 0:
+            out = vcrnet_iter(self.model, src, tgt, cfg.iter)
+        else:
+            out = vcrnet_icp(self.model, src, tgt, cfg.max_iterations)
+        return out[2:]
 
 
 class Registrar:
@@ -49,7 +78,9 @@ class Registrar:
         self.model = VCRNet(cfg, device=device, use_kernels=use_kernels)
         self.model.load_state_dict(state_dict)
         self.model.eval()
+        self.bucket_forward = BucketForward(self.model)
         self._buckets = tuple(int(b) for b in buckets)
+        self._ran = set()  # buckets whose forward has run
         self.n_points = cfg.n_cropped
 
     def _bucket_for(self, b: int) -> int:
@@ -68,6 +99,59 @@ class Registrar:
             return cloud
         perm = np.random.RandomState(seed).permutation(n)[: self.n_points]
         return cloud[:, perm]
+
+    @property
+    def compiled_buckets(self):
+        """The buckets that have run, sorted. The port runs eagerly, so
+        nothing is compiled per bucket: a bucket is listed once its first
+        run, through :meth:`register` or :meth:`warmup`, has paid the
+        one-time costs (the kernels' extension build, the cuBLAS and
+        cuSOLVER handles, the allocator's first blocks)."""
+        return sorted(self._ran)
+
+    def warmup(self, buckets: Sequence[int] | None = None) -> None:
+        """Run the given buckets (default all) once, on
+        ``RandomState(0).rand(bucket, n_points, 3) - 0.5``, so that the
+        first real request pays no one-time cost."""
+        for bucket in buckets if buckets is not None else self._buckets:
+            if bucket not in self._buckets:
+                raise ValueError(f"{bucket} is not one of {self._buckets}")
+            cloud = np.random.RandomState(0).rand(
+                bucket, self.n_points, 3
+            ).astype(np.float32) - 0.5
+            self._run_chunk(cloud, cloud)
+
+    def export_bucket(self, bucket: int, path: str | None = None) -> bytes:
+        """Serialize one bucket's forward (:class:`BucketForward`, what
+        :meth:`register` runs) through ``torch.export``, static shapes,
+        weights embedded, in eval mode and without a gradient; write it to
+        ``path`` too where one is given. :func:`load_exported` reloads it
+        with no model code, config or checkpoint. The kernels stay ops of
+        the ``vcrnet_torch`` library, which the loader imports. The
+        artifact keeps this Registrar's device, and the routes decided
+        while tracing: the kernel route or the plain one, and the fused
+        pointer sublayers as ``VCRNET_FUSED_POINTER`` stands at export.
+        Net + ICP (``cfg.iter == 0``) is not exportable: ICP reads its stop
+        on the host each iteration."""
+        if bucket not in self._buckets:
+            raise ValueError(f"{bucket} is not one of {self._buckets}")
+        if self.cfg.iter == 0:
+            raise ValueError(
+                "net + ICP (cfg.iter == 0) cannot be exported: ICP reads its stop on the "
+                "host each iteration (models/icp.py, icp_register's .item()), which a "
+                "traced graph cannot hold; export a Registrar with cfg.iter >= 1"
+            )
+        src = torch.zeros((bucket, self.n_points, 3), device=self.model.device)
+        with torch.no_grad():
+            program = torch.export.export(self.bucket_forward, (src, torch.zeros_like(src)),
+                                          strict=False)
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        blob = buf.getvalue()
+        if path is not None:
+            with open(path, "wb") as fh:
+                fh.write(blob)
+        return blob
 
     def register(self, src: np.ndarray, tgt: np.ndarray, seed: int = 0) -> dict:
         """Register src onto tgt: {"R", "t", "R_inv", "t_inv"} as numpy,
@@ -100,18 +184,6 @@ class Registrar:
             src = np.concatenate([src, np.repeat(src[:1], bucket - b, axis=0)])
             tgt = np.concatenate([tgt, np.repeat(tgt[:1], bucket - b, axis=0)])
         dev = self.model.device
-        src, tgt = torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev)
-        if self.cfg.iter > 0:
-            out = vcrnet_iter(self.model, src, tgt, self.cfg.iter)
-        else:
-            out = vcrnet_icp(self.model, src, tgt, self.cfg.max_iterations)
-        _, _, R_ab, t_ab, R_ba, t_ba = out
-        # one device-to-host copy for all four results
-        flat = torch.cat([R_ab.reshape(bucket, 9), t_ab, R_ba.reshape(bucket, 9), t_ba], 1)
-        flat = flat.cpu().numpy()[:b]
-        return {
-            "R": flat[:, 0:9].reshape(b, 3, 3),
-            "t": flat[:, 9:12],
-            "R_inv": flat[:, 12:21].reshape(b, 3, 3),
-            "t_inv": flat[:, 21:24],
-        }
+        out = self.bucket_forward(torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev))
+        self._ran.add(bucket)
+        return results_to_numpy(*out, b)
