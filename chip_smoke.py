@@ -127,7 +127,20 @@ Phases (any failure raises and the script exits non-zero):
            artifact (torch.export, the kernels as vcrnet_torch ops) bit for
            bit against the live Registrar here and in a fresh process without
            model code, every other forward op from an artifact with its
-           launch table, and the op dispatcher's cost (phase_export).
+           launch table, and the op dispatcher's cost (phase_export);
+20. parallel data parallelism over torch.distributed on the one card
+           (phase_parallel): two ranks on cuda:0 over Gloo (a FileStore),
+           each on its half of a global batch, against one process on the
+           whole batch: full-width VCR-Net and DCP on DGCNN (BatchNorm over
+           the global batch), one SGD step each at B = 64 and 62 (padded to
+           64, 2 rows at valid 0): gradient cosine >= 0.9999, parameters and
+           running statistics after the step; an iter=3 eval epoch of the
+           committed checkpoint and a DCP eval epoch against world 1; a
+           one-rank NCCL group, one step each, held the same way; the
+           Registrar over the mesh (cuda:0, cuda:0) on 64 pairs against the
+           one-device Registrar. The ranks report their kernel launches.
+           It shows that the code runs with real collectives and kernels,
+           not a multi-GPU speed.
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -165,7 +178,8 @@ Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
 every shape, item 0's gradients unchanged when item 1 is drawn again.
 
 Each phase prints its seconds. The last lines are a JSON object with one entry per kernel
-(fifteen; the launches of each phase's main path beside the total), the card's
+(fifteen; the launches of each phase's main path beside the total, the ranks' of the
+parallel phase as launches_parallel), the card's
 ``nvidia-smi`` name and power limit, and the result object
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports nothing of
 JAX.
@@ -4028,6 +4042,328 @@ def phase_export():
     return total
 
 
+PARALLEL_WORLD = 2
+PARALLEL_BATCHES = (64, 62)  # 62 pads to 64 at two ranks: rank 1 holds 2 rows at valid 0
+PARALLEL_NCCL_DCP_BATCH = 8
+PARALLEL_EVAL_PAIRS = 128    # two eval batches of 64 (32 a rank)
+PARALLEL_COSINE_MIN = 0.9999  # all-reduced gradient against one process on the whole batch
+PARALLEL_STATE_REL = 1e-2    # parameters and running statistics after the step, of the largest
+PARALLEL_EVAL_REL = 1e-2     # eval summary's RMSEs, world 2 against world 1
+PARALLEL_PAIR_ROT_DEG = {"median": 0.05, "max": 0.5}  # mesh Registrar against one device
+PARALLEL_PAIR_TRANS = 0.005
+PARALLEL_RANK_TIMEOUT_S = 300
+# the kernels of the table in PERF.md marked "on path" for this phase: every
+# one of them must launch in the ranks' steps and evals or the mesh Registrar
+PARALLEL_ON_PATH = ("knn_gather_max", "edge_conv", "gather_max_bwd", "edge_conv_bwd",
+                    "gather_max_from_idx", "flash_packed", "flash_bwd", "vcp_stream", "vcp_bwd",
+                    "knn", "dgcnn_eval")
+
+
+def _parallel_configs() -> dict:
+    from vcrnet_tpu_torch.config import Config
+
+    return {"vcrnet": Config(compute_dtype="bfloat16", num_points=N, use_sgd=True),
+            "dcp": Config(model="dcp", emb_nn="dgcnn", compute_dtype="bfloat16", num_points=N,
+                          use_sgd=True),
+            "vcrnet_eval": Config(compute_dtype="bfloat16", num_points=N, iter=3)}
+
+
+def run_parallel_tasks(tasks: list) -> dict:
+    """The parallel phase's work in this process, the same in a rank and in
+    the single process it is held to: for each (name, kind, config, data)
+    a "step" (a seeded Trainer, ``compute_grads`` on the global batch, one
+    SGD step: the flat gradient, parameters and running statistics on the
+    host) or an "eval" (``eval_epoch`` over the batches; VCR-Net on the
+    committed checkpoint)."""
+    import torch
+
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    configs = _parallel_configs()
+    out = {}
+    for name, kind, cfg_name, data in tasks:
+        t0 = time.perf_counter()
+        cfg = configs[cfg_name]
+        tr = Trainer(cfg, seed=0)
+        check(tr.model.use_kernels, f"parallel {name}: not on the kernel route")
+        if kind == "step":
+            tr.compute_grads(data)
+            grads = _flat_grads(tr).cpu()
+            tr.optimizer.step()
+            out[name] = {
+                "grads": grads,
+                "params": {k: p.detach().float().cpu() for k, p in tr.model.named_parameters()},
+                "stats": {k: b.float().cpu() for k, b in tr.model.named_buffers()
+                          if "running_" in k},
+            }
+        else:
+            if cfg.model == "vcrnet":
+                tr.model.load_state_dict(load_checkpoint(CHECKPOINT))
+            out[name] = {"summary": tr.eval_epoch(data)}
+        del tr
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the processes of the phase share the card
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_launches(tasks: list) -> dict:
+    """The launches of a rank's tasks: a step's by its model's table, an
+    eval epoch's as one request a batch (VCR-Net at iter=3; DCP's eval
+    step)."""
+    total = {}
+    for _, kind, cfg_name, data in tasks:
+        if kind == "step":
+            add_launches(total, TRAIN_LAUNCHES if cfg_name == "vcrnet" else DCP_TRAIN_LAUNCHES)
+        for _ in data if kind == "eval" else ():
+            add_launches(total, LAUNCHES_ITER3 if cfg_name == "vcrnet_eval" else DCP_EVAL_LAUNCHES)
+    return total
+
+
+def parallel_rank(store: str, rank: int, world: int, backend: str, job: str, out: str) -> None:
+    """One rank of the parallel phase, in a process of its own: LOCAL_RANK 0
+    (every rank on the one card), the process group through the FileStore
+    ``store``, the extension the parent built, the tasks of ``job`` from
+    zero launch counts; writes the results and the counts to ``out``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, HERE)
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.ops import _build
+    from vcrnet_tpu_torch.parallel import initialize, make_mesh
+
+    initialize(init_method=f"file://{store}", rank=rank, world_size=world, backend=backend,
+               timeout=timedelta(seconds=60))
+    t_group = time.perf_counter() - t0
+    _build.extension()
+    t_ext = time.perf_counter() - t0 - t_group
+    mesh = make_mesh()
+    check((mesh.rank, mesh.size) == (rank, world) and mesh.group is not None,
+          f"rank {rank}: mesh {mesh}")
+    ops.reset_launch_counts()
+    tasks = torch.load(job, weights_only=False)
+    results = run_parallel_tasks(tasks)
+    results["launches"] = ops.launch_counts()
+    check_launches(results["launches"], parallel_launches(tasks), f"parallel rank {rank}")
+    if rank > 0:  # one gradient on every rank (checked); one copy of the state is enough
+        for res in results.values():
+            if isinstance(res, dict) and "seconds" in res:
+                res.pop("params", None)
+                res.pop("stats", None)
+    results["backend"] = dist.get_backend()
+    results["seconds"] = {"imports and group": t_group, "extension": t_ext,
+                          "tasks": {k: v["seconds"] for k, v in results.items()
+                                    if isinstance(v, dict) and "seconds" in v}}
+    torch.save(results, out)
+    dist.destroy_process_group()
+
+
+def _start_ranks(tmp: str, tag: str, world: int, backend: str, tasks: list) -> list:
+    import torch
+
+    job = os.path.join(tmp, f"{tag}_job.pt")
+    torch.save(tasks, job)
+    procs = []
+    for rank in range(world):
+        args = (os.path.join(tmp, f"{tag}_store"), rank, world, backend, job,
+                os.path.join(tmp, f"{tag}_out{rank}.pt"))
+        log = open(os.path.join(tmp, f"{tag}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.parallel_rank{args!r}"],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT), log, args[-1]))
+    return procs
+
+
+def _join_ranks(procs: list, deadline: float, what: str) -> list:
+    """Wait for every rank (killing all at the deadline), then their results."""
+    import torch
+
+    try:
+        for proc, _, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, log, _) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(log.name) as f:
+                print(f"parallel {what} rank {rank} exited {proc.returncode}:\n{f.read()[-6000:]}",
+                      flush=True)
+    check(all(proc.returncode == 0 for proc, _, _ in procs), f"parallel {what}: a rank failed")
+    return [torch.load(out, weights_only=False) for _, _, out in procs]
+
+
+def _state_rel(got: dict, want: dict) -> float:
+    """Largest difference over the largest value, of all the tensors of the
+    dict together (a leaf whose exact gradient is zero stays near zero)."""
+    if not want:
+        return 0.0
+    return rel_err(_cat_flat(got, want), _cat_flat(want, want))
+
+
+def _cat_flat(tensors: dict, order: dict):
+    import torch
+
+    return torch.cat([tensors[k].reshape(-1) for k in order])
+
+
+def _summary_rel(got: dict, want: dict) -> float:
+    keys = ("rot_ab_RMSE", "trans_ab_RMSE", "loss")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in keys)
+
+
+def _eval_batches(data: dict, size: int) -> list:
+    import numpy as np
+
+    n = len(data["src"])
+    return [dict({k: v[lo:lo + size] for k, v in data.items()},
+                 valid=np.ones(min(size, n - lo), np.float32)) for lo in range(0, n, size)]
+
+
+def phase_parallel():
+    """Data parallelism on the one card (ROADMAP A9a): the ranks of two
+    process groups (two ranks over Gloo, one over NCCL) in processes of
+    their own, against this process on the whole batch; then the Registrar
+    over a mesh of (cuda:0, cuda:0). Returns the ranks' launches and the
+    mesh Registrar's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.parallel import make_mesh
+    from vcrnet_tpu_torch.parallel.mesh import pad_to_multiple
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    configs = _parallel_configs()
+    check((configs["vcrnet"].emb_dims, configs["vcrnet"].n_heads, configs["dcp"].emb_nn)
+          == (512, 4, "dgcnn"), "parallel phase must run the full-width configurations")
+    batches = {b: {k: v for k, v in _train_batch(configs["vcrnet"], b, seed=3).items()
+                   if k != "label"} for b in PARALLEL_BATCHES + (PARALLEL_NCCL_DCP_BATCH,)}
+    eval_data = shapes_eval_set(PARALLEL_EVAL_PAIRS, num_points=N)
+    evals = _eval_batches(eval_data, 64)
+    gloo_tasks = [(f"{m}_{b}", "step", m, batches[b]) for m in ("vcrnet", "dcp")
+                  for b in PARALLEL_BATCHES]
+    gloo_tasks += [("dcp_eval", "eval", "dcp", evals), ("vcrnet_eval", "eval", "vcrnet_eval", evals)]
+    nccl_tasks = [(f"vcrnet_{PARALLEL_BATCHES[0]}", "step", "vcrnet", batches[PARALLEL_BATCHES[0]]),
+                  (f"dcp_{PARALLEL_NCCL_DCP_BATCH}", "step", "dcp",
+                   batches[PARALLEL_NCCL_DCP_BATCH])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: three more processes share the card
+
+    # this process on the whole batch, while the ranks run: the 62-pair batch padded
+    # as the ranks pad it (BatchNorm's statistics take the padding rows in both)
+    ref_tasks = [(name, kind, cfg, pad_to_multiple(dict(data), PARALLEL_WORLD)
+                  if kind == "step" else data) for name, kind, cfg, data in gloo_tasks]
+    ref_tasks.append(nccl_tasks[1])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo = _start_ranks(tmp, "gloo", PARALLEL_WORLD, "gloo", gloo_tasks)
+        nccl = _start_ranks(tmp, "nccl", 1, "nccl", nccl_tasks)
+        try:
+            ref = run_parallel_tasks(ref_tasks)
+        except BaseException:
+            for proc, log, _ in gloo + nccl:
+                proc.kill()
+                proc.wait()
+                log.close()
+            raise
+        t_ref = time.perf_counter() - t0
+        deadline = time.perf_counter() + PARALLEL_RANK_TIMEOUT_S
+        gloo_out = _join_ranks(gloo, deadline, "gloo")
+        nccl_out = _join_ranks(nccl, deadline, "nccl")
+    print(f"parallel: ranks done in {time.perf_counter() - t0} s (two over "
+          f"{gloo_out[0]['backend']}, one over {nccl_out[0]['backend']}, all on cuda:0; this "
+          f"process's world-1 runs beside them {t_ref} s); seconds of each rank: "
+          f"{[o['seconds'] for o in gloo_out + nccl_out]}", flush=True)
+
+    for what, outs, names in (("gloo x2", gloo_out, [t[0] for t in gloo_tasks]),
+                              ("nccl x1", nccl_out, [t[0] for t in nccl_tasks])):
+        for name in names:
+            want = ref[name]
+            if "summary" in want:
+                got = outs[0][name]["summary"]
+                rel = _summary_rel(got, want["summary"])
+                check(all(_summary_rel(o[name]["summary"], got) == 0.0 for o in outs),
+                      f"parallel {what} {name}: the ranks' summaries differ")
+                print(f"parallel {what} {name}: eval summary rot RMSE {got['rot_ab_RMSE']} deg, "
+                      f"trans RMSE {got['trans_ab_RMSE']}, loss {got['loss']} over "
+                      f"{got['num_examples']} pairs; world 1: {want['summary']['rot_ab_RMSE']}, "
+                      f"{want['summary']['trans_ab_RMSE']}, {want['summary']['loss']}; largest "
+                      f"relative difference {rel}", flush=True)
+                check(got["num_examples"] == PARALLEL_EVAL_PAIRS, f"{name}: pairs counted")
+                check(rel <= PARALLEL_EVAL_REL, f"parallel {what} {name}: summary {rel} from "
+                                                f"world 1 > {PARALLEL_EVAL_REL}")
+                continue
+            got = outs[0][name]
+            check(all(torch.equal(o[name]["grads"], got["grads"]) for o in outs),
+                  f"parallel {what} {name}: the ranks hold different gradients")
+            cos = _cosine(got["grads"], want["grads"])
+            p_rel = _state_rel(got["params"], want["params"])
+            s_rel = _state_rel(got["stats"], want["stats"])
+            print(f"parallel {what} {name}: gradient cosine to one process {cos}, parameters "
+                  f"after the SGD step {p_rel} of the largest, running statistics {s_rel} "
+                  f"({len(want['stats'])} buffers)", flush=True)
+            check(cos >= PARALLEL_COSINE_MIN, f"parallel {what} {name}: cosine {cos}")
+            check(p_rel <= PARALLEL_STATE_REL and s_rel <= PARALLEL_STATE_REL,
+                  f"parallel {what} {name}: state after the step {p_rel}, {s_rel}")
+            check(name.startswith("vcrnet") or len(want["stats"]) == 10,
+                  f"parallel {what} {name}: DGCNN's running statistics missing")
+
+    # the Registrar over a mesh of two devices of this process (one card twice)
+    state_dict = load_checkpoint(CHECKPOINT)
+    cfg = Config(compute_dtype="bfloat16", iter=3, num_points=N)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    reg = Registrar(cfg, state_dict, mesh=mesh)
+    one = Registrar(cfg, state_dict)
+    check(reg._buckets == (2, 4, 8, 16, 32, 64) and len(reg.replicas) == 2,
+          f"mesh buckets {reg._buckets}")
+    src, tgt = eval_data["src"][:64], eval_data["tgt"][:64]
+    reg.register(src, tgt)  # first run: the replicas' handles and blocks
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = reg.register(src, tgt)
+    serve_launches = ops.launch_counts()
+    want = one.register(src, tgt)
+    rot = pair_rot_errors_deg(got["R"], want["R"])
+    trans = float(np.abs(got["t"] - want["t"]).max())
+    print(f"parallel: Registrar over (cuda:0, cuda:0), 64 pairs at iter=3, against one device: "
+          f"rotation between results median {float(np.median(rot))} max {float(rot.max())} deg, "
+          f"translation {trans}; rot RMSE {rot_rmse_deg(got['R'], eval_data['euler_ab'][:64])} "
+          f"deg; launches {serve_launches}", flush=True)
+    check(float(np.median(rot)) <= PARALLEL_PAIR_ROT_DEG["median"]
+          and float(rot.max()) <= PARALLEL_PAIR_ROT_DEG["max"]
+          and trans <= PARALLEL_PAIR_TRANS, "parallel: mesh Registrar differs from one device")
+    check(serve_launches == {k: 2 * n for k, n in LAUNCHES_ITER3.items()} | {
+        k: 0 for k in ops.KERNELS if k not in LAUNCHES_ITER3},
+          f"parallel: mesh Registrar launches {serve_launches}")
+
+    launches = dict(serve_launches)
+    for out in gloo_out + nccl_out:
+        add_launches(launches, out["launches"])
+    print(f"parallel: launches of the ranks and the mesh Registrar: {launches}", flush=True)
+    missing = [k for k in PARALLEL_ON_PATH if launches.get(k, 0) == 0]
+    check(not missing, f"parallel: on-path kernels never launched: {missing}")
+    return launches
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -4073,7 +4409,7 @@ def print_ptxas_reports(procs: dict) -> None:
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
           "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd", "heads",
-          "cli", "export")
+          "cli", "export", "parallel")
 
 
 def main() -> int:
@@ -4151,6 +4487,8 @@ def main() -> int:
             launches[name] = phase_cli()
         elif name == "export":
             launches[name] = phase_export()
+        elif name == "parallel":
+            launches[name] = phase_parallel()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -4217,6 +4555,7 @@ def main() -> int:
             "launches_heads": launches["heads"].get(name, 0),
             "launches_cli": launches["cli"].get(name, 0),
             "launches_export": launches["export"].get(name, 0),
+            "launches_parallel": launches["parallel"].get(name, 0),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

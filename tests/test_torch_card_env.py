@@ -9,8 +9,10 @@ synthetic fallback of ModelNet40, the velodyne frames written and read
 back without h5py, an epoch of training through prefetch and one on raw
 clouds, a partial-overlap step, an LPD epoch with a checkpoint merged into
 VCR-Net, ICP and net + ICP evals, the port's CLI (its ``--help``, and ICP
-refusing to train) with pandas blocked too, and finds that the ModelNet40
-and KITTI readers raise an ImportError that names h5py."""
+refusing to train) with pandas blocked too, the data-parallel package and
+chip_smoke.py's parallel phase (an epoch in a one-rank Gloo group), and
+finds that the ModelNet40 and KITTI readers raise an ImportError that names
+h5py."""
 
 import os
 import subprocess
@@ -62,6 +64,7 @@ for m in pkgutil.walk_packages(vcrnet_tpu_torch.__path__, "vcrnet_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 from chip_smoke import grad_cosine, phase_cli, phase_heads, phase_icp, phase_lpd, phase_partial_train
+from chip_smoke import parallel_launches, parallel_rank, phase_parallel, run_parallel_tasks
 
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models.icp import icp_register, nearest_neighbor_corr
@@ -150,6 +153,19 @@ assert "--use_kernels" in out.getvalue() and "--device" in out.getvalue(), out.g
 os.chdir(tmp)
 assert cli.main(["--model", "icp", "--dataset", "synthetic", "--num_points", "32",
                  "--device", "cpu"]) is None
+
+from datetime import timedelta
+import torch
+from vcrnet_tpu_torch.parallel import initialize, make_mesh
+assert initialize() is False and make_mesh().group is None
+assert set(chip_smoke._parallel_configs()) == {"vcrnet", "dcp", "vcrnet_eval"}
+assert parallel_launches([("v", "step", "vcrnet", None)]) == chip_smoke.TRAIN_LAUNCHES
+initialize(init_method="file://" + os.path.join(tmp, "store"), rank=0, world_size=1,
+           backend="gloo", timeout=timedelta(seconds=60))
+ranked = Trainer(Config(dataset="synthetic", **tiny), device="cpu", seed=0)
+assert ranked.mesh.group is not None and ranked.mesh.size == 1
+assert np.isfinite(ranked.train_epoch(pipeline.Loader(small, 4))["loss"])
+torch.distributed.destroy_process_group()
 
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad

@@ -157,6 +157,28 @@ def test_a_one_epoch_fit_writes_its_run_directory(modelnet40, tmp_path, monkeypa
     assert history[0]["train"]["num_examples"] == 16 and history[0]["test"]["num_examples"] == 12
 
 
+def test_runs_in_one_second_get_a_run_directory_each(tmp_path, monkeypatch):
+    """The stamp has one-second resolution: a run that starts in the second
+    of another (the JAX CLI's, or this CLI's) takes a new directory rather
+    than appending to the other's run.log."""
+    import datetime as dt
+
+    class Frozen(dt.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return cls(2026, 10, 31, 23, 59, 59)
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(jcli, "datetime", Frozen)
+    monkeypatch.setattr(cli, "datetime", Frozen)
+    cfg = Config(eval=True)
+    first = jcli.make_run_dir(JConfig(eval=True))
+    dirs = [cli.make_run_dir(cfg) for _ in range(2)]
+    assert dirs == [first + "-2", first + "-3"]
+    assert all(os.path.isdir(os.path.join(d, "models")) for d in dirs)
+    assert _latest(tmp_path, "test").endswith("-3")
+
+
 def test_icp_cannot_be_trained(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert cli.main(["--model", "icp", "--dataset", "synthetic", "--num_points", "64",

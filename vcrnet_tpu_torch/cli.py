@@ -22,9 +22,21 @@ Where the flags differ:
     trainer, a run on the kernel route checks its configuration against
     their gates and exits with a message that names each gate and its
     limit; ``--no-use_kernels`` runs the plain PyTorch route there;
-  * ``--mesh_shape`` (the port runs on one device) and
-    ``--int8_train_gathers`` (the port gathers the exact bf16 rows) are
-    accepted and ignored.
+  * ``--int8_train_gathers`` is accepted and ignored (the port gathers
+    the exact bf16 rows).
+
+Data parallelism runs one process per device, as ``torchrun`` launches
+them (the JAX CLI runs one process per host over a device mesh):
+
+    torchrun --nproc_per_node 4 -m vcrnet_tpu_torch.cli --mesh_shape 4 --batch_size 32 ...
+
+Each rank calls ``parallel.initialize()`` (NCCL on the card, Gloo with
+``--device cpu``), reads the same batches and trains or evaluates its
+share of each (``Trainer``'s mesh); ``--mesh_shape`` is the world size
+(or omitted), another number raises. Rank 0 makes the run directory and
+hands its path to the others, and alone prints, logs and writes. The
+kernel gates take no batch size, so a rank's share of the batch passes
+them wherever the whole batch does.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.ops.attention import flash_bwd_supported, flash_packed_supported
@@ -48,6 +61,8 @@ from vcrnet_tpu_torch.ops.edgeconv import (
     gather_max_bwd_supported, gather_max_from_idx_supported, knn_gather_max_supported,
 )
 from vcrnet_tpu_torch.ops.vcp import MAX_E, streaming_supported, streaming_vjp_supported
+from vcrnet_tpu_torch.parallel.mesh import make_mesh
+from vcrnet_tpu_torch.parallel.multihost import initialize, launched_world_size
 from vcrnet_tpu_torch.utils.device import resolve_device
 from vcrnet_tpu_torch.utils.logging import IOStream, MetricsWriter
 from vcrnet_tpu_torch.utils.params_io import count_params, device_memory_mb
@@ -105,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--mesh_shape", type=int, default=None,
-                   help="accepted and ignored: the port runs on one device")
+                   help="data-parallel devices: the world size under torchrun (one process "
+                        "per device); default the world size")
     p.add_argument("--data_dir", type=str, default=None)
     p.add_argument("--int8_train_gathers", action=argparse.BooleanOptionalAction, default=True,
                    help="accepted and ignored: the port's kernels gather the exact bf16 rows")
@@ -130,18 +146,53 @@ def config_from_args(args) -> Config:
 
 
 def make_run_dir(cfg: Config) -> str:
+    """A new directory ``checkpoints/{train,test}/<model>-<emb_nn>-<stamp>-<host>``
+    with ``models/`` in it. The stamp has one-second resolution, so a run
+    that starts in the same second as another (of this CLI or the JAX
+    package's) would share its directory and append to its ``run.log``: it
+    takes the name with ``-2``, ``-3``, ... appended instead."""
     sub = "test" if cfg.eval else "train"
     stamp = datetime.now().strftime("%d-%H-%M-%S")
-    name = f"{cfg.model}-{cfg.emb_nn}-{stamp}-{socket.gethostname()[:3]}"
-    run_dir = os.path.join("checkpoints", sub, name)
-    os.makedirs(os.path.join(run_dir, "models"), exist_ok=True)
+    base = os.path.join("checkpoints", sub,
+                        f"{cfg.model}-{cfg.emb_nn}-{stamp}-{socket.gethostname()[:3]}")
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    run_dir, n = base, 1
+    while True:
+        try:
+            os.mkdir(run_dir)
+            break
+        except FileExistsError:
+            n += 1
+            run_dir = f"{base}-{n}"
+    os.mkdir(os.path.join(run_dir, "models"))
     return run_dir
+
+
+class _Quiet:
+    """The log of a rank other than 0: prints and writes nothing."""
+
+    def cprint(self, text: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def shared_run_dir(cfg: Config, mesh) -> str:
+    """``make_run_dir`` on rank 0, its path handed to every rank: the
+    stamp has one-second resolution, so two ranks could name two."""
+    run_dir = [make_run_dir(cfg) if mesh.is_writer else None]
+    if mesh.group is not None:
+        dist.broadcast_object_list(run_dir, src=0, group=mesh.group)
+    return run_dir[0]
 
 
 def kernel_route_refusals(cfg: Config) -> list:
     """The kernel gates that ``cfg`` fails on the paths its run takes (a
     fit trains and evaluates; ``--eval`` evaluates), one message each,
-    naming the gate and its limit; empty where the kernel route takes it."""
+    naming the gate and its limit; empty where the kernel route takes it.
+    Under torchrun a rank runs its share of each batch; no gate takes a
+    batch size, so the shares pass wherever the whole batch does."""
     if cfg.model == "icp":
         return []
     n, e, h = cfg.n_cropped, cfg.emb_dims, cfg.n_heads
@@ -193,6 +244,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     device = resolve_device(args.device)
+    if launched_world_size() > 1:
+        initialize(backend="gloo" if device.type == "cpu" else "nccl")
+    mesh = make_mesh()
     use_kernels = None if args.use_kernels else False
     kernel_route = (args.use_kernels and device.type == "cuda"
                     and cfg.compute_dtype == "bfloat16")
@@ -204,8 +258,8 @@ def main(argv=None):
                              + "\n(--no-use_kernels runs the plain PyTorch route)")
     np.random.seed(cfg.seed)
 
-    run_dir = make_run_dir(cfg)
-    textio = IOStream(os.path.join(run_dir, "run.log"))
+    run_dir = shared_run_dir(cfg, mesh)
+    textio = IOStream(os.path.join(run_dir, "run.log")) if mesh.is_writer else _Quiet()
     textio.cprint(str(cfg))
 
     from vcrnet_tpu_torch.data.pipeline import make_loaders
@@ -234,7 +288,7 @@ def main(argv=None):
             textio.cprint(f"loaded .t7 (components: {sorted({k.split('.')[0] for k in converted})}) "
                           f"from {args.pretrained_t7}")
 
-    boardio = MetricsWriter(run_dir)
+    boardio = MetricsWriter(run_dir if mesh.is_writer else None)
     if cfg.eval:
         result = trainer.eval_epoch(test_loader)
         textio.cprint("==FINAL TEST==")
@@ -248,8 +302,9 @@ def main(argv=None):
         result = trainer.fit(train_loader, test_loader, log=textio.cprint,
                              checkpoint_dir=os.path.join(run_dir, "models"),
                              metrics_writer=boardio)
-        with open(os.path.join(run_dir, "history.json"), "w") as f:
-            json.dump(result, f, default=float)
+        if mesh.is_writer:
+            with open(os.path.join(run_dir, "history.json"), "w") as f:
+                json.dump(result, f, default=float)
     memory = device_memory_mb(device)
     if memory is not None:
         textio.cprint(f"device memory allocated: {memory} MB")

@@ -136,8 +136,9 @@ class Config:
     # activations in the backward (Trainer runs the forward under
     # torch.utils.checkpoint); exact: the recompute updates no running
     # statistics and draws the same dropout masks
-    mesh_shape: Optional[int] = None  # data-parallel devices; ignored: the
-    # port runs on one device (ROADMAP A9)
+    mesh_shape: Optional[int] = None  # data-parallel devices: the world size
+    # of the process group (torchrun --nproc_per_node N, one process per
+    # device); None takes the world size, another number raises (Trainer)
 
     # ---- derived (computed in __post_init__) ----
     reserve: float = dataclasses.field(init=False, default=1.0)

@@ -35,7 +35,15 @@ class FlaxBatchNorm(nn.Module):
     in f32 whatever the input, and the result is f32 (the parameters' type).
     In training mode each call updates ``running_mean`` / ``running_var``
     in place, so two calls in one step compound, as they do in flax.
-    Parameters keep torch's names (flax ``scale`` is ``weight``)."""
+    Parameters keep torch's names (flax ``scale`` is ``weight``).
+
+    With ``mesh`` set (a data mesh of a process group,
+    :func:`sync_batch_stats`) the training statistics are those of the
+    global batch, as the JAX package's are over its sharded batch (padding
+    rows included: BatchNorm does not see ``valid``): the per-channel sums
+    and the row count are all-reduced, then the sums of (x - mean)^2, both
+    through the mesh's differentiable all-reduce, so the gradient crosses
+    the ranks."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -46,13 +54,24 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.update_stats = True  # off while a rematerialised forward runs again
+        self.mesh = None  # the data mesh whose global batch the statistics cover
+
+    def _global_stats(self, x: torch.Tensor, dims: tuple):
+        rows = x.new_full((1,), float(x[..., 0].numel()))
+        sums = self.mesh.all_reduce(torch.cat([x.sum(dim=dims), rows]))
+        mean = sums[:-1] / sums[-1]
+        var = self.mesh.all_reduce((x - mean).square().sum(dim=dims)) / sums[-1]
+        return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = (x - mean).square().mean(dim=dims)
+            if self.mesh is not None and self.mesh.group is not None:
+                mean, var = self._global_stats(x, dims)
+            else:
+                mean = x.mean(dim=dims)
+                var = (x - mean).square().mean(dim=dims)
             if self.update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
@@ -60,6 +79,15 @@ class FlaxBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * (self.weight * torch.rsqrt(var + self.eps)) + self.bias
+
+
+def sync_batch_stats(model: nn.Module, mesh) -> None:
+    """Every FlaxBatchNorm of ``model`` takes its training statistics over
+    the global batch of ``mesh`` (a process group's; a mesh without a group
+    leaves them local)."""
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm):
+            m.mesh = mesh
 
 
 @contextlib.contextmanager

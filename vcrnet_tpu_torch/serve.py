@@ -13,6 +13,15 @@ rows never reach the results: registration has no cross-pair coupling,
 but for ICP's stop, a batch-mean predicate, in which the padding rows take
 part, as in the JAX package.
 
+Over a mesh of devices (``mesh=parallel.make_mesh(devices=[...])``, the
+counterpart of the JAX Registrar's ``mesh``) the buckets round up to
+multiples of the mesh size, the model is replicated on each of its
+devices, and a bucket's pairs split into equal contiguous shards over
+them, run in this process and come back in order. Each pair's result is
+the one-device result: no kernel couples the pairs of a batch. Net + ICP
+(``cfg.iter == 0``) takes its batch-mean stop per shard, where the JAX
+package's jit takes it over the whole sharded batch.
+
 One bucket's forward is a :class:`BucketForward` module: the Registrar
 runs it, and :meth:`Registrar.export_bucket` exports it through
 ``torch.export`` into an artifact that :func:`load_exported` (module
@@ -32,6 +41,8 @@ from torch import nn
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.exported import ExportedRegistrar, load_exported, results_to_numpy
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_icp, vcrnet_iter
+from vcrnet_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from vcrnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["BucketForward", "ExportedRegistrar", "Registrar", "load_exported"]
 
@@ -62,7 +73,9 @@ class Registrar:
     ``cfg.emb_nn`` picks the embedding (``lpdnet``, ``dgcnn``, ``pointnet``;
     a BatchNorm embedding's ``state_dict`` carries its running statistics).
     ``device`` defaults to ``"cuda"`` and raises where there is none;
-    ``use_kernels`` is passed to :class:`VCRNet`."""
+    ``use_kernels`` is passed to :class:`VCRNet`. ``mesh``, a mesh of
+    devices of this process (``make_mesh(devices=...)``), serves each
+    bucket in shards over a replica on each device, ``device`` unused."""
 
     def __init__(
         self,
@@ -71,14 +84,26 @@ class Registrar:
         buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
         device=None,
         use_kernels: bool | None = None,
+        mesh=None,
     ):
         if not buckets or list(buckets) != sorted(set(buckets)):
             raise ValueError("buckets must be sorted, unique, non-empty")
+        if mesh is None:
+            mesh = make_mesh(devices=[resolve_device(device)])
+        elif mesh.group is not None or not mesh.devices:
+            raise ValueError("a Registrar serves from one process: give it a mesh of "
+                             "devices, make_mesh(devices=[...])")
+        else:  # every bucket's pairs split evenly over the mesh
+            buckets = sorted({-(-int(b) // mesh.size) * mesh.size for b in buckets})
         self.cfg = cfg
-        self.model = VCRNet(cfg, device=device, use_kernels=use_kernels)
-        self.model.load_state_dict(state_dict)
-        self.model.eval()
-        self.bucket_forward = BucketForward(self.model)
+        self.mesh = mesh
+        self.replicas = []
+        for dev in mesh.devices:
+            model = VCRNet(cfg, device=dev, use_kernels=use_kernels)
+            model.load_state_dict(state_dict)
+            self.replicas.append(BucketForward(model.eval()))
+        self.bucket_forward = self.replicas[0]
+        self.model = self.bucket_forward.model
         self._buckets = tuple(int(b) for b in buckets)
         self._ran = set()  # buckets whose forward has run
         self.n_points = cfg.n_cropped
@@ -126,7 +151,8 @@ class Registrar:
         :meth:`register` runs) through ``torch.export``, static shapes,
         weights embedded, in eval mode and without a gradient; write it to
         ``path`` too where one is given. :func:`load_exported` reloads it
-        with no model code, config or checkpoint. The kernels stay ops of
+        with no model code, config or checkpoint. A mesh Registrar exports
+        the whole bucket on its first device alone. The kernels stay ops of
         the ``vcrnet_torch`` library, which the loader imports. The
         artifact keeps this Registrar's device, and the routes decided
         while tracing: the kernel route or the plain one, and the fused
@@ -183,7 +209,9 @@ class Registrar:
         if b < bucket:  # pad by repeating the first pair (never NaNs)
             src = np.concatenate([src, np.repeat(src[:1], bucket - b, axis=0)])
             tgt = np.concatenate([tgt, np.repeat(tgt[:1], bucket - b, axis=0)])
-        dev = self.model.device
-        out = self.bucket_forward(torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev))
+        shards = [fwd(pair["src"], pair["tgt"]) for fwd, pair in
+                  zip(self.replicas, shard_batch({"src": src, "tgt": tgt}, self.mesh))]
         self._ran.add(bucket)
-        return results_to_numpy(*out, b)
+        if len(shards) == 1:
+            return results_to_numpy(*shards[0], b)
+        return results_to_numpy(*(torch.cat([o[i].cpu() for o in shards]) for i in range(4)), b)

@@ -17,6 +17,11 @@ own reader, the same way.
 the plateau scheduler with the JAX package's keys, so either package
 resumes the other's file.
 
+Under a ``torch.distributed`` process group every rank calls
+``save_checkpoint`` and ``save_fit_state``: rank 0 writes, and every rank
+waits at a barrier until it has, so a rank that reads the file next finds
+it whole. Every rank loads.
+
 The converters map the reference PyTorch implementation's state dicts
 (``emb_nn.conv1_lpd.weight`` as a k = 1 conv weight [out, in, 1(, 1)],
 ``pointer.model.encoder.layers.0.self_attn.linears.0.weight``, ...) to the
@@ -39,6 +44,7 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vcrnet_tpu_torch.utils.params import from_jax_params, read_msgpack
 
@@ -65,15 +71,29 @@ def _to_cpu(tree):
     return tree
 
 
+def _rank0_writes(write) -> None:
+    """``write()`` on rank 0 of the process group (or without one), then a
+    barrier of every rank."""
+    grouped = dist.is_available() and dist.is_initialized()
+    if not grouped or dist.get_rank() == 0:
+        write()
+    if grouped:
+        dist.barrier()
+
+
 def save_checkpoint(directory: str, name: str, trainer_or_state) -> str:
     """Write ``{directory}/{name}.pt``: the training state of a Trainer, or
-    a state dict as :func:`training_state` gives it, moved to the CPU.
-    Returns the path."""
-    os.makedirs(directory, exist_ok=True)
+    a state dict as :func:`training_state` gives it, moved to the CPU (on
+    rank 0 of a process group, the others waiting). Returns the path."""
     path = os.path.join(directory, f"{name}.pt")
-    state = (training_state(trainer_or_state) if hasattr(trainer_or_state, "optimizer")
-             else trainer_or_state)
-    torch.save(_to_cpu(state), path)
+
+    def write():
+        os.makedirs(directory, exist_ok=True)
+        state = (training_state(trainer_or_state) if hasattr(trainer_or_state, "optimizer")
+                 else trainer_or_state)
+        torch.save(_to_cpu(state), path)
+
+    _rank0_writes(write)
     return path
 
 
@@ -147,10 +167,15 @@ def load_checkpoint(path: str, template):
 
 def save_fit_state(directory: str, fit_state: dict) -> str:
     """``{directory}/fit_state.json``: epoch, best_loss, lr and the
-    scheduler's attributes (the JAX package's keys)."""
+    scheduler's attributes (the JAX package's keys); rank 0 of a process
+    group writes it, the others waiting."""
     path = os.path.join(directory, "fit_state.json")
-    with open(path, "w") as f:
-        json.dump(fit_state, f)
+
+    def write():
+        with open(path, "w") as f:
+            json.dump(fit_state, f)
+
+    _rank0_writes(write)
     return path
 
 

@@ -38,6 +38,30 @@ its LPD model outside ``_apply``). The epochs feed batches through
 (``data.augment.device_augment_batch``) from a generator seeded from
 (``cfg.seed``, step).
 
+Data parallelism (the JAX package's ``Trainer(cfg, mesh)``): one process
+per device in a ``torch.distributed`` process group
+(``parallel.multihost.initialize``; ``torchrun --nproc_per_node N`` with
+``cfg.mesh_shape`` N or None), the mesh ``parallel.make_mesh()``. Every
+rank is handed the same global batch: ``stage`` / ``to_device`` pad it to
+a multiple of the mesh (``pad_to_multiple``: the last row repeated at
+``valid`` 0) and keep the rank's equal contiguous share, with the padded
+global ``valid`` as ``valid_all``. A rank's loss is its sum of
+loss x valid over the global sum of ``valid``, and DCP's cycle term its
+share of the mean over the global padded batch, so the losses of the ranks
+add up to the JAX package's loss of the global batch; BatchNorm takes the
+statistics of the global batch (``models._common.FlaxBatchNorm``); after
+the backward one all-reduce sums every gradient (the zero-filled ones too)
+through one flat buffer. A world-N step on a global batch is thus the
+world-1 step on it, up to the order of the sums. The parameters and
+buffers are broadcast from rank 0 at construction; dropout folds the rank
+into its seed; ``train_step_raw`` draws the pairs of the whole padded
+global batch on every rank and keeps its rows. The metric sums a step
+returns are the rank's own; the epoch methods all-reduce theirs once an
+epoch, so their summaries are the global batch's; ``worst_cases`` gathers
+the per-sample errors in global order. In ``fit`` rank 0 alone logs and
+writes the checkpoints, ``fit_state.json`` and the scalars, and every rank
+waits at a barrier after each write.
+
 VCR-Net losses (reference vcrnet_model.py:711-720):
   pose:  MSE(R_pred^T R_gt, I) + MSE(t_pred, t_gt)
   point: MSE(R_gt srcK + t_gt, src_corrK)
@@ -80,13 +104,15 @@ from vcrnet_tpu_torch import geometry
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.data.augment import PAIR_KEYS, device_augment_batch
 from vcrnet_tpu_torch.data.pipeline import prefetch
-from vcrnet_tpu_torch.models._common import frozen_batch_stats
+from vcrnet_tpu_torch.models._common import frozen_batch_stats, sync_batch_stats
 from vcrnet_tpu_torch.models.dcp import DCP
 from vcrnet_tpu_torch.models.embeddings import LPDNet
 from vcrnet_tpu_torch.models.heads import VcpAtt
 from vcrnet_tpu_torch.models.icp import icp_register
 from vcrnet_tpu_torch.models.lpd import LPD, lpd_loss
 from vcrnet_tpu_torch.models.vcrnet import VCRNet, vcrnet_icp, vcrnet_iter
+from vcrnet_tpu_torch.parallel.mesh import Mesh, make_mesh, pad_to_multiple, world_size
+from vcrnet_tpu_torch.parallel.multihost import local_batch_slice
 from vcrnet_tpu_torch.train import metrics as M
 from vcrnet_tpu_torch.train.checkpoint import load_fit_state, save_checkpoint, save_fit_state
 from vcrnet_tpu_torch.train.optim import (
@@ -132,8 +158,20 @@ def init_like_jax(model: nn.Module, seed: int) -> None:
                 mod.bias.zero_()
 
 
-def _weighted_mean(per_sample, valid):
-    return (per_sample * valid).sum() / valid.sum().clamp_min(1e-12)
+def _weighted_mean(per_sample, valid, valid_all=None):
+    """sum(per_sample x valid) over the sum of the global batch's valid
+    (``valid_all``; this batch's where None)."""
+    total = valid if valid_all is None else valid_all
+    return (per_sample * valid).sum() / total.sum().clamp_min(1e-12)
+
+
+def _global_counts(batch: dict):
+    """(the global batch's valid sum, this batch's share of its rows): the
+    divisors of a rank's share of the global means."""
+    valid, valid_all = batch["valid"], batch.get("valid_all")
+    if valid_all is None:
+        return valid.sum(), 1.0
+    return valid_all.sum(), valid.shape[0] / valid_all.shape[0]
 
 
 def _pose_loss_per_sample(R_pred, t_pred, R_gt, t_gt):
@@ -178,18 +216,37 @@ class Trainer:
     ``"icp"`` has no model and no optimizer (eval only). ``device``
     defaults to ``"cuda"`` and raises where there is none; ``use_kernels``
     is passed to the model; ``seed`` (default ``cfg.seed``) draws the
-    initial parameters."""
+    initial parameters. ``mesh`` (default ``make_mesh()``: the process
+    group where one is up, else this process alone) is the data mesh; a
+    ``cfg.mesh_shape`` other than the world size raises."""
 
     def __init__(self, cfg: Config, device=None, use_kernels: bool | None = None,
-                 seed: int | None = None):
+                 seed: int | None = None, mesh: Mesh | None = None):
         if cfg.model not in MODELS:
             raise ValueError(f"unknown model: {cfg.model}")
+        world = world_size()
+        if cfg.mesh_shape is not None and cfg.mesh_shape != world:
+            raise ValueError(
+                f"mesh_shape={cfg.mesh_shape} but the world size is {world}: the port runs "
+                f"one process per device (torchrun --nproc_per_node {cfg.mesh_shape})"
+            )
+        self.mesh = make_mesh() if mesh is None else mesh
+        if self.mesh.group is None and self.mesh.size > 1:
+            raise ValueError(
+                f"a mesh of {self.mesh.size} devices in one process serves (Registrar) but "
+                "does not train: the Trainer runs one process per device in a process group"
+            )
         self.cfg = cfg
         self.model = self.optimizer = None
         self.device = resolve_device(device)
         if cfg.model != "icp":
             self.model = MODELS[cfg.model](cfg, device=self.device, use_kernels=use_kernels)
             init_like_jax(self.model, cfg.seed if seed is None else seed)
+            if self.mesh.group is not None:
+                sync_batch_stats(self.model, self.mesh)
+                with torch.no_grad():
+                    for t in (*self.model.parameters(), *self.model.buffers()):
+                        self.mesh.broadcast_(t)
             self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.step = 0
         self.grads_filled: list = []  # compute_grads: parameters no gradient reached
@@ -213,7 +270,7 @@ class Trainer:
         src_emb, tgt_emb = out
         valid = batch["valid"]
         loss_ps = lpd_loss(batch["src"], src_emb, tgt_emb, per_sample=True)
-        loss = _weighted_mean(loss_ps, valid)
+        loss = _weighted_mean(loss_ps, valid, batch.get("valid_all"))
         with torch.no_grad():
             diff = src_emb.float() - tgt_emb.float()
             sums = {
@@ -246,12 +303,13 @@ class Trainer:
             loss_ps = _pose_loss_per_sample(R_ab, t_ab, batch["R_ab"], batch["t_ab"])
         else:  # point
             loss_ps = ((moved - src_corr) ** 2).mean(dim=(1, 2))
-        loss = _weighted_mean(loss_ps, valid)
+        loss = _weighted_mean(loss_ps, valid, batch.get("valid_all"))
         sums = {"loss": (loss_ps * valid).sum()}
         if cfg.cycle:
-            cyc = _cycle_loss(R_ab, t_ab, R_ba, t_ba)
+            n_valid, share = _global_counts(batch)
+            cyc = _cycle_loss(R_ab, t_ab, R_ba, t_ba) * share
             loss = loss + 0.1 * cyc  # inside the DCP gradient
-            sums["cycle_loss"] = 0.1 * cyc * valid.sum()
+            sums["cycle_loss"] = 0.1 * cyc * n_valid
         with torch.no_grad():
             back = geometry.transform_points(batch["tgt"], R_ba, t_ba)
             ps_ab = M.point_sums(moved, batch["tgt"], valid)
@@ -277,12 +335,13 @@ class Trainer:
             loss_ps = pose_ps + 0.1 * ((moved - batch["tgt"]) ** 2).mean(dim=(1, 2))
         else:
             raise ValueError(f"unknown loss {cfg.loss!r}")
-        loss = _weighted_mean(loss_ps, valid)
+        loss = _weighted_mean(loss_ps, valid, batch.get("valid_all"))
 
         with torch.no_grad():
             sums = {"loss": (loss_ps * valid).sum(), "loss_pose": (pose_ps * valid).sum()}
             if cfg.cycle:
-                cyc = 0.1 * _cycle_loss(R_ab, t_ab, R_ba, t_ba) * valid.sum()
+                n_valid, share = _global_counts(batch)
+                cyc = 0.1 * _cycle_loss(R_ab, t_ab, R_ba, t_ba) * share * n_valid
                 sums["cycle_loss"] = cyc
                 sums["loss_pose"] = sums["loss_pose"] + cyc
             back = geometry.transform_points(batch["tgt"], R_ba, t_ba)
@@ -297,24 +356,49 @@ class Trainer:
     # steps
     # ------------------------------------------------------------------
 
-    def stage(self, batch: dict) -> dict:
-        """A batch of numpy arrays (or tensors) as f32 host tensors with
-        ``valid`` (default all ones), pinned where the trainer's device is
-        the card: the worker thread's share of the epoch feed. ``label``
-        is dropped."""
-        out = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+    @staticmethod
+    def _host(batch: dict) -> dict:
+        """f32 tensors of a batch of numpy arrays (or tensors), with
+        ``valid`` (default all ones) and without ``label``."""
+        out = {k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v), dtype=torch.float32)
                for k, v in batch.items() if k != "label"}
         if "valid" not in out:
             out["valid"] = torch.ones(next(iter(out.values())).shape[0])
+        return out
+
+    def shard(self, batch: dict) -> dict:
+        """This rank's rows of a global batch of tensors with ``valid``:
+        padded to a multiple of the mesh (``pad_to_multiple``), the rank's
+        equal contiguous share, and the padded global ``valid`` as
+        ``valid_all``. The batch itself without a process group, and a
+        batch of raw clouds (``clouds``), whose pairs ``train_step_raw``
+        draws for the whole batch."""
+        if self.mesh.group is None or "clouds" in batch:
+            return batch
+        padded = pad_to_multiple(dict(batch), self.mesh.size)
+        local = local_batch_slice(padded, self.mesh.rank, self.mesh.size)
+        local["valid_all"] = padded["valid"]
+        return local
+
+    def stage(self, batch: dict) -> dict:
+        """A batch of numpy arrays (or tensors) as f32 host tensors with
+        ``valid`` (default all ones), this rank's share of it
+        (:meth:`shard`), pinned where the trainer's device is the card: the
+        worker thread's share of the epoch feed. ``label`` is dropped."""
+        out = self.shard(self._host(batch))
         if self.device.type == "cuda":
             out = {k: v.pin_memory() for k, v in out.items()}
         return out
 
     def to_device(self, batch: dict) -> dict:
         """numpy or tensor batch -> f32 tensors on the trainer's device,
-        with ``valid`` (default all ones). Copies from pinned tensors
+        with ``valid`` (default all ones); a global batch that ``stage``
+        has not sharded is sharded first. Copies from pinned tensors
         (``stage``) do not block the host: they queue on the current
         stream behind the kernels already issued."""
+        if self.mesh.group is not None and "valid_all" not in batch:
+            batch = self.shard(self._host(batch))
+
         def put(x):
             return torch.as_tensor(x, dtype=torch.float32).to(self.device, non_blocking=True)
 
@@ -322,6 +406,8 @@ class Trainer:
         valid = batch.get("valid")
         out["valid"] = (torch.ones(out["src"].shape[0], device=self.device) if valid is None
                         else put(valid))
+        if "valid_all" in batch:
+            out["valid_all"] = put(batch["valid_all"])
         return out
 
     def _forward(self, src, tgt):
@@ -356,13 +442,17 @@ class Trainer:
         in the parameters' ``.grad`` and returns (loss, sums). A loss with
         no gradient path (VCR-Net in partial mode) runs no backward; every
         parameter whose gradient is then None gets zeros (their names in
-        ``grads_filled``), JAX's dense gradient tree."""
+        ``grads_filled``), JAX's dense gradient tree. Under a process group
+        the loss and the sums are this rank's share and the gradients are
+        summed over the ranks: those of the global batch's loss."""
         self._check_trainable()
         b = self.to_device(batch)
         self.model.train()
         if getattr(self.model, "dropout_rng", None) is not None:
-            self.model.dropout_rng.seed = fold_seed(self.cfg.seed + DROPOUT_SEED_OFFSET,
-                                                    self.step)
+            seed = fold_seed(self.cfg.seed + DROPOUT_SEED_OFFSET, self.step)
+            if self.mesh.group is not None:  # no two ranks draw one mask
+                seed = fold_seed(seed, self.mesh.rank)
+            self.model.dropout_rng.seed = seed
         self.optimizer.zero_grad(set_to_none=True)
         loss, sums = self.loss_and_sums(self._train_forward(b["src"], b["tgt"]), b)
         if loss.requires_grad:
@@ -372,11 +462,21 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
                 self.grads_filled.append(name)
+        self._all_reduce_grads()
         return loss.detach(), sums
+
+    def _all_reduce_grads(self) -> None:
+        """Sum every gradient over the ranks, through one flat buffer."""
+        if self.mesh.group is None:
+            return
+        grads = [p.grad for p in self.model.parameters()]
+        flat = self.mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def train_step(self, batch: dict) -> dict:
         """One optimizer step on ``batch``; returns the batch's metric sums
-        (device scalars)."""
+        (device scalars; this rank's own under a process group)."""
         _, sums = self.compute_grads(batch)
         self.optimizer.step()
         self.step += 1
@@ -386,18 +486,23 @@ class Trainer:
         """One optimizer step on raw clouds (``batch['clouds']`` [B, M, 3],
         optional ``valid``): the registration pairs are drawn on the
         trainer's device by ``device_augment_batch`` from a generator seeded
-        from (``cfg.seed``, step). Returns the batch's metric sums."""
-        clouds = torch.as_tensor(batch["clouds"], dtype=torch.float32).to(self.device,
-                                                                         non_blocking=True)
+        from (``cfg.seed``, step), those of the whole global batch (padded
+        to a multiple of the mesh) on every rank, which keeps its rows.
+        Returns the batch's metric sums."""
+        raw = {"clouds": torch.as_tensor(batch["clouds"], dtype=torch.float32).to(
+            self.device, non_blocking=True)}
+        valid = batch.get("valid")
+        raw["valid"] = (torch.ones(raw["clouds"].shape[0], device=self.device) if valid is None
+                        else torch.as_tensor(valid, dtype=torch.float32).to(
+                            self.device, non_blocking=True))
+        if self.mesh.group is not None:
+            raw = pad_to_multiple(raw, self.mesh.size)
         if self._augment_gen is None:
             self._augment_gen = torch.Generator(device=self.device)
         self._augment_gen.manual_seed(fold_seed(self.cfg.seed, self.step))
-        pairs = device_augment_batch(self._augment_gen, clouds, self.cfg)
-        valid = batch.get("valid")
-        pairs["valid"] = (torch.ones(clouds.shape[0], device=self.device) if valid is None
-                          else torch.as_tensor(valid, dtype=torch.float32).to(
-                              self.device, non_blocking=True))
-        return self.train_step(pairs)
+        pairs = device_augment_batch(self._augment_gen, raw["clouds"], self.cfg)
+        pairs["valid"] = raw["valid"]
+        return self.train_step(self.shard(pairs))
 
     def _icp(self, b: dict):
         """ICP's output in DCP's layout: (R_ab, t_ab, R_ba, t_ba, src, src)."""
@@ -409,7 +514,8 @@ class Trainer:
     def eval_step(self, batch: dict) -> dict:
         """Metric sums of ``batch`` in eval mode (running statistics
         frozen): VCR-Net through ``vcrnet_iter`` at ``cfg.iter`` (net +
-        ICP at 0), DCP and LPD in one pass, ICP by ``icp_register``."""
+        ICP at 0), DCP and LPD in one pass, ICP by ``icp_register``; this
+        rank's own under a process group."""
         b = self.to_device(batch)
         if self.cfg.model == "icp":
             return self.loss_and_sums(self._icp(b), b)[1]
@@ -426,13 +532,19 @@ class Trainer:
     # epochs
     # ------------------------------------------------------------------
 
+    def _summarize(self, acc: M.EpochAccumulator) -> dict:
+        """The epoch's summary, of the sums of every rank (one all-reduce)."""
+        if self.mesh.group is not None:
+            acc.reduce(self.mesh.all_reduce_)
+        return M.summarize(acc)
+
     def train_epoch(self, loader) -> dict:
         """One epoch of ``train_step`` over a batch iterable, fed through
         ``prefetch``; returns the epoch's summary."""
         acc = M.EpochAccumulator()
         for batch in prefetch(loader, self.stage):
             acc.add(self.train_step(batch))
-        return M.summarize(acc)
+        return self._summarize(acc)
 
     def train_epoch_raw(self, cloud_batches) -> dict:
         """One epoch of ``train_step_raw`` over an iterable of raw-cloud
@@ -440,13 +552,13 @@ class Trainer:
         acc = M.EpochAccumulator()
         for batch in prefetch(cloud_batches, lambda c: self.stage({"clouds": c})):
             acc.add(self.train_step_raw(batch))
-        return M.summarize(acc)
+        return self._summarize(acc)
 
     def eval_epoch(self, loader) -> dict:
         acc = M.EpochAccumulator()
         for batch in prefetch(loader, self.stage):
             acc.add(self.eval_step(batch))
-        return M.summarize(acc)
+        return self._summarize(acc)
 
     @torch.no_grad()
     def _per_sample_errors(self, batch: dict):
@@ -473,10 +585,11 @@ class Trainer:
     def worst_cases(self, loader, k: int = 5) -> dict:
         """Indices (dataset order) of the k worst rotation and translation
         errors over the loader (padding rows never count), with the
-        per-sample squared errors."""
+        per-sample squared errors, gathered from every rank."""
         rot, trans = [], []
         for batch in loader:
-            r, t, valid = (x.cpu().numpy() for x in self._per_sample_errors(batch))
+            r, t, valid = (self.mesh.gather_rows(x).cpu().numpy()
+                           for x in self._per_sample_errors(batch))
             rot.append(np.where(valid > 0, r, -np.inf))
             trans.append(np.where(valid > 0, t, -np.inf))
         rot, trans = np.concatenate(rot), np.concatenate(trans)
@@ -501,8 +614,9 @@ class Trainer:
         ``model.best`` whenever the test loss is at or below the best, and
         ``model.{epoch}`` and ``fit_state.json`` every epoch. With
         ``metrics_writer``: the reference's scalar matrix for train, test
-        and best_test, the pose losses and the learning rate. Returns the
-        per-epoch history of this call."""
+        and best_test, the pose losses and the learning rate. Under a
+        process group rank 0 alone logs and writes (every rank resumes from
+        the files). Returns the per-epoch history of this call."""
         self._check_trainable()
         epochs = self.cfg.epochs if epochs is None else epochs
         lpd = self.cfg.model == "lpd"
@@ -521,7 +635,8 @@ class Trainer:
                 start_epoch = fit_state["epoch"] + 1
                 sched.__dict__.update(fit_state["sched"])
                 set_lr(self.optimizer, sched.lr)
-                log(f"resumed fit state at epoch {start_epoch}")
+                if self.mesh.is_writer:
+                    log(f"resumed fit state at epoch {start_epoch}")
         history = []
         for epoch in range(start_epoch, epochs):
             train_sum = self.train_epoch(train_loader)
@@ -536,7 +651,7 @@ class Trainer:
             lr = sched.step(None if lpd else best_loss)  # the reference steps on the BEST loss
             set_lr(self.optimizer, lr)
             history.append({"epoch": epoch, "lr": lr, "train": train_sum, "test": test_sum})
-            if metrics_writer is not None:
+            if metrics_writer is not None and self.mesh.is_writer:
                 _board_scalars(metrics_writer, "train", train_sum.get("loss", 0.0), train_sum,
                                epoch)
                 _board_scalars(metrics_writer, "test", test_sum.get("loss", 0.0), test_sum,
@@ -547,8 +662,10 @@ class Trainer:
                 metrics_writer.scalar("A->B/test/lossPose", test_sum.get("loss_pose", 0.0),
                                       epoch)
                 metrics_writer.scalar("A->B/best_test/lr", lr, epoch)
-            log(f"epoch {epoch}: lr={lr:.2e} train_loss={train_sum.get('loss', float('nan')):.6f} "
-                f"test_loss={test_loss:.6f} best={best_loss:.6f}")
+            if self.mesh.is_writer:
+                log(f"epoch {epoch}: lr={lr:.2e} "
+                    f"train_loss={train_sum.get('loss', float('nan')):.6f} "
+                    f"test_loss={test_loss:.6f} best={best_loss:.6f}")
             if checkpoint_dir is not None:
                 save_checkpoint(checkpoint_dir, f"model.{epoch}", self)
                 save_fit_state(checkpoint_dir, {"epoch": epoch, "best_loss": best_loss, "lr": lr,

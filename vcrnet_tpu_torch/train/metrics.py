@@ -75,6 +75,15 @@ class EpochAccumulator:
     def get(self, key, default=0.0):
         return self.sums.get(key, default)
 
+    def reduce(self, fn) -> None:
+        """Replace the sums by ``fn`` of their stacked vector, in the order
+        they were first added (the same on every rank): an all-reduce over
+        the ranks of a process group."""
+        keys = list(self._dev)
+        if keys:
+            self._dev = dict(zip(keys, fn(torch.stack([self._dev[k] for k in keys])).unbind()))
+        self._host = None
+
 
 def summarize(acc: EpochAccumulator) -> dict:
     """Epoch summary in the reference's reporting vocabulary."""
