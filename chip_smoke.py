@@ -141,6 +141,26 @@ Phases (any failure raises and the script exits non-zero):
            one-device Registrar. The ranks report their kernel launches.
            It shows that the code runs with real collectives and kernels,
            not a multi-GPU speed.
+21. point_sharding  point-axis sharding (phase_point_sharding), the committed
+           checkpoint at full width in f32, every rank a process on cuda:0:
+           (a) two Gloo ranks of a 1-D point mesh: register_flagship_sp in
+           whole mode at B = 2, N = 4096, R and t within 1e-3 of the single
+           device's plain route (f32) and within 0.25 deg of its kernel route
+           (bf16); partial mode at overlap 0.575 on 768-point clouds (the
+           cross attention sharpened as in the partial phase) within 1e-3;
+           register_whole_sp within 1e-3 of the identity-pointer model; the
+           whole-mode gradient of the point loss (sp_value_and_grad) at
+           cosine >= 0.9999 to the single device's, and the partial-mode
+           backward finite with every gradient zero; (b) four Gloo ranks as
+           make_mesh_2d(2, 2), the batch axis sharded: the same whole-mode
+           forward and gradient; (c) a one-rank NCCL group: the same, equal
+           to this process's mesh of itself within 1e-6; (d) at sizes the
+           kernel route refuses, printed: a whole-mode forward at B = 1,
+           N = 16384 on two ranks beside one process's plain route on the
+           whole cloud (peak memory each), and a training step at B = 1,
+           N = 8192 on two ranks (finite; peak memory a rank). The ranks'
+           kernel launches (launches_sp) must be zero: the path is plain
+           PyTorch, as the JAX package's is XLA.
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -179,7 +199,8 @@ every shape, item 0's gradients unchanged when item 1 is drawn again.
 
 Each phase prints its seconds. The last lines are a JSON object with one entry per kernel
 (fifteen; the launches of each phase's main path beside the total, the ranks' of the
-parallel phase as launches_parallel), the card's
+parallel phase as launches_parallel; the point_sharding phase prints its ranks' as
+launches_sp, all zero), the card's
 ``nvidia-smi`` name and power limit, and the result object
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports nothing of
 JAX.
@@ -4364,6 +4385,357 @@ def phase_parallel():
     return launches
 
 
+SP_POINTS = 4096          # (a)-(c): B = 2 whole clouds of 4096 points
+SP_BATCH = 2
+SP_PARTIAL_POINTS = 1024  # partial mode: cfg.n_cropped = 768 points at overlap 0.575
+SP_LARGE_FORWARD = 16384  # (d): B = 1, the whole-mode forward under no_grad
+SP_LARGE_TRAIN = 8192     # (d): B = 1, forward and backward, above gather_max_bwd's 7264
+SP_ATOL = 1e-3            # R and t against the single device's plain route (f32)
+SP_KERNEL_ROUTE_DEG = 0.25  # against the kernel route (bf16), per pair
+SP_COSINE_MIN = 0.9999    # the summed gradient against the single device's
+SP_ONE_RANK_ATOL = 1e-6   # the one-rank NCCL group against this process's mesh of itself
+SP_RANK_TIMEOUT_S = 420
+
+
+def _sp_data(b: int, n: int, partial: bool = False) -> dict:
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+
+    kw = dict(partial=True, overlap=0.575) if partial else {}
+    return shapes_eval_set(b, num_points=n, cloud_points=max(2 * N, n), **kw)
+
+
+def _sp_model(dev, partial: bool = False, sharpen: bool = False):
+    """The committed checkpoint in a full-width f32 VCRNet on the plain
+    route; ``sharpen`` scales the decoder's cross-attention queries as the
+    partial phase does, so that its re-mask selects by the weights and not
+    by rounding."""
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.models.vcrnet import VCRNet
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    kw = dict(partial=True, overlap=0.575) if partial else {}
+    model = VCRNet(Config(num_points=N, **kw), device=dev, use_kernels=False)
+    state_dict = load_checkpoint(CHECKPOINT)
+    if sharpen:
+        for name in ("weight", "bias"):
+            key = f"pointer.dec_layers.0.src_attn.linear_q.{name}"
+            state_dict[key] = state_dict[key] * SHARPEN_CROSS_ATTENTION
+    model.load_state_dict(state_dict)
+    check((model.cfg.emb_dims, model.cfg.n_heads, model.cfg.ff_dims, model.cfg.n_blocks,
+           model.emb_nn.k) == (512, 4, 1024, 1, K), "point sharding: not the full-width model")
+    return model.eval()
+
+
+def run_sp_tasks(tasks: list, mesh, batch_axis=None) -> dict:
+    """The point_sharding phase's work on this rank's shards: for each
+    (name, kind, data) a "forward" (register_flagship_sp, whole mode under
+    no_grad), "partial" (the same in partial mode at overlap 0.575, the
+    cross attention sharpened), "whole_sp" (register_whole_sp), "grads" or
+    "partial_grads" (sp_value_and_grad of the point loss against the
+    pairs' ground truth: the world's summed gradient, flat), each with its
+    peak device memory and seconds."""
+    import torch
+
+    from vcrnet_tpu_torch.parallel.point_sharding import batch_mesh, shard_points
+    from vcrnet_tpu_torch.parallel.sp_flagship import register_flagship_sp, sp_value_and_grad
+    from vcrnet_tpu_torch.parallel.sp_model import register_whole_sp
+
+    dev = torch.device("cuda")
+    models = {}
+    out = {}
+    bm = batch_mesh(mesh, batch_axis)
+    for name, kind, data in tasks:
+        partial = kind.startswith("partial")
+        if partial not in models:
+            models[partial] = _sp_model(dev, partial=partial, sharpen=partial)
+        model = models[partial]
+        src, tgt = (shard_points(data[k], mesh, batch_axis, device=dev) for k in ("src", "tgt"))
+        rows = slice(None) if bm is None else slice(bm.rank * len(data["src"]) // bm.size,
+                                                    (bm.rank + 1) * len(data["src"]) // bm.size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind in ("forward", "partial"):
+            with torch.no_grad():
+                src_k, corr, R, t = register_flagship_sp(model, src, tgt, mesh, batch_axis)
+            res = {"R": R.cpu(), "t": t.cpu()}
+            if partial:
+                res.update(src_k=src_k.cpu(), corr=corr.cpu())
+        elif kind == "whole_sp":
+            with torch.no_grad():
+                _, R, t = register_whole_sp(model, src, tgt, mesh, batch_axis)
+            res = {"R": R.cpu(), "t": t.cpu()}
+        else:
+            R_gt = torch.as_tensor(data["R_ab"][rows], device=dev)
+            t_gt = torch.as_tensor(data["t_ab"][rows], device=dev)
+            loss, grads = sp_value_and_grad(model, src, tgt, R_gt, t_gt, mesh, batch_axis)
+            res = {"loss": float(loss), "grads": torch.cat([g.reshape(-1) for g in grads.values()])
+                   .cpu()}
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[name] = res
+    del models
+    torch.cuda.empty_cache()  # the processes of the phase share the card
+    return out
+
+
+def point_sharding_rank(store: str, rank: int, world: int, backend: str, grid, job: str,
+                        out: str) -> None:
+    """One rank of the point_sharding phase, in a process of its own:
+    LOCAL_RANK 0 (every rank on the one card), the process group through
+    the FileStore ``store``, ``make_mesh()`` or ``make_mesh_2d(*grid)`` with
+    the batch axis sharded, the tasks of ``job`` from zero launch counts;
+    writes the results and the counts to ``out``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, HERE)
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.parallel import initialize, make_mesh
+    from vcrnet_tpu_torch.parallel.mesh import make_mesh_2d
+
+    initialize(init_method=f"file://{store}", rank=rank, world_size=world, backend=backend,
+               timeout=timedelta(seconds=60))
+    mesh = make_mesh_2d(*grid) if grid else make_mesh()
+    check(mesh.size == world, f"point sharding rank {rank}: mesh of {mesh.size}")
+    ops.reset_launch_counts()
+    results = run_sp_tasks(torch.load(job, weights_only=False), mesh, "batch" if grid else None)
+    results["launches"] = ops.launch_counts()
+    results["backend"] = dist.get_backend()
+    results["seconds"] = time.perf_counter() - t0
+    torch.save(results, out)
+    dist.destroy_process_group()
+
+
+def _start_sp_ranks(tmp: str, tag: str, world: int, backend: str, grid, tasks: list) -> list:
+    import torch
+
+    job = os.path.join(tmp, f"{tag}_job.pt")
+    torch.save(tasks, job)
+    procs = []
+    for rank in range(world):
+        args = (os.path.join(tmp, f"{tag}_store"), rank, world, backend, grid, job,
+                os.path.join(tmp, f"{tag}_out{rank}.pt"))
+        log = open(os.path.join(tmp, f"{tag}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.point_sharding_rank{args!r}"],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT), log, args[-1]))
+    return procs
+
+
+def _rot_between_deg(R_a, R_b):
+    return pair_rot_errors_deg(R_a.double().numpy(), R_b.double().numpy())
+
+
+def _held_forward(what: str, R, t, R_ref, t_ref, atol: float) -> None:
+    dR = float((R - R_ref).abs().max())
+    dt = float((t - t_ref).abs().max())
+    rot = _rot_between_deg(R, R_ref)
+    print(f"point_sharding {what}: max |dR| {dR}, max |dt| {dt}, rotation between results "
+          f"{rot.tolist()} deg", flush=True)
+    check(dR <= atol and dt <= atol, f"point_sharding {what}: {dR}, {dt} > {atol}")
+
+
+def _mib(nbytes) -> str:
+    return f"{nbytes / 2**20:.1f} MiB"
+
+
+def phase_point_sharding():
+    """Point-axis sharding (ROADMAP A9b) on the one card: Gloo ranks of a
+    1-D point mesh (two) and of make_mesh_2d(2, 2) (four), and a one-rank
+    NCCL group, in processes of their own, against this process's
+    single-device model on the whole clouds; then forwards and a training
+    step at cloud sizes the kernel route refuses, with each rank's peak
+    memory. Returns the ranks' launches (the path is plain PyTorch, as the
+    JAX package's is XLA: none)."""
+    import tempfile
+
+    import torch
+
+    from vcrnet_tpu_torch import ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.models.vcrnet import VCRNet
+    from vcrnet_tpu_torch.parallel import make_mesh
+    from vcrnet_tpu_torch.utils.params import load_checkpoint
+
+    dev = torch.device("cuda")
+    whole = _sp_data(SP_BATCH, SP_POINTS)
+    part = _sp_data(SP_BATCH, SP_PARTIAL_POINTS, partial=True)
+    check(part["src"].shape[1] == 768 and part["src"].shape[1] % 2 == 0,
+          f"point sharding: partial clouds of {part['src'].shape[1]} points")
+    large = _sp_data(1, SP_LARGE_FORWARD)
+    large_train = _sp_data(1, SP_LARGE_TRAIN)
+    gloo2 = [("whole", "forward", whole), ("whole_sp", "whole_sp", whole),
+             ("partial", "partial", part), ("grads", "grads", whole),
+             ("partial_grads", "partial_grads", part)]
+    grid_tasks = [("whole", "forward", whole), ("grads", "grads", whole)]
+    large_tasks = [("large_forward", "forward", large), ("large_train", "grads", large_train)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: nine more processes share the card
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {"gloo x2": _start_sp_ranks(tmp, "gloo2", 2, "gloo", None, gloo2),
+                "gloo 2x2": _start_sp_ranks(tmp, "grid", 4, "gloo", (2, 2), grid_tasks),
+                "nccl x1": _start_sp_ranks(tmp, "nccl", 1, "nccl", None, grid_tasks),
+                "gloo x2 large": _start_sp_ranks(tmp, "large", 2, "gloo", None, large_tasks)}
+        try:
+            # this process on the whole clouds, meanwhile: the single device's plain
+            # route (f32) and kernel route (bf16), and the one-rank tasks on a mesh
+            # of this process alone
+            model = _sp_model(dev)
+            ref = {"self": run_sp_tasks(grid_tasks, make_mesh())}
+            src, tgt = (torch.as_tensor(whole[k], device=dev) for k in ("src", "tgt"))
+            with torch.no_grad():
+                ref["whole"] = model(src, tgt)[2:4]
+                kernel = VCRNet(Config(num_points=N, compute_dtype="bfloat16"), device=dev)
+                kernel.load_state_dict(load_checkpoint(CHECKPOINT))
+                check(kernel.use_kernels, "point sharding: the kernel route is off")
+                ref["kernel"] = kernel.eval()(src, tgt)[2:4]
+                del kernel
+                ident = VCRNet(Config(num_points=N, pointer="identity"), device=dev,
+                               use_kernels=False)
+                ident.load_state_dict({k: v for k, v in load_checkpoint(CHECKPOINT).items()
+                                       if not k.startswith("pointer.")})
+                ref["whole_sp"] = ident.eval()(src, tgt)[2:4]
+                del ident
+                pmodel = _sp_model(dev, partial=True, sharpen=True)
+                psrc, ptgt = (torch.as_tensor(part[k], device=dev) for k in ("src", "tgt"))
+                ref["partial"] = pmodel(psrc, ptgt)[:4]
+                del pmodel
+            model.zero_grad(set_to_none=True)
+            out = model(src, tgt)
+            moved = (torch.einsum("bij,bnj->bni", torch.as_tensor(whole["R_ab"], device=dev),
+                                  out[0]) + torch.as_tensor(whole["t_ab"], device=dev)[:, None])
+            loss = ((moved - out[1]) ** 2).mean()
+            loss.backward()
+            ref["loss"] = float(loss.detach())
+            ref["grads"] = torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu()
+            del model, out, moved, loss
+            torch.cuda.empty_cache()
+            # (d)'s baselines, each peak less what this process held before it: the
+            # sharded path at world 1 (a mesh of this process), and the plain route
+            ref["large_base"] = torch.cuda.memory_allocated()
+            ref["large_w1"] = run_sp_tasks(large_tasks, make_mesh())
+            torch.cuda.reset_peak_memory_stats()
+            big = _sp_model(dev)
+            with torch.no_grad():
+                lsrc, ltgt = (torch.as_tensor(large[k], device=dev) for k in ("src", "tgt"))
+                ref["large"] = big(lsrc, ltgt)[2:4]
+            torch.cuda.synchronize()
+            ref["large_peak"] = torch.cuda.max_memory_allocated()
+            del big, lsrc, ltgt
+            torch.cuda.empty_cache()
+            t_ref = time.perf_counter() - t0
+            deadline = time.perf_counter() + SP_RANK_TIMEOUT_S
+            outs = {what: _join_ranks(procs, deadline, f"point_sharding {what}")
+                    for what, procs in jobs.items()}
+        finally:  # a failed job, or a failure here, leaves no rank on the card
+            for procs in jobs.values():
+                for proc, log, _ in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                    log.close()
+    print(f"point_sharding: ranks done in {time.perf_counter() - t0} s (this process's "
+          f"references beside them {t_ref} s); seconds of each rank: "
+          f"{ {what: [o['seconds'] for o in o_] for what, o_ in outs.items()} }; backends "
+          f"{ {what: o_[0]['backend'] for what, o_ in outs.items()} }", flush=True)
+
+    R_ref, t_ref_ = (x.cpu() for x in ref["whole"])
+    R_kernel = ref["kernel"][0].cpu()
+    for what in ("gloo x2", "gloo 2x2", "nccl x1"):
+        o_ = outs[what]
+        R = torch.cat([o["whole"]["R"] for o in o_]) if what == "gloo 2x2" else o_[0]["whole"]["R"]
+        t = torch.cat([o["whole"]["t"] for o in o_]) if what == "gloo 2x2" else o_[0]["whole"]["t"]
+        if what == "gloo 2x2":  # rank r holds batch row r // 2: one copy a row
+            R, t = R[::2], t[::2]
+            for row in range(2):
+                check(torch.equal(o_[2 * row]["whole"]["R"], o_[2 * row + 1]["whole"]["R"]),
+                      "point_sharding gloo 2x2: a row's ranks hold different R")
+        else:
+            check(all(torch.equal(o["whole"]["R"], R) for o in o_),
+                  f"point_sharding {what}: the ranks hold different R")
+        _held_forward(f"{what} whole B = {SP_BATCH}, N = {SP_POINTS} against the plain route",
+                      R, t, R_ref, t_ref_, SP_ATOL)
+        rot = _rot_between_deg(R, R_kernel)
+        print(f"point_sharding {what}: rotation to the kernel route (bf16) {rot.tolist()} deg",
+              flush=True)
+        check(float(rot.max()) <= SP_KERNEL_ROUTE_DEG,
+              f"point_sharding {what}: {float(rot.max())} deg from the kernel route")
+        g = o_[0]["grads"]
+        check(all(torch.equal(o["grads"]["grads"], g["grads"]) for o in o_),
+              f"point_sharding {what}: the ranks hold different gradients")
+        cos = _cosine(g["grads"], ref["grads"])
+        rel = rel_err(g["grads"], ref["grads"])
+        print(f"point_sharding {what}: loss {g['loss']} (single device {ref['loss']}), gradient "
+              f"cosine {cos}, largest difference {rel} of the largest gradient; peak memory a rank "
+              f"{[_mib(o['grads']['peak_bytes']) for o in o_]} (forward "
+              f"{[_mib(o['whole']['peak_bytes']) for o in o_]})", flush=True)
+        check(cos >= SP_COSINE_MIN, f"point_sharding {what}: gradient cosine {cos}")
+    one, mine = outs["nccl x1"][0], ref["self"]
+    d_one = max(float((one["whole"][k] - mine["whole"][k]).abs().max()) for k in ("R", "t"))
+    d_grad = float((one["grads"]["grads"] - mine["grads"]["grads"]).abs().max())
+    print(f"point_sharding nccl x1 against this process's mesh of itself: max |d(R, t)| {d_one}, "
+          f"max |d grad| {d_grad}", flush=True)
+    check(d_one <= SP_ONE_RANK_ATOL and d_grad <= SP_ONE_RANK_ATOL * max(
+        1.0, float(mine["grads"]["grads"].abs().max())), "point_sharding nccl x1: differs")
+
+    g2 = outs["gloo x2"]
+    _held_forward(f"gloo x2 register_whole_sp N = {SP_POINTS} against the identity-pointer model",
+                  g2[0]["whole_sp"]["R"], g2[0]["whole_sp"]["t"],
+                  *(x.cpu() for x in ref["whole_sp"]), SP_ATOL)
+    p = g2[0]["partial"]
+    src_k_ref, corr_ref, R_p, t_p = (x.cpu() for x in ref["partial"])
+    same = (p["src_k"] == src_k_ref).all(dim=-1).float().mean().item()
+    print(f"point_sharding gloo x2 partial (overlap 0.575, {part['src'].shape[1]} points, "
+          f"sharpened cross attention): {p['src_k'].shape[1]} pairs, share equal to the single "
+          f"device's {same}, max |d corr| {float((p['corr'] - corr_ref).abs().max())}", flush=True)
+    _held_forward("gloo x2 partial", p["R"], p["t"], R_p, t_p, SP_ATOL)
+    pg = g2[0]["partial_grads"]
+    check(math.isfinite(pg["loss"]) and bool((pg["grads"] == 0).all()),
+          f"point_sharding partial backward: loss {pg['loss']}, nonzero gradients")
+    print(f"point_sharding gloo x2 partial backward: loss {pg['loss']}, every gradient zero",
+          flush=True)
+
+    lg, w1, base = outs["gloo x2 large"], ref["large_w1"], ref["large_base"]
+    lrot = _rot_between_deg(lg[0]["large_forward"]["R"], ref["large"][0].cpu())
+    w1rot = _rot_between_deg(lg[0]["large_forward"]["R"], w1["large_forward"]["R"])
+    print(f"point_sharding (d) whole forward B = 1, N = {SP_LARGE_FORWARD}: peak memory a rank "
+          f"of two {[_mib(o['large_forward']['peak_bytes']) for o in lg]}; the sharded path at "
+          f"world 1 in one process {_mib(w1['large_forward']['peak_bytes'] - base)}; the plain "
+          f"route on the whole cloud in one process {_mib(ref['large_peak'] - base)} (this "
+          f"process held {_mib(base)} before, taken off both); rotation to world 1 "
+          f"{w1rot.tolist()} deg, to the plain route {lrot.tolist()} deg; seconds a rank "
+          f"{[o['large_forward']['seconds'] for o in lg]}, at world 1 "
+          f"{w1['large_forward']['seconds']}", flush=True)
+    lt = [o["large_train"] for o in lg]
+    check(all(math.isfinite(x["loss"]) and bool(torch.isfinite(x["grads"]).all()) for x in lt),
+          "point_sharding (d) training step: not finite")
+    lt1 = w1["large_train"]
+    print(f"point_sharding (d) training step B = 1, N = {SP_LARGE_TRAIN}: loss {lt[0]['loss']} "
+          f"(world 1 {lt1['loss']}), gradient cosine to world 1 "
+          f"{_cosine(lt[0]['grads'], lt1['grads'])}, gradient norm {float(lt[0]['grads'].norm())}, "
+          f"peak memory a rank of two {[_mib(x['peak_bytes']) for x in lt]}, at world 1 in one "
+          f"process {_mib(lt1['peak_bytes'] - base)}; seconds {[x['seconds'] for x in lt]}, at "
+          f"world 1 {lt1['seconds']}", flush=True)
+
+    launches = {k: 0 for k in ops.KERNELS}
+    for o_ in outs.values():
+        for o in o_:
+            add_launches(launches, o["launches"])
+    print(f"point_sharding: launches_sp {launches}", flush=True)
+    check(not any(launches.values()), "point_sharding: the path launched a kernel")
+    return launches
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -4409,7 +4781,7 @@ def print_ptxas_reports(procs: dict) -> None:
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
           "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd", "heads",
-          "cli", "export", "parallel")
+          "cli", "export", "parallel", "point_sharding")
 
 
 def main() -> int:
@@ -4489,6 +4861,8 @@ def main() -> int:
             launches[name] = phase_export()
         elif name == "parallel":
             launches[name] = phase_parallel()
+        elif name == "point_sharding":
+            launches[name] = phase_point_sharding()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {

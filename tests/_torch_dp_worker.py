@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_parallel.py).
+"""One rank of the port's data-parallel and point-sharding tests
+(tests/test_torch_parallel.py, tests/test_torch_point_sharding.py).
 
     python tests/_torch_dp_worker.py STORE RANK WORLD JOB OUT
 
@@ -46,8 +47,75 @@ def _floats(sums: dict) -> dict:
     return {k: float(v) for k, v in sums.items()}
 
 
+def sp(task) -> dict:
+    """Every point-sharded function on this rank's shards of the global
+    arrays in ``task["data"]``, over ``make_mesh()`` or, with
+    ``task["grid"]``, ``make_mesh_2d(*grid)`` with the batch axis sharded:
+    the outputs (this rank's shards, or the replicated values) and the
+    gradients of ``sp_value_and_grad``, of the model of ``task["cfg"]`` and
+    of its partial-mode twin of ``task["pcfg"]`` (the same weights); the
+    embedding also through an LPDNet at the slope 0.2 with its weights."""
+    from vcrnet_tpu_torch.models.embeddings import LPDNet
+    from vcrnet_tpu_torch.models.vcrnet import VCRNet
+    from vcrnet_tpu_torch.parallel.mesh import make_mesh_2d
+    from vcrnet_tpu_torch.parallel.point_sharding import (
+        batch_mesh, point_mesh, shard_points, sharded_gather_neighbors, sharded_knn,
+        sharded_soft_correspondence,
+    )
+    from vcrnet_tpu_torch.parallel.sp_flagship import (
+        pointer_sp, register_flagship_sp, sp_value_and_grad,
+    )
+    from vcrnet_tpu_torch.parallel.sp_model import lpdnet_embed_sp, register_whole_sp
+
+    grid = task.get("grid")
+    mesh = make_mesh_2d(*grid) if grid else make_mesh()
+    ba = "batch" if grid else None
+    pm, bm = point_mesh(mesh, ba), batch_mesh(mesh, ba)
+    d = task["data"]
+
+    def shard(name):
+        return shard_points(d[name], mesh, ba, device="cpu")
+
+    def rows(name):  # this rank's batch rows of a [B, ...] array
+        x = torch.as_tensor(d[name])
+        if bm is None:
+            return x
+        per = x.shape[0] // bm.size
+        return x[bm.rank * per:(bm.rank + 1) * per]
+
+    def model_of(cfg):
+        model = VCRNet(Config(**cfg), device="cpu")
+        model.load_state_dict(task["state_dict"])
+        return model
+
+    model, pmodel = model_of(task["cfg"]), model_of(task["pcfg"])
+    emb_02 = LPDNet(model.cfg.emb_dims, model.emb_nn.k, negative_slope=0.2)
+    emb_02.load_state_dict(model.emb_nn.state_dict())
+    out = {"point_rank": pm.rank, "batch_rank": bm.rank if bm else 0}
+    with torch.no_grad():
+        src, tgt = shard("src"), shard("tgt")
+        out["knn"] = sharded_knn(src, task["k_knn"], mesh, ba)
+        out["gather"] = sharded_gather_neighbors(shard("emb_a"), shard("idx"), mesh, ba)
+        out["corr"] = sharded_soft_correspondence(shard("emb_a"), shard("emb_b"), tgt, mesh, ba)
+        for slope, emb in ((0.0, model.emb_nn), (0.2, emb_02)):
+            out[f"embed_{slope}"] = lpdnet_embed_sp(emb, src, mesh, ba)
+        out["whole"] = register_whole_sp(model, src, tgt, mesh, ba)
+        out["flagship"] = register_flagship_sp(model, src, tgt, mesh, ba)
+        out["partial"] = register_flagship_sp(pmodel, shard("psrc"), shard("ptgt"), mesh, ba)
+        out["pointer"] = pointer_sp(model.pointer, shard("emb_a"), shard("emb_b"), mesh, ba)
+        out["pointer_remask"] = pointer_sp(pmodel.pointer, shard("pemb_a"), shard("pemb_b"), mesh,
+                                           ba)
+    for name, m, s_, t_ in (("grads", model, "src", "tgt"), ("partial_grads", pmodel, "psrc", "ptgt")):
+        loss, grads = sp_value_and_grad(m, shard(s_), shard(t_), rows("R_gt"), rows("t_gt"), mesh,
+                                        ba)
+        out[name] = (float(loss), {k: g.clone() for k, g in grads.items()})
+    return out
+
+
 def run(task) -> dict:
     kind = task["kind"]
+    if kind == "sp":
+        return sp(task)
     if kind == "step":  # gradients after the all-reduce, then an SGD step
         tr = _trainer(task)
         loss, sums = tr.compute_grads(task["batch"])

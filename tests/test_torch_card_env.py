@@ -10,7 +10,9 @@ back without h5py, an epoch of training through prefetch and one on raw
 clouds, a partial-overlap step, an LPD epoch with a checkpoint merged into
 VCR-Net, ICP and net + ICP evals, the port's CLI (its ``--help``, and ICP
 refusing to train) with pandas blocked too, the data-parallel package and
-chip_smoke.py's parallel phase (an epoch in a one-rank Gloo group), and
+chip_smoke.py's parallel phase (an epoch in a one-rank Gloo group), the
+point-sharding package and chip_smoke.py's point_sharding phase (the
+flagship's forward and gradient in that group), and
 finds that the ModelNet40 and KITTI readers raise an ImportError that names
 h5py."""
 
@@ -165,6 +167,17 @@ initialize(init_method="file://" + os.path.join(tmp, "store"), rank=0, world_siz
 ranked = Trainer(Config(dataset="synthetic", **tiny), device="cpu", seed=0)
 assert ranked.mesh.group is not None and ranked.mesh.size == 1
 assert np.isfinite(ranked.train_epoch(pipeline.Loader(small, 4))["loss"])
+from chip_smoke import phase_point_sharding, point_sharding_rank, run_sp_tasks
+from vcrnet_tpu_torch.parallel.mesh import make_mesh_2d
+from vcrnet_tpu_torch.parallel.sp_flagship import register_flagship_sp, sp_value_and_grad
+grid = make_mesh_2d(1)
+assert grid.points.group is not None and grid.size == 1
+pair = torch.as_tensor(clouds)
+sp_out = register_flagship_sp(ranked.model, pair, pair, make_mesh())
+sp_loss, sp_grads = sp_value_and_grad(ranked.model, pair, pair, torch.eye(3).repeat(2, 1, 1),
+                                      torch.zeros(2, 3), grid, batch_axis="batch")
+assert all(torch.isfinite(x).all() for x in sp_out) and torch.isfinite(sp_loss)
+assert all(torch.isfinite(g).all() for g in sp_grads.values())
 torch.distributed.destroy_process_group()
 
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

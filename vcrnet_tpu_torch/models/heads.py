@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vcrnet_tpu_torch.ops.graph import neg_pairwise_sqdist
+from vcrnet_tpu_torch.ops.graph import neg_pairwise_sqdist, take_rows
 from vcrnet_tpu_torch.ops.vcp import soft_correspondence_vjp
 
 
@@ -70,11 +70,6 @@ class VcpAtt(nn.Module):
         return src, torch.matmul(scores, tgt.float())
 
 
-def _take(arr, idx):
-    """Rows ``idx`` [B, K] of ``arr`` [B, N, C] -> [B, K, C]."""
-    return torch.gather(arr, 1, idx[:, :, None].expand(-1, -1, arr.shape[-1]))
-
-
 def vcp_top_k_partial(src_emb, tgt_emb, src, tgt, overlap2: float):
     """Partial-overlap correspondence selection in two stages, every
     selection a fixed-size top-k + gather:
@@ -96,12 +91,12 @@ def vcp_top_k_partial(src_emb, tgt_emb, src, tgt, overlap2: float):
 
     tgt_idx = torch.topk(torch.softmax(scores, dim=2).sum(dim=1), k1_tgt).indices
     src_idx = torch.topk(torch.softmax(scores, dim=1).sum(dim=2), k1_src).indices
-    src_sel, src_emb_sel = _take(src, src_idx), _take(src_emb, src_idx)
-    tgt_sel, tgt_emb_sel = _take(tgt, tgt_idx), _take(tgt_emb, tgt_idx)
+    src_sel, src_emb_sel = take_rows(src, src_idx), take_rows(src_emb, src_idx)
+    tgt_sel, tgt_emb_sel = take_rows(tgt, tgt_idx), take_rows(tgt_emb, tgt_idx)
 
     k2 = int(k1_src * 0.52 * overlap2)
     p = torch.softmax(neg_pairwise_sqdist(src_emb_sel, tgt_emb_sel), dim=2)  # [B, K1, K1]
     conf, best_idx = p.max(dim=-1)  # the first index on ties
     keep = torch.topk(conf, k2).indices  # [B, K2]
     corr_idx = torch.gather(best_idx, 1, keep)
-    return _take(src_sel, keep), _take(tgt_sel, corr_idx)
+    return take_rows(src_sel, keep), take_rows(tgt_sel, corr_idx)

@@ -21,7 +21,7 @@ from torch import nn
 from vcrnet_tpu_torch.config import Config
 from vcrnet_tpu_torch.models.vcrnet import compute_dtype, make_embedding
 from vcrnet_tpu_torch.ops.fps import farthest_point_sample
-from vcrnet_tpu_torch.ops.graph import kfn
+from vcrnet_tpu_torch.ops.graph import kfn, take_rows
 from vcrnet_tpu_torch.utils.device import resolve_device
 
 ANCHORS = 32  # FPS anchors a cloud
@@ -38,11 +38,6 @@ def lazy_triplet_loss(src_emb_k, tgt_emb_k, neg_emb, margin: float = 1.0):
     return torch.clamp(1.0 - dn / (margin + dp), min=0.0)
 
 
-def _take(arr, idx):
-    """Rows ``idx`` [B, K] of ``arr`` [B, N, C] -> [B, K, C]."""
-    return torch.gather(arr, 1, idx[:, :, None].long().expand(-1, -1, arr.shape[-1]))
-
-
 def lpd_loss(src, src_emb, tgt_emb, k: int = ANCHORS, neg_k: int = NEGATIVES,
              per_sample: bool = False):
     """The LPD loss: the lazy triplet loss over ``k`` FPS anchors of src
@@ -53,11 +48,11 @@ def lpd_loss(src, src_emb, tgt_emb, k: int = ANCHORS, neg_k: int = NEGATIVES,
     are taken in f32."""
     src_emb, tgt_emb = src_emb.float(), tgt_emb.float()
     anchors = farthest_point_sample(src, k)  # [B, k]
-    src_emb_k = _take(src_emb, anchors)
-    tgt_emb_k = _take(tgt_emb, anchors)
-    far = kfn(_take(src, anchors), neg_k)  # [B, k, neg_k], farthest anchors in xyz
+    src_emb_k = take_rows(src_emb, anchors)
+    tgt_emb_k = take_rows(tgt_emb, anchors)
+    far = kfn(take_rows(src, anchors), neg_k)  # [B, k, neg_k], farthest anchors in xyz
     B, K, E = tgt_emb_k.shape  # the negatives' embeddings from the TARGET side
-    neg = _take(tgt_emb_k, far.reshape(B, K * neg_k)).reshape(B, K, neg_k, E)
+    neg = take_rows(tgt_emb_k, far.reshape(B, K * neg_k)).reshape(B, K, neg_k, E)
     triplet = lazy_triplet_loss(src_emb_k, tgt_emb_k, neg)  # [B, K]
 
     src_len = torch.linalg.vector_norm(src_emb, dim=-1)  # [B, N]

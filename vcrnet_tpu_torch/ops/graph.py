@@ -73,6 +73,11 @@ def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, M, k, feats.shape[-1])
 
 
+def take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` [B, K] of ``arr`` [B, N, C] -> [B, K, C]."""
+    return torch.gather(arr, 1, idx[:, :, None].long().expand(-1, -1, arr.shape[-1]))
+
+
 def graph_feature(feats: torch.Tensor, idx: torch.Tensor | None = None, k: int = 20) -> torch.Tensor:
     """Edge-conv input: feats [B, N, C] -> [B, N, k, 2C], the concat of each
     neighbour's features and the centre's (neighbour first; not the DGCNN

@@ -1,7 +1,9 @@
-"""Data parallelism (counterpart of vcrnet_tpu/parallel/): the mesh and
-its collectives, and multi-process bring-up. Point-axis sharding
-(``point_sharding``, ``sp_model``, ``sp_flagship``) and the data x point
-mesh of ``make_mesh_2d`` are not ported yet."""
+"""Data and point-axis parallelism (counterpart of vcrnet_tpu/parallel/):
+the mesh and its collectives (``mesh``, with the data x point grid of
+``make_mesh_2d``), multi-process bring-up (``multihost``), and the
+point-sharded primitives and model forwards with their gradients
+(``point_sharding``, ``sp_model``, ``sp_flagship``), imported from their
+modules as in the JAX package."""
 
 from vcrnet_tpu_torch.parallel.mesh import (
     make_mesh,

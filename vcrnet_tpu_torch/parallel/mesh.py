@@ -19,6 +19,29 @@ an all-reduce of a zero-filled buffer, so every collective is an
 all-reduce or a broadcast, which the NCCL and the Gloo backends both take
 on a CUDA tensor. In a mesh without a group they do nothing: the process
 holds every shard.
+
+Point-axis sharding (``point_sharding``, ``sp_model``, ``sp_flagship``)
+adds :meth:`Mesh.all_gather` (the tiled gather of
+``jax.lax.all_gather(..., tiled=True)``, also an all-reduce of a
+zero-filled buffer), :meth:`Mesh.all_reduce_max` (no gradient) and
+:func:`make_mesh_2d`, the world as a batch x points grid of groups. Its
+gradients follow one convention, so that one SUM all-reduce of the
+parameters' gradients over the world gives the single device's gradient:
+
+* a value that every rank of a group computes whole (a replicated value:
+  the 3 x 3 solve, the partial head's selections, the loss) holds on each
+  rank a partial cotangent, and the ranks' partials sum to its cotangent;
+  the loss starts them, 1/world on each rank (:meth:`Mesh.replicated`);
+* a value a rank holds alone (its shard of the points) holds its whole
+  cotangent, which :meth:`Mesh.all_reduce` (psum, whose backward
+  all-reduces the cotangent) and :meth:`Mesh.all_gather` (whose backward
+  all-reduces the cotangent and keeps this rank's slice: psum_scatter)
+  assemble from the ranks' partials;
+* a parameter's gradient on a rank is that rank's share: every rank uses
+  the parameters on its own shard, so :meth:`Mesh.all_reduce_grads` sums
+  the shares over the world once, after the backward.
+
+JAX gets the same from ``shard_map``'s transposes.
 """
 
 from __future__ import annotations
@@ -49,6 +72,43 @@ class _AllReduceSum(torch.autograd.Function):
         return None, _AllReduceSum.apply(ctx.group, grad)
 
 
+class _AllGather(torch.autograd.Function):
+    """Tiled all-gather along ``dim`` (rank 0's slice first): each rank
+    writes its slice into a zero buffer and the buffers are summed. The
+    backward all-reduces the cotangent and keeps this rank's slice
+    (psum_scatter)."""
+
+    @staticmethod
+    def forward(ctx, group, size, rank, dim, tensor):
+        n = tensor.shape[dim]
+        ctx.group, ctx.rank, ctx.dim, ctx.n = group, rank, dim, n
+        shape = list(tensor.shape)
+        shape[dim] *= size
+        out = tensor.new_zeros(shape)
+        out.narrow(dim, rank * n, n).copy_(tensor)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        full = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(full, group=ctx.group)
+        return None, None, None, None, full.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n)
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity whose backward hands this rank ``scale`` of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, scale, tensor):
+        ctx.scale = scale
+        return tensor.view_as(tensor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad * ctx.scale
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A 1-D data mesh of ``size`` members. In a process group (``group``
@@ -76,14 +136,46 @@ class Mesh:
 
     def gather_rows(self, tensor: torch.Tensor) -> torch.Tensor:
         """[b, ...] of every rank -> [size * b, ...], rank 0's rows first
-        (the global batch order of equal contiguous shards): each rank
-        writes its rows into a zero buffer and the buffers are summed."""
+        (the global batch order of equal contiguous shards)."""
+        return self.all_gather(tensor, 0)
+
+    def all_gather(self, tensor: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``tensor`` concatenated along ``dim``, rank 0's
+        first (``jax.lax.all_gather(..., tiled=True)``); differentiable as
+        the module docstring says. Integer tensors are gathered alike."""
         if self.group is None:
             return tensor
-        b = tensor.shape[0]
-        out = tensor.new_zeros((self.size * b,) + tuple(tensor.shape[1:]))
-        out[self.rank * b:(self.rank + 1) * b] = tensor
-        return self.all_reduce_(out)
+        return _AllGather.apply(self.group, self.size, self.rank, dim, tensor)
+
+    def all_reduce_max(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Elementwise MAX over the group's ranks, as a new tensor with no
+        gradient (``jax.lax.pmax`` of a stopped gradient)."""
+        out = tensor.detach().clone(memory_format=torch.contiguous_format)
+        if self.group is not None:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+    def replicated(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor``, a value that every rank of the group computes whole
+        (a loss), marked so: its backward starts each rank's partial
+        cotangent at 1/size of the value's."""
+        if self.size == 1:
+            return tensor
+        return _Replicated.apply(1.0 / self.size, tensor)
+
+    def all_reduce_grads(self, params) -> None:
+        """SUM the ``.grad`` of ``params`` over the group, in one flat
+        buffer; a parameter no path reached gets a zero gradient first."""
+        params = list(params)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.group is None:
+            return
+        grads = [p.grad for p in params]
+        flat = self.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def broadcast_(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s values into ``tensor`` on every rank; returns it."""
@@ -131,6 +223,58 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
             f"and no process group (world size {world})"
         )
     return Mesh(size=n_devices, devices=tuple(torch.device("cuda", i) for i in range(n_devices)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """The world as an ``n_batch x n_points`` grid (``jax.sharding.Mesh``
+    with the axes ("batch", "data")): ``points`` is this rank's row, the
+    group over which its point collectives run (the inner axis, "data"),
+    ``batch`` its column, ``world`` every rank."""
+
+    points: Mesh
+    batch: Mesh
+    world: Mesh
+
+    @property
+    def n_batch(self) -> int:
+        return self.batch.size
+
+    @property
+    def n_points(self) -> int:
+        return self.points.size
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+
+def make_mesh_2d(n_batch: int, n_points: Optional[int] = None) -> Mesh2D:
+    """The process group's world as an ``n_batch x n_points`` grid
+    (``n_points`` defaults to world // n_batch): rank r sits at batch row
+    r // n_points and point index r % n_points, the point axis inner, as
+    JAX's ``grid.reshape(n_batch, n_points)``. Every rank makes every row's
+    and every column's group (``dist.new_group``), in one order. Without a
+    process group the grid is 1 x 1, this process alone."""
+    world = make_mesh()
+    if n_points is None:
+        n_points = world.size // n_batch
+    if n_batch < 1 or n_points < 1 or n_batch * n_points != world.size:
+        raise ValueError(f"a {n_batch} x {n_points} mesh in a world of {world.size} processes")
+    if world.group is None:
+        return Mesh2D(world, world, world)
+    grid = np.arange(world.size).reshape(n_batch, n_points)
+    row, col = divmod(world.rank, n_points)
+    points = batch = None
+    for b in range(n_batch):
+        group = dist.new_group(grid[b].tolist())
+        if b == row:
+            points = Mesh(size=n_points, rank=col, group=group)
+    for p in range(n_points):
+        group = dist.new_group(grid[:, p].tolist())
+        if p == col:
+            batch = Mesh(size=n_batch, rank=row, group=group)
+    return Mesh2D(points, batch, world)
 
 
 class Sharding(NamedTuple):

@@ -457,22 +457,9 @@ class Trainer:
         loss, sums = self.loss_and_sums(self._train_forward(b["src"], b["tgt"]), b)
         if loss.requires_grad:
             loss.backward()
-        self.grads_filled = []
-        for name, p in self.model.named_parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-                self.grads_filled.append(name)
-        self._all_reduce_grads()
+        self.grads_filled = [name for name, p in self.model.named_parameters() if p.grad is None]
+        self.mesh.all_reduce_grads(self.model.parameters())  # zero-fills, one flat all-reduce
         return loss.detach(), sums
-
-    def _all_reduce_grads(self) -> None:
-        """Sum every gradient over the ranks, through one flat buffer."""
-        if self.mesh.group is None:
-            return
-        grads = [p.grad for p in self.model.parameters()]
-        flat = self.mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
-        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
 
     def train_step(self, batch: dict) -> dict:
         """One optimizer step on ``batch``; returns the batch's metric sums
