@@ -120,7 +120,10 @@ Phases (any failure raises and the script exits non-zero):
            step time at B = 16 and 32; a 2-epoch fit with checkpoints whose
            best embedding merges into a VCR-Net Trainer bit for bit, which
            then takes a step;
-17. heads   the dist and att heads and LPDNet's T-Nets (phase_heads);
+17. heads   the dist and att heads and LPDNet's T-Nets (phase_heads): with
+           tfea every edge_conv launch is the f32 instance's and the DG-block
+           rows of VCR-Net, DCP and LPD agree with the plain route's f32
+           selection on >= 0.995;
 18. cli     the port's CLI: an iter=3 eval of the checkpoint and a one-epoch
            fit (phase_cli);
 19. export  Registrar.warmup over the seven buckets, the bucket-8 iter=3
@@ -199,6 +202,10 @@ of duplicate points. And every forward kernel of the served paths at
 N = 885 and 1000 (edge_conv and vcp_stream also 707 and 971), B = 2 and 64,
 against its plain version, with item 0's results unchanged when item 1's
 inputs are drawn again (its last tiles reach into item 1's rows); and
+edge_conv's f32 instance (an f32 kNN space at C = 64, LPDNet's after
+t_net_fea) at B = 8 and 64 with N = 1024 and at B = 2 and 64 with N = 885
+and 1000, without and with winners, edge_conv_from_idx on its idx and
+edge_conv_bwd on its winners (also at 2B = 16 and 128 clouds of 1024); and
 gather_max_from_idx, redesigned by channel slices, equal bit for bit
 (winners too) to its plain version and to knn_gather_max at B = 64 with
 N = 768, 885, 1024 and 3072, at N = 16384 (rows read from device memory),
@@ -209,7 +216,8 @@ Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
 every shape, item 0's gradients unchanged when item 1 is drawn again.
 
 Each phase prints its seconds. The last lines are a JSON object with one entry per kernel
-(sixteen; the launches of each phase's main path beside the total, the ranks' of the
+(sixteen; edge_conv's with its f32 instance's launches, time, plain time and bound
+beside; the launches of each phase's main path beside the total, the ranks' of the
 parallel phase as launches_parallel; the point_sharding phase prints its ranks' as
 launches_sp, all zero), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -286,6 +294,46 @@ def same_rows(idx, ref_idx) -> float:
     return (idx.sort(-1).values == ref_idx.sort(-1).values).all(-1).float().mean().item()
 
 
+def f32_edge_conv_checked(xs, a, h, w2, b2, slope: float, what: str):
+    """The edge kernel's f32 instance on an f32 kNN space xs (LPDNet's after
+    t_net_fea), without and with winners: both launch the f32 instance; its
+    rows agree with the plain version's f32 selection on >= KNN_ROW_AGREEMENT;
+    on its own idx x1 and x1's winners equal the plain version's, x2 is
+    within 2e-2 (one bf16 ulp below 4) and x2's winners agree on >= 0.99 (y
+    sums in another order), as the bf16 instance is held; the forward with
+    winners equals the one without. Returns (a row of figures, (idx, x2,
+    win1, win2))."""
+    import torch
+
+    from vcrnet_tpu_torch.ops import edgeconv
+
+    check(xs.dtype == torch.float32, f"{what}: the kNN space is {xs.dtype}, not f32")
+    before = edgeconv.fused_edge_conv.launches_f32
+    x1, x2, idx = edgeconv.fused_edge_conv(xs, a, h, w2, b2, K, slope)
+    t1, t2, t_idx, win1, win2 = edgeconv.fused_edge_conv(xs, a, h, w2, b2, K, slope,
+                                                         winners=True)
+    torch.cuda.synchronize()
+    check(edgeconv.fused_edge_conv.launches_f32 == before + 2,
+          f"{what}: the f32 instance did not launch")
+    ref_idx = edgeconv.fused_edge_conv_ref(xs, a, h, w2, b2, K, slope)[2]
+    r1, r2, _, rw1, rw2 = edgeconv.fused_edge_conv_ref(xs, a, h, w2, b2, K, slope, idx=idx,
+                                                       winners=True)
+    agree = same_rows(idx, ref_idx)
+    err = max((x1.float() - r1.float()).abs().max().item(),
+              (x2.float() - r2.float()).abs().max().item())
+    w2_agree = (win2 == rw2).float().mean().item()
+    check(agree >= KNN_ROW_AGREEMENT, f"{what}: rows agree {agree}")
+    check(torch.equal(x1, r1), f"{what}: x1 differs from the plain version on its idx")
+    check(err <= 2e-2, f"{what}: max abs err {err} > 2e-2")
+    check(torch.equal(t_idx, idx) and torch.equal(t1, x1) and torch.equal(t2, x2),
+          f"{what}: the forward with winners differs from the one without")
+    check(torch.equal(win1, rw1), f"{what}: x1 winners differ from plain")
+    check(w2_agree >= 0.99, f"{what}: x2 winners agree on {w2_agree}")
+    row = dict(B=xs.shape[0], N=xs.shape[1], rows_agree=agree, x2_winners_agree=w2_agree,
+               max_abs_err=err)
+    return row, (idx, x2, win1, win2)
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
@@ -293,6 +341,7 @@ def phase_kernels(dev):
     from vcrnet_tpu_torch.ops import attention, edgeconv, knn, vcp
 
     g = torch.Generator(device=dev).manual_seed(0)
+    g32 = torch.Generator(device=dev).manual_seed(10)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
@@ -345,6 +394,19 @@ def phase_kernels(dev):
             plain_ms=cuda_time_ms(lambda: edgeconv.fused_edge_conv_ref(xf, a, h, w2, b2, K)),
             library_ms=None,
         ))
+
+        # --- the same block on an f32 kNN space (LPDNet's after t_net_fea):
+        # the f32 instance, its scores at the f32 rate, the edge phase at bf16
+        # (its own generator: the other inputs stay those of earlier runs)
+        xs = torch.randn(B, N, 64, generator=g32, device=dev)
+        row, _ = f32_edge_conv_checked(xs, a, h, w2, b2, 0.0, f"edge_conv f32 B={B}")
+        work = [(B * N * N * 2 * 64, F32_FLOPS), (B * N * K * 2 * 128 * 128, BF16_TENSOR_FLOPS)]
+        b, by = bound_ms(nbytes(xs, a, h, w2, b2, x1, x2, idx), work)
+        row.update(bound_ms=b, bound_by=by,
+                   ms=cuda_time_ms(lambda: edgeconv.fused_edge_conv(xs, a, h, w2, b2, K)),
+                   plain_ms=cuda_time_ms(lambda: edgeconv.fused_edge_conv_ref(xs, a, h, w2, b2, K)),
+                   library_ms=None)
+        rows.setdefault("edge_conv_f32", []).append(row)
 
         # --- packed-head attention, 4 heads of 128
         q, k, v = (randn(B, N, 512, dtype=bf16) for _ in range(3))
@@ -450,6 +512,7 @@ def phase_eval_kernels(dev):
     from vcrnet_tpu_torch.ops import attention, colmass, edgeconv, knn, vcp
 
     g = torch.Generator(device=dev).manual_seed(2)
+    g32 = torch.Generator(device=dev).manual_seed(12)  # the f32 spaces: g's draws stay as they were
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
@@ -499,6 +562,20 @@ def phase_eval_kernels(dev):
             plain_ms=cuda_time_ms(lambda: edgeconv.edge_conv_from_idx_ref(idx, a, h, w2, b2)),
             library_ms=None,
         ))
+
+        # the feature graph reused under t_net_fea: the f32 instance's idx
+        xs = torch.randn(B, N, 64, generator=g32, device=dev)
+        f1, f2, idx = edgeconv.fused_edge_conv(xs, a, h, w2, b2, K)
+        x1, x2 = edgeconv.edge_conv_from_idx(idx, a, h, w2, b2)
+        torch.cuda.synchronize()
+        x2_rel = rel_err(x2, f2)
+        check(torch.equal(x1, f1) and x2_rel <= 2 ** -7,
+              f"edge_conv_from_idx B={B}: differs from the f32 instance on its idx (x2 {x2_rel})")
+        r1, r2 = edgeconv.edge_conv_from_idx_ref(idx, a, h, w2, b2)
+        rows.setdefault("edge_conv_from_idx_f32", []).append(dict(
+            B=B, x2_rel_vs_fused=x2_rel,
+            max_abs_err=max((x1.float() - r1.float()).abs().max().item(),
+                            (x2.float() - r2.float()).abs().max().item())))
 
     # every kernel again at the other sizes the served paths give it: 512
     # points (iterations 2+ on a subsample), 768 (the partial crop of 1024)
@@ -739,6 +816,7 @@ def phase_backward(dev):
     from vcrnet_tpu_torch.ops import attention, edgeconv, vcp
 
     g = torch.Generator(device=dev).manual_seed(1)
+    g32 = torch.Generator(device=dev).manual_seed(11)  # the f32 spaces: g's draws stay as they were
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
@@ -801,6 +879,22 @@ def phase_backward(dev):
                  bound_ms=b, bound_by=by),
             lambda: edgeconv.edge_conv_bwd(*args),
             lambda: edgeconv.edge_conv_bwd_ref(*args)))
+
+        # --- the same from the f32 instance's idx and winners (t_net_fea's space)
+        xs = torch.randn(B2, N, 64, generator=g32, device=dev)
+        row, (idx, x2, win1, win2) = f32_edge_conv_checked(xs, a, h, w2, b2, 0.0,
+                                                           f"edge_conv f32 B={B2}")
+        rows.setdefault("edge_conv_f32_winners", []).append(row)
+        args = (idx, win1, win2, a, h, w2, x2, ct1, ct2)
+        got = edgeconv.edge_conv_bwd(*args)
+        torch.cuda.synchronize()
+        want = edgeconv.edge_conv_bwd_ref(*args)
+        errs = [rel_err(gv, wv) for gv, wv in zip(got, want)]
+        check(errs[0] <= 2 ** -7 and max(errs[1:]) <= 1e-4,
+              f"edge_conv_bwd f32 B={B2}: relative errors (da, dh, dW2, db2) {errs}")
+        rows.setdefault("edge_conv_bwd_f32", []).append(dict(
+            B=B2, rel_errs=errs,
+            max_abs_err=max((gv - wv).abs().max().item() for gv, wv in zip(got, want))))
 
         # --- attention backward from the forward's output and logsumexp
         q, k, v = (randn(B, N, 512, dtype=bf16) for _ in range(3))
@@ -2100,13 +2194,16 @@ def phase_ragged_kernels(dev):
     from vcrnet_tpu_torch.ops import attention, colmass, dgcnn, edgeconv, knn, pointer, vcp
 
     g = torch.Generator(device=dev).manual_seed(5)
+    g32 = torch.Generator(device=dev).manual_seed(15)  # the f32 instance's: g's draws stay
 
-    def randn(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+    def randn(*shape, scale=1.0, dtype=torch.float32, gen=None):
+        gen = g if gen is None else gen
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def item0_unchanged(fn, inputs, what):
+    def item0_unchanged(fn, inputs, what, gen=None):
         """fn(*inputs) -> tuple of tensors; item 1 of every input is drawn
-        again and item 0 of every output must not move."""
+        again (from ``gen``, default g) and item 0 of every output must not
+        move."""
         before = [t[0].clone() for t in fn(*inputs)]
         again = []
         for t in inputs:
@@ -2114,7 +2211,8 @@ def phase_ragged_kernels(dev):
             if t.dtype == torch.int32:  # indices: a permutation of item 1's
                 t[1] = t[1].flip(0)
             else:
-                t[1] = torch.randn(t[1].shape, generator=g, device=dev).to(t.dtype)
+                t[1] = torch.randn(t[1].shape, generator=g if gen is None else gen,
+                                   device=dev).to(t.dtype)
             again.append(t)
         after = fn(*again)
         check(all(torch.equal(x, y[0]) for x, y in zip(before, after)),
@@ -2156,6 +2254,26 @@ def phase_ragged_kernels(dev):
         else:
             row["ms"] = cuda_time_ms(lambda: edgeconv.fused_edge_conv(xf, a, h, w2, b2, K))
         rows.setdefault("edge_conv_ragged", []).append(row)
+
+        if not extra:  # the f32 instance (t_net_fea's space), then the backward on its winners
+            xs = randn(B, n, 64, gen=g32)
+            what = f"edge_conv f32 B={B} N={n}"
+            row, (idx_s, x2_s, win1, win2) = f32_edge_conv_checked(xs, a, h, w2, b2, 0.0, what)
+            check(int(idx_s.min()) >= 0 and int(idx_s.max()) < n, f"{what}: idx past N")
+            ct1, ct2 = (randn(B, n, 128, dtype=bf16, gen=g32) for _ in range(2))
+            args = (idx_s, win1, win2, a, h, w2, x2_s, ct1, ct2)
+            got = edgeconv.edge_conv_bwd(*args)
+            torch.cuda.synchronize()
+            errs = [rel_err(gv, wv) for gv, wv in zip(got, edgeconv.edge_conv_bwd_ref(*args))]
+            check(errs[0] <= 2 ** -7 and max(errs[1:]) <= 1e-4,
+                  f"edge_conv_bwd {what}: relative errors (da, dh, dW2, db2) {errs}")
+            row["bwd_rel_errs"] = errs
+            if B == 2:
+                item0_unchanged(lambda *t: edgeconv.fused_edge_conv(*t, w2, b2, K), (xs, a, h),
+                                what, gen=g32)
+            else:
+                row["ms"] = cuda_time_ms(lambda: edgeconv.fused_edge_conv(xs, a, h, w2, b2, K))
+            rows.setdefault("edge_conv_f32_ragged", []).append(row)
 
         # --- soft correspondence (forward with lse)
         se = randn(B, n, 512, scale=512 ** -0.5, dtype=bf16)
@@ -3442,6 +3560,41 @@ def att_state_dict(state_dict: dict) -> dict:
     return {**state_dict, **eye}
 
 
+def f32_launches(launches: dict, tfea: bool, what: str) -> int:
+    """The edge kernel's f32-instance launches of the run ``launches`` counts
+    (since the last ops.reset_launch_counts): every edge_conv launch with a
+    feature T-Net (its kNN space is f32), none without."""
+    from vcrnet_tpu_torch.ops import edgeconv
+
+    n = edgeconv.fused_edge_conv.launches_f32
+    want = launches["edge_conv"] if tfea else 0
+    print(f"{what}: f32-instance launches {n} of {launches['edge_conv']} edge_conv", flush=True)
+    check(n == want and (n > 0 or not tfea),
+          f"{what}: {n} launches of the f32 edge instance, expected {want}")
+    return n
+
+
+def tnet_rows_agree(model, src, what: str) -> float:
+    """Share of the DG-block rows of ``src`` (eval mode) whose selection on
+    the kernel route (the f32 instance on the f32 space after t_net_fea)
+    equals the plain route's f32 selection, checked at KNN_ROW_AGREEMENT."""
+    import torch
+
+    training = model.training
+    model.eval()
+    with torch.inference_mode():
+        src = torch.as_tensor(src, device=model.device)
+        idx_k = model.emb_nn(src, fused=True)[2]
+        idx_p = model.emb_nn(src, fused=False)[2]
+    model.train(training)
+    agree = same_rows(idx_k, idx_p)
+    print(f"{what}: DG-block rows whose kernel-route selection (the f32 instance) equals the "
+          f"plain route's f32 selection: {agree} of {idx_k.shape[0] * idx_k.shape[1]} rows "
+          f"({idx_k.shape[0]} clouds; limit {KNN_ROW_AGREEMENT})", flush=True)
+    check(agree >= KNN_ROW_AGREEMENT, f"{what}: DG-block rows agree {agree} < {KNN_ROW_AGREEMENT}")
+    return agree
+
+
 def train_head_config(cfg, what: str, expected: dict):
     """A training configuration's four checks (full width, bf16, N = 1024):
     kernel vs plain gradient cosine >= 0.99 at B = 8, the loss falling over
@@ -3466,6 +3619,7 @@ def train_head_config(cfg, what: str, expected: dict):
     hooks = [m.register_forward_hook(lambda mod, i, o: updates.append(mod.update_stats))
              for m in tr.model.modules() if isinstance(m, FlaxBatchNorm)]
     launches = step_launches(tr, batch, expected, what)
+    launches["edge_conv_f32"] = f32_launches(launches, cfg.tfea, what)
     for h in hooks:
         h.remove()
     print_step_times(tr, cfg, BATCHES, what)
@@ -3487,12 +3641,15 @@ def phase_heads():
     3. VCR-Net with t3d and tfea: the same four checks, the T-Nets' running
        statistics updated once a step (both clouds in one stacked call);
        after the steps served at iter=3 through both routes (median rotation
-       between them per pair <= 0.5 deg), and the share of DG-block rows
-       whose selection on the kernel route's bf16-rounded kNN space equals
-       the plain route's f32 selection, printed;
-    4. DCP and LPD with both T-Nets: gradient cosine >= 0.99 and the launches
-       of one step (two embedding calls).
-    Returns the launches of the steps and requests counted."""
+       between them per pair <= 0.5 deg, printed beside that limit), and the
+       share of DG-block rows whose selection on the kernel route (the edge
+       kernel's f32 instance on the f32 space after t_net_fea) equals the
+       plain route's f32 selection, >= KNN_ROW_AGREEMENT;
+    4. DCP and LPD with both T-Nets: gradient cosine >= 0.99, the launches
+       of one step (two embedding calls) and the same share of rows.
+    Every edge_conv launch with tfea is the f32 instance's (none without:
+    the dist and att steps). Returns the launches of the steps and requests
+    counted, the f32 instance's under ``edge_conv_f32``."""
     import numpy as np
     import torch
 
@@ -3543,25 +3700,19 @@ def phase_heads():
     plain = Registrar(scfg, weights, use_kernels=False)
     check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
     serve_all(reg, requests)  # warm-up
-    add_launches(total, one_request_launches(reg, *requests[0], LAUNCHES_ITER3,
-                                             "heads t-nets iter=3"))
+    request = one_request_launches(reg, *requests[0], LAUNCHES_ITER3, "heads t-nets iter=3")
+    request["edge_conv_f32"] = f32_launches(request, True, "heads t-nets iter=3")
+    add_launches(total, request)
     R, t = serve_all(reg, requests)
     R_p, t_p = serve_all(plain, requests)
     between = pair_rot_errors_deg(R, R_p.astype(np.float64))
     print(f"heads t-nets iter=3: rotation between the routes' results per pair: median "
-          f"{float(np.median(between))} max {float(between.max())} deg; max |dt| "
-          f"{float(np.abs(t - t_p).max())}; kernels {accuracy(R, t, data)} plain "
-          f"{accuracy(R_p, t_p, data)}", flush=True)
+          f"{float(np.median(between))} deg (limit {TNET_ROUTE_ROT_DEG}) max "
+          f"{float(between.max())} deg; max |dt| {float(np.abs(t - t_p).max())}; kernels "
+          f"{accuracy(R, t, data)} plain {accuracy(R_p, t_p, data)}", flush=True)
     check(float(np.median(between)) <= TNET_ROUTE_ROT_DEG, f"heads t-nets: routes differ by "
           f"more than {TNET_ROUTE_ROT_DEG} deg (median)")
-    with torch.inference_mode():
-        src = torch.from_numpy(data["src"]).to(reg.model.device)
-        idx_k = reg.model.emb_nn(src, fused=True)[2]
-        idx_p = reg.model.emb_nn(src, fused=False)[2]
-    agree = same_rows(idx_k, idx_p)
-    print(f"heads t-nets: DG-block rows whose selection on the bf16-rounded kNN space equals "
-          f"the plain route's f32 selection: {agree} of {idx_k.shape[0] * idx_k.shape[1]} rows "
-          f"({len(data['src'])} clouds)", flush=True)
+    tnet_rows_agree(reg.model, data["src"], "heads t-nets")
     print_latency(reg, requests, "heads t-nets iter=3")
     del reg, plain
     torch.cuda.empty_cache()
@@ -3576,7 +3727,10 @@ def phase_heads():
         check(cos >= GRAD_COSINE_MIN, f"{what}: kernel vs plain gradient cosine {cos} < "
               f"{GRAD_COSINE_MIN}")
         del plain
-        add_launches(total, step_launches(kern, batch, expected, what))
+        launches = step_launches(kern, batch, expected, what)
+        launches["edge_conv_f32"] = f32_launches(launches, True, what)
+        add_launches(total, launches)
+        tnet_rows_agree(kern.model, data["src"], what)
         del kern
         torch.cuda.empty_cache()
     return total
@@ -5255,6 +5409,16 @@ def main() -> int:
         errs += [r["max_abs_err"] for r in rows.get(name + "_slices", ())]
         if name == "flash_packed":
             errs += [r["max_abs_err"] for r in rows["flash_packed_nk_valid"]]
+        f32 = {}
+        if name == "edge_conv":  # its f32 instance (the kNN space after t_net_fea)
+            f32_rows = rows["edge_conv_f32"] + rows["edge_conv_f32_ragged"]
+            errs += [r["max_abs_err"] for r in f32_rows]
+            top32 = rows["edge_conv_f32"][-1]
+            f32 = {"launches_f32": sum(p.get("edge_conv_f32", 0) for p in launches.values()),
+                   "f32_ms": top32["ms"], "f32_plain_ms": top32["plain_ms"],
+                   "f32_bound_ms": top32["bound_ms"], "f32_bound_by": top32["bound_by"],
+                   "f32_max_abs_err": max(r["max_abs_err"] for r in f32_rows)}
+            check(f32["launches_f32"] > 0, "the f32 edge instance was never launched on a path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(per_phase[name] for per_phase in launches.values()),
@@ -5280,6 +5444,7 @@ def main() -> int:
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             **({"library_seq_ms": top["library_seq_ms"]} if "library_seq_ms" in top else {}),
+            **f32,
         })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main paths: {kernels}")

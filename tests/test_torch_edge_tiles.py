@@ -8,6 +8,9 @@ it against the port's plain versions (``fused_edge_conv_ref``,
 interpret mode (``_fused_edge_conv_fwd_impl`` with the exact selection, and
 the VJP of ``_fused_edge_conv_vjp``), on the same seeded numpy inputs:
 
+* scores: bf16 x through wgmma (f32 accumulation), or, in the f32 instance
+  (an f32 space at C = 64, LPDNet's after t_net_fea), each dot product a
+  chain of fmas in channel order and 2 d - |x_j|^2 rounded once;
 * selection: a key is the order-preserving uint32 of the f32 score (-0 made
   +0) above the complement of the column. Lane l of a warp sees columns l
   and l + 32 of every 64-column tile; past N (a ragged last tile) the
@@ -38,7 +41,10 @@ the VJP of ``_fused_edge_conv_vjp``), on the same seeded numpy inputs:
 Tolerances, each with its reason: selections, winners and the forward's
 bf16 outputs exact (the same f32 values in the same comparisons); the
 product and the backward's sums 1e-5 of the largest value (f32 sums of
-the same products in another order).
+the same products in another order); the f32 instance's selection on its
+own scores exact, against the plain version's scores (``knn_scores``, a
+matrix product whose sums round in another order) on at least 99.5% of the
+rows (``chip_smoke.py``'s KNN_ROW_AGREEMENT).
 """
 
 import numpy as np
@@ -48,6 +54,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_gather_tiles import _fma32
 from vcrnet_tpu.ops.pallas_edgeconv import _fused_edge_conv_fwd_impl, _fused_edge_conv_vjp
 from vcrnet_tpu_torch.ops import edgeconv
 from vcrnet_tpu_torch.ops._common import knn_scores, leaky, select_topk
@@ -99,14 +106,36 @@ def two_pass_select(row: np.ndarray, k: int) -> list:
     return [~(key & 0xFFFFFFFF) & 0xFFFFFFFF for key in lst[:k]]
 
 
-def tiled_select(x: torch.Tensor, k: int) -> torch.Tensor:
-    scores = knn_scores(x)
-    out = [[two_pass_select(scores[b, i].numpy(), k) for i in range(x.shape[1])]
+def f32_scores(x: torch.Tensor) -> torch.Tensor:
+    """The f32 instance's scores (edge_conv.cu:f32_score_tile) of an f32
+    [B, N, C] space: d a chain of fmas in channel order from the first
+    channel's product, 2 d - |x_j|^2 by one fma with the norms as the
+    wrapper computes them; NaN -> -inf, the diagonal -inf."""
+    xn = x.numpy()
+    norms = x.square().sum(-1).numpy()
+    q, p = xn[:, :, None, :], xn[:, None, :, :]
+    with np.errstate(invalid="ignore", over="ignore"):
+        d = q[..., 0] * p[..., 0]
+        for c in range(1, xn.shape[-1]):
+            d = _fma32(q[..., c], p[..., c], d)
+        s = _fma32(np.full_like(d, 2), d, np.broadcast_to(-norms[:, None, :], d.shape))
+    s[np.isnan(s)] = -np.inf
+    n = x.shape[1]
+    s[:, np.arange(n), np.arange(n)] = -np.inf
+    return torch.from_numpy(s)
+
+
+def tiled_select(x: torch.Tensor, k: int, scores=knn_scores) -> torch.Tensor:
+    """The two passes on every row of ``scores(x)``: the bf16 instance's
+    scores are ``knn_scores``' values (exact products of bf16 values summed
+    in f32), the f32 instance's ``f32_scores``."""
+    s = scores(x)
+    out = [[two_pass_select(s[b, i].numpy(), k) for i in range(x.shape[1])]
            for b in range(x.shape[0])]
     return torch.tensor(out, dtype=torch.int32)
 
 
-def _clouds(kind: str, n: int, c: int = 64) -> torch.Tensor:
+def _clouds(kind: str, n: int, c: int = 64, bf16: bool = True) -> torch.Tensor:
     rng = np.random.RandomState(7)
     if kind == "random":
         x = rng.randn(B, n, c)
@@ -117,7 +146,8 @@ def _clouds(kind: str, n: int, c: int = 64) -> torch.Tensor:
     else:  # "nan": some points NaN, so whole rows of scores are -inf
         x = rng.randn(B, n, c)
         x[:, ::5, 3] = np.nan
-    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).float()
+    x = torch.from_numpy(x.astype(np.float32))
+    return x.to(torch.bfloat16).float() if bf16 else x
 
 
 @pytest.mark.parametrize("kind", ["random", "ties", "duplicates", "nan"])
@@ -126,6 +156,41 @@ def test_two_pass_selection_equals_the_plain_selection(kind, n):
     x = _clouds(kind, n)
     np.testing.assert_array_equal(tiled_select(x, K).numpy(),
                                   select_topk(knn_scores(x), K).numpy())
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "duplicates", "nan"])
+@pytest.mark.parametrize("n", [128, 100])
+def test_f32_instance_selects_as_the_plain_selection(kind, n):
+    """The f32 instance on an f32 space (not rounded to bf16): the two passes
+    on its scores equal the plain stable sort of the same scores exactly, and
+    select the plain version's rows (knn_scores) on at least 99.5%."""
+    x = _clouds(kind, n, bf16=False)
+    scores = f32_scores(x)
+    idx = tiled_select(x, K, f32_scores)
+    np.testing.assert_array_equal(idx.numpy(), select_topk(scores, K).numpy())
+    plain = select_topk(knn_scores(x), K)
+    agree = (idx.sort(-1).values == plain.sort(-1).values).all(-1).float().mean().item()
+    assert agree >= 0.995, agree
+
+
+def test_f32_instance_selects_as_pallas_on_an_f32_space():
+    """The Pallas kernel takes x in the dtype it is given, f32 after
+    t_net_fea: the f32 instance's tiled selection equals its exact selection
+    (packed_select=False) on the same unrounded space, and the edge phase
+    on it the Pallas kernel's outputs."""
+    n = 128
+    rng = np.random.RandomState(15)
+    x = rng.randn(B, n, 64).astype(np.float32)
+    _, a, h, w2, b2 = _edge_inputs(n, seed=16)
+    idx = tiled_select(_t(x), K, f32_scores)
+    j1, j2, j_idx = _fused_edge_conv_fwd_impl(
+        jnp.asarray(x), jnp.asarray(a), jnp.asarray(h), jnp.asarray(w2, jnp.bfloat16),
+        jnp.asarray(b2), K, 0.0, None, True, packed_select=False, int8_gather=False,
+    )
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    x1, x2 = tiled_edge_phase(idx, *(_t(v) for v in (a, h, w2, b2)), 0.0, winners=False)
+    np.testing.assert_allclose(x1.numpy(), np.asarray(j1).astype(np.float32), rtol=2 ** -8, atol=1e-6)
+    np.testing.assert_allclose(x2.numpy(), np.asarray(j2).astype(np.float32), rtol=2 ** -8, atol=1e-6)
 
 
 def test_two_pass_selection_takes_the_minus_inf_diagonal_in_its_order():
@@ -403,6 +468,14 @@ def test_edge_gates_take_every_served_and_trained_shape():
     assert edgeconv.edge_conv_supported(1000, 64, K) and edgeconv.edge_conv_supported(96, 64, K)
     for n, c, k in ((1024, 48, K), (1024, 64, 33), (64, 64, 64)):
         assert not edgeconv.edge_conv_supported(n, c, k)
+    # the f32 instance: LPDNet's space after t_net_fea (C = 64) at every N above
+    f32 = torch.float32
+    for n in (512, 768, 885, 1000, 1024, 3072):
+        assert edgeconv.edge_conv_supported(n, 64, K, f32)
+    assert edgeconv.edge_conv_supported(1024, 64, K, torch.bfloat16)
+    for c, dtype in ((32, f32), (128, f32), (64, torch.float16), (32, torch.float16)):
+        assert not edgeconv.edge_conv_supported(1024, c, K, dtype)
+    assert not edgeconv.edge_conv_supported(1024, 64, 33, f32)
     assert edgeconv.edge_conv_from_idx_supported(1000, K)
     assert not edgeconv.edge_conv_from_idx_supported(1000, 33)
     assert edgeconv.edge_conv_bwd_supported(1000, K)  # a ragged last round (C1b)
@@ -431,6 +504,12 @@ def test_refused_cuda_shapes_raise_and_do_not_fall_back():
     w2, b2 = fake((F, F)), fake((F,))
     with pytest.raises(ValueError, match="C in"):
         edgeconv.fused_edge_conv(x, a, h, w2, b2, K)
+    # an f32 space is taken at C = 64 alone; f16 at no width
+    for c, dtype in ((32, torch.float32), (128, torch.float32), (64, torch.float16)):
+        with pytest.raises(ValueError, match=r"f32 x at C = 64.*got torch\.float"):
+            edgeconv.fused_edge_conv(fake((1, n, c), dtype), a, h, w2, b2, K)
+        with pytest.raises(ValueError, match="f32 x at C = 64"):
+            edgeconv.edge_conv(fake((1, n, c), dtype), a, h, w2, b2, K)
     with pytest.raises(ValueError, match=r"k in \[1, 32\]"):
         edgeconv.edge_conv_from_idx(fake((1, 100, 33), torch.int32), fake((1, 100, F)),
                                     fake((1, 100, F)), w2, b2)
@@ -536,3 +615,19 @@ def test_edge_conv_parts_cuts_apply_to_the_backward_source():
         assert 'extern "C" int shim(' in text
     assert "red_add_v4(...) ((void)0)" in edge_conv_parts._source(
         _build.CSRC_DIR, "edge_conv_bwd.cu", edge_conv_parts.BWD_VARIANTS["no_da"])
+
+
+def test_edge_conv_parts_times_the_f32_instance_where_the_sources_have_it(tmp_path):
+    """train/edge_conv_parts.py adds the f32 instance's shim to a build of
+    edge_conv.cu whose sources define its entry point, and leaves it out of
+    sources from before it (a parent timed in turns)."""
+    from vcrnet_tpu_torch.ops import _build
+    from vcrnet_tpu_torch.train import edge_conv_parts
+
+    text = edge_conv_parts._source(_build.CSRC_DIR, "edge_conv.cu", ())
+    assert 'extern "C" int shim(' in text and 'extern "C" int shim_f32(' in text
+    with open(f"{_build.CSRC_DIR}/edge_conv.cu") as fh:
+        before = fh.read().split("cudaError_t vcr_edge_conv_f32knn(")[0]
+    (tmp_path / "edge_conv.cu").write_text(before)
+    text = edge_conv_parts._source(str(tmp_path), "edge_conv.cu", ())
+    assert 'extern "C" int shim(' in text and "shim_f32" not in text

@@ -125,6 +125,43 @@ def test_lpdnet_with_both_t_nets_matches_jax():
         o, tuple) else o)
 
 
+def test_kernel_route_selects_the_dg_block_on_the_f32_space_after_t_net_fea(monkeypatch):
+    """With tfea the kNN space is f32 in both packages, in bf16 compute too.
+    The kernel route (fused=True; on the CPU the edge kernel's plain version)
+    hands edge_conv that f32 space unrounded, as the card's f32 instance
+    takes it, and selects what the plain route and the JAX package's exact
+    path (its sown feature_idx) select. Rounded to bf16, the same space
+    selects other neighbours: the check has teeth. The T-Net's fc layers
+    are moved from their init so the transform is not near the identity."""
+    from vcrnet_tpu_torch.models import embeddings
+    from vcrnet_tpu_torch.ops._common import knn_scores, select_topk
+
+    x = (np.random.RandomState(3).rand(2, 128, 3) - 0.5).astype(np.float32)
+    jmodel = jemb.LPDNet(emb_dims=64, tfea=True, dtype=jnp.bfloat16)
+    variables = _init(jmodel, x)
+    rng = np.random.RandomState(4)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: a + 0.05 * rng.randn(*a.shape).astype(np.float32)
+        if "t_net_fea" in jax.tree_util.keystr(p) and "fc" in jax.tree_util.keystr(p) else a,
+        variables["params"])
+    variables = {"params": params, "batch_stats": variables["batch_stats"]}
+    module = _load(LPDNet(64, tfea=True, dtype=torch.bfloat16), variables).eval()
+    spaces = []
+    real = embeddings.edge_conv
+    monkeypatch.setattr(embeddings, "edge_conv",
+                        lambda x, *args, **kw: spaces.append(x) or real(x, *args, **kw))
+    with torch.no_grad():
+        _, _, idx_kernel = module(_t(x), fused=True)
+        _, _, idx_plain = module(_t(x), fused=False)
+    assert [s.dtype for s in spaces] == [torch.float32]
+    _, inter = jax.jit(lambda v, x: jmodel.apply(v, x, train=False, mutable=["intermediates"]))(
+        variables, jnp.asarray(x))
+    np.testing.assert_array_equal(idx_kernel.numpy(), idx_plain.numpy())
+    np.testing.assert_array_equal(idx_kernel.numpy(), np.asarray(inter["intermediates"]["feature_idx"][0]))
+    rounded = select_topk(knn_scores(spaces[0].to(torch.bfloat16)), module.k)
+    assert (rounded.sort(-1).values != idx_kernel.sort(-1).values).any(-1).sum() > 0  # 3 rows
+
+
 def test_the_sn_block_selects_on_the_xyz_from_before_the_3x3_transform():
     """The spatial selection is the input cloud's, so it survives any rigid
     motion of the input: vcrnet_iter's cache is exact with t3d."""

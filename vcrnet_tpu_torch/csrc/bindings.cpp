@@ -21,6 +21,10 @@ cudaError_t vcr_edge_conv(const void* x, const float* norms, const void* a, cons
                           const void* w2, const void* b2, void* x1, void* x2, int* idx,
                           void* win1, void* win2, int batch, int n, int c, int k, float slope,
                           cudaStream_t stream);
+cudaError_t vcr_edge_conv_f32knn(const void* x, const float* norms, const void* a, const void* h,
+                                 const void* w2, const void* b2, void* x1, void* x2, int* idx,
+                                 void* win1, void* win2, int batch, int n, int c, int k,
+                                 float slope, cudaStream_t stream);
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
                              float* lse, int batch, int nq, int nk, int nk_valid,
                              int n_heads, float sm_scale, cudaStream_t stream);
@@ -107,7 +111,10 @@ void edge_conv(torch::Tensor x, torch::Tensor norms, torch::Tensor a, torch::Ten
                c10::optional<torch::Tensor> win2, int64_t k, double slope) {
   const c10::cuda::CUDAGuard guard(x.device());
   TORCH_CHECK(norms.size(1) == whole_tiles(x.size(1)), "edge_conv: norms must fill whole tiles");
-  C10_CUDA_CHECK(vcr_edge_conv(
+  // the kNN space in f32 (after LPDNet's t_net_fea) takes the f32 instance
+  const auto launch =
+      x.scalar_type() == torch::kFloat32 ? &vcr_edge_conv_f32knn : &vcr_edge_conv;
+  C10_CUDA_CHECK(launch(
       x.data_ptr(), norms.data_ptr<float>(), a.data_ptr(), h.data_ptr(), w2.data_ptr(),
       b2.data_ptr(), x1.data_ptr(), x2.data_ptr(), idx.data_ptr<int>(), optional_ptr(win1),
       optional_ptr(win2), x.size(0), x.size(1), x.size(2), k, static_cast<float>(slope),

@@ -127,9 +127,10 @@ class LPDNet(nn.Module):
         back); a passed ``feature_idx`` is an approximation once the cloud
         has moved (Config.reuse_feature_knn), and is eval only on the
         fused route. ``fused`` selects the kernel route, whose selections
-        are the kernels' own. After ``t_net_fea`` the kNN space is f32: the
-        kernel route selects on it rounded to the compute dtype (the edge
-        kernel takes bf16), the plain route on the f32 values."""
+        are the kernels' own. After ``t_net_fea`` the kNN space is f32, and
+        both routes select on the f32 values (the edge kernel's f32
+        instance); without it the space is ``conv2_lpd``'s output in the
+        compute dtype."""
         dt, k = self.dtype, self.k
         x_xyz = x
         if self.t3d:
@@ -148,9 +149,8 @@ class LPDNet(nn.Module):
                 feature_idx, a, h, w2.contiguous(), b2, negative_slope=self.slope
             )
         elif fused:
-            x_knn = x.to(dt) if dt is not None else x
             x1, x2, feature_idx = edge_conv(
-                x_knn, a, h, w2.contiguous(), b2, k=k, negative_slope=self.slope
+                x, a, h, w2.contiguous(), b2, k=k, negative_slope=self.slope
             )
         else:
             if feature_idx is None:

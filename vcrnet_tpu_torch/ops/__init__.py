@@ -39,8 +39,11 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
+    """Zeroes every kernel's launches, and the edge kernel's f32-instance
+    count (``fused_edge_conv.launches_f32``, counted in ``.launches`` too)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    fused_edge_conv.launches_f32 = 0
 
 
 def launch_counts() -> dict:

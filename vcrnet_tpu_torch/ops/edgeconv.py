@@ -18,7 +18,8 @@ A CUDA tensor launches the kernel in ``csrc/`` (or raises); a CPU tensor
 runs the ``*_ref`` plain version. Both select by exact f32 comparison with
 ties to the smaller column and mask the diagonal, and both gather the
 exact values: the TPU's int8 one-hot gather (``int8_gather=True`` there)
-is not reproduced. Each wrapper counts its launches in ``.launches``. The
+is not reproduced. Each wrapper counts its launches in ``.launches``
+(``fused_edge_conv`` those of its f32 instance also in ``.launches_f32``). The
 four forward wrappers run through the ops ``vcrnet_torch::knn_gather_max``,
 ``edge_conv``, ``gather_max_from_idx`` and ``edge_conv_from_idx``
 (``ops/library.py``); the two backward wrappers call the extension
@@ -62,12 +63,15 @@ def gather_max_bwd_supported(n: int, f: int, k: int) -> bool:
     return f % 8 == 0 and 0 < k <= 32 and k < n and 4 * 8 * n <= SMEM_LIMIT
 
 
-def edge_conv_supported(n: int, c: int, k: int) -> bool:
-    """The gate of the ``edge_conv`` kernel: kNN width C in (32, 64, 128),
-    0 < k <= 32 and k < N. Any N: blocks of 64 queries of one cloud over
-    64-key tiles, the last of each ragged (keys past N score -inf, queries
-    past N are not written); shared memory does not grow with N."""
-    return c in (32, 64, 128) and 0 < k <= 32 and k < n
+def edge_conv_supported(n: int, c: int, k: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The gate of the ``edge_conv`` kernel: a bf16 kNN space of width C in
+    (32, 64, 128), or an f32 one of width 64 (the f32 instance: LPDNet's
+    space after ``t_net_fea``), 0 < k <= 32 and k < N. Any N: blocks of 64
+    queries of one cloud over 64-key tiles, the last of each ragged (keys
+    past N score -inf, queries past N are not written); shared memory does
+    not grow with N."""
+    widths = {torch.bfloat16: (32, 64, 128), torch.float32: (64,)}.get(dtype, ())
+    return c in widths and 0 < k <= 32 and k < n
 
 
 def edge_conv_from_idx_supported(n: int, k: int) -> bool:
@@ -311,18 +315,19 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
                     winners: bool = False):
     """x [B, N, C] (the kNN space), a/h [B, N, F], w2 [F, F] (in, out),
     b2 [F] -> (x1, x2 [B, N, F] in a's dtype, idx [B, N, k] int32[, win1,
-    win2 [B, N, F] uint8 with ``winners``]). The kernel takes bf16
-    throughout, F = 128 and the shapes :func:`edge_conv_supported` takes.
-    Runs the op ``vcrnet_torch::edge_conv``."""
+    win2 [B, N, F] uint8 with ``winners``]). The kernel takes bf16 a, h,
+    w2, b2, F = 128, x in bf16 or (its f32 instance, counted apart in
+    ``.launches_f32``) in f32, and the shapes :func:`edge_conv_supported`
+    takes. Runs the op ``vcrnet_torch::edge_conv``."""
     if kernel_route(x, a, h, w2, b2):
         B, N, C = x.shape
         bf16 = torch.bfloat16
-        if not edge_conv_supported(N, C, k):
+        if not edge_conv_supported(N, C, k, x.dtype):
             raise ValueError(
-                f"edge_conv kernel takes C in (32, 64, 128) and k in [1, 32] below N, "
-                f"got C={C} N={N} k={k}"
+                f"edge_conv kernel takes bf16 x at C in (32, 64, 128) or f32 x at C = 64, and "
+                f"k in [1, 32] below N, got {x.dtype} x, C={C} N={N} k={k}"
             )
-        check_tensor("x", x, bf16, (B, N, C))
+        check_tensor("x", x, x.dtype, (B, N, C))
         for name, t in (("a", a), ("h", h)):
             check_tensor(name, t, bf16, (B, N, 128))
         check_tensor("w2", w2, bf16, (128, 128))
@@ -353,6 +358,8 @@ def _edge_conv_impl(x, a, h, w2, b2, k: int, negative_slope: float, winners: boo
     _build.extension().edge_conv(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, k,
                                  negative_slope)
     fused_edge_conv.launches += 1
+    if x.dtype == torch.float32:
+        fused_edge_conv.launches_f32 += 1
     flop_meter.add(flop_meter.edge_conv_flops(*x.shape, a.shape[-1]))
     if not winners:  # two placeholders: an op's outputs may not alias each other
         win1, win2 = (library.empty_output(a, torch.uint8) for _ in range(2))
@@ -375,6 +382,7 @@ _edge_conv_op = library.define(
 
 
 fused_edge_conv.launches = 0
+fused_edge_conv.launches_f32 = 0  # of them, the f32 instance's
 
 
 def edge_conv_from_idx_ref(idx, a, h, w2, b2, negative_slope: float = 0.0):

@@ -24,11 +24,17 @@ training step runs it), on seeded random inputs:
   from before it took a ragged last round refuse N % 16 != 0: give them
   ``--sizes 1024`` alone).
 
-Given several source directories, it times only the full backward of
-each, at the first size, in turns within one process: ``--rounds`` rounds,
-each timing every source once (median of 25) in an order that rotates and
-reverses from round to round, then each source's median over the rounds
-against the first's and the rounds in which it was slower. Separate
+Sources that have the f32 instance (``vcr_edge_conv_f32knn``: an f32 kNN
+space at C = 64, LPDNet's after ``t_net_fea``) also time it on an f32 x
+with the same a, h, W2 and b2, without and with winners.
+
+Given several source directories, it times each one's forward
+(``edge_conv`` without and with winners at B clouds, and the f32 instance's
+where the sources have it) and full backward (at 2B clouds), at the first
+size, in turns within one process: ``--rounds`` rounds, each timing every
+source once (median of 25 a call) in an order that rotates and reverses
+from round to round, then each source's median over the rounds against the
+first's and the rounds in which it was slower, call by call. Separate
 processes of one call differ by a few per cent on the same source; turns
 in one process take that spread out of a parent/change comparison.
 
@@ -97,6 +103,18 @@ extern "C" int shim(const int* idx, const void* win1, const void* win2, const vo
 }
 
 
+# the f32 instance's entry point (vcr_edge_conv's signature), in sources that have it
+_F32_SHIM = """
+extern "C" int shim_f32(const void* x, const float* norms, const void* a, const void* h,
+                        const void* w2, const void* b2, void* x1, void* x2, int* idx, void* win1,
+                        void* win2, int batch, int n, int c, int k, float slope, void* stream) {
+  return static_cast<int>(vcr_edge_conv_f32knn(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2,
+                                               batch, n, c, k, slope,
+                                               static_cast<cudaStream_t>(stream)));
+}
+"""
+
+
 def _source(csrc: str, src: str, cuts, shims: dict = _SHIMS) -> str | None:
     with open(os.path.join(csrc, src)) as fh:
         text = fh.read()
@@ -104,6 +122,8 @@ def _source(csrc: str, src: str, cuts, shims: dict = _SHIMS) -> str | None:
         if old not in text:
             return None
         text = text.replace(old, new, 1)
+    if src == "edge_conv.cu" and "cudaError_t vcr_edge_conv_f32knn(" in text:
+        text += _F32_SHIM
     return text + shims[src]
 
 
@@ -170,7 +190,8 @@ def rel_err(got, want) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", nargs="+", default=[_build.CSRC_DIR],
-                    help="the kernels' source directory; several: the backward of each in turns")
+                    help="the kernels' source directory; several: the forward and backward "
+                         "of each in turns")
     ap.add_argument("--sizes", default=str(N), help="cloud sizes N of the backward, comma-separated")
     ap.add_argument("--rounds", type=int, default=12, help="rounds of turns between several sources")
     args = ap.parse_args(argv)
@@ -192,7 +213,6 @@ def main(argv=None) -> int:
                  for v, cuts in BWD_VARIANTS.items()})
     libs = build(csrc, jobs)
 
-    dev = torch.device("cuda")
     randn = _randn_on_card()
     out = {}
 
@@ -204,25 +224,9 @@ def main(argv=None) -> int:
     x = randn(B, N, C)
     a, h = randn(B, N, F, scale=0.5), randn(B, N, F, scale=0.5)
     w2, b2 = randn(F, F, scale=F ** -0.5), randn(F, scale=0.1)
-    norms = x.float().square().sum(-1)
-    x1, x2 = torch.empty_like(a), torch.empty_like(a)
-    idx = torch.empty(B, N, K, dtype=torch.int32, device=dev)
-    win1 = torch.empty(B, N, F, dtype=torch.uint8, device=dev)
-    win2 = torch.empty_like(win1)
-    fwd = libs["edge_conv"].shim
-
-    def conv(w1=None, w2_=None):
-        _call(fwd, x, norms, a, h, w2, b2, x1, x2, idx, w1, w2_, B, N, C, K, 0.0)
-
-    conv()
-    torch.cuda.synchronize()
-    r1, r2 = edgeconv.fused_edge_conv_ref(x, a, h, w2, b2, K, idx=idx)[:2]
-    err = max((x1.float() - r1.float()).abs().max().item(),
-              (x2.float() - r2.float()).abs().max().item())
-    if err > 2e-2:
-        raise RuntimeError(f"edge_conv through the shim: max abs err {err} > 2e-2")
+    conv, err, x1, idx = forward_call(libs["edge_conv"].shim, x, a, h, w2, b2, "edge_conv")
     report("edge_conv", time_ms(conv), max_abs_err=err)
-    report("edge_conv_winners", time_ms(lambda: conv(win1, win2)))
+    report("edge_conv_winners", time_ms(lambda: conv(True)))
     fx1, fx2 = torch.empty_like(a), torch.empty_like(a)
     frm = libs["edge_conv_from_idx"].shim
 
@@ -237,6 +241,17 @@ def main(argv=None) -> int:
     report("edge_conv_scores_and_selection",
            out["edge_conv"]["ms"] - out["edge_conv_from_idx"]["ms"],
            note="edge_conv less edge_conv_from_idx")
+    f32 = getattr(libs["edge_conv"], "shim_f32", None)
+    if f32 is None:
+        print("edge_conv_f32: the sources hold no f32 instance; skipped", flush=True)
+    else:  # the f32 instance on an f32 space, the same a, h, W2, b2
+        xs = randn(B, N, C, dtype=torch.float32)
+        conv32, err, _, _ = forward_call(f32, xs, a, h, w2, b2, "edge_conv_f32")
+        report("edge_conv_f32", time_ms(conv32), max_abs_err=err)
+        report("edge_conv_f32_winners", time_ms(lambda: conv32(True)))
+        report("edge_conv_f32_scores_and_selection",
+               out["edge_conv_f32"]["ms"] - out["edge_conv_from_idx"]["ms"],
+               note="edge_conv_f32 less edge_conv_from_idx")
 
     # ---- backward at twice the clouds, from the forward's idx and winners
     B2 = 2 * B
@@ -250,10 +265,37 @@ def main(argv=None) -> int:
 def _randn_on_card(seed: int = 0):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
 
     return randn
+
+
+def forward_call(fn, x, a, h, w2, b2, name):
+    """(a call of the ``edge_conv.cu`` shim ``fn`` on these inputs, with
+    winners when given True, its max abs error, its x1 and idx): the call is
+    held to the plain version on its own idx first (2e-2: one bf16 ulp
+    below 4)."""
+    dev = torch.device("cuda")
+    b, n = x.shape[:2]
+    norms = torch.nn.functional.pad(x.float().square().sum(-1), (0, -n % 64), value=float("inf"))
+    x1, x2 = torch.empty_like(a), torch.empty_like(a)
+    idx = torch.empty(b, n, K, dtype=torch.int32, device=dev)
+    win1 = torch.empty(b, n, F, dtype=torch.uint8, device=dev)
+    win2 = torch.empty_like(win1)
+
+    def conv(winners=False):
+        _call(fn, x, norms, a, h, w2, b2, x1, x2, idx, win1 if winners else None,
+              win2 if winners else None, b, n, x.shape[-1], K, 0.0)
+
+    conv()
+    torch.cuda.synchronize()
+    r1, r2 = edgeconv.fused_edge_conv_ref(x, a, h, w2, b2, K, idx=idx)[:2]
+    err = max((x1.float() - r1.float()).abs().max().item(),
+              (x2.float() - r2.float()).abs().max().item())
+    if err > 2e-2:
+        raise RuntimeError(f"{name} through the shim: max abs err {err} > 2e-2")
+    return conv, err, x1, idx
 
 
 def backward_inputs(fwd, randn, B2, n, w2, b2) -> tuple:
@@ -308,37 +350,65 @@ def check_backward(bwd, outs, inputs, w2, name) -> list:
 
 
 def turns(dirs, n, rounds) -> dict:
-    """The full backward of each source directory at 2B clouds of n points,
-    timed in turns over ``rounds`` rounds in this process."""
-    libs = {"edge_conv": build(dirs[0], {"edge_conv": ("edge_conv.cu", ())},
-                               build_dir=os.path.join(BUILD_DIR, "turns", "fwd"))["edge_conv"]}
-    for i, d in enumerate(dirs):
-        libs[i] = build(d, {"bwd": ("edge_conv_bwd.cu", ())},
-                        build_dir=os.path.join(BUILD_DIR, "turns", str(i)))["bwd"]
+    """Each source directory's forward (edge_conv without and with winners;
+    the f32 instance's too where the sources have it) at B clouds and its
+    full backward at 2B clouds, of n points, timed in turns over ``rounds``
+    rounds in this process: in a round, first the calls every source has,
+    source after source, then the others."""
+    def build_one(i):
+        return build(dirs[i], {"fwd": ("edge_conv.cu", ()), "bwd": ("edge_conv_bwd.cu", ())},
+                     build_dir=os.path.join(BUILD_DIR, "turns", str(i)))
+
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        libs = list(pool.map(build_one, range(len(dirs))))
     randn = _randn_on_card()
     B2 = 2 * B
     w2, b2 = randn(F, F, scale=F ** -0.5), randn(F, scale=0.1)
-    inputs = backward_inputs(libs["edge_conv"].shim, randn, B2, n, w2, b2)
-    calls = []
+    x, xs = randn(B, n, C), randn(B, n, C, dtype=torch.float32)
+    a, h = randn(B, n, F, scale=0.5), randn(B, n, F, scale=0.5)
+    inputs = backward_inputs(libs[0]["fwd"].shim, randn, B2, n, w2, b2)
+    calls = {}  # (call name, source index) -> call
     for i, d in enumerate(dirs):
-        bwd, outs, _ = backward_call(libs[i], inputs, w2, B2, n)
-        print(f"{d}: relative errors {check_backward(bwd, outs, inputs, w2, d)}", flush=True)
-        calls.append(bwd)
-    times = [[] for _ in dirs]
+        conv, err, _, _ = forward_call(libs[i]["fwd"].shim, x, a, h, w2, b2, f"{d} edge_conv")
+        calls["edge_conv", i], calls["edge_conv_winners", i] = conv, (lambda c=conv: c(True))
+        f32 = getattr(libs[i]["fwd"], "shim_f32", None)
+        if f32 is not None:
+            conv32, err32, _, _ = forward_call(f32, xs, a, h, w2, b2, f"{d} edge_conv_f32")
+            calls["edge_conv_f32", i] = conv32
+            calls["edge_conv_f32_winners", i] = lambda c=conv32: c(True)
+            err = max(err, err32)
+        bwd, outs, _ = backward_call(libs[i]["bwd"], inputs, w2, B2, n)
+        print(f"{d}: forward max abs err {err}; backward relative errors "
+              f"{check_backward(bwd, outs, inputs, w2, d)}", flush=True)
+        calls["edge_conv_bwd", i] = bwd
+    # the calls every source has in turns, then those only some have (the f32
+    # instance's), so that what runs before a shared call is alike for all
+    shared = [name for name, i in calls if i == 0
+              and all((name, j) in calls for j in range(len(dirs)))]
+    times = {key: [] for key in calls}
     for r in range(rounds):
         order = list(range(len(dirs)))
         order = order[r % len(order):] + order[:r % len(order)]
-        for i in order[::-1] if r % 2 else order:
-            times[i].append(time_ms(calls[i]))
-    first = statistics.median(times[0])
+        order = order[::-1] if r % 2 else order
+        for i in order:
+            for name in shared:
+                times[name, i].append(time_ms(calls[name, i]))
+        for i in order:
+            for (name, j), call in calls.items():
+                if j == i and name not in shared:
+                    times[name, i].append(time_ms(call))
     out = {}
-    for i, d in enumerate(dirs):
-        med = statistics.median(times[i])
-        slower = sum(t > t0 for t, t0 in zip(times[i], times[0]))
-        out[d] = dict(median_ms=med, vs_first=med / first - 1, rounds_slower=slower, ms=times[i])
-        print(f"{d}: median {med} ms ({100 * (med / first - 1):+.2f}% against the first), slower "
-              f"in {slower} of {rounds} rounds; quartiles {statistics.quantiles(times[i], n=4)}",
-              flush=True)
+    for (name, i), ts in times.items():
+        med = statistics.median(ts)
+        first = times.get((name, 0))
+        vs = med / statistics.median(first) - 1 if first else None
+        slower = sum(t > t0 for t, t0 in zip(ts, first)) if first else None
+        out.setdefault(dirs[i], {})[name] = dict(median_ms=med, vs_first=vs, rounds_slower=slower,
+                                                 ms=ts)
+        print(f"{dirs[i]} {name}: median {med} ms"
+              + (f" ({100 * vs:+.2f}% against the first), slower in {slower} of {rounds} rounds"
+                 if first else "")
+              + f"; quartiles {statistics.quantiles(ts, n=4)}", flush=True)
     return out
 
 

@@ -5,8 +5,9 @@
 Compiles each SOURCE (default ``pointer_mha.cu``) from both directories
 with nvcc to a cubin (``sm_90a``, the extension's flags) in parallel,
 disassembles both with ``cuobjdump -sass`` and compares them kernel by
-kernel (kernels matched by name, without the translation unit's hash and
-the template arguments): one line a kernel with both instruction counts
+kernel (kernels matched by name and mangled template arguments, without
+the translation unit's hash, so each instance of a template on its own,
+e.g. ``edge_conv_kernelILi64ELb1E``): one line a kernel with both instruction counts
 and whether the two sequences are equal, and the first differences where
 they are not. A change meant to leave a kernel's code alone (a header
 shared with another kernel, a template over an epilogue) is held by this:
@@ -42,8 +43,9 @@ def kernels(cubin: str) -> dict:
     for line in out.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
-            k = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
-            name = k.group(1) if k else m.group(1)
+            k = (re.search(r"\d([a-z][a-z_]*_kernel)(I\S*?E)?E", m.group(1))
+                 or re.search(r"\d([a-z][a-z_]*_kernel)()", m.group(1)))
+            name = k.group(1) + (k.group(2) or "") if k else m.group(1)
             found[name] = []
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
