@@ -132,16 +132,18 @@ Phases (any failure raises and the script exits non-zero):
            model code, every other forward op from an artifact with its
            launch table, and the op dispatcher's cost (phase_export);
 20. int8    dynamic-int8 pointer projections (phase_int8): the int8_linear
-           kernel against its plain version at 65536 x 512 x 512, 7080 rows
-           and 1024 x 1024 (codes, scales and outputs equal; timed beside
-           torch._int_mm on the same codes and the bf16 F.linear); the
+           kernel against its plain version at 65536 x 512 x 512, 7080 rows,
+           1024 x 1024, 64 x 64 and 576 x 320 with 1, 2 and 3 pairs (outputs,
+           row scales and weight codes and scales equal, three runs of each
+           call equal; one projection and q, k and v of one input timed
+           beside torch._int_mm on the same codes and the bf16 F.linear); the
            checkpoint with int8_eval at iter=1, iter=3 and partial 768
            against the plain int8 route (section 2's limits), the gap to
            bf16 and the latencies in turns, launches with and without
            VCRNET_FUSED_POINTER; a training step bit-equal with and without
            the flag; a DCP-on-DGCNN eval and an exported bucket with int8;
            the FLOP meter's totals of a 64-pair request and a B = 64 step
-           against launches x formula, as a rate;
+           against launches (int8: projections) x formula, as a rate;
 21. parallel data parallelism over torch.distributed on the one card
            (phase_parallel): two ranks on cuda:0 over Gloo (a FileStore),
            each on its half of a global batch, against one process on the
@@ -4914,28 +4916,40 @@ def phase_point_sharding():
 INT8_SHAPES = ((64 * N, 512, 512), (885 * 8, 512, 512), (8 * N, 1024, 1024), (885 * 8, 64, 64),
                (885 * 8, 576, 320))
 INT8_TOPS = 1979e12  # H100 SXM dense int8
+# int8_linear launches of the attention sublayers: a self-attention's
+# projections are two calls (q, k and v of its one input together; out), a
+# cross attention's three (q; k and v of the memory together; out)
+INT8_SELF, INT8_CROSS = 2, 3
 # the served checkpoint with int8_eval: Config fields, the launches of a
-# 1-pair request (4 projections of every attention sublayer: the flash
-# launches, and in partial mode the 6 re-masked cross attentions written
-# out), and the limits of PERF.md section 2 (rot RMSE, and its gap to the
-# plain int8 route)
+# 1-pair request (iter=1: 4 self-attention sublayers, two encoder passes and
+# the two decoders' own, and 2 cross attentions; iter=3: 10 and 6, the
+# target encoded once; in partial mode the 6 re-masked cross attentions are
+# written out), and the limits of PERF.md section 2 (rot RMSE, and its gap
+# to the plain int8 route)
 INT8_CONFIGS = {
-    "iter1": (dict(iter=1, num_points=N), {**LAUNCHES_ITER1, "int8_linear": 24},
+    "iter1": (dict(iter=1, num_points=N),
+              {**LAUNCHES_ITER1, "int8_linear": 4 * INT8_SELF + 2 * INT8_CROSS},
               ROT_LIMIT_DEG, PLAIN_AGREEMENT_DEG),
-    "iter3": (dict(iter=3, num_points=N), {**LAUNCHES_ITER3, "int8_linear": 64},
+    "iter3": (dict(iter=3, num_points=N),
+              {**LAUNCHES_ITER3, "int8_linear": 10 * INT8_SELF + 6 * INT8_CROSS},
               ROT_LIMIT_ITER3_DEG, 0.1),
     "partial768": (dict(iter=3, num_points=N, partial=True, overlap=0.575),
-                   {**LAUNCHES_PARTIAL, "int8_linear": 64}, ROT_LIMIT_PARTIAL_DEG, 2.0),
+                   {**LAUNCHES_PARTIAL, "int8_linear": 10 * INT8_SELF + 6 * INT8_CROSS},
+                   ROT_LIMIT_PARTIAL_DEG, 2.0),
 }
+# the kernel route's rot RMSE (deg) with the two-pass kernel (a quantization
+# pass through device memory, then the product), printed beside this run's:
+# both kernels equal the plain version bit for bit
+INT8_ROT_TWO_PASS_DEG = {"iter1": 2.1530, "iter3": 0.0762, "partial768": 7.1984}
 # the fused pointer bypasses int8 (the JAX package's branch order): whole mode
 # quantizes nothing; partial mode only the re-masked cross attentions' (two an
 # iteration), whose sublayer stays unfused
 INT8_FUSED_LAUNCHES = {
     "iter1": FUSED_LAUNCHES[1],
     "partial768": {k: n for k, n in {**LAUNCHES_PARTIAL, "flash_packed": 0, "fused_mha": 10,
-                                     "fused_ff": 10, "int8_linear": 24}.items() if n},
+                                     "fused_ff": 10, "int8_linear": 6 * INT8_CROSS}.items() if n},
 }
-INT8_DCP_EVAL_LAUNCHES = {**DCP_EVAL_LAUNCHES, "int8_linear": 24}
+INT8_DCP_EVAL_LAUNCHES = {**DCP_EVAL_LAUNCHES, "int8_linear": 4 * INT8_SELF + 2 * INT8_CROSS}
 INT8_EXPORT_BUCKET = 8
 LPD_FEATURES = 64  # the DG block's kNN space (conv2_lpd's width)
 EDGE_F = 128       # the DG block's edge features
@@ -4946,18 +4960,23 @@ METER_UNCOUNTED = {"fused_mha", "fused_ff", "vcp_stream", "vcp_bwd", "gather_max
 
 def int8_kernel_rows(dev) -> list:
     """(a): the kernel against its plain version on the same CUDA tensors at
-    INT8_SHAPES, each with a zero row, a row of one huge value and a row of
-    tiny values, a zero weight row: codes, scales and outputs torch.equal;
-    the op route (3-D activations) equal to the parts; then, at the first
-    shape, the kernel's time beside the plain version's, torch._int_mm on the
-    same codes (the product alone, checked against the exact product) and the
-    bf16 projection it stands in for (F.linear), and the bound. Rows of the
-    kernels line, the timed one last."""
+    INT8_SHAPES with 1, 2 and 3 pairs (an activation with a zero row, a row
+    of one huge value and a row of tiny values; each weight with a zero
+    row): each call run three times and the runs equal; outputs, the row
+    scales and the weights' codes and scales torch.equal to the plain
+    version's; the op route (3-D activations) equal to the parts. Then, at
+    the first shape, the kernel's time for one projection and for q, k and v
+    of one input (one call of three pairs) beside the plain version's,
+    torch._int_mm on the same codes (the product alone, checked against the
+    exact product), the bf16 projections it stands in for (F.linear once and
+    three times) and the bounds. Rows of the kernels line, the timed one
+    last."""
     import torch
     import torch.nn.functional as F
 
     from vcrnet_tpu_torch.ops.int8_linear import (
-        int8_linear, int8_linear_parts, int8_linear_ref, quantize_rows_ref,
+        int8_linear, int8_linear_parts, int8_linear_ref, int8_linear_shared,
+        int8_linear_shared_ref, quantize_rows_ref,
     )
 
     bf = torch.bfloat16
@@ -4969,41 +4988,67 @@ def int8_kernel_rows(dev) -> list:
         x[1, 3] = 3e4
         x[2] *= 1e-20
         x = x.to(bf)
-        w = (torch.randn(f, k, generator=g, device=dev) / k ** 0.5).to(bf)
-        w[0] = 0.0
-        b = torch.randn(f, generator=g, device=dev).to(bf)
-        out, xq, xs, wq, ws = int8_linear_parts(x, w, b)
-        torch.cuda.synchronize()
-        rq, rs = quantize_rows_ref(x)
-        rwq, rws = quantize_rows_ref(w)
-        ref = int8_linear_ref(x, w, b)
-        codes = torch.equal(xq, rq) and torch.equal(wq, rwq)
-        scales = torch.equal(xs, rs) and torch.equal(ws, rws)
-        err = (out.float() - ref.float()).abs().max().item()
-        op_out = int8_linear(x.unsqueeze(0), w, b)
-        print(f"int8 kernel rows={rows} K={k} F={f}: codes equal {codes} (differ "
-              f"{int((xq != rq).sum()) + int((wq != rwq).sum())}), scales equal {scales}, "
-              f"output equal {torch.equal(out, ref)} (max |err| {err}), op route equal "
-              f"{torch.equal(op_out.view(rows, f), out)}", flush=True)
-        check(codes and scales, f"int8 kernel rows={rows} K={k} F={f}: codes or scales differ")
-        check(torch.equal(out, ref), f"int8 kernel rows={rows} K={k} F={f}: output off by {err}")
-        check(torch.equal(op_out.view(rows, f), out), "int8 op route differs from the parts")
-        row = {"shape": (rows, k, f), "max_abs_err": err}
+        pairs = []
+        for p in range(3):
+            w = (torch.randn(f, k, generator=g, device=dev) / k ** 0.5).to(bf)
+            w[p] = 0.0
+            pairs.append((w, torch.randn(f, generator=g, device=dev).to(bf)))
+        _, rs = quantize_rows_ref(x)
+        errs = []
+        for n in (1, 2, 3):
+            use = pairs[:n]
+            runs = [int8_linear_parts(x, use) for _ in range(3)]
+            torch.cuda.synchronize()
+            outs, xs, wq, ws = runs[0]
+            repeat = all(all(torch.equal(a, b) for a, b in zip(run[0], outs))
+                         and all(torch.equal(a, b) for a, b in zip(run[1:], (xs, wq, ws)))
+                         for run in runs[1:])
+            rwq, rws = quantize_rows_ref(torch.cat([w for w, _ in use]))
+            refs = int8_linear_shared_ref(x, use)
+            codes = torch.equal(wq, rwq)
+            scales = torch.equal(xs, rs) and torch.equal(ws, rws)
+            equal = all(torch.equal(o, r) for o, r in zip(outs, refs))
+            err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+            op_equal = all(torch.equal(o.view(rows, f), a)
+                           for o, a in zip(int8_linear_shared(x.unsqueeze(0), use), outs))
+            what = f"int8 kernel rows={rows} K={k} F={f} pairs={n}"
+            print(f"{what}: weight codes equal {codes} (differ {int((wq != rwq).sum())}), "
+                  f"scales equal {scales}, outputs equal {equal} (max |err| {err}), three runs "
+                  f"equal {repeat}, op route equal {op_equal}", flush=True)
+            check(codes and scales, f"{what}: weight codes or scales differ")
+            check(equal, f"{what}: output off by {err}")
+            check(repeat, f"{what}: three runs of one call differ")
+            check(op_equal, f"{what}: the op route differs from the parts")
+            errs.append(err)
+        row = {"shape": (rows, k, f), "max_abs_err": max(errs)}
         if (rows, k, f) == INT8_SHAPES[0]:
-            acc = torch._int_mm(xq, wq.t())
+            (w, b), rq = pairs[0], quantize_rows_ref(x)[0]
+            rwq = quantize_rows_ref(w)[0]
+            acc = torch._int_mm(rq, rwq.t())
             exact = torch.matmul(rq.double(), rwq.double().t())
             check(torch.equal(acc.double(), exact), "torch._int_mm differs from the exact product")
+            out = int8_linear(x, w, b)
+            outs = int8_linear_shared(x, pairs)
             row["ms"] = cuda_time_ms(lambda: int8_linear(x, w, b))
             row["plain_ms"] = cuda_time_ms(lambda: int8_linear_ref(x, w, b))
-            row["library_ms"] = cuda_time_ms(lambda: torch._int_mm(xq, wq.t()))
+            row["library_ms"] = cuda_time_ms(lambda: torch._int_mm(rq, rwq.t()))
             row["bf16_linear_ms"] = cuda_time_ms(lambda: F.linear(x, w, b))
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes(x, w, b, out), 2.0 * rows * f * k,
                                                         INT8_TOPS)
-            print(f"int8 kernel rows={rows} K={k} F={f}: {row['ms']} ms; plain {row['plain_ms']} "
-                  f"ms; torch._int_mm on the same codes (the product alone, no quantization or "
-                  f"epilogue) {row['library_ms']} ms; the bf16 projection it stands in for "
-                  f"(F.linear) {row['bf16_linear_ms']} ms; bound {row['bound_ms']} ms "
-                  f"({row['bound_by']})", flush=True)
+            row["qkv_ms"] = cuda_time_ms(lambda: int8_linear_shared(x, pairs))
+            row["qkv_plain_ms"] = cuda_time_ms(lambda: int8_linear_shared_ref(x, pairs))
+            row["qkv_bf16_linear_ms"] = cuda_time_ms(lambda: [F.linear(x, w, b) for w, b in pairs])
+            row["qkv_bound_ms"], row["qkv_bound_by"] = bound_ms(
+                nbytes(x, *(t for pair in pairs for t in pair), *outs), 3 * 2.0 * rows * f * k,
+                INT8_TOPS)
+            print(f"int8 kernel rows={rows} K={k} F={f}: one projection {row['ms']} ms; plain "
+                  f"{row['plain_ms']} ms; torch._int_mm on the same codes (the product alone, "
+                  f"no quantization or epilogue) {row['library_ms']} ms; the bf16 projection it "
+                  f"stands in for (F.linear) {row['bf16_linear_ms']} ms; bound {row['bound_ms']} "
+                  f"ms ({row['bound_by']}). q, k and v of one input (one call of three pairs) "
+                  f"{row['qkv_ms']} ms; plain {row['qkv_plain_ms']} ms; three bf16 F.linear "
+                  f"{row['qkv_bf16_linear_ms']} ms; bound {row['qkv_bound_ms']} ms "
+                  f"({row['qkv_bound_by']})", flush=True)
         out_rows.append(row)
     return out_rows
 
@@ -5093,7 +5138,8 @@ def phase_int8():
         print(f"int8 {name}: kernels {acc} plain int8 {acc_plain} bf16 kernels without int8 "
               f"{acc_bf16} over {len(data['src'])} pairs; rot RMSE gap to bf16: kernels "
               f"{acc['rot_rmse_deg'] - acc_bf16['rot_rmse_deg']} deg, plain int8 "
-              f"{acc_plain['rot_rmse_deg'] - acc_bf16['rot_rmse_deg']} deg", flush=True)
+              f"{acc_plain['rot_rmse_deg'] - acc_bf16['rot_rmse_deg']} deg; the two-pass "
+              f"kernel's rot RMSE {INT8_ROT_TWO_PASS_DEG[name]} deg", flush=True)
         check(acc["rot_rmse_deg"] <= rot_limit,
               f"int8 {name}: rot RMSE {acc['rot_rmse_deg']} deg > {rot_limit}")
         gap = abs(acc["rot_rmse_deg"] - acc_plain["rot_rmse_deg"])
@@ -5185,7 +5231,13 @@ def phase_int8():
                   "edge_conv": fm.edge_conv_flops(b, N, LPD_FEATURES, EDGE_F),
                   "flash_packed": fm.flash_fwd_flops(b, N, N, 512, 4),
                   "int8_linear": fm.int8_linear_flops(b * N, 512, 512)}
-    check_metered(flops, launches, per_launch, secs, f"meter: int8 iter=3 request of {b} pairs")
+    # a launch of int8_linear counts the product of each of its pairs
+    projections = ops.int8_linear.projections
+    print(f"meter: int8 iter=3 request of {b} pairs: {launches['int8_linear']} int8_linear "
+          f"launches of {projections} projections", flush=True)
+    check(projections == 16 * 4, f"meter: {projections} int8 projections, not 16 x 4")
+    check_metered(flops, launches, per_launch, secs, f"meter: int8 iter=3 request of {b} pairs",
+                  counts={"int8_linear": projections})
     add_launches(total, launches)
     del reg
     tr = Trainer(Config(compute_dtype="bfloat16", num_points=N), seed=0)
@@ -5202,15 +5254,19 @@ def phase_int8():
     return total, rows
 
 
-def check_metered(flops: float, launches: dict, per_launch: dict, secs: float, what: str) -> None:
+def check_metered(flops: float, launches: dict, per_launch: dict, secs: float, what: str,
+                  counts: dict | None = None) -> None:
     """The meter's total equals sum(launches x formula) over the counted
-    kernels of ``per_launch`` (exact: integer terms), and every other kernel
-    launched is one the meter does not count; prints the total over the wall
-    time as a rate."""
-    want = sum(launches[k] * f for k, f in per_launch.items())
+    kernels of ``per_launch`` (exact: integer terms; ``counts`` replaces a
+    kernel's launches by the count its formula is taken for, such as the
+    projections of int8_linear's launches), and every other kernel launched
+    is one the meter does not count; prints the total over the wall time as a
+    rate."""
+    counts = {**launches, **(counts or {})}
+    want = sum(counts[k] * f for k, f in per_launch.items())
     others = {k: n for k, n in launches.items() if n and k not in per_launch}
-    print(f"{what}: the meter's total {flops} FLOPs, launches x formula {want} (launches "
-          f"{ {k: launches[k] for k in per_launch} }, other kernels launched {others}); "
+    print(f"{what}: the meter's total {flops} FLOPs, launches x formula {want} (counts "
+          f"{ {k: counts[k] for k in per_launch} }, other kernels launched {others}); "
           f"{secs * 1e3} ms wall, {flops / secs / 1e12} TFLOP/s of counted kernel work",
           flush=True)
     check(all(launches[k] for k in per_launch), f"{what}: a counted kernel did not launch")
@@ -5228,7 +5284,7 @@ PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from
 # template arguments of the kernels as ptxas names them, mangled
 TEMPLATE_ARGS = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>"}
 # gemm_wgmma.cuh's kernel: its operand and epilogue classes, the bools of one
-GEMM_CLASSES = re.compile(r"(Bf16Operands|S8Operands|Epilogue|Dequant)((?:ILb[01]E|Lb[01]E)*)")
+GEMM_CLASSES = re.compile(r"(Bf16Operands|Epilogue)((?:ILb[01]E|Lb[01]E)*)")
 
 
 def template_args(args: str) -> str:
@@ -5444,6 +5500,8 @@ def main() -> int:
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             **({"library_seq_ms": top["library_seq_ms"]} if "library_seq_ms" in top else {}),
+            # int8_linear: q, k and v of one input in one call, and the bf16 yardsticks
+            **{key: v for key, v in top.items() if key.startswith("qkv_") or key == "bf16_linear_ms"},
             **f32,
         })
     check(all(k["launches"] > 0 for k in kernels),

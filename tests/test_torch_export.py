@@ -196,9 +196,13 @@ def _op_cases():
         ("dgcnn_eval", (x, idx, flat, 128), dgcnn.fused_dgcnn_eval_ref(x, idx, folded, 128)),
         ("fused_mha", (q, kv, *mha, 2), pointer.fused_mha_ref(q, kv, *mha, 2)),
         ("fused_ff", (q, *ff), pointer.fused_ff_ref(q, *ff)),
-        ("int8_linear", (q, mha[0], mha[1]), int8_linear_ref(q, mha[0], mha[1])),
-        ("int8_linear", (q.bfloat16(), ff[0].t().bfloat16(), ff[1].bfloat16()),
-         int8_linear_ref(q.bfloat16(), ff[0].t().bfloat16(), ff[1].bfloat16())),
+        ("int8_linear", (q, [mha[0], mha[1]]), [int8_linear_ref(q, mha[0], mha[1])]),
+        ("int8_linear", (q.bfloat16(), [ff[0].t().bfloat16(), ff[1].bfloat16()]),
+         [int8_linear_ref(q.bfloat16(), ff[0].t().bfloat16(), ff[1].bfloat16())]),
+        # q, k and v of one input: one call of three pairs
+        ("int8_linear", (q.bfloat16(), [t.bfloat16() for t in mha[:6]]),
+         [int8_linear_ref(q.bfloat16(), mha[i].bfloat16(), mha[i + 1].bfloat16())
+          for i in (0, 2, 4)]),
     ]
 
 

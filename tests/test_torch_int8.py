@@ -118,8 +118,9 @@ def test_int8_linear_ref_equals_eager_jax(rows, k, f):
     # the wrapper on CPU tensors is the plain version, any leading axes
     assert torch.equal(i8.int8_linear(tx.reshape(2, rows // 2, k) if rows % 2 == 0 else tx, tw,
                                       tb).reshape(rows, f), got)
-    out, xq, xs, wq, ws = i8.int8_linear_parts(tx, tw, tb)
-    assert torch.equal(out, got) and xq.shape == (rows, k) and ws.shape == (f, 1)
+    outs, xs, wq, ws = i8.int8_linear_parts(tx, ((tw, tb),))
+    assert torch.equal(outs[0], got) and xs.shape == (rows, 1) and wq.shape == (f, k)
+    assert ws.shape == (f, 1)
 
 
 def test_plain_versions_are_within_one_bf16_ulp_of_jitted_jax():
@@ -150,6 +151,13 @@ def test_gate():
     assert not i8.int8_supported(8, 512, 520)  # F % 64
     assert not i8.int8_supported(8, 2048, 512)  # past the widths held on the card
     assert not i8.int8_supported(0, 512, 512)
+    # the list form: the widths of a call's pairs
+    assert i8.int8_supported(885 * 8, 512, [512, 512, 512]) and i8.int8_supported(7, 576, (320,))
+    assert i8.int8_supported(7, 1024, [64, 1024])
+    assert not i8.int8_supported(8, 512, [])  # no pair
+    assert not i8.int8_supported(8, 512, [512] * 4)  # more pairs than q, k and v
+    assert not i8.int8_supported(8, 512, [512, 520])  # one F % 64
+    assert not i8.int8_supported(8, 512, [512, 2048])  # one F past the widths held
 
 
 class _FakeCuda(torch.Tensor):
@@ -195,19 +203,23 @@ def test_the_kernel_refuses_a_k_it_does_not_take_on_the_card():
         i8.int8_linear(x, w, torch.zeros(64, dtype=torch.bfloat16, device="cuda"))
 
 
-def _count_int8(monkeypatch, kernel: bool):
+def _count_int8(monkeypatch, kernel: bool, groups: list | None = None):
     """Records (rows, K, F) of each int8 projection, which must take the
-    route ``kernel`` names: ``ops.int8_linear`` (the model's kernel route)
-    or its plain version ``int8_linear_ref``; the other one raises."""
+    route ``kernel`` names: ``ops.int8_linear``'s call of shared pairs (the
+    model's kernel route) or its plain version; the other one raises.
+    ``groups``, where given, receives the number of pairs of each call."""
     calls = []
-    taken, other = ("int8_linear", "int8_linear_ref")[::1 if kernel else -1]
+    taken, other = ("int8_linear_shared", "int8_linear_shared_ref")[::1 if kernel else -1]
     real = getattr(_common, taken)
 
-    def counted(x, w, b):
-        calls.append((x.numel() // x.shape[-1], x.shape[-1], w.shape[0]))
-        return real(x, w, b)
+    def counted(x, pairs):
+        pairs = tuple(pairs)
+        calls.extend((x.numel() // x.shape[-1], x.shape[-1], w.shape[0]) for w, _ in pairs)
+        if groups is not None:
+            groups.append(len(pairs))
+        return real(x, pairs)
 
-    def refused(x, w, b):
+    def refused(x, pairs):
         raise AssertionError(f"an int8 projection took {other} on the other route")
 
     monkeypatch.setattr(_common, taken, counted)
@@ -226,13 +238,16 @@ def test_int8_pointer_eval_matches_jax(monkeypatch, flash):
     p = TransformerPointer(d, 1, heads, 128, dtype=torch.bfloat16, flash=flash, int8=True)
     p.load_state_dict(from_jax_params(jax.device_get(variables["params"])))
     p.eval()
-    calls = _count_int8(monkeypatch, kernel=flash)
+    groups = []
+    calls = _count_int8(monkeypatch, kernel=flash, groups=groups)
     want = jp.apply(variables, jnp.asarray(src, jnp.bfloat16), jnp.asarray(tgt, jnp.bfloat16))
     with torch.no_grad():
         got = p(_t(src).bfloat16(), _t(tgt).bfloat16())
     # 6 attention sublayers (two encoder passes, two decoders of two), 4
-    # projections each, every one at K = F = d
+    # projections each, every one at K = F = d; the 4 self-attentions in
+    # calls of 3 and 1, the 2 cross attentions in calls of 1, 2 and 1
     assert len(calls) == 24 and {c[1:] for c in calls} == {(d, d)}
+    assert len(groups) == 4 * 2 + 2 * 3 and sorted(groups) == [1] * 8 + [2] * 2 + [3] * 4
     bf16 = JPointer(**kw).apply(variables, jnp.asarray(src, jnp.bfloat16),
                                 jnp.asarray(tgt, jnp.bfloat16))
     for g, w, b in zip(got, want, bf16):
@@ -347,8 +362,10 @@ def test_an_int8_bucket_exports_with_the_op(tmp_path):
     path = str(tmp_path / "bucket2.pt2")
     reg.export_bucket(2, path=path)
     loaded = load_exported(path)
-    # the target encoded once, 5 attention sublayers a pass, 4 projections each
-    assert library.op_counts(loaded.program.graph)["int8_linear"] == (1 + 2 * 5) * 4
+    # the target encoded once (a self-attention), 5 attention sublayers a
+    # pass (3 self, 2 cross): a self-attention's projections are 2 nodes
+    # (q, k, v together; out), a cross attention's 3 (q; k, v; out)
+    assert library.op_counts(loaded.program.graph)["int8_linear"] == (1 + 2 * 3) * 2 + 2 * 2 * 3
     src, tgt = _pair(5, 2)
     live = reg.register(src, tgt)
     out = loaded.register(src, tgt)

@@ -76,9 +76,9 @@ size_t vcr_pointer_ff_smem(int d, int f);
 cudaError_t vcr_pointer_ff(const void* y, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* hidden, void* out, long long rows, int d, int f,
                            cudaStream_t stream);
-cudaError_t vcr_int8_linear(const void* x, const void* w, const void* bias, void* xq, float* xs,
-                            void* wq, float* ws, void* out, int rows, int k, int f,
-                            cudaStream_t stream);
+cudaError_t vcr_int8_linear(const void* x, int rows, int k, int pairs, const void* const* w,
+                            const void* const* bias, void* const* out, const int* f, void* wq,
+                            float* ws, float* xs, cudaStream_t stream);
 
 namespace {
 
@@ -286,15 +286,32 @@ void pointer_ff(torch::Tensor y, torch::Tensor w1, torch::Tensor b1, torch::Tens
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// The codes and scales of both operands go to buffers the wrapper allocates
-// (xq int8 [rows, K], xs f32 [rows], wq int8 [F, K], ws f32 [F]), so a
-// caller can hold them against the plain version's.
-void int8_linear(torch::Tensor x, torch::Tensor w, torch::Tensor bias, torch::Tensor xq,
-                 torch::Tensor xs, torch::Tensor wq, torch::Tensor ws, torch::Tensor out) {
+// One activation x [rows, K] through 1..3 (weight, bias) pairs into the
+// outputs the wrapper allocates; the weights' codes and scales go to wq int8
+// [sum F, K] and ws f32 [sum F], and the row scales to xs f32 [rows] when it
+// is given, so that a caller can hold them against the plain version's.
+void int8_linear(torch::Tensor x, std::vector<torch::Tensor> weights,
+                 std::vector<torch::Tensor> biases, std::vector<torch::Tensor> outs,
+                 torch::Tensor wq, torch::Tensor ws, c10::optional<torch::Tensor> xs) {
   const c10::cuda::CUDAGuard guard(x.device());
-  C10_CUDA_CHECK(vcr_int8_linear(x.data_ptr(), w.data_ptr(), bias.data_ptr(), xq.data_ptr(),
-                                 xs.data_ptr<float>(), wq.data_ptr(), ws.data_ptr<float>(),
-                                 out.data_ptr(), xq.size(0), xq.size(1), wq.size(0),
+  TORCH_CHECK(!weights.empty() && weights.size() <= 3 && biases.size() == weights.size() &&
+                  outs.size() == weights.size(),
+              "int8_linear: 1 to 3 (weight, bias, output) triples");
+  const void* w[3] = {};
+  const void* b[3] = {};
+  void* o[3] = {};
+  int f[3] = {};
+  for (size_t p = 0; p < weights.size(); ++p) {
+    w[p] = weights[p].data_ptr();
+    b[p] = biases[p].data_ptr();
+    o[p] = outs[p].data_ptr();
+    f[p] = static_cast<int>(weights[p].size(0));
+  }
+  const int64_t k = x.size(-1);
+  C10_CUDA_CHECK(vcr_int8_linear(x.data_ptr(), static_cast<int>(x.numel() / k),
+                                 static_cast<int>(k), static_cast<int>(weights.size()), w, b, o,
+                                 f, wq.data_ptr(), ws.data_ptr<float>(),
+                                 xs.has_value() ? xs->data_ptr<float>() : nullptr,
                                  stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

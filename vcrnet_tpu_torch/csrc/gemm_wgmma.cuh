@@ -1,17 +1,14 @@
 // A matrix product on the tensor cores through TMA and wgmma, for the
 // projections of the pointer's attention sublayer (pointer_mha.cu), its
-// feed-forward sublayer (pointer_ff.cu), DGCNN's projection of the
-// concat (dgcnn_eval.cu) and the pointer's int8 projections
-// (int8_linear.cu):
+// feed-forward sublayer (pointer_ff.cu) and DGCNN's projection of the
+// concat (dgcnn_eval.cu):
 //
 //   out[rows, n] = act(A[rows, depth] @ W[depth, n] + bias[n])
 //
 // bf16 in, f32 accumulate, the bias added in f32, act a ReLU or nothing and
 // the result rounded once to the output's type. The operands are a
-// compile-time policy (Bf16Operands, S8Operands below): bf16 with W
-// [depth, n], or int8 codes with W held as [n, depth] and an s32
-// accumulator, whose epilogue int8_linear.cu supplies (a scaled epilogue:
-// a factor a row and a column besides the bias). The epilogue's options are
+// compile-time policy (Bf16Operands below: W [depth, n], an f32
+// accumulator). The epilogue's options are
 // compile-time (Epilogue below): the projections of the attention take a
 // bf16 bias, no ReLU and a bf16 output, the rounding points of the Pallas
 // kernel's projections (pallas_pointer.py:_mha_kernel); the feed-forward's
@@ -30,16 +27,14 @@
 // Design:
 //   * a tile of the output is 128 rows by 256 columns; two consumer
 //     warpgroups own 64 rows each, one producer warp feeds them;
-//   * the producer streams slices of A (two boxes of 64 rows, one a
-//     warpgroup) and of W (four boxes, 256 columns) through a ring of
+//   * the producer streams 64-deep slices of A (two boxes of 64 rows, one
+//     a warpgroup) and of W (four boxes, 256 columns) through a ring of
 //     three stages in shared memory with TMA (128-byte swizzle), one
-//     full/empty mbarrier pair per stage. A box is 128 bytes a row either
-//     way: a slice is 64 bf16 deep, or 128 int8;
-//   * a warpgroup's product is wgmma m64n256 with both operands in shared
-//     memory: A read K-major; for bf16 (k16) W (row-major [depth, n], so
-//     the contraction runs down its rows) read MN-major, for s8 (k32) W's
-//     [n, depth] rows read K-major, the only layout wgmma takes for 8-bit
-//     types. The [64, 256] accumulator (128 registers a thread) stays in
+//     full/empty mbarrier pair per stage;
+//   * a warpgroup's product is wgmma m64n256k16 with both operands in
+//     shared memory: A read K-major, W (row-major [depth, n], so the
+//     contraction runs down its rows) read MN-major. The [64, 256]
+//     accumulator (128 registers a thread) stays in
 //     registers across the depth, and each stage is released once the
 //     products that read it have completed (one group of products stays
 //     in flight);
@@ -79,7 +74,7 @@ constexpr int kThreads = 32 * (kConsumerWarps + 1);
 constexpr int kTileM = 64 * kConsumers;
 constexpr int kTileN = 256;
 constexpr int kStages = 3;
-constexpr uint32_t kABytes = kConsumers * kBoxBytes;      // [128, 64] bf16 or [128, 128] int8
+constexpr uint32_t kABytes = kConsumers * kBoxBytes;      // [128, 64]
 constexpr uint32_t kWBytes = (kTileN / kBox) * kBoxBytes;  // [64, 256]
 constexpr uint32_t kStageBytes = kABytes + kWBytes;
 constexpr uint32_t kOutBytes = kConsumers * kWBytes;       // [128, 256] bf16
@@ -87,18 +82,16 @@ constexpr size_t kSmemBytes = 1024 + kStages * kStageBytes + kOutBytes + 2 * kSt
 constexpr int kMaxJobs = 3;
 
 // What the epilogue applies: a ReLU or nothing, a bias of bf16 or f32, an
-// output of bf16 or f32 (a bf16 output takes a bf16 bias).
-// ``value`` is one output before its rounding; a scaled epilogue (kScaled,
-// bf16 output only) defines its own from the accumulator, the row's and the
-// column's factors (Job's row_scale, col_scale) and the bias. A scaled
-// epilogue's launch has one job: its consumers walk the tiles without a job
-// index, and the registers that frees keep the s8 instance from spilling.
+// output of bf16 or f32 (a bf16 output takes a bf16 bias). ``value`` is
+// one bf16 output before its rounding. Its two unused factors and Job's
+// row_scale and col_scale (set by nothing) are what the int8 projections'
+// scaled epilogue took before they left this header; without them the bf16
+// instances compile to other instructions (train/sass_diff.py), so they stay.
 template <bool kReluArg, bool kBiasF32Arg, bool kOutF32Arg>
 struct Epilogue {
   static constexpr bool kRelu = kReluArg;
   static constexpr bool kBiasF32 = kBiasF32Arg;
   static constexpr bool kOutF32 = kOutF32Arg;
-  static constexpr bool kScaled = false;
   static __device__ __forceinline__ float value(float acc, float /*row_scale*/,
                                                 float /*col_scale*/, float bias) {
     return kRelu ? fmaxf(acc + bias, 0.f) : acc + bias;
@@ -134,43 +127,13 @@ struct Bf16Operands {
   }
 };
 
-// The operands of an s8 product: int8 codes A [rows, depth] and W [n, depth]
-// (nn.Linear's layout, a row an output column), both read K-major, s32
-// accumulate (exact). A box is [64 rows, 128 int8], 128 bytes a row as a
-// bf16 box, so a slice is 128 deep and a k32 step is +32 bytes inside the
-// row, as a bf16 k16 step is; W's four boxes are the B operand's 256 rows,
-// 8-row groups 1024 bytes apart all through.
-struct S8Operands {
-  using Acc = int;
-  static constexpr int kTileK = 128;
-  static cudaError_t map_a(CUtensorMap* map, const void* a, int rows, int depth) {
-    return make_box_map_s8(map, a, rows, depth);
-  }
-  static cudaError_t map_w(CUtensorMap* map, const void* w, int depth, int n) {
-    return make_box_map_s8(map, w, n, depth);
-  }
-  // slice ``kb`` of W's rows col0 .. col0 + 255: four [64, 128 deep] boxes
-  static __device__ __forceinline__ void load_w(uint8_t* dst, const CUtensorMap* map,
-                                                uint64_t* bar, int kb, int col0) {
-    for (int c = 0; c < kTileN / kBox; ++c)
-      tma_load_box(dst + c * kBoxBytes, map, bar, kb * kTileK, col0 + c * kBox);
-  }
-  static __device__ __forceinline__ void mma(int (&acc)[128], const uint8_t* a,
-                                             const uint8_t* w) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n256k32_s8(acc, desc_sw128(a + 32 * kk, 0, 1024),
-                          desc_sw128(w + 32 * kk, 0, 1024), 1);
-  }
-};
-
 struct Job {
-  CUtensorMap a;    // [rows, depth] (the operands' type)
-  CUtensorMap w;    // [depth, n] bf16, or [n, depth] int8
+  CUtensorMap a;    // [rows, depth] bf16
+  CUtensorMap w;    // [depth, n] bf16
   CUtensorMap out;  // [rows, n] bf16 or f32
   const void* bias;  // [n] bf16 or f32
-  const float* row_scale;  // [rows]: a scaled epilogue's factors, else null
-  const float* col_scale;  // [n]
+  const float* row_scale;  // unused (see Epilogue)
+  const float* col_scale;  // unused
   int rows;
 };
 
@@ -178,7 +141,7 @@ struct Jobs {
   Job job[kMaxJobs];
   int count;
   int depth;  // % 64 == 0
-  int n;      // % 8 == 0 (% 64 for int8), the same for every job
+  int n;      // % 8 == 0, the same for every job
 };
 
 // Tile ``t`` -> (job, first row, first column); false where that job has
@@ -260,13 +223,8 @@ gemm_kernel(const __grid_constant__ Jobs jobs, int n_tiles) {
   const int r_g = (warp & 3) * 16 + g;  // this lane's rows r_g, r_g + 8 of the 64
   int it = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    int j = 0, row0, col0;
-    if constexpr (Ep::kScaled) {  // one job: no job index held across the products
-      row0 = (t / col_tiles) * kTileM;
-      col0 = (t % col_tiles) * kTileN;
-    } else if (!tile_of(jobs, t, col_tiles, j, row0, col0)) {
-      continue;
-    }
+    int j, row0, col0;
+    if (!tile_of(jobs, t, col_tiles, j, row0, col0)) continue;
     typename Op::Acc acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0;
@@ -295,13 +253,7 @@ gemm_kernel(const __grid_constant__ Jobs jobs, int n_tiles) {
       // the bias is read here as PR 9's kernel read it: through bias_pair the
       // attention's projections compiled to other instructions
       static_assert(!Ep::kBiasF32, "a bf16 output takes a bf16 bias");
-      // a scaled epilogue's factors of this lane's rows, 0 past the job's rows
-      float rs_a = 0.f, rs_b = 0.f;
-      if constexpr (Ep::kScaled) {
-        const int row_a = row0 + wg * 64 + r_g;
-        if (row_a < job.rows) rs_a = job.row_scale[row_a];
-        if (row_a + 8 < job.rows) rs_b = job.row_scale[row_a + 8];
-      }
+      float rs_a = 0.f, rs_b = 0.f;  // value's unused factors
       if (storer) bulk_wait_read<0>();  // the last tile's stores have read tile_s
       named_bar_sync(1 + wg, 128);
 #pragma unroll
@@ -311,8 +263,6 @@ gemm_kernel(const __grid_constant__ Jobs jobs, int n_tiles) {
                                         static_cast<const bf16*>(job.bias) + c))
                                   : make_float2(0.f, 0.f);
         float2 cs = make_float2(0.f, 0.f);
-        if constexpr (Ep::kScaled)
-          if (c < n) cs = *reinterpret_cast<const float2*>(job.col_scale + c);
         uint8_t* box = tile_s + (jj >> 3) * kBoxBytes + 4 * qd;
         *reinterpret_cast<uint32_t*>(box + sw128_offset(r_g, jj & 7)) =
             pack_bf16(Ep::value(acc[4 * jj], rs_a, cs.x, bias.x),
@@ -329,7 +279,6 @@ gemm_kernel(const __grid_constant__ Jobs jobs, int n_tiles) {
         bulk_commit();
       }
     } else {
-      static_assert(!Ep::kScaled, "a scaled epilogue writes bf16");
       // f32: two passes of 128 columns, each four [64, 32] boxes; column
       // 8 jj + 2 qd of a pass lies in box jj / 4, 16-byte chunk
       // 2 (jj % 4) + qd / 2, at byte 8 (qd % 2) of it
@@ -374,12 +323,10 @@ int sm_count() {
 }
 
 // One job of a launch: out [rows, n] = act(a [rows, depth] @ w [depth, n] + bias),
-// out and bias of the types Ep names, a and w those Op names (w [n, depth]
-// for int8), row_scale and col_scale a scaled epilogue's factors.
+// out and bias of the types Ep names, a and w those Op names.
 template <class Ep = Projection, class Op = Bf16Operands>
 inline cudaError_t add_job(Jobs& jobs, const void* a, const void* w, const void* bias, void* out,
-                           int rows, const float* row_scale = nullptr,
-                           const float* col_scale = nullptr) {
+                           int rows) {
   Job& job = jobs.job[jobs.count++];
   cudaError_t err = Op::map_a(&job.a, a, rows, jobs.depth);
   if (err == cudaSuccess) err = Op::map_w(&job.w, w, jobs.depth, jobs.n);
@@ -387,8 +334,7 @@ inline cudaError_t add_job(Jobs& jobs, const void* a, const void* w, const void*
     err = Ep::kOutF32 ? make_box_map_f32(&job.out, out, rows, jobs.n)
                       : make_box_map(&job.out, out, rows, jobs.n);
   job.bias = bias;
-  job.row_scale = row_scale;
-  job.col_scale = col_scale;
+  job.row_scale = job.col_scale = nullptr;
   job.rows = rows;
   return err;
 }

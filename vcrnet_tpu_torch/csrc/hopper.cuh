@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the attention kernels (flash_fwd.cuh for
 // flash_packed.cu, colmass.cu and pointer_mha.cu; flash_bwd.cu), the
-// products of pointer_mha.cu, pointer_ff.cu, dgcnn_eval.cu and
-// int8_linear.cu (gemm_wgmma.cuh), DGCNN's edge kernel (dgcnn_eval.cu), the
+// products of pointer_mha.cu, pointer_ff.cu and dgcnn_eval.cu
+// (gemm_wgmma.cuh) and of int8_linear.cu, DGCNN's edge kernel (dgcnn_eval.cu), the
 // soft-correspondence kernels (vcp_stream.cu, vcp_bwd.cu) and the edge-conv
 // kernels (edge_conv.cu, edge_conv_from_idx.cu through edge_tile.cuh,
 // edge_conv_bwd.cu): TMA tensor maps and loads,

@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vcrnet_tpu_torch.ops.int8_linear import int8_linear, int8_linear_ref
+from vcrnet_tpu_torch.ops.int8_linear import int8_linear_shared, int8_linear_shared_ref
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
@@ -21,19 +21,25 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None) -> torch
     return F.linear(x, w, b)
 
 
-def int8_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None,
-               kernel: bool) -> torch.Tensor:
-    """:func:`dense` with both operands quantized to int8: x, the weight and
-    the bias are cast to ``dtype`` first, so the compute-dtype values are
-    quantized, as flax's ``promote_dtype`` casts them before the JAX
-    package's int8_linear (vcrnet_tpu/models/transformer.py:93-100).
-    ``kernel`` (the model's kernel route) calls ``ops.int8_linear``, which
-    launches its kernel on a CUDA tensor; otherwise its plain version
-    ``int8_linear_ref`` runs on any device."""
-    w, b = layer.weight, layer.bias
+def int8_dense(layers, x: torch.Tensor, dtype: torch.dtype | None, kernel: bool) -> tuple:
+    """:func:`dense` of each of ``layers`` (1 to 3 ``nn.Linear`` that share
+    the input x) with both operands quantized to int8, in one call: x, the
+    weights and the biases are cast to ``dtype`` first, so the compute-dtype
+    values are quantized, as flax's ``promote_dtype`` casts them before the
+    JAX package's int8_linear (vcrnet_tpu/models/transformer.py:93-100).
+    ``kernel`` (the model's kernel route) calls
+    ``ops.int8_linear.int8_linear_shared``, which launches its kernel once on
+    a CUDA tensor; otherwise its plain version ``int8_linear_shared_ref``
+    runs on any device. Returns a tensor a layer."""
+    pairs = []
+    for layer in layers:
+        w, b = layer.weight, layer.bias
+        if dtype is not None:
+            w, b = w.to(dtype), b.to(dtype)
+        pairs.append((w, b))
     if dtype is not None:
-        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
-    return (int8_linear if kernel else int8_linear_ref)(x, w, b)
+        x = x.to(dtype)
+    return (int8_linear_shared if kernel else int8_linear_shared_ref)(x, pairs)
 
 
 class FlaxBatchNorm(nn.Module):

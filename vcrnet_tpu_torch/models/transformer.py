@@ -32,7 +32,10 @@ attention sublayer run int8 (per-row dynamic int8 activations, per-channel
 int8 weights) in eval mode, on every branch that projects: packed flash,
 streaming and written-out re-mask, plain; the ``flash`` route through
 ``ops.int8_linear`` (its kernel on a CUDA tensor), the plain route through
-its plain version ``int8_linear_ref`` on any device. Training
+its plain version on any device. Projections that share an input are one
+call, which quantizes the input once: q, k and v of self-attention, k and
+v of cross attention (the re-masked one too); q of cross attention and the
+out projection are calls of one. Training
 keeps the bf16 projections (the JAX package's ``not train``), and so the
 flag leaves a training step bit for bit as it was. The fused sublayer
 branch takes the bf16 weights and so bypasses int8, as in the JAX package
@@ -120,10 +123,12 @@ class MultiHeadAttention(nn.Module):
         self.linear_out = nn.Linear(d_model, d_model)
         self.attn_drop = Dropout(dropout, dropout_rng)
 
-    def _proj(self, layer: nn.Linear, x):
+    def _proj(self, layers, x) -> tuple:
+        """x through each of ``layers``; with ``int8`` in eval, one int8
+        call for all of them (one quantization of x)."""
         if self.int8 and not self.training:
-            return int8_dense(layer, x, self.dtype, kernel=self.flash)
-        return dense(layer, x, self.dtype)
+            return int8_dense(layers, x, self.dtype, kernel=self.flash)
+        return tuple(dense(layer, x, self.dtype) for layer in layers)
 
     def forward(self, query, key, value):
         B, nq, d = query.shape
@@ -138,9 +143,17 @@ class MultiHeadAttention(nn.Module):
             params = [t for lin in (self.linear_q, self.linear_k, self.linear_v, self.linear_out)
                       for t in (lin.weight.t(), lin.bias)]
             return fused_mha(query, key, *params, n_heads=h)
-        q = self._proj(self.linear_q, query)
-        k = self._proj(self.linear_k, key)
-        v = self._proj(self.linear_v, value)
+        # the projections that share an input go together: in int8, one
+        # call quantizes the input once for all of them
+        lq, lk, lv = self.linear_q, self.linear_k, self.linear_v
+        if query is key and key is value:  # self-attention
+            q, k, v = self._proj((lq, lk, lv), query)
+        elif key is value:  # cross attention
+            (q,) = self._proj((lq,), query)
+            k, v = self._proj((lk, lv), key)
+        else:
+            (q,), (k,), (v,) = (self._proj((lin,), y) for lin, y in
+                                ((lq, query), (lk, key), (lv, value)))
         dropping = self.attn_drop.active  # the probabilities are written out
         if self.flash and not self.remask and not dropping:
             x = attention(q, k, v, sm_scale, h)
@@ -161,7 +174,7 @@ class MultiHeadAttention(nn.Module):
             p = self.attn_drop(p)
             x = torch.matmul(p.to(v.dtype).float(), heads(v))
             x = x.transpose(1, 2).reshape(B, nq, d)
-        return self._proj(self.linear_out, x)
+        return self._proj((self.linear_out,), x)[0]
 
 
 class FeedForward(nn.Module):

@@ -39,11 +39,13 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
-    """Zeroes every kernel's launches, and the edge kernel's f32-instance
-    count (``fused_edge_conv.launches_f32``, counted in ``.launches`` too)."""
+    """Zeroes every kernel's launches, the edge kernel's f32-instance count
+    (``fused_edge_conv.launches_f32``, counted in ``.launches`` too) and the
+    pairs of the int8 launches (``int8_linear.projections``)."""
     for fn in KERNELS.values():
         fn.launches = 0
     fused_edge_conv.launches_f32 = 0
+    int8_linear.projections = 0
 
 
 def launch_counts() -> dict:
