@@ -121,9 +121,9 @@ Phases (any failure raises and the script exits non-zero):
            best embedding merges into a VCR-Net Trainer bit for bit, which
            then takes a step;
 17. heads   the dist and att heads and LPDNet's T-Nets (phase_heads): with
-           tfea every edge_conv launch is the f32 instance's and the DG-block
-           rows of VCR-Net, DCP and LPD agree with the plain route's f32
-           selection on >= 0.995;
+           tfea every edge_conv launch is the f32 instance's, each after one
+           launch of its split pass, and the DG-block rows of VCR-Net, DCP
+           and LPD agree with the plain route's f32 selection on >= 0.995;
 18. cli     the port's CLI: an iter=3 eval of the checkpoint and a one-epoch
            fit (phase_cli);
 19. export  Registrar.warmup over the seven buckets, the bucket-8 iter=3
@@ -205,8 +205,12 @@ N = 885 and 1000 (edge_conv and vcp_stream also 707 and 971), B = 2 and 64,
 against its plain version, with item 0's results unchanged when item 1's
 inputs are drawn again (its last tiles reach into item 1's rows); and
 edge_conv's f32 instance (an f32 kNN space at C = 64, LPDNet's after
-t_net_fea) at B = 8 and 64 with N = 1024 and at B = 2 and 64 with N = 885
-and 1000, without and with winners, edge_conv_from_idx on its idx and
+t_net_fea, split into three bf16 planes by edge_split, whose planes equal
+their plain version bit for bit and sum to x in f64 at B = 64, N = 1024 and
+on values that are NaN, +-inf or beyond bf16's range) at B = 8 and 64 with
+N = 1024 and at B = 2 and 64 with N = 885 and 1000, without and with
+winners, beside the bf16 instance's time and with its registers and blocks
+an SM, edge_conv_from_idx on its idx and
 edge_conv_bwd on its winners (also at 2B = 16 and 128 clouds of 1024); and
 gather_max_from_idx, redesigned by channel slices, equal bit for bit
 (winners too) to its plain version and to knn_gather_max at B = 64 with
@@ -218,8 +222,8 @@ Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
 every shape, item 0's gradients unchanged when item 1 is drawn again.
 
 Each phase prints its seconds. The last lines are a JSON object with one entry per kernel
-(sixteen; edge_conv's with its f32 instance's launches, time, plain time and bound
-beside; the launches of each phase's main path beside the total, the ranks' of the
+(seventeen: the port's sixteen kernels and edge_split; edge_conv's with its f32
+instance's launches, time, plain time and bound beside; the launches of each phase's main path beside the total, the ranks' of the
 parallel phase as launches_parallel; the point_sharding phase prints its ranks' as
 launches_sp, all zero), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -336,6 +340,45 @@ def f32_edge_conv_checked(xs, a, h, w2, b2, slope: float, what: str):
     return row, (idx, x2, win1, win2)
 
 
+def split_checked(x, what: str) -> dict:
+    """The f32 instance's split pass on x: its planes equal the plain
+    version's bit for bit (a NaN as a NaN: its payload is the conversion's)
+    and, where x0 is finite, sum to x exactly in f64 (x in the normal range
+    of these draws); then the same on values the split cannot hold (NaN,
+    +-inf, beyond bf16's largest finite value: x2 NaN) and on tiny ones.
+    Returns a row of figures with its time, its plain version's and its
+    bound (bytes: x read, three bf16 planes written)."""
+    import torch
+
+    from vcrnet_tpu_torch.ops import edgeconv
+
+    before = edgeconv.split_planes.launches
+    planes = edgeconv.split_planes(x)
+    torch.cuda.synchronize()
+    check(edgeconv.split_planes.launches == before + 1, f"{what}: the split pass did not launch")
+    ref = edgeconv.split_planes_ref(x)
+    check(torch.equal(planes.view(torch.int16), ref.view(torch.int16)),
+          f"{what}: the planes differ from the plain version")
+    check(torch.equal(planes.double().sum(0), x.double()), f"{what}: the planes do not sum to x")
+    odd = x[:1].clone()
+    odd[0, :6, 0] = torch.tensor([float("nan"), float("inf"), -float("inf"), 3.397e38, -3.4e38,
+                                  2.0 ** -140], device=x.device)
+    got, want = edgeconv.split_planes(odd), edgeconv.split_planes_ref(odd)
+    torch.cuda.synchronize()
+    nan = want.isnan()
+    check(torch.equal(got.isnan(), nan) and torch.equal(got.view(torch.int16)[~nan],
+                                                        want.view(torch.int16)[~nan]),
+          f"{what}: the planes of NaN, +-inf and out-of-range values differ from plain")
+    check(bool(got[2, 0, :5, 0].isnan().all()), f"{what}: an unholdable value left x2 finite")
+    print(f"{what}: planes bit-equal to the plain version (NaN payloads equal too: "
+          f"{torch.equal(got.view(torch.int16)[nan], want.view(torch.int16)[nan])}), sum to x "
+          f"in f64", flush=True)
+    b, by = bound_ms(nbytes(x, planes), 0, BF16_TENSOR_FLOPS)
+    return dict(B=x.shape[0], N=x.shape[1], max_abs_err=0.0, bound_ms=b, bound_by=by,
+                ms=cuda_time_ms(lambda: edgeconv.split_planes(x)),
+                plain_ms=cuda_time_ms(lambda: edgeconv.split_planes_ref(x)), library_ms=None)
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
@@ -398,17 +441,26 @@ def phase_kernels(dev):
         ))
 
         # --- the same block on an f32 kNN space (LPDNet's after t_net_fea):
-        # the f32 instance, its scores at the f32 rate, the edge phase at bf16
-        # (its own generator: the other inputs stay those of earlier runs)
+        # the f32 instance (its own generator: the other inputs stay those of
+        # earlier runs). Its bound: the scores as the split's six bf16
+        # products on the tensor cores, the edge phase at bf16; beside it the
+        # scores as one f32 product at the CUDA cores' f32 rate.
         xs = torch.randn(B, N, 64, generator=g32, device=dev)
         row, _ = f32_edge_conv_checked(xs, a, h, w2, b2, 0.0, f"edge_conv f32 B={B}")
-        work = [(B * N * N * 2 * 64, F32_FLOPS), (B * N * K * 2 * 128 * 128, BF16_TENSOR_FLOPS)]
-        b, by = bound_ms(nbytes(xs, a, h, w2, b2, x1, x2, idx), work)
-        row.update(bound_ms=b, bound_by=by,
+        edge_work = (B * N * K * 2 * 128 * 128, BF16_TENSOR_FLOPS)
+        fbytes = nbytes(xs, a, h, w2, b2, x1, x2, idx)
+        b, by = bound_ms(fbytes, [(6 * B * N * N * 2 * 64, BF16_TENSOR_FLOPS), edge_work])
+        b32, by32 = bound_ms(fbytes, [(B * N * N * 2 * 64, F32_FLOPS), edge_work])
+        row.update(bound_ms=b, bound_by=by, f32_rate_bound_ms=b32, f32_rate_bound_by=by32,
                    ms=cuda_time_ms(lambda: edgeconv.fused_edge_conv(xs, a, h, w2, b2, K)),
                    plain_ms=cuda_time_ms(lambda: edgeconv.fused_edge_conv_ref(xs, a, h, w2, b2, K)),
                    library_ms=None)
+        bf16_ms = rows["edge_conv"][-1]["ms"]
+        print(f"edge_conv B={B} N={N}: the f32 instance (split pass included) {row['ms']} ms, "
+              f"the bf16 instance {bf16_ms} ms in the same call ({row['ms'] / bf16_ms}x); "
+              f"bound {b} ms (split, {by}), {b32} ms at the f32 rate ({by32})", flush=True)
         rows.setdefault("edge_conv_f32", []).append(row)
+        rows.setdefault("edge_split", []).append(split_checked(xs, f"edge_split B={B}"))
 
         # --- packed-head attention, 4 heads of 128
         q, k, v = (randn(B, N, 512, dtype=bf16) for _ in range(3))
@@ -3562,18 +3614,23 @@ def att_state_dict(state_dict: dict) -> dict:
     return {**state_dict, **eye}
 
 
-def f32_launches(launches: dict, tfea: bool, what: str) -> int:
+def f32_launches(launches: dict, tfea: bool, what: str) -> dict:
     """The edge kernel's f32-instance launches of the run ``launches`` counts
     (since the last ops.reset_launch_counts): every edge_conv launch with a
-    feature T-Net (its kNN space is f32), none without."""
+    feature T-Net (its kNN space is f32), none without; and its split
+    pass's, one a launch of the instance. Returns them as edge_conv_f32 and
+    edge_split."""
     from vcrnet_tpu_torch.ops import edgeconv
 
     n = edgeconv.fused_edge_conv.launches_f32
+    n_split = edgeconv.split_planes.launches
     want = launches["edge_conv"] if tfea else 0
-    print(f"{what}: f32-instance launches {n} of {launches['edge_conv']} edge_conv", flush=True)
+    print(f"{what}: f32-instance launches {n} of {launches['edge_conv']} edge_conv, split-pass "
+          f"launches {n_split}", flush=True)
     check(n == want and (n > 0 or not tfea),
           f"{what}: {n} launches of the f32 edge instance, expected {want}")
-    return n
+    check(n_split == n, f"{what}: {n_split} launches of the split pass, expected {n}")
+    return {"edge_conv_f32": n, "edge_split": n_split}
 
 
 def tnet_rows_agree(model, src, what: str) -> float:
@@ -3621,7 +3678,7 @@ def train_head_config(cfg, what: str, expected: dict):
     hooks = [m.register_forward_hook(lambda mod, i, o: updates.append(mod.update_stats))
              for m in tr.model.modules() if isinstance(m, FlaxBatchNorm)]
     launches = step_launches(tr, batch, expected, what)
-    launches["edge_conv_f32"] = f32_launches(launches, cfg.tfea, what)
+    launches.update(f32_launches(launches, cfg.tfea, what))
     for h in hooks:
         h.remove()
     print_step_times(tr, cfg, BATCHES, what)
@@ -3650,8 +3707,10 @@ def phase_heads():
     4. DCP and LPD with both T-Nets: gradient cosine >= 0.99, the launches
        of one step (two embedding calls) and the same share of rows.
     Every edge_conv launch with tfea is the f32 instance's (none without:
-    the dist and att steps). Returns the launches of the steps and requests
-    counted, the f32 instance's under ``edge_conv_f32``."""
+    the dist and att steps), each after one launch of its split pass.
+    Returns the launches of the steps and requests counted, the f32
+    instance's under ``edge_conv_f32``, its split pass's under
+    ``edge_split``."""
     import numpy as np
     import torch
 
@@ -3703,7 +3762,7 @@ def phase_heads():
     check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
     serve_all(reg, requests)  # warm-up
     request = one_request_launches(reg, *requests[0], LAUNCHES_ITER3, "heads t-nets iter=3")
-    request["edge_conv_f32"] = f32_launches(request, True, "heads t-nets iter=3")
+    request.update(f32_launches(request, True, "heads t-nets iter=3"))
     add_launches(total, request)
     R, t = serve_all(reg, requests)
     R_p, t_p = serve_all(plain, requests)
@@ -3730,7 +3789,7 @@ def phase_heads():
               f"{GRAD_COSINE_MIN}")
         del plain
         launches = step_launches(kern, batch, expected, what)
-        launches["edge_conv_f32"] = f32_launches(launches, True, what)
+        launches.update(f32_launches(launches, True, what))
         add_launches(total, launches)
         tnet_rows_agree(kern.model, data["src"], what)
         del kern
@@ -5081,7 +5140,8 @@ def phase_int8():
         launches of a 1-pair request, the latencies in turns against the
         bf16 route (int8, bf16, bf16, int8), and with VCRNET_FUSED_POINTER=1
         the launches at iter=1 (no int8) and partial 768 (the re-masked
-        cross attentions alone);
+        cross attentions alone); and the launches of one request of 8 pairs
+        in partial mode at 3072 points;
     (c) training is inert to the flag: a VCR-Net step at B = 8 with and
         without int8_eval from one seed gives the same loss bit for bit, the
         same launches (int8_linear none), and the pointer's parameters after
@@ -5163,6 +5223,20 @@ def phase_int8():
             finally:
                 del os.environ["VCRNET_FUSED_POINTER"]
         del reg, plain, bf16
+
+    # --- (b) partial 3072 (clouds of 4093 points cropped to 3072, the re-mask
+    # streaming through softmax_colmass): the launches of one request of 8
+    cfg = Config(compute_dtype="bfloat16", int8_eval=True, iter=3, num_points=NUM_POINTS_LARGE,
+                 partial=True, overlap=0.575)
+    data = shapes_eval_set(8, num_points=NUM_POINTS_LARGE, cloud_points=NUM_POINTS_LARGE + 3,
+                           partial=True)
+    reg = Registrar(cfg, state_dict, buckets=(8,))
+    reg.register(data["src"], data["tgt"])  # warm-up
+    add_launches(total, one_request_launches(
+        reg, data["src"], data["tgt"],
+        {**LAUNCHES_PARTIAL_LARGE, "int8_linear": 10 * INT8_SELF + 6 * INT8_CROSS},
+        "int8 partial3072"))
+    del reg
 
     # --- (c) training is inert to the flag; DCP on DGCNN evaluates with it
     cfg = Config(compute_dtype="bfloat16", num_points=N)
@@ -5312,10 +5386,12 @@ def start_ptxas_reports() -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in PTXAS_REPORTED}
 
 
-def print_ptxas_reports(procs: dict) -> None:
+def print_ptxas_reports(procs: dict) -> dict:
     """One line a source: each kernel's registers and spill bytes (stores /
     loads), and how many wgmma fences ptxas added on its own (C7519: it
-    could not prove a register safe while a product was in flight)."""
+    could not prove a register safe while a product was in flight; C7517,
+    a wait). Returns {source: {kernel<args>: registers}}."""
+    regs = {}
     for src, proc in procs.items():
         out, _ = proc.communicate(timeout=900)
         check(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed:\n{out}")
@@ -5324,10 +5400,31 @@ def print_ptxas_reports(procs: dict) -> None:
                              r"Used (\d+) registers", out, re.S)
         report = "; ".join(f"{name}{template_args(args)} {regs} registers, spills {st}/{ld} bytes"
                            for name, args, st, ld, regs in kernels)
-        print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}",
-              flush=True)
+        print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}, "
+              f"waits (C7517): {out.count('C7517')}", flush=True)
         spills = [int(n) for _, _, st, ld, _ in kernels for n in (st, ld)]
         check(kernels and not any(spills), f"{src}: the kernels spill registers ({spills} bytes)")
+        regs[src] = {name + template_args(args): int(r) for name, args, _, _, r in kernels}
+    return regs
+
+
+EDGE_CONV_SMEM = 76800  # edge_conv.cu's dynamic shared memory a block, both instances
+
+
+def blocks_per_sm(regs: int, smem: int, threads: int = 128) -> int:
+    """Blocks of ``threads`` that one H100 SM holds at ``regs`` registers a
+    thread (allocated 256 a warp at a time, 65536 an SM) and ``smem`` bytes
+    of dynamic shared memory a block (1024 more reserved a block, 233472 an
+    SM)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(65536 // (per_warp * threads // 32), 233472 // (smem + 1024), 2048 // threads)
+
+
+def print_edge_occupancy(regs: dict) -> None:
+    """The edge kernel's instances: registers and blocks an SM."""
+    for name, r in sorted(regs.items()):
+        print(f"edge_conv.cu {name}: {r} registers, {EDGE_CONV_SMEM} bytes of shared memory, "
+              f"{blocks_per_sm(r, EDGE_CONV_SMEM)} blocks an SM", flush=True)
 
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
@@ -5356,7 +5453,8 @@ def main() -> int:
     ptxas = start_ptxas_reports()
     _build.extension()
     print(f"build: {time.perf_counter() - t0} s", flush=True)
-    print_ptxas_reports(ptxas)
+    print_edge_occupancy({name: r for name, r in print_ptxas_reports(ptxas)["edge_conv.cu"].items()
+                          if name.startswith("edge_conv")})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -5450,8 +5548,11 @@ def main() -> int:
                      "vcrnet_tpu/ops/pallas_pointer.py:197"),
         "int8_linear": ("vcrnet_tpu_torch/csrc/int8_linear.cu",
                         "none: vcrnet_tpu/ops/int8_linear.py:48 (XLA)"),
+        # edge_conv's f32 instance's split pass (its kNN space as three bf16 planes)
+        "edge_split": ("vcrnet_tpu_torch/csrc/edge_conv.cu",
+                       "vcrnet_tpu/ops/pallas_edgeconv.py:324"),
     }
-    check(set(sources) == set(ops.KERNELS) and len(sources) == 16,
+    check(set(sources) == set(ops.KERNELS) | {"edge_split"} and len(sources) == 17,
           "the kernels line must list every kernel of the port")
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -5473,18 +5574,19 @@ def main() -> int:
             f32 = {"launches_f32": sum(p.get("edge_conv_f32", 0) for p in launches.values()),
                    "f32_ms": top32["ms"], "f32_plain_ms": top32["plain_ms"],
                    "f32_bound_ms": top32["bound_ms"], "f32_bound_by": top32["bound_by"],
+                   "f32_rate_bound_ms": top32["f32_rate_bound_ms"],
                    "f32_max_abs_err": max(r["max_abs_err"] for r in f32_rows)}
             check(f32["launches_f32"] > 0, "the f32 edge instance was never launched on a path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(per_phase[name] for per_phase in launches.values()),
-            "launches_train_step": launches["train"][name],
-            "launches_serve": launches["serve"][name],
-            "launches_refine": launches["refine"][name],
-            "launches_partial": launches["partial"][name],
+            "launches": sum(per_phase.get(name, 0) for per_phase in launches.values()),
+            "launches_train_step": launches["train"].get(name, 0),
+            "launches_serve": launches["serve"].get(name, 0),
+            "launches_refine": launches["refine"].get(name, 0),
+            "launches_partial": launches["partial"].get(name, 0),
             "launches_ragged": launches["ragged"].get(name, 0),
-            "launches_dgcnn": launches["dgcnn"][name],
-            "launches_fused_pointer": launches["fused_pointer"][name],
+            "launches_dgcnn": launches["dgcnn"].get(name, 0),
+            "launches_fused_pointer": launches["fused_pointer"].get(name, 0),
             "launches_data": launches["data"].get(name, 0),
             "launches_regularise": launches["regularise"].get(name, 0),
             "launches_converge": launches["converge"].get(name, 0),

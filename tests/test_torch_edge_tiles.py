@@ -9,8 +9,10 @@ interpret mode (``_fused_edge_conv_fwd_impl`` with the exact selection, and
 the VJP of ``_fused_edge_conv_vjp``), on the same seeded numpy inputs:
 
 * scores: bf16 x through wgmma (f32 accumulation), or, in the f32 instance
-  (an f32 space at C = 64, LPDNet's after t_net_fea), each dot product a
-  chain of fmas in channel order and 2 d - |x_j|^2 rounded once;
+  (an f32 space at C = 64, LPDNet's after t_net_fea), x split into three
+  bf16 planes x0 + x1 + x2 and each dot product the f32 sum of the six
+  exact plane products xa . yb with a + b <= 2, smallest first, then
+  2 d - |x_j|^2 rounded once;
 * selection: a key is the order-preserving uint32 of the f32 score (-0 made
   +0) above the complement of the column. Lane l of a warp sees columns l
   and l + 32 of every 64-column tile; past N (a ragged last tile) the
@@ -54,7 +56,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_gather_tiles import _fma32
 from vcrnet_tpu.ops.pallas_edgeconv import _fused_edge_conv_fwd_impl, _fused_edge_conv_vjp
 from vcrnet_tpu_torch.ops import edgeconv
 from vcrnet_tpu_torch.ops._common import knn_scores, leaky, select_topk
@@ -106,21 +107,28 @@ def two_pass_select(row: np.ndarray, k: int) -> list:
     return [~(key & 0xFFFFFFFF) & 0xFFFFFFFF for key in lst[:k]]
 
 
-def f32_scores(x: torch.Tensor) -> torch.Tensor:
-    """The f32 instance's scores (edge_conv.cu:f32_score_tile) of an f32
-    [B, N, C] space: d a chain of fmas in channel order from the first
-    channel's product, 2 d - |x_j|^2 by one fma with the norms as the
-    wrapper computes them; NaN -> -inf, the diagonal -inf."""
-    xn = x.numpy()
+# the f32 instance's plane pairs (a, b), a + b <= 2, in the kernel's order:
+# smallest first, so that x0 . y0 is added last
+SPLIT_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def split_scores(x: torch.Tensor) -> torch.Tensor:
+    """The f32 instance's scores (edge_conv.cu:split_products, then
+    stage_scores) of an f32 [B, N, C] space: its planes from the split pass
+    (``split_planes_ref``), d the f32 sum of the exact products of plane
+    pairs SPLIT_PAIRS, channel by channel in each, 2 d - |x_j|^2 rounded
+    once with the norms as the wrapper computes them; NaN -> -inf, the
+    diagonal -inf."""
+    p = edgeconv.split_planes_ref(x).float().numpy()
     norms = x.square().sum(-1).numpy()
-    q, p = xn[:, :, None, :], xn[:, None, :, :]
+    b, n, c = x.shape
+    d = np.zeros((b, n, n), np.float32)
     with np.errstate(invalid="ignore", over="ignore"):
-        d = q[..., 0] * p[..., 0]
-        for c in range(1, xn.shape[-1]):
-            d = _fma32(q[..., c], p[..., c], d)
-        s = _fma32(np.full_like(d, 2), d, np.broadcast_to(-norms[:, None, :], d.shape))
+        for qa, kb in SPLIT_PAIRS:
+            for ch in range(c):
+                d += p[qa][:, :, None, ch] * p[kb][:, None, :, ch]
+        s = np.float32(2) * d - norms[:, None, :]
     s[np.isnan(s)] = -np.inf
-    n = x.shape[1]
     s[:, np.arange(n), np.arange(n)] = -np.inf
     return torch.from_numpy(s)
 
@@ -128,7 +136,7 @@ def f32_scores(x: torch.Tensor) -> torch.Tensor:
 def tiled_select(x: torch.Tensor, k: int, scores=knn_scores) -> torch.Tensor:
     """The two passes on every row of ``scores(x)``: the bf16 instance's
     scores are ``knn_scores``' values (exact products of bf16 values summed
-    in f32), the f32 instance's ``f32_scores``."""
+    in f32), the f32 instance's ``split_scores``."""
     s = scores(x)
     out = [[two_pass_select(s[b, i].numpy(), k) for i in range(x.shape[1])]
            for b in range(x.shape[0])]
@@ -165,8 +173,8 @@ def test_f32_instance_selects_as_the_plain_selection(kind, n):
     on its scores equal the plain stable sort of the same scores exactly, and
     select the plain version's rows (knn_scores) on at least 99.5%."""
     x = _clouds(kind, n, bf16=False)
-    scores = f32_scores(x)
-    idx = tiled_select(x, K, f32_scores)
+    scores = split_scores(x)
+    idx = tiled_select(x, K, split_scores)
     np.testing.assert_array_equal(idx.numpy(), select_topk(scores, K).numpy())
     plain = select_topk(knn_scores(x), K)
     agree = (idx.sort(-1).values == plain.sort(-1).values).all(-1).float().mean().item()
@@ -182,7 +190,7 @@ def test_f32_instance_selects_as_pallas_on_an_f32_space():
     rng = np.random.RandomState(15)
     x = rng.randn(B, n, 64).astype(np.float32)
     _, a, h, w2, b2 = _edge_inputs(n, seed=16)
-    idx = tiled_select(_t(x), K, f32_scores)
+    idx = tiled_select(_t(x), K, split_scores)
     j1, j2, j_idx = _fused_edge_conv_fwd_impl(
         jnp.asarray(x), jnp.asarray(a), jnp.asarray(h), jnp.asarray(w2, jnp.bfloat16),
         jnp.asarray(b2), K, 0.0, None, True, packed_select=False, int8_gather=False,

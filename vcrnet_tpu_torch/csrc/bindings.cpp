@@ -25,6 +25,7 @@ cudaError_t vcr_edge_conv_f32knn(const void* x, const float* norms, const void* 
                                  const void* w2, const void* b2, void* x1, void* x2, int* idx,
                                  void* win1, void* win2, int batch, int n, int c, int k,
                                  float slope, cudaStream_t stream);
+cudaError_t vcr_edge_split(const float* x, void* planes, int64_t count, cudaStream_t stream);
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
                              float* lse, int batch, int nq, int nk, int nk_valid,
                              int n_heads, float sm_scale, cudaStream_t stream);
@@ -110,15 +111,21 @@ void edge_conv(torch::Tensor x, torch::Tensor norms, torch::Tensor a, torch::Ten
                torch::Tensor idx, c10::optional<torch::Tensor> win1,
                c10::optional<torch::Tensor> win2, int64_t k, double slope) {
   const c10::cuda::CUDAGuard guard(x.device());
-  TORCH_CHECK(norms.size(1) == whole_tiles(x.size(1)), "edge_conv: norms must fill whole tiles");
-  // the kNN space in f32 (after LPDNet's t_net_fea) takes the f32 instance
-  const auto launch =
-      x.scalar_type() == torch::kFloat32 ? &vcr_edge_conv_f32knn : &vcr_edge_conv;
+  TORCH_CHECK(norms.size(1) == whole_tiles(x.size(-2)), "edge_conv: norms must fill whole tiles");
+  // bf16 [B, N, C], or the split planes [3, B, N, 64] of an f32 kNN space
+  // (LPDNet's after t_net_fea): the f32 instance
+  const auto launch = x.dim() == 4 ? &vcr_edge_conv_f32knn : &vcr_edge_conv;
   C10_CUDA_CHECK(launch(
       x.data_ptr(), norms.data_ptr<float>(), a.data_ptr(), h.data_ptr(), w2.data_ptr(),
       b2.data_ptr(), x1.data_ptr(), x2.data_ptr(), idx.data_ptr<int>(), optional_ptr(win1),
-      optional_ptr(win2), x.size(0), x.size(1), x.size(2), k, static_cast<float>(slope),
+      optional_ptr(win2), x.size(-3), x.size(-2), x.size(-1), k, static_cast<float>(slope),
       stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void edge_split(torch::Tensor x, torch::Tensor planes) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(vcr_edge_split(x.data_ptr<float>(), planes.data_ptr(), x.numel(), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -325,6 +332,7 @@ int64_t pointer_ff_smem(int64_t d, int64_t f) { return vcr_pointer_ff_smem(d, f)
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("knn_gather_max", &knn_gather_max);
   m.def("edge_conv", &edge_conv);
+  m.def("edge_split", &edge_split);
   m.def("flash_packed", &flash_packed);
   m.def("vcp_stream", &vcp_stream);
   m.def("gather_max_bwd", &gather_max_bwd);

@@ -10,7 +10,7 @@ from vcrnet_tpu_torch.ops.colmass import softmax_colmass
 from vcrnet_tpu_torch.ops.dgcnn import fused_dgcnn_eval
 from vcrnet_tpu_torch.ops.edgeconv import (
     edge_conv_bwd, edge_conv_from_idx, fused_edge_conv, fused_gather_max_from_idx,
-    fused_knn_gather_max, gather_max_bwd,
+    fused_knn_gather_max, gather_max_bwd, split_planes,
 )
 from vcrnet_tpu_torch.ops.int8_linear import int8_linear
 from vcrnet_tpu_torch.ops.knn import fused_knn
@@ -40,11 +40,14 @@ KERNELS = {
 
 def reset_launch_counts() -> None:
     """Zeroes every kernel's launches, the edge kernel's f32-instance count
-    (``fused_edge_conv.launches_f32``, counted in ``.launches`` too) and the
-    pairs of the int8 launches (``int8_linear.projections``)."""
+    (``fused_edge_conv.launches_f32``, counted in ``.launches`` too) and its
+    split pass's (``split_planes.launches``, which ``launch_counts`` leaves
+    out: one a launch of that instance), and the pairs of the int8 launches
+    (``int8_linear.projections``)."""
     for fn in KERNELS.values():
         fn.launches = 0
     fused_edge_conv.launches_f32 = 0
+    split_planes.launches = 0
     int8_linear.projections = 0
 
 

@@ -19,7 +19,8 @@ runs the ``*_ref`` plain version. Both select by exact f32 comparison with
 ties to the smaller column and mask the diagonal, and both gather the
 exact values: the TPU's int8 one-hot gather (``int8_gather=True`` there)
 is not reproduced. Each wrapper counts its launches in ``.launches``
-(``fused_edge_conv`` those of its f32 instance also in ``.launches_f32``). The
+(``fused_edge_conv`` those of its f32 instance also in ``.launches_f32``; that
+instance's split pass, :func:`split_planes`, counts its own). The
 four forward wrappers run through the ops ``vcrnet_torch::knn_gather_max``,
 ``edge_conv``, ``gather_max_from_idx`` and ``edge_conv_from_idx``
 (``ops/library.py``); the two backward wrappers call the extension
@@ -317,8 +318,9 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
     b2 [F] -> (x1, x2 [B, N, F] in a's dtype, idx [B, N, k] int32[, win1,
     win2 [B, N, F] uint8 with ``winners``]). The kernel takes bf16 a, h,
     w2, b2, F = 128, x in bf16 or (its f32 instance, counted apart in
-    ``.launches_f32``) in f32, and the shapes :func:`edge_conv_supported`
-    takes. Runs the op ``vcrnet_torch::edge_conv``."""
+    ``.launches_f32``, after the split pass :func:`split_planes`) in f32,
+    and the shapes :func:`edge_conv_supported` takes. Runs the op
+    ``vcrnet_torch::edge_conv``."""
     if kernel_route(x, a, h, w2, b2):
         B, N, C = x.shape
         bf16 = torch.bfloat16
@@ -334,6 +336,37 @@ def fused_edge_conv(x, a, h, w2, b2, k: int = 20, negative_slope: float = 0.0,
         check_tensor("b2", b2, bf16, (128,))
     x1, x2, idx, win1, win2 = _edge_conv_op(x, a, h, w2, b2, k, float(negative_slope), winners)
     return (x1, x2, idx, win1, win2) if winners else (x1, x2, idx)
+
+
+def split_planes_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`split_planes`."""
+    x0 = x.to(torch.bfloat16)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    return torch.stack((x0, x1, (r - x1.float()).to(torch.bfloat16)))
+
+
+def split_planes(x: torch.Tensor) -> torch.Tensor:
+    """x f32 [...] -> [3, ...] bf16: x0 = bf16(x), x1 = bf16(x - x0),
+    x2 = bf16(x - x0 - x1), rounded to nearest even, whose sum is x exactly
+    for |x| >= 2^-108 (within 2^-133 below). NaN, +-inf and values beyond
+    bf16's largest finite one leave NaN in x2. The split pass of the edge
+    kernel's f32 instance, which takes its scores as the exact bf16
+    products of these planes (csrc/edge_conv.cu); the kernel takes a
+    contiguous x of a multiple of 8 values."""
+    if not kernel_route(x):
+        return split_planes_ref(x)
+    check_tensor("x", x, torch.float32, x.shape)
+    if x.numel() % 8:
+        raise ValueError(f"edge_split kernel takes a multiple of 8 values, got {x.numel()}")
+    check_aligned(x=x)
+    planes = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    _build.extension().edge_split(x, planes)
+    split_planes.launches += 1
+    return planes
+
+
+split_planes.launches = 0
 
 
 def _edge_conv_impl(x, a, h, w2, b2, k: int, negative_slope: float, winners: bool):
@@ -355,7 +388,8 @@ def _edge_conv_impl(x, a, h, w2, b2, k: int, negative_slope: float, winners: boo
     if winners:
         win1 = torch.empty((B, N, 128), dtype=torch.uint8, device=x.device)
         win2 = torch.empty_like(win1)
-    _build.extension().edge_conv(x, norms, a, h, w2, b2, x1, x2, idx, win1, win2, k,
+    space = split_planes(x) if x.dtype == torch.float32 else x  # the f32 instance's planes
+    _build.extension().edge_conv(space, norms, a, h, w2, b2, x1, x2, idx, win1, win2, k,
                                  negative_slope)
     fused_edge_conv.launches += 1
     if x.dtype == torch.float32:

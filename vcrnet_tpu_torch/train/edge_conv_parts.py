@@ -26,7 +26,11 @@ training step runs it), on seeded random inputs:
 
 Sources that have the f32 instance (``vcr_edge_conv_f32knn``: an f32 kNN
 space at C = 64, LPDNet's after ``t_net_fea``) also time it on an f32 x
-with the same a, h, W2 and b2, without and with winners.
+with the same a, h, W2 and b2, without and with winners. Where the sources
+have its split pass (``vcr_edge_split``: x as three bf16 planes, which the
+f32 instance takes in place of x), a call of the f32 instance is the split
+into the shim's own scratch and then the instance, and the split is also
+timed alone (``edge_split``).
 
 Given several source directories, it times each one's forward
 (``edge_conv`` without and with winners at B clouds, and the f32 instance's
@@ -115,6 +119,34 @@ extern "C" int shim_f32(const void* x, const float* norms, const void* a, const 
 """
 
 
+# the same in sources whose f32 instance takes the planes of its split pass:
+# the split into a scratch the shim keeps (grown on demand), then the instance
+_F32_SPLIT_SHIM = """
+#include <cuda_runtime.h>
+extern "C" int shim_split(const float* x, void* planes, int count, void* stream) {
+  return static_cast<int>(vcr_edge_split(x, planes, count, static_cast<cudaStream_t>(stream)));
+}
+extern "C" int shim_f32(const void* x, const float* norms, const void* a, const void* h,
+                        const void* w2, const void* b2, void* x1, void* x2, int* idx, void* win1,
+                        void* win2, int batch, int n, int c, int k, float slope, void* stream) {
+  static void* planes = nullptr;
+  static size_t bytes = 0;
+  const int count = batch * n * c;
+  if (3 * 2 * static_cast<size_t>(count) > bytes) {
+    if (planes != nullptr) cudaFree(planes);
+    bytes = 3 * 2 * static_cast<size_t>(count);
+    const cudaError_t err = cudaMalloc(&planes, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int err = shim_split(static_cast<const float*>(x), planes, count, stream);
+  if (err) return err;
+  return static_cast<int>(vcr_edge_conv_f32knn(planes, norms, a, h, w2, b2, x1, x2, idx, win1,
+                                               win2, batch, n, c, k, slope,
+                                               static_cast<cudaStream_t>(stream)));
+}
+"""
+
+
 def _source(csrc: str, src: str, cuts, shims: dict = _SHIMS) -> str | None:
     with open(os.path.join(csrc, src)) as fh:
         text = fh.read()
@@ -123,7 +155,7 @@ def _source(csrc: str, src: str, cuts, shims: dict = _SHIMS) -> str | None:
             return None
         text = text.replace(old, new, 1)
     if src == "edge_conv.cu" and "cudaError_t vcr_edge_conv_f32knn(" in text:
-        text += _F32_SHIM
+        text += _F32_SPLIT_SHIM if "cudaError_t vcr_edge_split(" in text else _F32_SHIM
     return text + shims[src]
 
 
@@ -252,6 +284,18 @@ def main(argv=None) -> int:
         report("edge_conv_f32_scores_and_selection",
                out["edge_conv_f32"]["ms"] - out["edge_conv_from_idx"]["ms"],
                note="edge_conv_f32 less edge_conv_from_idx")
+        split = getattr(libs["edge_conv"], "shim_split", None)
+        if split is not None:  # the split pass alone, held to its plain version bit for bit
+            planes = torch.empty(3, B, N, C, dtype=torch.bfloat16, device=xs.device)
+
+            def split_call():
+                _call(split, xs, planes, B * N * C)
+
+            split_call()
+            torch.cuda.synchronize()
+            if not torch.equal(planes, edgeconv.split_planes_ref(xs)):
+                raise RuntimeError("edge_split through the shim: differs from split_planes_ref")
+            report("edge_split", time_ms(split_call))
 
     # ---- backward at twice the clouds, from the forward's idx and winners
     B2 = 2 * B
