@@ -176,7 +176,26 @@ Phases (any failure raises and the script exits non-zero):
            whole cloud (peak memory each), and a training step at B = 1,
            N = 8192 on two ranks (finite; peak memory a rank). The ranks'
            kernel launches (launches_sp) must be zero: the path is plain
-           PyTorch, as the JAX package's is XLA.
+           PyTorch, as the JAX package's is XLA;
+23. head_dim64  the attention kernels at a head width of 64 (phase_head_dim64,
+           head64_kernel_rows): flash_packed (and its logsumexp), flash_bwd
+           and softmax_colmass's dk = 64 instances against their plain
+           versions at B = 64, N = 1024 with 8 heads (d 512) and 4 (d 256),
+           ragged at N = 885 and 1000, over 2353 of 2368 keys and, for the
+           column masses, at B = 8, N = 3072 (equal over two runs), timed
+           beside the plain version, SDPA at dk = 64, the dk = 128 instance
+           on the same tensors and a bound of three terms (bytes, products,
+           exps at 16 a clock an SM); VCR-Net at --n_heads 8 from a seeded
+           init: gradient cosine to the plain route, the launches of a step,
+           20 Adam steps, then on those weights requests of 1 / 8 / 64 pairs
+           at iter = 1 and 3 and partial overlap at 768 and 3072 points
+           against the plain route (median rotation between the routes per
+           pair <= 0.5 deg at iter = 1 and 3; in partial mode <= the larger
+           of 0.5 deg and twice that of the 4-head model (dk = 128) trained
+           and served the same way; translations within 0.01),
+           launches as the dk = 128 model's, latency; --emb_dims 256 (4 heads) through the
+           CLI: a fit of one epoch and an iter = 3 eval equal to
+           Trainer.eval_epoch's.
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -221,8 +240,10 @@ training step at N = 885 and 1000 (B = 1, 2 and 64; also 707, 971 and
 Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
 every shape, item 0's gradients unchanged when item 1 is drawn again.
 
-Each phase prints its seconds. The last lines are a JSON object with one entry per kernel
-(seventeen: the port's sixteen kernels and edge_split; edge_conv's with its f32
+Each phase prints its seconds, and the script its total. The last lines are a JSON object
+with one entry per kernel (twenty: the port's sixteen kernels, edge_split and the dk = 64
+instances of flash_packed, flash_bwd and softmax_colmass, whose launches the dk = 128
+entries leave out; edge_conv's with its f32
 instance's launches, time, plain time and bound beside; the launches of each phase's main path beside the total, the ranks' of the
 parallel phase as launches_parallel; the point_sharding phase prints its ranks' as
 launches_sp, all zero), the card's
@@ -1282,13 +1303,31 @@ def _cosine(a, b) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
 
 
+def adam_trained(cfg, batch, what: str):
+    """A Trainer of ``cfg`` from the seeded init after TRAIN_STEPS Adam
+    steps on ``batch``, whose loss must fall."""
+    from vcrnet_tpu_torch.train import Trainer
+
+    tr = Trainer(cfg, seed=0)
+    losses = []
+    for _ in range(TRAIN_STEPS + 1):
+        sums = tr.train_step(batch)
+        losses.append((sums["loss"] / sums["count"]).item())
+    print(f"{what} losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss in the Adam steps")
+    check(losses[-1] < losses[0],
+          f"{what}: loss after {TRAIN_STEPS} steps {losses[-1]} >= first {losses[0]}")
+    return tr
+
+
 def check_training(cfg, what: str, grad_batch: int, time_batches) -> tuple:
     """The training step of ``cfg`` (bf16, full width) from a seeded init on
     synthetic shape pairs: kernel-route vs plain-route gradients on one
     batch of ``grad_batch`` (cosine >= 0.99 whole, >= 0.98 per parameter
     but the four with a zero exact gradient), the launches of one step, 20
     Adam steps on one batch (the loss must fall), and the median step time
-    at each of ``time_batches``. Returns (launches, step_ms)."""
+    at each of ``time_batches``. Returns (launches, step_ms, the trainer
+    after the Adam steps)."""
     import torch
 
     from vcrnet_tpu_torch import ops
@@ -1330,27 +1369,19 @@ def check_training(cfg, what: str, grad_batch: int, time_batches) -> tuple:
     ops.reset_launch_counts()
     kern.train_step(batch)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = {**ops.launch_counts(), **ops.launch_counts_dk64()}
     print(f"{what} launches in one step: {launches}", flush=True)
     check_launches(launches, TRAIN_LAUNCHES, f"{what} step")
 
     # Adam on one fixed batch: the loss must fall
-    tr = Trainer(cfg, seed=0)
-    losses = []
-    for _ in range(TRAIN_STEPS + 1):
-        sums = tr.train_step(batch)
-        losses.append((sums["loss"] / sums["count"]).item())
-    print(f"{what} losses over {TRAIN_STEPS} Adam steps on one batch: {losses}", flush=True)
-    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss in the Adam steps")
-    check(losses[-1] < losses[0],
-          f"{what}: loss after {TRAIN_STEPS} steps {losses[-1]} >= first {losses[0]}")
+    tr = adam_trained(cfg, batch, what)
 
     step_ms = {}
     for b in time_batches:
         times = timed_steps_ms(tr, tr.to_device(_train_batch(cfg, b, seed=2)))
         step_ms[b] = statistics.median(times)
         print(f"{what} step at B={b}: median {step_ms[b]} ms (5 steps: {times})", flush=True)
-    return launches, step_ms
+    return launches, step_ms, tr
 
 
 def phase_train():
@@ -1364,7 +1395,7 @@ def phase_train():
     check((cfg.emb_dims, cfg.ff_dims, cfg.n_heads, cfg.n_blocks, cfg.loss, cfg.cycle,
            cfg.dropout, cfg.streaming_vcp_train) == (512, 1024, 4, 1, "point", False, 0.0, True),
           "train phase must run the default configuration")
-    return check_training(cfg, "train", 8, BATCHES)
+    return check_training(cfg, "train", 8, BATCHES)[:2]
 
 
 def rot_rmse_deg(R_pred, euler_gt):
@@ -1789,7 +1820,7 @@ def phase_ragged():
     step_ms = {}
     for n, grad_batch, time_batches in ((N_RAGGED, 8, BATCHES), (885, 3, (3,))):
         cfg = Config(compute_dtype="bfloat16", num_points=n)
-        launches, ms = check_training(cfg, f"train N={n}", grad_batch, time_batches)
+        launches, ms, _ = check_training(cfg, f"train N={n}", grad_batch, time_batches)
         add_launches(total, launches)
         step_ms[n] = ms
     return total, step_ms
@@ -3809,7 +3840,8 @@ def phase_cli():
     2. a one-epoch fit at full width, bf16, N = 1024, B = 8 with its run
        directory, ``history.json`` and ``models/``; its launches;
     3. ``--model icp`` without ``--eval`` prints "icp can't be trained";
-    4. ``--emb_dims 64`` exits with the attention gate's message.
+    4. ``--n_heads 16`` (dk = 32) exits with the attention gate's message,
+       which names the head dims it takes (64 and 128).
     Returns the launches of the eval and the fit."""
     import contextlib
     import io
@@ -3897,15 +3929,16 @@ def phase_cli():
         check(result is None and "icp can't be trained" in out.getvalue(),
               "cli: icp trained")
         try:
-            cli.main(["--emb_dims", "64", "--compute_dtype", "bfloat16", "--dataset",
+            cli.main(["--n_heads", "16", "--compute_dtype", "bfloat16", "--dataset",
                       "synthetic_shapes"])
         except SystemExit as refusal:
             message = str(refusal)
         else:
             message = ""
-        print(f"cli --emb_dims 64: {message!r}", flush=True)
-        check("ops/attention.py::flash_packed_supported" in message and "dk = 128" in message,
-              "cli: --emb_dims 64 was not refused by the attention gate")
+        print(f"cli --n_heads 16: {message!r}", flush=True)
+        check("ops/attention.py::flash_packed_supported" in message
+              and "dk = 64 or 128 (got emb_dims / n_heads = 512 / 16)" in message,
+              "cli: --n_heads 16 was not refused by the attention gate")
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5349,6 +5382,398 @@ def check_metered(flops: float, launches: dict, per_launch: dict, secs: float, w
     check(flops == want, f"{what}: the meter counted {flops}, launches x formula {want}")
 
 
+# ---------------------------------------------------------------------------
+# the attention kernels at head width 64: --n_heads 8 (d 512) and
+# --emb_dims 256 (4 heads)
+# ---------------------------------------------------------------------------
+
+HEAD64_WIDTHS = ((8, 512), (4, 256))  # (heads, d_model) of dk = 64
+HEAD64_RAGGED = (885, 1000)           # cloud sizes of the ragged tiles
+HEAD64_BWD_RAGGED_BATCH = 8
+HEAD64_ROUTE_ROT_DEG = DGCNN_ROUTE_ROT_DEG  # kernel vs plain route, median per pair
+HEAD64_ROUTE_TRANS = DGCNN_ROUTE_TRANS
+# partial mode on the 20-step weights: its hard selections (the re-mask's
+# top keys, the head's overlap candidates) rank near-uniform scores there, so
+# a pair's result moves with the last bits of either route, at dk = 128 as
+# at 64 (medians per pair at 768 / 3072 points: 8 heads of 64 1.53 / 0.89
+# deg, 4 heads of 128 1.81 / 0.99, on an H100 80GB HBM3 at 700 W; PERF.md
+# section 6). The dk = 64 model's median gap between the routes
+# per pair is held to this multiple of the 4-head (dk = 128) model's,
+# trained and served the same way in the same run (and to 0.5 deg where
+# that is larger)
+HEAD64_PARTIAL_GAP_RATIO = 2.0
+HEAD64_PARTIAL_REQUESTS = (8, 8, 8, 8)  # pairs a request at 3072 points
+EXPS_A_CLOCK_AN_SM = 16  # the H100's exp2 rate (its special function units)
+
+
+def exp_rate() -> tuple:
+    """Exps a second the card can take (16 a clock an SM at the SM's top
+    clock, as ``nvidia-smi`` reads it) and that clock in MHz."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXPS_A_CLOCK_AN_SM * sms * mhz * 1e6, mhz
+
+
+def bound3_ms(nbytes_moved: float, flops: float, exps: float, rate: float) -> tuple:
+    """The largest of three least times, in ms, with its name and all three:
+    the bytes over the memory rate, the products over the bf16 tensor rate
+    and the exps over ``rate`` (the term of the dk = 64 rows alone)."""
+    terms = {"bytes": nbytes_moved / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / BF16_TENSOR_FLOPS * 1e3,
+             "exps": exps / rate * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def head64_kernel_rows(dev) -> dict:
+    """The dk = 64 instances of the three attention kernels against their
+    plain versions, with the dk = 128 tolerances: the forward at B = 64,
+    N = 1024 with 8 heads (d 512) and 4 (d 256) within 2e-2 absolute and its
+    logsumexp within 1e-3, ragged at N = 885 and 1000 (B = 64), and over
+    2368 keys of which 2353 are valid at B = 8, Nq = 3072; flash_bwd within
+    1e-2 relative on dq, dk, dv at the same widths and at the ragged sizes
+    (B = 8), equal from run to run; softmax_colmass at B = 8, N = 3072,
+    8 heads within 1e-3 relative and equal over two runs. Times (CUDA
+    events, median of 25) beside the plain version, SDPA at dk = 64 and,
+    at 8 heads, the dk = 128 instance on the same tensors (4 heads), and
+    the bound of three terms (bytes, products, exps)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcrnet_tpu_torch.ops import attention, colmass
+
+    rate, mhz = exp_rate()
+    print(f"head_dim64: exp rate {rate} /s (16 a clock an SM, {mhz} MHz)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(64)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf16)
+
+    def heads(t, h):
+        b, n, d = t.shape
+        return t.reshape(b, n, h, d // h).transpose(1, 2).contiguous()
+
+    rows = {}
+    B = BATCHES[-1]
+    for h, d in HEAD64_WIDTHS:
+        scale = (d // h) ** -0.5
+        check(d // h == 64 and attention.flash_packed_supported(N, N, d, h), "the dk = 64 gate")
+        q, k, v = (randn(B, N, d) for _ in range(3))
+        o, lse = attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, h, return_lse=True)
+        err = (o.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        what = f"flash_packed dk=64 B={B} N={N} H={h}"
+        check(err <= 2e-2, f"{what}: max abs err {err} > 2e-2")
+        check(lse_err <= 1e-3, f"{what}: lse max abs err {lse_err} > 1e-3")
+        del want, want_lse
+        q4, k4, v4 = (heads(t, h) for t in (q, k, v))
+        b, by, terms = bound3_ms(nbytes(q, k, v, o), 4 * B * h * N * N * 64, B * h * N * N, rate)
+        row = dict(B=B, N=N, H=h, d=d, max_abs_err=err, lse_err=lse_err,
+                   bound_ms=b, bound_by=by, bound_terms=terms,
+                   ms=cuda_time_ms(lambda: attention.flash_mha_packed(q, k, v, scale, h)),
+                   lse_ms=cuda_time_ms(
+                       lambda: attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)),
+                   plain_ms=cuda_time_ms(
+                       lambda: attention.flash_mha_packed_ref(q, k, v, scale, h), reps=5),
+                   library_ms=cuda_time_ms(
+                       lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)))
+        if h == 8:  # the dk = 128 instance on the same tensors
+            row["dk128_ms"] = cuda_time_ms(
+                lambda: attention.flash_mha_packed(q, k, v, 128 ** -0.5, 4))
+        rows.setdefault("flash_packed_dk64", []).append(row)
+
+        # the backward from the forward's output and logsumexp
+        do = randn(B, N, d)
+        got = attention.flash_bwd(q, k, v, o, lse, do, scale, h)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(
+            got, attention.flash_bwd(q, k, v, o, lse, do, scale, h))),
+              f"flash_bwd dk=64 B={B} H={h}: two runs differ")
+        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, h)
+        errs = [rel_err(x, y) for x, y in zip(got, want)]
+        check(max(errs) <= 1e-2, f"flash_bwd dk=64 B={B} H={h}: relative errors {errs}")
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+        del want
+        q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        do4 = heads(do, h)
+        b, by, terms = bound3_ms(nbytes(q, k, v, o, lse, do, *got), 10 * B * h * N * N * 64,
+                                 B * h * N * N, rate)
+        row = dict(B=B, N=N, H=h, d=d, rel_errs=errs, max_abs_err=err, bound_ms=b, bound_by=by,
+                   bound_terms=terms,
+                   ms=cuda_time_ms(lambda: attention.flash_bwd(q, k, v, o, lse, do, scale, h)),
+                   plain_ms=cuda_time_ms(lambda: attention.flash_mha_packed_bwd_ref(
+                       q, k, v, o, lse, do, scale, h), reps=5),
+                   library_ms=cuda_time_ms(
+                       lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)))
+        if h == 8:  # the dk = 128 instance on the same tensors
+            o1, lse1 = attention.flash_mha_packed(q, k, v, 128 ** -0.5, 4, return_lse=True)
+            row["dk128_ms"] = cuda_time_ms(
+                lambda: attention.flash_bwd(q, k, v, o1, lse1, do, 128 ** -0.5, 4))
+            del o1, lse1
+        rows.setdefault("flash_bwd_dk64", []).append(row)
+        del q, k, v, o, lse, do, got, q4, k4, v4, o4, do4
+        torch.cuda.empty_cache()
+
+    # ragged tiles: the forward at B = 64 and the backward at B = 8, 8 heads
+    h, d = HEAD64_WIDTHS[0]
+    scale = 64 ** -0.5
+    for n in HEAD64_RAGGED:
+        q, k, v = (randn(B, n, d) for _ in range(3))
+        o, lse = attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, h, return_lse=True)
+        err = (o.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        check(err <= 2e-2 and lse_err <= 1e-3,
+              f"flash_packed dk=64 N={n}: max abs err {err}, lse {lse_err}")
+        rows.setdefault("flash_packed_dk64_ragged", []).append(
+            dict(B=B, N=n, max_abs_err=err, lse_err=lse_err))
+        del q, k, v, o, lse, want, want_lse
+        bb = HEAD64_BWD_RAGGED_BATCH
+        q, k, v, do = (randn(bb, n, d) for _ in range(4))
+        o, lse = attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)
+        got = attention.flash_bwd(q, k, v, o, lse, do, scale, h)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(
+            got, attention.flash_bwd(q, k, v, o, lse, do, scale, h))),
+              f"flash_bwd dk=64 N={n}: two runs differ")
+        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, h)
+        errs = [rel_err(x, y) for x, y in zip(got, want)]
+        check(max(errs) <= 1e-2, f"flash_bwd dk=64 N={n}: relative errors {errs}")
+        rows.setdefault("flash_bwd_dk64_ragged", []).append(dict(
+            B=bb, N=n, rel_errs=errs,
+            max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))))
+        del q, k, v, do, o, lse, got, want
+
+    # the partial-3072 request's attention over its kept keys: 2353 of 2368
+    bl = LARGE_BATCHES[-1]
+    pad = -KEEP_LARGE % 64
+    q = randn(bl, N_LARGE, d)
+    kk, vv = (F.pad(randn(bl, KEEP_LARGE, d), (0, 0, 0, pad)) for _ in range(2))
+    o = attention.flash_mha_packed(q, kk, vv, scale, h, nk_valid=KEEP_LARGE)
+    torch.cuda.synchronize()
+    want = attention.flash_mha_packed_ref(q, kk, vv, scale, h, nk_valid=KEEP_LARGE)
+    err = (o.float() - want.float()).abs().max().item()
+    check(err <= 2e-2, f"flash_packed dk=64 nk_valid={KEEP_LARGE}: max abs err {err} > 2e-2")
+    rows.setdefault("flash_packed_dk64_nk_valid", []).append(dict(
+        B=bl, Nq=N_LARGE, Nk=KEEP_LARGE + pad, nk_valid=KEEP_LARGE, max_abs_err=err,
+        ms=cuda_time_ms(lambda: attention.flash_mha_packed(q, kk, vv, scale, h,
+                                                           nk_valid=KEEP_LARGE))))
+    del kk, vv, o, want
+
+    # the column masses of the partial-3072 request at 8 heads of 64
+    k = randn(bl, N_LARGE, d)
+    cm = colmass.softmax_colmass(q, k, scale, h)
+    torch.cuda.synchronize()
+    want = colmass.softmax_colmass_ref(q, k, scale, h)
+    rel = rel_err(cm, want)
+    check(rel <= 1e-3, f"softmax_colmass dk=64 B={bl}: relative err {rel} > 1e-3")
+    check(torch.equal(cm, colmass.softmax_colmass(q, k, scale, h)),
+          f"softmax_colmass dk=64 B={bl}: two runs differ")
+    # what the function needs: one score product and one exp a score (the
+    # design takes two of each, in the row statistics' pass and the masses')
+    b, by, terms = bound3_ms(nbytes(q, k, cm), 2 * bl * h * N_LARGE * N_LARGE * 64,
+                             bl * h * N_LARGE * N_LARGE, rate)
+    rows.setdefault("softmax_colmass_dk64", []).append(dict(
+        B=bl, N=N_LARGE, H=h, max_abs_err=(cm - want).abs().max().item(), rel_err=rel,
+        bound_ms=b, bound_by=by, bound_terms=terms,
+        ms=cuda_time_ms(lambda: colmass.softmax_colmass(q, k, scale, h)),
+        plain_ms=cuda_time_ms(lambda: colmass.softmax_colmass_ref(q, k, scale, h), reps=5),
+        library_ms=None,
+        dk128_ms=cuda_time_ms(lambda: colmass.softmax_colmass(q, k, 128 ** -0.5, 4))))
+    del q, k, cm, want
+    torch.cuda.empty_cache()
+    print_rows(rows)
+    return rows
+
+
+def phase_head_dim64():
+    """VCR-Net at --n_heads 8 (d 512, ff 1024, dk 64) from a seeded init on
+    the kernel route: check_training (gradient cosine to the plain route
+    >= 0.99, the launches of a step as the dk = 128 model's, 20 Adam steps
+    with the loss falling, the step time at B = 8); on the 20-step weights,
+    requests of 1 / 8 / 64 pairs at iter = 1 and iter = 3 and partial
+    overlap at 768 points and at 3072 (8 pairs, where softmax_colmass
+    launches), each against the plain route (translations within 0.01,
+    median per pair; the rotation between the routes' results per pair,
+    median <= 0.5 deg at iter = 1 and 3; in partial mode, whose hard
+    selections rank near-uniform scores on these weights, <= the larger of
+    0.5 deg and HEAD64_PARTIAL_GAP_RATIO times the median of the 4-head
+    model (dk = 128) trained the same way, on the same requests), with the
+    launches of a request as the dk = 128 model's, every attention launch
+    the dk = 64 instance's, and the latency; then --emb_dims 256 at 4 heads
+    through the port's CLI: a fit of one epoch and an iter = 3 eval of its
+    best checkpoint whose summary equals Trainer.eval_epoch's. Returns the
+    launches of the phase's paths, with the dk = 64 instances' as
+    flash_packed_dk64, flash_bwd_dk64 and softmax_colmass_dk64."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import cli, ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.pipeline import make_loaders
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.serve import Registrar
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train.checkpoint import load_checkpoint
+
+    total = {}
+
+    def with_dk64(launches: dict, what: str) -> dict:
+        """``launches`` and the dk = 64 instances' counts, added to the
+        phase's total; every launch of the three kernels here is theirs."""
+        out = {**ops.launch_counts_dk64(), **launches}
+        for name in ops.HEAD64_KERNELS:
+            check(out[f"{name}_dk64"] == out[name],
+                  f"{what}: {out[name]} {name} launches, {out[name + '_dk64']} at dk = 64")
+        add_launches(total, out)
+        return out
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N, n_heads=8)
+    check((cfg.emb_dims, cfg.ff_dims, cfg.n_heads, cfg.emb_dims // cfg.n_heads)
+          == (512, 1024, 8, 64), "head_dim64: --n_heads 8 at full width")
+    launches, _, trainer = check_training(cfg, "head_dim64 train", 8, (8,))
+    with_dk64(launches, "head_dim64 train step")  # one step's, dk = 64 counts included
+    weights = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    data = shapes_eval_set(sum(REQUESTS), num_points=N)
+    serving = [("iter1", dict(iter=1), data, REQUESTS, LAUNCHES_ITER1),
+               ("iter3", dict(iter=3), data, REQUESTS, LAUNCHES_ITER3),
+               ("partial768", dict(iter=3, partial=True, overlap=0.575),
+                shapes_eval_set(sum(REQUESTS), num_points=N, partial=True), REQUESTS,
+                LAUNCHES_PARTIAL),
+               ("partial3072", dict(iter=3, partial=True, overlap=0.575,
+                                    num_points=NUM_POINTS_LARGE),
+                shapes_eval_set(sum(HEAD64_PARTIAL_REQUESTS), num_points=NUM_POINTS_LARGE,
+                                cloud_points=NUM_POINTS_LARGE + 3, partial=True),
+                HEAD64_PARTIAL_REQUESTS, LAUNCHES_PARTIAL_LARGE)]
+
+    # the 4-head model (d 512, dk = 128) trained the same way: partial mode's
+    # yardstick for the gap between the routes
+    cfg128 = Config(compute_dtype="bfloat16", num_points=N)
+    check(cfg128.emb_dims // cfg128.n_heads == 128, "head_dim64: the yardstick is at dk = 128")
+    trainer = adam_trained(cfg128, _train_batch(cfg128, 8, seed=1), "head_dim64 dk=128 yardstick")
+    weights128 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    def routes(scfg, w, buckets) -> tuple:
+        """Registrars of ``scfg`` on the kernel route and on the plain one."""
+        reg = Registrar(scfg, w, **buckets)
+        plain = Registrar(scfg, w, use_kernels=False, **buckets)
+        check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+        return reg, plain
+
+    def route_gaps(reg, plain, requests) -> tuple:
+        """The two routes' results of ``requests`` and the rotation (deg)
+        and largest |dt| between them per pair."""
+        R, t = serve_all(reg, requests)
+        R_p, t_p = serve_all(plain, requests)
+        return (R, t, R_p, t_p, pair_rot_errors_deg(R, R_p.astype(np.float64)),
+                np.abs(t - t_p).max(axis=1))
+
+    for name, fields, pairs, sizes, expected in serving:
+        scfg = Config(**{"compute_dtype": "bfloat16", "num_points": N, "n_heads": 8, **fields})
+        requests = split_requests(pairs, sizes)
+        buckets = {"buckets": (8,)} if name == "partial3072" else {}
+        reg, plain = routes(scfg, weights, buckets)
+        serve_all(reg, requests)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        reg.register(*requests[0])
+        launches = with_dk64(ops.launch_counts(), f"head_dim64 {name}")
+        print(f"head_dim64 {name}: launches of one request of {len(requests[0][0])} pairs: "
+              f"{launches}", flush=True)
+        check_launches(launches, expected, f"head_dim64 {name}")
+        R, t, R_p, t_p, between, dt = route_gaps(reg, plain, requests)
+        acc, acc_p = accuracy(R, t, pairs), accuracy(R_p, t_p, pairs)
+        print(f"head_dim64 {name}: rotation between the routes' results per pair: median "
+              f"{float(np.median(between))} max {float(between.max())} deg; |dt| median "
+              f"{float(np.median(dt))} max {float(dt.max())}; kernels {acc} plain {acc_p}",
+              flush=True)
+        limit = HEAD64_ROUTE_ROT_DEG
+        if "partial" in fields:
+            *_, between128, dt128 = route_gaps(
+                *routes(dataclasses.replace(scfg, n_heads=4), weights128, buckets), requests)
+            limit = max(limit, HEAD64_PARTIAL_GAP_RATIO * float(np.median(between128)))
+            print(f"head_dim64 {name}: the dk = 128 yardstick's rotation between the routes per "
+                  f"pair: median {float(np.median(between128))} max {float(between128.max())} "
+                  f"deg; |dt| median {float(np.median(dt128))}; the dk = 64 model's limit "
+                  f"{limit} deg", flush=True)
+        check(float(np.median(between)) <= limit,
+              f"head_dim64 {name}: routes differ by more than {limit} deg (median per pair)")
+        check(float(np.median(dt)) <= HEAD64_ROUTE_TRANS,
+              f"head_dim64 {name}: translations differ by more than {HEAD64_ROUTE_TRANS}")
+        print_latency(reg, requests, f"head_dim64 {name}")
+        del reg, plain
+        torch.cuda.empty_cache()
+
+    # --emb_dims 256 at 4 heads through the CLI: a fit of one epoch, then an
+    # iter = 3 eval of its best checkpoint
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="head64_cli_", dir=os.path.join(HERE, "build"))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        width = ["--emb_dims", "256", "--n_heads", "4", "--compute_dtype", "bfloat16",
+                 "--dataset", "synthetic_shapes", "--num_points", str(N), "--test_batch_size",
+                 "32"]
+        fit_argv = width + ["--epochs", "1", "--batch_size", "32"]
+        check(cli.kernel_route_refusals(cli.config_from_args(
+            cli.build_parser().parse_args(fit_argv))) == [], "cli: --emb_dims 256 refused")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = cli.main(fit_argv)
+        fit_s = time.perf_counter() - t0
+        launches = with_dk64(ops.launch_counts(), "head_dim64 cli fit")
+        run = os.path.join("checkpoints", "train", sorted(os.listdir(
+            os.path.join("checkpoints", "train")))[-1])
+        best = os.path.join(run, "models", "model.best.pt")
+        print(f"head_dim64 cli --emb_dims 256 fit of one epoch in {fit_s} s: {history}; "
+              f"launches {launches}", flush=True)
+        check(len(history) == 1 and math.isfinite(history[0]["test"]["loss_pose"]),
+              "head_dim64 cli fit: no finite test loss")
+        check(launches["flash_bwd_dk64"] > 0, "head_dim64 cli fit: no dk = 64 backward launched")
+        argv = width + ["--eval", "--iter", "3", "--model_path", best]
+        ecfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        np.random.seed(ecfg.seed)
+        _, test = make_loaders(ecfg)
+        ref = Trainer(ecfg)
+        load_checkpoint(best, ref)
+        want = ref.eval_epoch(test)
+        del ref
+        ops.reset_launch_counts()
+        got = cli.main(argv)
+        launches = with_dk64(ops.launch_counts(), "head_dim64 cli eval")
+        print(f"head_dim64 cli --emb_dims 256 eval (iter=3, {len(test.dataset)} pairs): "
+              f"rot_ab_RMSE {got['rot_ab_RMSE']} trans_ab_RMSE {got['trans_ab_RMSE']}; "
+              f"launches {launches}", flush=True)
+        check(json.dumps(got, indent=2, default=float)
+              == json.dumps(want, indent=2, default=float),
+              f"head_dim64 cli eval: the summary differs from Trainer.eval_epoch's: "
+              f"{got} vs {want}")
+        check_launches(launches, {k: n * len(test) for k, n in LAUNCHES_ITER3.items()},
+                       "head_dim64 cli eval")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 # sources whose registers and spills the script prints (nvcc -Xptxas -v,
 # started beside the extension's build); a spill fails the run
 PTXAS_REPORTED = ("vcp_stream.cu", "vcp_bwd.cu", "edge_conv.cu", "edge_conv_from_idx.cu",
@@ -5390,7 +5815,8 @@ def print_ptxas_reports(procs: dict) -> dict:
     """One line a source: each kernel's registers and spill bytes (stores /
     loads), and how many wgmma fences ptxas added on its own (C7519: it
     could not prove a register safe while a product was in flight; C7517,
-    a wait). Returns {source: {kernel<args>: registers}}."""
+    a wait; C7512, products serialized for want of registers). Returns
+    {source: {kernel<args>: registers}}."""
     regs = {}
     for src, proc in procs.items():
         out, _ = proc.communicate(timeout=900)
@@ -5401,7 +5827,8 @@ def print_ptxas_reports(procs: dict) -> dict:
         report = "; ".join(f"{name}{template_args(args)} {regs} registers, spills {st}/{ld} bytes"
                            for name, args, st, ld, regs in kernels)
         print(f"ptxas {src}: {report}; added wgmma fences (C7519): {out.count('C7519')}, "
-              f"waits (C7517): {out.count('C7517')}", flush=True)
+              f"waits (C7517): {out.count('C7517')}, serialized (C7512): {out.count('C7512')}",
+              flush=True)
         spills = [int(n) for _, _, st, ld, _ in kernels for n in (st, ld)]
         check(kernels and not any(spills), f"{src}: the kernels spill registers ({spills} bytes)")
         regs[src] = {name + template_args(args): int(r) for name, args, _, _, r in kernels}
@@ -5429,7 +5856,7 @@ def print_edge_occupancy(regs: dict) -> None:
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
           "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd", "heads",
-          "cli", "export", "int8", "parallel", "point_sharding")
+          "cli", "export", "int8", "parallel", "point_sharding", "head_dim64")
 
 
 def main() -> int:
@@ -5449,7 +5876,7 @@ def main() -> int:
     from vcrnet_tpu_torch import ops
     from vcrnet_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     ptxas = start_ptxas_reports()
     _build.extension()
     print(f"build: {time.perf_counter() - t0} s", flush=True)
@@ -5514,6 +5941,9 @@ def main() -> int:
             launches[name] = phase_parallel()
         elif name == "point_sharding":
             launches[name] = phase_point_sharding()
+        elif name == "head_dim64":
+            rows.update(head64_kernel_rows(dev))
+            launches[name] = phase_head_dim64()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -5551,21 +5981,38 @@ def main() -> int:
         # edge_conv's f32 instance's split pass (its kNN space as three bf16 planes)
         "edge_split": ("vcrnet_tpu_torch/csrc/edge_conv.cu",
                        "vcrnet_tpu/ops/pallas_edgeconv.py:324"),
+        # the attention kernels' dk = 64 instances (the JAX package runs dk =
+        # 64 through the stock flash forward, its fused backward and the
+        # column-mass kernels)
+        "flash_packed_dk64": ("vcrnet_tpu_torch/csrc/flash_packed.cu",
+                              "vcrnet_tpu/ops/pallas_attention.py:66"),
+        "flash_bwd_dk64": ("vcrnet_tpu_torch/csrc/flash_bwd.cu",
+                           "vcrnet_tpu/ops/pallas_attention.py:76"),
+        "softmax_colmass_dk64": ("vcrnet_tpu_torch/csrc/colmass.cu",
+                                 "vcrnet_tpu/ops/pallas_colmass.py:31"),
     }
-    check(set(sources) == set(ops.KERNELS) | {"edge_split"} and len(sources) == 17,
-          "the kernels line must list every kernel of the port")
+    dk64 = {f"{name}_dk64" for name in ops.HEAD64_KERNELS}
+    check(set(sources) == set(ops.KERNELS) | {"edge_split"} | dk64 and len(sources) == 20,
+          "the kernels line must list every kernel of the port and its dk = 64 instances")
+    def own(per_phase: dict, name: str) -> int:
+        """A phase's launches of ``name``; of the three attention kernels,
+        those of their dk = 128 instances (the dk = 64 ones have entries of
+        their own)."""
+        return per_phase.get(name, 0) - per_phase.get(f"{name}_dk64", 0)
+
     kernels = []
     for name, (source, replaces) in sources.items():
         # the largest batch: B = 64 pairs (2B = 128 in the LPDNet blocks of the
-        # training step; B = 8 at N = 3072 for the column masses)
-        top = rows[name][-1]
+        # training step; B = 8 at N = 3072 for the column masses); the dk = 64
+        # instances at 8 heads (d 512)
+        top = rows[name][0] if name in dk64 else rows[name][-1]
         errs = [r["max_abs_err"] for r in rows[name]]
         errs += [r["max_abs_err"] for r in rows.get(name + "_path_shapes", ())]
         errs += [r["max_abs_err"] for r in rows.get(name + "_edge", ())]
         errs += [r["max_abs_err"] for r in rows.get(name + "_ragged", ())]
         errs += [r["max_abs_err"] for r in rows.get(name + "_slices", ())]
-        if name == "flash_packed":
-            errs += [r["max_abs_err"] for r in rows["flash_packed_nk_valid"]]
+        if name in ("flash_packed", "flash_packed_dk64"):
+            errs += [r["max_abs_err"] for r in rows[name + "_nk_valid"]]
         f32 = {}
         if name == "edge_conv":  # its f32 instance (the kNN space after t_net_fea)
             f32_rows = rows["edge_conv_f32"] + rows["edge_conv_f32_ragged"]
@@ -5579,29 +6026,33 @@ def main() -> int:
             check(f32["launches_f32"] > 0, "the f32 edge instance was never launched on a path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(per_phase.get(name, 0) for per_phase in launches.values()),
-            "launches_train_step": launches["train"].get(name, 0),
-            "launches_serve": launches["serve"].get(name, 0),
-            "launches_refine": launches["refine"].get(name, 0),
-            "launches_partial": launches["partial"].get(name, 0),
-            "launches_ragged": launches["ragged"].get(name, 0),
-            "launches_dgcnn": launches["dgcnn"].get(name, 0),
-            "launches_fused_pointer": launches["fused_pointer"].get(name, 0),
-            "launches_data": launches["data"].get(name, 0),
-            "launches_regularise": launches["regularise"].get(name, 0),
-            "launches_converge": launches["converge"].get(name, 0),
-            "launches_partial_train": launches["partial_train"].get(name, 0),
-            "launches_icp": launches["icp"].get(name, 0),
-            "launches_lpd": launches["lpd"].get(name, 0),
-            "launches_heads": launches["heads"].get(name, 0),
-            "launches_cli": launches["cli"].get(name, 0),
-            "launches_export": launches["export"].get(name, 0),
-            "launches_int8": launches["int8"].get(name, 0),
-            "launches_parallel": launches["parallel"].get(name, 0),
+            "launches": sum(own(per_phase, name) for per_phase in launches.values()),
+            "launches_train_step": own(launches["train"], name),
+            "launches_serve": own(launches["serve"], name),
+            "launches_refine": own(launches["refine"], name),
+            "launches_partial": own(launches["partial"], name),
+            "launches_ragged": own(launches["ragged"], name),
+            "launches_dgcnn": own(launches["dgcnn"], name),
+            "launches_fused_pointer": own(launches["fused_pointer"], name),
+            "launches_data": own(launches["data"], name),
+            "launches_regularise": own(launches["regularise"], name),
+            "launches_converge": own(launches["converge"], name),
+            "launches_partial_train": own(launches["partial_train"], name),
+            "launches_icp": own(launches["icp"], name),
+            "launches_lpd": own(launches["lpd"], name),
+            "launches_heads": own(launches["heads"], name),
+            "launches_cli": own(launches["cli"], name),
+            "launches_export": own(launches["export"], name),
+            "launches_int8": own(launches["int8"], name),
+            "launches_parallel": own(launches["parallel"], name),
+            "launches_head_dim64": own(launches["head_dim64"], name),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             **({"library_seq_ms": top["library_seq_ms"]} if "library_seq_ms" in top else {}),
+            # the dk = 64 instances: the three terms of the bound, the dk = 128
+            # instance's time on the same tensors
+            **{key: top[key] for key in ("bound_terms", "dk128_ms", "lse_ms") if key in top},
             # int8_linear: q, k and v of one input in one call, and the bf16 yardsticks
             **{key: v for key, v in top.items() if key.startswith("qkv_") or key == "bf16_linear_ms"},
             **f32,
@@ -5609,6 +6060,7 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main paths: {kernels}")
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
+    print(f"chip_smoke: {time.perf_counter() - start} s in all, the build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

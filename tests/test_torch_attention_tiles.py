@@ -28,6 +28,11 @@ package's Pallas kernels in interpret mode (``_flash_packed_impl``,
   past Nq), the dQ kernel masks keys past Nk by the count, and rows past
   Nq or Nk are not stored.
 
+The kernels take dk = 128 and dk = 64 (an instance each, the same loop over
+the same tiles): the tests whose names end in ``_dk64`` run their dk = 128
+counterparts' checks at dk = 64, against the same plain versions and the
+same Pallas kernels in interpret mode, with the same tolerances.
+
 Tolerances, each with its reason:
 * f32: 1e-5 absolute (sums of values of order one in another order);
 * bf16 forward: 2^-8 of max |v| (each P rounded at another scale moves by at
@@ -50,19 +55,26 @@ from vcrnet_tpu_torch.ops import attention
 TILE = 64  # the kernels' key tile (forward, dQ) and query tile (dK/dV)
 B, HEADS, DK = 2, 2, 128
 SCALE = DK ** -0.5
+DK64 = 64  # the kernels' other head dim
+
+
+def _scale(x):
+    """The attention scale of [B, n, H*dk] heads: dk ** -0.5."""
+    return (x.shape[-1] // HEADS) ** -0.5
 
 
 def _split(x):
     """[B, n, H*dk] -> f32 [B, H, n, dk]."""
-    return x.float().reshape(x.shape[0], x.shape[1], HEADS, DK).transpose(1, 2)
+    return x.float().reshape(x.shape[0], x.shape[1], HEADS, x.shape[-1] // HEADS).transpose(1, 2)
 
 
 def _merge(x4, dtype):
-    return x4.transpose(1, 2).reshape(x4.shape[0], x4.shape[2], HEADS * DK).to(dtype)
+    return x4.transpose(1, 2).reshape(x4.shape[0], x4.shape[2], HEADS * x4.shape[-1]).to(dtype)
 
 
 def tiled_forward(q, k, v, nk_valid=None):
     """flash_packed.cu's order: returns (out in q's dtype, lse f32 [B, H, Nq])."""
+    scale = _scale(q)
     nk = k.shape[1]
     nkv = nk if nk_valid is None else nk_valid
     qh, kh, vh = _split(q), _split(k), _split(v)
@@ -70,7 +82,7 @@ def tiled_forward(q, k, v, nk_valid=None):
     l = torch.zeros(qh.shape[:3])
     o = torch.zeros(qh.shape)
     for t0 in range(0, nkv, TILE):  # tiles wholly past nk_valid are not visited
-        s = qh @ kh[:, :, t0:t0 + TILE].transpose(-1, -2) * SCALE
+        s = qh @ kh[:, :, t0:t0 + TILE].transpose(-1, -2) * scale
         s[..., torch.arange(t0, t0 + TILE) >= nkv] = float("-inf")
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
@@ -83,6 +95,7 @@ def tiled_forward(q, k, v, nk_valid=None):
 
 def tiled_backward(q, k, v, o, lse, do):
     """flash_bwd.cu's order: returns (dq, dk, dv) in the inputs' dtypes."""
+    scale = _scale(q)
     qh, kh, vh, oh, doh = (_split(t) for t in (q, k, v, o, do))
     delta = (doh * oh).sum(-1)
     do_c = doh.to(v.dtype).float()
@@ -90,13 +103,13 @@ def tiled_backward(q, k, v, o, lse, do):
 
     def ds_of(s, p_rows_lse, dp, delta_rows):
         p = torch.exp(s - p_rows_lse)
-        return p, (p * (dp - delta_rows) * SCALE).to(q.dtype).float()
+        return p, (p * (dp - delta_rows) * scale).to(q.dtype).float()
 
     # dK/dV kernel: every key block loops over the 64-row query tiles
     dk, dv = torch.zeros(kh.shape), torch.zeros(vh.shape)
     for t0 in range(0, nq, TILE):
         rows = slice(t0, t0 + TILE)
-        st = kh @ qh[:, :, rows].transpose(-1, -2) * SCALE  # S^T [keys, tile]
+        st = kh @ qh[:, :, rows].transpose(-1, -2) * scale  # S^T [keys, tile]
         dpt = vh @ do_c[:, :, rows].transpose(-1, -2)
         pt, dst = ds_of(st, lse[:, :, None, rows], dpt, delta[:, :, None, rows])
         dv += pt.to(q.dtype).float() @ do_c[:, :, rows]
@@ -105,18 +118,18 @@ def tiled_backward(q, k, v, o, lse, do):
     dq = torch.zeros(qh.shape)
     for t0 in range(0, nk, TILE):
         keys = slice(t0, t0 + TILE)
-        s = qh @ kh[:, :, keys].transpose(-1, -2) * SCALE
+        s = qh @ kh[:, :, keys].transpose(-1, -2) * scale
         dp = do_c @ vh[:, :, keys].transpose(-1, -2)
         _, ds = ds_of(s, lse[..., None], dp, delta[..., None])
         dq += ds @ kh[:, :, keys]
     return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
 
 
-def _inputs(seed, dtype, nq, nk, nk_valid=None, n=3):
+def _inputs(seed, dtype, nq, nk, nk_valid=None, n=3, dk=DK):
     rng = np.random.RandomState(seed)
-    arrays = [rng.randn(B, nq, HEADS * DK).astype(np.float32)]
-    arrays += [rng.randn(B, nk, HEADS * DK).astype(np.float32) for _ in range(2)]
-    arrays += [rng.randn(B, nq, HEADS * DK).astype(np.float32) for _ in range(n - 3)]
+    arrays = [rng.randn(B, nq, HEADS * dk).astype(np.float32)]
+    arrays += [rng.randn(B, nk, HEADS * dk).astype(np.float32) for _ in range(2)]
+    arrays += [rng.randn(B, nq, HEADS * dk).astype(np.float32) for _ in range(n - 3)]
     if nk_valid is not None:  # the wrapper's padding: zero rows behind the real keys
         arrays[1][:, nk_valid:] = 0
         arrays[2][:, nk_valid:] = 0
@@ -135,17 +148,27 @@ FORWARD_SHAPES = [(320, 320, None), (128, 64, None), (64, 192, 1), (128, 192, 12
                   (128, 192, 100), (128, 256, None)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk,nk_valid", FORWARD_SHAPES)
-def test_tiled_forward_matches_plain_version(dtype, nq, nk, nk_valid):
-    q, k, v = _inputs(30, dtype, nq, nk, nk_valid)
+def _check_tiled_forward(dtype, nq, nk, nk_valid, dk):
+    q, k, v = _inputs(30, dtype, nq, nk, nk_valid, dk=dk)
     got, got_lse = tiled_forward(q, k, v, nk_valid)
-    want, want_lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True,
+    want, want_lse = attention.flash_mha_packed_ref(q, k, v, dk ** -0.5, HEADS, return_lse=True,
                                                     nk_valid=nk_valid)
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                atol=_forward_tol(dtype, v, want), rtol=0)
     # lse: f32 sums of exponentials in another order and at other maxima
     np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,nk_valid", FORWARD_SHAPES)
+def test_tiled_forward_matches_plain_version(dtype, nq, nk, nk_valid):
+    _check_tiled_forward(dtype, nq, nk, nk_valid, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,nk_valid", FORWARD_SHAPES)
+def test_tiled_forward_matches_plain_version_dk64(dtype, nq, nk, nk_valid):
+    _check_tiled_forward(dtype, nq, nk, nk_valid, DK64)
 
 
 def test_tiled_forward_with_one_tile_rounds_as_the_plain_version():
@@ -158,20 +181,36 @@ def test_tiled_forward_with_one_tile_rounds_as_the_plain_version():
                                atol=2 ** -8 * want.float().abs().max().item(), rtol=0)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk,nk_valid", [(128, 256, None), (256, 384, 256)])
-def test_tiled_forward_matches_pallas(dtype, nq, nk, nk_valid):
-    """_flash_packed_impl takes multiples of 128 and no valid-key count: with
-    one, it sees the real keys alone (nk_valid at a 128-key boundary)."""
-    q, k, v = _inputs(32, dtype, nq, nk, nk_valid)
+PALLAS_FORWARD_SHAPES = [(128, 256, None), (256, 384, 256)]
+
+
+def _check_forward_against_pallas(dtype, nq, nk, nk_valid, dk):
+    q, k, v = _inputs(32, dtype, nq, nk, nk_valid, dk=dk)
     got, _ = tiled_forward(q, k, v, nk_valid)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     nkv = nk if nk_valid is None else nk_valid
     want = np.asarray(_flash_packed_impl(
         *(jnp.asarray(t.float().numpy(), jdt) for t in (q, k[:, :nkv], v[:, :nkv])),
-        SCALE, HEADS, interpret=True)).astype(np.float32)
+        dk ** -0.5, HEADS, interpret=True)).astype(np.float32)
     np.testing.assert_allclose(got.float().numpy(), want,
                                atol=_forward_tol(dtype, v, torch.from_numpy(want)), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,nk_valid", PALLAS_FORWARD_SHAPES)
+def test_tiled_forward_matches_pallas(dtype, nq, nk, nk_valid):
+    """_flash_packed_impl takes multiples of 128 and no valid-key count: with
+    one, it sees the real keys alone (nk_valid at a 128-key boundary)."""
+    _check_forward_against_pallas(dtype, nq, nk, nk_valid, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk,nk_valid", PALLAS_FORWARD_SHAPES)
+def test_tiled_forward_matches_pallas_dk64(dtype, nq, nk, nk_valid):
+    """The Pallas kernel in interpret mode runs at dk = 64 too (on the TPU
+    its gate asks dk % 128, and the JAX package takes dk = 64 through its
+    stock flash kernel; the function is the same)."""
+    _check_forward_against_pallas(dtype, nq, nk, nk_valid, DK64)
 
 
 def _box_rows(x, r0, rows):
@@ -189,6 +228,7 @@ def ragged_forward(q, k, v, q_block=128):
     -inf by the count; only rows below Nq stored. (out, lse)."""
     b, nq, d = q.shape
     nk = k.shape[1]
+    scale = _scale(q)
     out = torch.full((b, nq, d), float("nan"), dtype=q.dtype)
     lse = torch.full((b, HEADS, nq), float("nan"))
     for r0 in range(0, nq, q_block):
@@ -198,7 +238,7 @@ def ragged_forward(q, k, v, q_block=128):
         o = torch.zeros(qh.shape)
         for t0 in range(0, nk, TILE):
             kh, vh = _split(_box_rows(k, t0, TILE)), _split(_box_rows(v, t0, TILE))
-            s = qh @ kh.transpose(-1, -2) * SCALE
+            s = qh @ kh.transpose(-1, -2) * scale
             s[..., torch.arange(t0, t0 + TILE) >= nk] = float("-inf")
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp(m - m_new)
@@ -212,16 +252,29 @@ def ragged_forward(q, k, v, q_block=128):
     return out, lse
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", [(100, 100), (130, 70), (64, 150), (245, 200)])
-def test_ragged_forward_matches_plain_version(dtype, nq, nk):
-    q, k, v = _inputs(35, dtype, nq, nk)
+RAGGED_FORWARD_SHAPES = [(100, 100), (130, 70), (64, 150), (245, 200)]
+
+
+def _check_ragged_forward(dtype, nq, nk, dk):
+    q, k, v = _inputs(35, dtype, nq, nk, dk=dk)
     got, got_lse = ragged_forward(q, k, v)
-    want, want_lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+    want, want_lse = attention.flash_mha_packed_ref(q, k, v, dk ** -0.5, HEADS, return_lse=True)
     assert not torch.isnan(got.float()).any()
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                atol=_forward_tol(dtype, v, want), rtol=0)
     np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_FORWARD_SHAPES)
+def test_ragged_forward_matches_plain_version(dtype, nq, nk):
+    _check_ragged_forward(dtype, nq, nk, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_FORWARD_SHAPES)
+def test_ragged_forward_matches_plain_version_dk64(dtype, nq, nk):
+    _check_ragged_forward(dtype, nq, nk, DK64)
 
 
 def test_ragged_tiles_of_the_next_item_change_nothing():
@@ -260,7 +313,8 @@ def test_attention_pads_nothing_on_the_card(monkeypatch):
     assert attention.flash_bwd_supported(885, 885, 512, 4)
     assert attention.flash_bwd_supported(1024, 1000, 512, 4)
     assert attention.flash_bwd_supported(1024, 768, 512, 4)
-    assert not attention.flash_bwd_supported(885, 885, 256, 4)  # dk = 64
+    assert attention.flash_bwd_supported(885, 885, 256, 4)  # dk = 64
+    assert not attention.flash_bwd_supported(885, 885, 128, 4)  # dk = 32
 
 
 # (Nq, Nk): equal, Nq % 128 == 64 for both kernels' blocks, Nq != Nk
@@ -271,15 +325,40 @@ def _backward_tol(dtype, want):
     return 1e-5 if dtype == "float32" else 2 ** -8 * np.abs(want).max()
 
 
+def _check_tiled_backward(dtype, nq, nk, dk):
+    q, k, v, do = _inputs(33, dtype, nq, nk, n=4, dk=dk)
+    o, lse = attention.flash_mha_packed_ref(q, k, v, dk ** -0.5, HEADS, return_lse=True)
+    got = tiled_backward(q, k, v, o, lse, do)
+    want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, dk ** -0.5, HEADS)
+    for g, w in zip(got, want):  # dq, dk, dv
+        w = w.float().numpy()
+        np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
 def test_tiled_backward_matches_plain_version(dtype, nq, nk):
-    q, k, v, do = _inputs(33, dtype, nq, nk, n=4)
-    o, lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+    _check_tiled_backward(dtype, nq, nk, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
+def test_tiled_backward_matches_plain_version_dk64(dtype, nq, nk):
+    _check_tiled_backward(dtype, nq, nk, DK64)
+
+
+def _check_backward_against_pallas(dtype, nq, nk, dk):
+    q, k, v, do = _inputs(34, dtype, nq, nk, n=4, dk=dk)
+    o, lse = tiled_forward(q, k, v)
     got = tiled_backward(q, k, v, o, lse, do)
-    want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, SCALE, HEADS)
-    for g, w in zip(got, want):  # dq, dk, dv
-        w = w.float().numpy()
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+
+    def split(t):
+        return jnp.asarray(_split(t).numpy(), jdt)
+
+    want = _bwd_fused(*(split(t) for t in (q, k, v, o, do)), dk ** -0.5, nk, interpret=True)
+    for g, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32)).transpose(0, 2, 1, 3).reshape(g.shape)
         np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
 
 
@@ -289,18 +368,14 @@ def test_tiled_backward_matches_pallas(dtype, nq, nk):
     """The whole chain in tile order (forward, then backward from its own
     output and lse) against _bwd_fused, which derives its row statistics
     from the whole score block."""
-    q, k, v, do = _inputs(34, dtype, nq, nk, n=4)
-    o, lse = tiled_forward(q, k, v)
-    got = tiled_backward(q, k, v, o, lse, do)
-    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    _check_backward_against_pallas(dtype, nq, nk, DK)
 
-    def split(t):
-        return jnp.asarray(_split(t).numpy(), jdt)
 
-    want = _bwd_fused(*(split(t) for t in (q, k, v, o, do)), SCALE, nk, interpret=True)
-    for g, w in zip(got, want):
-        w = np.asarray(w.astype(jnp.float32)).transpose(0, 2, 1, 3).reshape(g.shape)
-        np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
+def test_tiled_backward_matches_pallas_dk64(dtype, nq, nk):
+    """_bwd_fused runs at any head dim: the same chain at dk = 64."""
+    _check_backward_against_pallas(dtype, nq, nk, DK64)
 
 
 def ragged_backward(q, k, v, o, lse_tiles, do, block=128):
@@ -315,6 +390,7 @@ def ragged_backward(q, k, v, o, lse_tiles, do, block=128):
     stored. Returns (dq, dk, dv) in the inputs' dtypes."""
     b, nq, d = q.shape
     nk = k.shape[1]
+    scale = _scale(q)
     ld = lse_tiles.shape[-1]
     delta = torch.zeros(b, HEADS, ld)
     delta[..., :nq] = (_split(do) * _split(o)).sum(-1)
@@ -327,10 +403,10 @@ def ragged_backward(q, k, v, o, lse_tiles, do, block=128):
         for t0 in range(0, ld, TILE):
             qh = _split(_box_rows(q, t0, TILE))
             do_c = _split(_box_rows(do, t0, TILE)).to(v.dtype).float()
-            st = kh @ qh.transpose(-1, -2) * SCALE
+            st = kh @ qh.transpose(-1, -2) * scale
             pt = torch.exp(st - lse_tiles[:, :, None, t0:t0 + TILE])
             dst = (pt * (vh @ do_c.transpose(-1, -2) - delta[:, :, None, t0:t0 + TILE])
-                   * SCALE).to(q.dtype).float()
+                   * scale).to(q.dtype).float()
             acc_v += pt.to(q.dtype).float() @ do_c
             acc_k += dst @ qh
         stored = min(block, nk - key0)
@@ -345,9 +421,9 @@ def ragged_backward(q, k, v, o, lse_tiles, do, block=128):
         acc = torch.zeros(qh.shape)
         for t0 in range(0, nk, TILE):
             kh, vh = _split(_box_rows(k, t0, TILE)), _split(_box_rows(v, t0, TILE))
-            p = torch.exp(qh @ kh.transpose(-1, -2) * SCALE - lse_r)
+            p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse_r)
             p[..., torch.arange(t0, t0 + TILE) >= nk] = 0.0
-            ds = (p * (do_c @ vh.transpose(-1, -2) - delta_r) * SCALE).to(q.dtype).float()
+            ds = (p * (do_c @ vh.transpose(-1, -2) - delta_r) * scale).to(q.dtype).float()
             acc += ds @ kh
         stored = min(block, nq - q0)
         dq[:, q0:q0 + stored] = _merge(acc, q.dtype)[:, :stored]
@@ -365,17 +441,27 @@ def _lse_tiles(lse):
 RAGGED_BACKWARD_SHAPES = [(100, 100), (130, 70), (64, 150), (245, 192)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", RAGGED_BACKWARD_SHAPES)
-def test_ragged_backward_matches_plain_version(dtype, nq, nk):
-    q, k, v, do = _inputs(39, dtype, nq, nk, n=4)
-    o, lse = attention.flash_mha_packed_ref(q, k, v, SCALE, HEADS, return_lse=True)
+def _check_ragged_backward(dtype, nq, nk, dk):
+    q, k, v, do = _inputs(39, dtype, nq, nk, n=4, dk=dk)
+    o, lse = attention.flash_mha_packed_ref(q, k, v, dk ** -0.5, HEADS, return_lse=True)
     got = ragged_backward(q, k, v, o, _lse_tiles(lse), do)
-    want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, SCALE, HEADS)
+    want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, dk ** -0.5, HEADS)
     for g, w in zip(got, want):  # dq, dk, dv: every row written
         assert not torch.isnan(g.float()).any()
         w = w.float().numpy()
         np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_BACKWARD_SHAPES)
+def test_ragged_backward_matches_plain_version(dtype, nq, nk):
+    _check_ragged_backward(dtype, nq, nk, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_BACKWARD_SHAPES)
+def test_ragged_backward_matches_plain_version_dk64(dtype, nq, nk):
+    _check_ragged_backward(dtype, nq, nk, DK64)
 
 
 def test_ragged_backward_tiles_of_the_next_item_change_nothing():

@@ -199,13 +199,15 @@ def test_the_default_device_is_the_card_and_raises_without_one(tmp_path, monkeyp
 def test_the_kernel_route_takes_the_full_width_configurations():
     for kw in (dict(), dict(eval=True, iter=3), dict(partial=True, overlap=0.575),
                dict(vcp_nn="att", t3d=True, tfea=True), dict(model="dcp", emb_nn="dgcnn"),
-               dict(model="lpd"), dict(model="icp", emb_dims=64), dict(num_points=1000)):
+               dict(model="lpd"), dict(model="icp", emb_dims=64), dict(num_points=1000),
+               dict(n_heads=8), dict(emb_dims=256)):
         assert cli.kernel_route_refusals(Config(compute_dtype="bfloat16", **kw)) == [], kw
 
 
 @pytest.mark.parametrize("kw, gate, limit", [
-    (dict(emb_dims=64), "flash_packed_supported", "dk = 128 only (got emb_dims / n_heads = 64 / 4)"),
-    (dict(n_heads=8), "flash_packed_supported", "(got emb_dims / n_heads = 512 / 8)"),
+    (dict(emb_dims=64), "flash_packed_supported",
+     "dk = 64 or 128 (got emb_dims / n_heads = 64 / 4)"),
+    (dict(n_heads=16), "flash_packed_supported", "(got emb_dims / n_heads = 512 / 16)"),
     (dict(emb_dims=1024, n_heads=8), "streaming_supported", "emb_dims <= 512 (got 1024)"),
     (dict(emb_dims=64, model="dcp", emb_nn="dgcnn", pointer="identity", eval=True),
      "fused_dgcnn_supported", "emb_dims % 128 == 0 and k = 20 < N (got emb_dims = 64, N = 1024)"),

@@ -23,6 +23,10 @@ probabilities; the card is held to 1e-3 at 3072); every row's
 probabilities sum to one, so the masses of a head sum to Nq (1e-5
 relative). The gate takes every shape a served path gives it and a CUDA
 tensor with a shape it refuses raises, with no plain version in its place.
+
+The kernels take dk = 128 and dk = 64 (an instance each): the tests whose
+names end in ``_dk64`` run their counterparts' checks at dk = 64, with the
+same tolerances.
 """
 
 import numpy as np
@@ -36,12 +40,13 @@ from vcrnet_tpu_torch.ops import _build, colmass
 
 TILE = 64  # the key tile of the lse pass and the query tile of the mass pass
 DK = 128
+DK64 = 64  # the kernels' other head dim
 LOG2E = 1.4426950408889634
 
 
 def _split(x, heads):
     """[B, n, H*dk] -> f32 [B, H, n, dk]."""
-    return x.float().reshape(x.shape[0], x.shape[1], heads, DK).transpose(1, 2)
+    return x.float().reshape(x.shape[0], x.shape[1], heads, x.shape[-1] // heads).transpose(1, 2)
 
 
 def tiled_lse2(q, k, scale, heads):
@@ -70,10 +75,10 @@ def tiled_colmass(q, k, scale, heads):
     return mass
 
 
-def _inputs(seed, b, nq, nk, heads, dtype):
+def _inputs(seed, b, nq, nk, heads, dtype, dk=DK):
     rng = np.random.RandomState(seed)
-    q = rng.randn(b, nq, heads * DK).astype(np.float32)
-    k = rng.randn(b, nk, heads * DK).astype(np.float32)
+    q = rng.randn(b, nq, heads * dk).astype(np.float32)
+    k = rng.randn(b, nk, heads * dk).astype(np.float32)
     return (torch.from_numpy(q).to(getattr(torch, dtype)),
             torch.from_numpy(k).to(getattr(torch, dtype)))
 
@@ -91,11 +96,9 @@ SHAPES = [(1, 128, 128, 1), (2, 128, 256, 2), (2, 256, 128, 2), (2, 128, 192, 2)
           (1, 192, 128, 1), (2, 256, 256, 4)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,nq,nk,heads", SHAPES)
-def test_tiled_colmass_matches_plain_version(dtype, b, nq, nk, heads):
-    q, k = _inputs(11, b, nq, nk, heads, dtype)
-    scale = DK ** -0.5
+def _check_tiled_colmass(dtype, b, nq, nk, heads, dk):
+    q, k = _inputs(11, b, nq, nk, heads, dtype, dk)
+    scale = dk ** -0.5
     got = tiled_colmass(q, k, scale, heads)
     want = colmass.softmax_colmass_ref(q, k, scale, heads)
     assert got.shape == want.shape == (b, heads, nk)
@@ -105,9 +108,20 @@ def test_tiled_colmass_matches_plain_version(dtype, b, nq, nk, heads):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tiled_lse2_is_the_base2_logsumexp(dtype):
-    q, k = _inputs(12, 2, 128, 320, 2, dtype)
-    scale = DK ** -0.5
+@pytest.mark.parametrize("b,nq,nk,heads", SHAPES)
+def test_tiled_colmass_matches_plain_version(dtype, b, nq, nk, heads):
+    _check_tiled_colmass(dtype, b, nq, nk, heads, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,heads", SHAPES)
+def test_tiled_colmass_matches_plain_version_dk64(dtype, b, nq, nk, heads):
+    _check_tiled_colmass(dtype, b, nq, nk, heads, DK64)
+
+
+def _check_lse2(dtype, dk):
+    q, k = _inputs(12, 2, 128, 320, 2, dtype, dk)
+    scale = dk ** -0.5
     s = torch.matmul(_split(q, 2), _split(k, 2).transpose(-1, -2)) * scale
     want = torch.logsumexp(s, -1) * LOG2E
     np.testing.assert_allclose(tiled_lse2(q, k, scale, 2).numpy(), want.numpy(), rtol=1e-6,
@@ -115,19 +129,42 @@ def test_tiled_lse2_is_the_base2_logsumexp(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,nq,nk,heads", [(2, 128, 256, 2), (1, 256, 128, 1)])
-def test_tiled_colmass_matches_pallas(dtype, b, nq, nk, heads):
-    q, k = _inputs(13, b, nq, nk, heads, dtype)
-    scale = DK ** -0.5
+def test_tiled_lse2_is_the_base2_logsumexp(dtype):
+    _check_lse2(dtype, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_lse2_is_the_base2_logsumexp_dk64(dtype):
+    _check_lse2(dtype, DK64)
+
+
+def _check_against_pallas(dtype, b, nq, nk, heads, dk):
+    q, k = _inputs(13, b, nq, nk, heads, dtype, dk)
+    scale = dk ** -0.5
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
 
     def merged(x):  # packed [B, N, H*dk] -> the JAX layout [B*H, N, dk]
-        return jnp.asarray(x.float().numpy(), jdt).reshape(b, -1, heads, DK).transpose(
-            0, 2, 1, 3).reshape(b * heads, -1, DK)
+        return jnp.asarray(x.float().numpy(), jdt).reshape(b, -1, heads, dk).transpose(
+            0, 2, 1, 3).reshape(b * heads, -1, dk)
 
     want = np.array(pallas_colmass.softmax_colmass(merged(q), merged(k), scale,
                                                     interpret=True)).reshape(b, heads, nk)
     _close(tiled_colmass(q, k, scale, heads), torch.from_numpy(want), nq)
+
+
+PALLAS_SHAPES = [(2, 128, 256, 2), (1, 256, 128, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,heads", PALLAS_SHAPES)
+def test_tiled_colmass_matches_pallas(dtype, b, nq, nk, heads):
+    _check_against_pallas(dtype, b, nq, nk, heads, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,heads", PALLAS_SHAPES)
+def test_tiled_colmass_matches_pallas_dk64(dtype, b, nq, nk, heads):
+    _check_against_pallas(dtype, b, nq, nk, heads, DK64)
 
 
 def _box_rows(x, r0, rows):
@@ -173,14 +210,27 @@ def ragged_colmass(q, k, scale, heads):
     return mass[..., :nk]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", [(100, 100), (130, 70), (70, 200), (245, 185)])
-def test_ragged_colmass_matches_plain_version(dtype, nq, nk):
-    q, k = _inputs(14, 2, nq, nk, 2, dtype)
-    scale = DK ** -0.5
+RAGGED_SHAPES = [(100, 100), (130, 70), (70, 200), (245, 185)]
+
+
+def _check_ragged(dtype, nq, nk, dk):
+    q, k = _inputs(14, 2, nq, nk, 2, dtype, dk)
+    scale = dk ** -0.5
     got = ragged_colmass(q, k, scale, 2)
     assert not torch.isnan(got).any()
     _close(got, colmass.softmax_colmass_ref(q, k, scale, 2), nq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_SHAPES)
+def test_ragged_colmass_matches_plain_version(dtype, nq, nk):
+    _check_ragged(dtype, nq, nk, DK)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", RAGGED_SHAPES)
+def test_ragged_colmass_matches_plain_version_dk64(dtype, nq, nk):
+    _check_ragged(dtype, nq, nk, DK64)
 
 
 def test_ragged_tiles_of_the_next_item_change_nothing():
@@ -204,7 +254,8 @@ def test_gate_takes_every_served_shape():
     for n in range(128, 8193, 128):
         assert colmass.colmass_supported(n, n, 512, 4)
     assert colmass.colmass_supported(192, 320, 256, 2)  # lengths in 64s
-    assert not colmass.colmass_supported(3072, 3072, 512, 8)  # dk = 64
+    assert colmass.colmass_supported(3072, 3072, 512, 8)  # dk = 64
+    assert not colmass.colmass_supported(3072, 3072, 256, 8)  # dk = 32
     # ragged lengths: the last tiles mask by counts (ROADMAP C1)
     assert colmass.colmass_supported(3000, 3072, 512, 4)
     assert colmass.colmass_supported(3072, 3000, 512, 4)
@@ -226,7 +277,7 @@ def _as_if_on_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("nq,nk,d,heads", [(3072, 3072, 384, 4), (3072, 3072, 1024, 4),
-                                           (3072, 3072, 512, 8)])
+                                           (3072, 3072, 256, 8)])
 def test_a_refused_shape_raises_on_the_card(monkeypatch, nq, nk, d, heads):
     calls = _as_if_on_the_card(monkeypatch)
     q = torch.zeros(1, nq, d, dtype=torch.bfloat16)

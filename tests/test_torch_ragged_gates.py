@@ -66,7 +66,8 @@ def test_the_backward_gates_refuse_the_size(n):
     assert edgeconv.gather_max_bwd_supported(n, 256, K)
     assert not edgeconv.edge_conv_bwd_supported(n, 33)  # k > 32
     assert not edgeconv.edge_conv_bwd_supported(K, K)  # k >= N
-    assert not attention.flash_bwd_supported(n, n, 256, H)  # dk = 64
+    assert attention.flash_bwd_supported(n, n, 256, H)  # dk = 64
+    assert not attention.flash_bwd_supported(n, n, 128, H)  # dk = 32
     assert not vcp.streaming_vjp_supported(n, n, 528)  # E > 512
     assert not edgeconv.gather_max_bwd_supported(7300, 256, K)
 
@@ -87,7 +88,7 @@ def _fake(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("kernel", ["edge_conv_bwd", "flash_bwd", "vcp_bwd"])
 def test_a_cuda_call_at_a_refused_backward_shape_raises(monkeypatch, kernel):
     """At N = 1000, which every backward kernel takes, a shape that stays
-    refused (k = 33, dk = 64, E = 528) raises before the extension is
+    refused (k = 33, dk = 32, E = 528) raises before the extension is
     built, and nothing runs the plain version in the kernel's place."""
     from vcrnet_tpu_torch.ops import _build
 
@@ -102,7 +103,7 @@ def test_a_cuda_call_at_a_refused_backward_shape_raises(monkeypatch, kernel):
             edgeconv.edge_conv_bwd(_fake(1, n, 33, dtype=torch.int32), win, win, t, t,
                                    _fake(128, 128), t, t, t)
         elif kernel == "flash_bwd":
-            t = _fake(1, n, 256)
+            t = _fake(1, n, 128)
             attention.flash_bwd(t, t, t, t, _fake(1, H, n, dtype=f32), t, 0.1, H)
         else:
             e, xyz = _fake(1, n, 528), _fake(1, n, 3, dtype=f32)

@@ -207,10 +207,10 @@ def kernel_route_refusals(cfg: Config) -> list:
         dk = f"emb_dims / n_heads = {e} / {h}"
         need(flash_packed_supported(n, n, e, h) and (not train or flash_bwd_supported(n, n, e, h)),
              "ops/attention.py::flash_packed_supported, flash_bwd_supported",
-             f"the attention kernels take dk = 128 only (got {dk})")
+             f"the attention kernels take dk = 64 or 128 (got {dk})")
         if cfg.partial:
             need(colmass_supported(n, n, e, h), "ops/colmass.py::colmass_supported",
-                 f"the column-mass kernels take dk = 128 only (got {dk})")
+                 f"the column-mass kernels take dk = 64 or 128 (got {dk})")
     if cfg.model == "vcrnet" and cfg.vcp_nn == "topK" and not cfg.partial:
         need(streaming_supported(n, n, e) and not (
             train and cfg.streaming_vcp_train and not streaming_vjp_supported(n, n, e)),

@@ -27,7 +27,7 @@ cudaError_t vcr_edge_conv_f32knn(const void* x, const float* norms, const void* 
                                  float slope, cudaStream_t stream);
 cudaError_t vcr_edge_split(const float* x, void* planes, int64_t count, cudaStream_t stream);
 cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* out,
-                             float* lse, int batch, int nq, int nk, int nk_valid,
+                             float* lse, int batch, int nq, int nk, int nk_valid, int d_model,
                              int n_heads, float sm_scale, cudaStream_t stream);
 cudaError_t vcr_vcp_stream(const void* src_emb, const void* tgt_emb, const float* tgt,
                            float* keys, float* out, float* lse, int batch, int ns, int nt, int e,
@@ -42,8 +42,8 @@ cudaError_t vcr_edge_conv_bwd(const int* idx, const void* win1, const void* win2
                               int n, int k, float slope, cudaStream_t stream);
 cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                          void* dv, int batch, int nq, int nk, int n_heads, float sm_scale,
-                          cudaStream_t stream);
+                          void* dv, int batch, int nq, int nk, int d_model, int n_heads,
+                          float sm_scale, cudaStream_t stream);
 cudaError_t vcr_vcp_bwd(const void* src_emb, const void* tgt_emb, const float* tgt,
                         const float* corr, const float* dcorr, const float* lse, float* keys,
                         float* rows, float* d_src, float* d_tgt_emb, float* d_tgt, int batch,
@@ -56,8 +56,8 @@ cudaError_t vcr_edge_conv_from_idx(const int* idx, const void* a, const void* h,
                                    int batch, int n, int k, float slope,
                                    cudaStream_t stream);
 cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
-                                int batch, int nq, int nk, int n_heads, float sm_scale,
-                                cudaStream_t stream);
+                                int batch, int nq, int nk, int d_model, int n_heads,
+                                float sm_scale, cudaStream_t stream);
 
 cudaError_t vcr_knn(const void* x, const float* norms, int* idx, int batch, int n, int c, int k,
                     int is_bf16, cudaStream_t stream);
@@ -135,8 +135,8 @@ void flash_packed(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tens
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(vcr_flash_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                   static_cast<float*>(optional_ptr(lse)), q.size(0), q.size(1),
-                                  k.size(1), nk_valid, n_heads, static_cast<float>(sm_scale),
-                                  stream_of(q)));
+                                  k.size(1), nk_valid, q.size(2), n_heads,
+                                  static_cast<float>(sm_scale), stream_of(q)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -187,8 +187,8 @@ void flash_bwd(torch::Tensor q, torch::Tensor k, torch::Tensor v, torch::Tensor 
   C10_CUDA_CHECK(vcr_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.size(0),
-                               q.size(1), k.size(1), n_heads, static_cast<float>(sm_scale),
-                               stream_of(q)));
+                               q.size(1), k.size(1), q.size(2), n_heads,
+                               static_cast<float>(sm_scale), stream_of(q)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -236,7 +236,8 @@ void softmax_colmass(torch::Tensor q, torch::Tensor k, torch::Tensor lse, torch:
   TORCH_CHECK(lse.size(2) == whole_tiles(q.size(1)), "softmax_colmass: lse must fill whole tiles");
   C10_CUDA_CHECK(vcr_softmax_colmass(q.data_ptr(), k.data_ptr(), lse.data_ptr<float>(),
                                      out.data_ptr<float>(), q.size(0), q.size(1), k.size(1),
-                                     n_heads, static_cast<float>(sm_scale), stream_of(q)));
+                                     q.size(2), n_heads, static_cast<float>(sm_scale),
+                                     stream_of(q)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

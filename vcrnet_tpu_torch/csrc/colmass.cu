@@ -2,7 +2,8 @@
 //
 //   out[b, h, j] = sum_i softmax_j'(q_i . k_j' * sm_scale)[j]
 //
-// for q [B, Nq, H*128], k [B, Nk, H*128], head h = columns [h*128, (h+1)*128).
+// for q [B, Nq, H*dk], k [B, Nk, H*dk], head h = columns [h*dk, (h+1)*dk), at
+// dk = 128 or 64 (both kernels templates over dk, chosen by d_model / n_heads).
 //
 // Replaces vcrnet_tpu/ops/pallas_colmass.py:softmax_colmass (two
 // pallas_calls: _stats_kernel, _colmass_kernel). The partial-overlap
@@ -30,12 +31,14 @@
 //      result is the same from run to run.
 //
 // Bound on the H100: the function needs one score product (2 * Nq * Nk *
-// 128 flops per head) and one exp a score; the design takes two of each.
+// dk flops per head) and one exp a score; the design takes two of each.
 // At dk = 128 the exp unit's rate (16 a clock an SM) is about that of the
 // tensor cores for a score (128 multiply-adds), so each pass is held by
 // both; the two consumer warpgroups, and the two blocks an SM holds (about
 // 100 KB of shared memory and few registers each), overlap one's products
-// with another's exps. exp2f with the scale folded into log2(e) costs one
+// with another's exps. At dk = 64 a score costs half the products and the
+// same exp: both passes are held by the exps, at about twice the products'
+// time, and each block's shared memory halves (a head tile is one box). exp2f with the scale folded into log2(e) costs one
 // fma a score before the exp, as in FA3.
 //
 // Any Nk: the last key block of an item owns keys past Nk (all of its
@@ -56,31 +59,42 @@ namespace {
 using namespace vcr::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kDk = 128;
 constexpr int kConsumers = 2;  // warpgroups, 64 keys each
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kThreads = 32 * (kConsumerWarps + 1);
 constexpr int kTileKeys = 64 * kConsumers;
 constexpr int kTileQ = 64;
 constexpr int kStages = 4;
-constexpr uint32_t kKBytes = kConsumers * kHeadTileBytes;
 constexpr uint32_t kLseBytes = kTileQ * sizeof(float);
-constexpr uint32_t kStageBytes = kHeadTileBytes + kLseBytes;  // what a stage's copies deliver
-constexpr size_t kSmemBytes =
-    1024 + kKBytes + kStages * (kHeadTileBytes + kLseBytes) + (2 * kStages + 1) * 8;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// colmass_kernel's shared memory at head dim kDk: a head tile is kDk / 64 boxes.
+template <int kDk>
+struct Mass {
+  static_assert(kDk == 64 || kDk == 128, "the head dims the kernels take");
+  static constexpr int kBoxes = kDk / kBox;
+  static constexpr uint32_t kHeadBytes = head_tile_bytes(kDk);
+  static constexpr uint32_t kKBytes = kConsumers * kHeadBytes;
+  static constexpr uint32_t kStageBytes = kHeadBytes + kLseBytes;  // a stage's copies deliver
+  static constexpr size_t kSmemBytes =
+      1024 + kKBytes + kStages * (kHeadBytes + kLseBytes) + (2 * kStages + 1) * 8;
+};
+
+template <int kDk>
 __global__ void __launch_bounds__(kThreads, 2)
 colmass_kernel(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const float* __restrict__ lse2,  // [B, H, n_tiles * 64], base 2
                float* __restrict__ out,         // [B, H, Nk]
                int nq, int nk, float scale_log2) {
+  using L = Mass<kDk>;
+  constexpr int kBoxes = L::kBoxes;
+  constexpr uint32_t kKBytes = L::kKBytes, kStageBytes = L::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  bf16* k_s = reinterpret_cast<bf16*>(smem);                   // [consumer][2 boxes]
-  bf16* q_ring = reinterpret_cast<bf16*>(smem + kKBytes);      // [stage][2 boxes]
-  float* lse_ring = reinterpret_cast<float*>(smem + kKBytes + kStages * kHeadTileBytes);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);                   // [consumer][kBoxes boxes]
+  bf16* q_ring = reinterpret_cast<bf16*>(smem + kKBytes);      // [stage][kBoxes boxes]
+  float* lse_ring = reinterpret_cast<float*>(smem + kKBytes + kStages * L::kHeadBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(lse_ring + kStages * kTileQ);
   uint64_t* k_full = bars;
   uint64_t* full = bars + 1;
@@ -107,15 +121,15 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) {
       mbar_expect_tx(k_full, kKBytes);
       for (int c = 0; c < kConsumers; ++c)
-        for (int h = 0; h < 2; ++h)
-          tma_load_box(k_s + (2 * c + h) * kBox * kBox, &k_map, k_full, col + h * kBox,
+        for (int h = 0; h < kBoxes; ++h)
+          tma_load_box(k_s + (kBoxes * c + h) * kBox * kBox, &k_map, k_full, col + h * kBox,
                        b * nk + key0 + c * 64);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
-        bf16* q_s = q_ring + s * 2 * kBox * kBox;
+        bf16* q_s = q_ring + s * kBoxes * kBox * kBox;
         mbar_expect_tx(&full[s], kStageBytes);
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < kBoxes; ++h)
           tma_load_box(q_s + h * kBox * kBox, &q_map, &full[s], col + h * kBox,
                        b * nq + t * kTileQ);
         bulk_load(lse_ring + s * kTileQ, lse2 + (bh * n_tiles + t) * kTileQ, kLseBytes,
@@ -130,7 +144,7 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
   // 8 j + 2 qd + {0, 1} of each tile
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
-  const bf16* k_tile = k_s + wg * 2 * kBox * kBox;
+  const bf16* k_tile = k_s + wg * kBoxes * kBox * kBox;
   float mass_g = 0.f, mass_g8 = 0.f;
 
   mbar_wait(k_full, 0);
@@ -139,7 +153,7 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(&full[s], (t / kStages) & 1);
     float sc[32];  // S^T of the tile: 64 keys by 64 queries
     wgmma_fence();
-    scores_64x64(sc, k_tile, q_ring + s * 2 * kBox * kBox);
+    scores_64x64<kDk>(sc, k_tile, q_ring + s * kBoxes * kBox * kBox);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -182,27 +196,40 @@ colmass_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-}  // namespace
-
-// q bf16 [B,Nq,H*128], k bf16 [B,Nk,H*128] -> out f32 [B,H,Nk]; lse f32
-// [B,H,Nq'] (Nq' = Nq rounded up to 64) is scratch that the first kernel
-// writes (base 2) and the second reads. Any Nq, Nk; 16-byte aligned
-// pointers. Returns the launch status.
-cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
-                                int batch, int nq, int nk, int n_heads, float sm_scale,
-                                cudaStream_t stream) {
-  const uint64_t d_model = static_cast<uint64_t>(n_heads) * kDk;
-  CUtensorMap q_map, k_map;
-  cudaError_t err = make_box_map(&q_map, q, static_cast<uint64_t>(batch) * nq, d_model);
-  if (err == cudaSuccess) err = make_box_map(&k_map, k, static_cast<uint64_t>(batch) * nk, d_model);
+template <int kDk>
+cudaError_t launch_colmass(const CUtensorMap& q_map, const CUtensorMap& k_map, float* lse,
+                           float* out, int batch, int nq, int nk, int n_heads, float sm_scale,
+                           cudaStream_t stream) {
+  constexpr size_t kSmemBytes = Mass<kDk>::kSmemBytes;
+  cudaError_t err = vcr::flash::launch_lse<kDk>(q_map, k_map, lse, batch, nq, nk, nk,
+                                                (nq + kTileQ - 1) / kTileQ * kTileQ, n_heads,
+                                                sm_scale, stream);
   if (err == cudaSuccess)
-    err = vcr::flash::launch_lse(q_map, k_map, lse, batch, nq, nk, nk,
-                                 (nq + kTileQ - 1) / kTileQ * kTileQ, n_heads, sm_scale, stream);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(colmass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(colmass_kernel<kDk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  colmass_kernel<<<dim3((nk + kTileKeys - 1) / kTileKeys, n_heads, batch), kThreads, kSmemBytes,
-                   stream>>>(q_map, k_map, lse, out, nq, nk, sm_scale * kLog2e);
+  colmass_kernel<kDk><<<dim3((nk + kTileKeys - 1) / kTileKeys, n_heads, batch), kThreads,
+                        kSmemBytes, stream>>>(q_map, k_map, lse, out, nq, nk, sm_scale * kLog2e);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// q bf16 [B,Nq,D], k bf16 [B,Nk,D] (D = n_heads * dk, dk = 64 or 128) -> out
+// f32 [B,H,Nk]; lse f32 [B,H,Nq'] (Nq' = Nq rounded up to 64) is scratch
+// that the first kernel writes (base 2) and the second reads. Any Nq, Nk;
+// 16-byte aligned pointers. Another dk is refused (cudaErrorInvalidValue)
+// before anything is launched. Returns the launch status.
+cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
+                                int batch, int nq, int nk, int d_model, int n_heads,
+                                float sm_scale, cudaStream_t stream) {
+  return dispatch_head_dim(d_model, n_heads, [&](auto dk) {
+    CUtensorMap q_map, k_map;
+    cudaError_t err = make_box_map(&q_map, q, static_cast<uint64_t>(batch) * nq, d_model);
+    if (err == cudaSuccess)
+      err = make_box_map(&k_map, k, static_cast<uint64_t>(batch) * nk, d_model);
+    if (err != cudaSuccess) return err;
+    return launch_colmass<decltype(dk)::value>(q_map, k_map, lse, out, batch, nq, nk, n_heads,
+                                               sm_scale, stream);
+  });
 }

@@ -1,4 +1,5 @@
-// Backward of attention over packed heads (q/k/v/o/do [B, N, H*128]).
+// Backward of attention over packed heads (q/k/v/o/do [B, N, H*dk], dk = 128
+// or 64: every kernel is a template over dk, chosen by d_model / n_heads).
 //
 // Replaces vcrnet_tpu/ops/pallas_attention.py:_bwd_fused (-> _bwd_kernel,
 // :76, call :188). With s = (q . k^T) * scale and p = exp(s - lse) (lse
@@ -9,8 +10,8 @@
 //   dq = ds @ k,  dk = ds^T @ q,  dv = bf16(p)^T @ do   (f32 accumulation,
 //                                                        written in bf16)
 //
-// Bound on the H100: operations (five N x N x 128 products per head
-// against 7 * N * 128 * 2 bytes moved). The TPU kernel held one whole q
+// Bound on the H100: operations (five N x N x dk products per head
+// against 7 * N * dk * 2 bytes moved). The TPU kernel held one whole q
 // tile's [TQ, NK] score block in VMEM and accumulated dk/dv across its
 // sequential q-tile grid. Blocks on the card run in no order, so the work
 // is split by what each block owns instead, and no sum needs atomics (the
@@ -23,10 +24,13 @@
 //     bf16(P^T (dP^T - delta) * scale) are computed in registers, and
 //     dV += bf16(P^T) . dO, dK += dS^T . Q take A from registers and B from
 //     shared memory read MN-major (trans-b = 1: the contraction runs over
-//     the q rows of the [q, 128] tiles). dK and dV accumulate in registers:
+//     the q rows of the [q, dk] tiles). dK and dV accumulate in registers:
 //     two [64, 128] f32 accumulators beside S^T and dP^T, more than the 168
 //     registers a thread of a 384-thread block starts with, so the producer
-//     warpgroup hands its registers to the consumers (setmaxnreg 24 / 240);
+//     warpgroup hands its registers to the consumers (setmaxnreg 24 / 240).
+//     At dk = 64 the two accumulators take 64 registers, not 128, and the
+//     products are m64n64k16 (S^T and dP^T 4 k16 steps, not 8); the
+//     instance keeps dk = 128's block shape and register split;
 //   * flash_bwd_dq_kernel owns 64 query rows per consumer warpgroup and
 //     streams the key tiles: S = Q . K^T, dP = dO . V^T, then dQ += dS . K
 //     (K read MN-major);
@@ -66,7 +70,6 @@ namespace {
 using namespace vcr::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kDk = 128;
 constexpr int kConsumers = 2;  // warpgroups, 64 rows (keys or queries) each
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kThreads = 32 * (kConsumerWarps + 4);  // and a producer warpgroup
@@ -78,16 +81,25 @@ constexpr int kConsumerRegs = 240;
 constexpr int kRows = 64 * kConsumers;  // rows a block owns
 constexpr int kTile = 64;               // rows of a streamed tile
 constexpr int kStages = 2;
-constexpr uint32_t kOwnedBytes = kConsumers * kHeadTileBytes;  // one operand of the owned rows
-constexpr uint32_t kStatBytes = 2 * kTile * sizeof(float);    // lse and delta of a q tile
-constexpr uint32_t kStageBytes = 2 * kHeadTileBytes;           // two streamed [64, 128] tiles
-constexpr size_t kSmemBytes =
-    1024 + 2 * kOwnedBytes + kStages * (kStageBytes + kStatBytes) + (2 * kStages + 1) * 8;
+constexpr uint32_t kStatBytes = 2 * kTile * sizeof(float);  // lse and delta of a q tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-// delta [B, H, ld] (ld = n rounded up to 64), 0 past n; one warp an entry
-// (32-bit index arithmetic: vcr_flash_bwd launches it with fewer than 2^32
-// threads or refuses the call)
+// The shared memory of the dK/dV and dQ kernels at head dim kDk: a head
+// tile is kDk / 64 boxes.
+template <int kDk>
+struct Bwd {
+  static_assert(kDk == 64 || kDk == 128, "the head dims the kernels take");
+  static constexpr int kBoxes = kDk / kBox;
+  static constexpr uint32_t kOwnedBytes = kConsumers * head_tile_bytes(kDk);  // one operand
+  static constexpr uint32_t kStageBytes = 2 * head_tile_bytes(kDk);  // two streamed tiles
+  static constexpr size_t kSmemBytes =
+      1024 + 2 * kOwnedBytes + kStages * (kStageBytes + kStatBytes) + (2 * kStages + 1) * 8;
+};
+
+// delta [B, H, ld] (ld = n rounded up to 64), 0 past n; one warp an entry,
+// dk / 32 values a lane (32-bit index arithmetic: vcr_flash_bwd launches it
+// with fewer than 2^32 threads or refuses the call)
+template <int kDk>
 __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                                        float* __restrict__ delta, int batch, int n, int ld,
                                        int n_heads) {
@@ -102,16 +114,23 @@ __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* _
     if (lane == 0) delta[out] = 0.f;
     return;
   }
-  const size_t off = (static_cast<size_t>(b) * n + i) * n_heads * kDk + head * kDk + lane * 4;
-  const uint2 oraw = *reinterpret_cast<const uint2*>(o + off);
-  const uint2 draw = *reinterpret_cast<const uint2*>(dout + off);
-  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&oraw);
-  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&draw);
+  const size_t off =
+      (static_cast<size_t>(b) * n + i) * n_heads * kDk + head * kDk + lane * (kDk / 32);
   float s = 0.f;
+  if constexpr (kDk == 128) {
+    const uint2 oraw = *reinterpret_cast<const uint2*>(o + off);
+    const uint2 draw = *reinterpret_cast<const uint2*>(dout + off);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&oraw);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&draw);
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const float2 of = __bfloat1622float2(o2[t]), df = __bfloat1622float2(d2[t]);
-    s += of.x * df.x + of.y * df.y;
+    for (int t = 0; t < 2; ++t) {
+      const float2 of = __bfloat1622float2(o2[t]), df = __bfloat1622float2(d2[t]);
+      s += of.x * df.x + of.y * df.y;
+    }
+  } else {
+    const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off));
+    const float2 df = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off));
+    s = of.x * df.x + of.y * df.y;
   }
 #pragma unroll
   for (int off2 = 16; off2 > 0; off2 >>= 1) s += __shfl_xor_sync(vcr::kFullMask, s, off2);
@@ -120,10 +139,14 @@ __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* _
 
 // Shared memory of both kernels: the owned rows' two operands (K and V, or
 // Q and dO), the ring, the dK/dV kernel's per-tile lse and delta, barriers.
+template <int kDk>
 struct Smem {
-  bf16* own_a;  // [consumer][2 boxes]
+  static constexpr int kBoxes = Bwd<kDk>::kBoxes;
+  static constexpr uint32_t kOwnedBytes = Bwd<kDk>::kOwnedBytes;
+  static constexpr uint32_t kStageBytes = Bwd<kDk>::kStageBytes;
+  bf16* own_a;  // [consumer][kBoxes boxes]
   bf16* own_b;
-  uint8_t* ring;  // [stage]{2 boxes, 2 boxes}
+  uint8_t* ring;  // [stage]{kBoxes boxes, kBoxes boxes}
   float* stats;   // [stage]{lse[64], delta[64]}
   uint64_t* own_full;
   uint64_t* full;
@@ -140,10 +163,11 @@ struct Smem {
     empty = full + kStages;
   }
   __device__ bf16* stage_a(int s) const { return reinterpret_cast<bf16*>(ring + s * kStageBytes); }
-  __device__ bf16* stage_b(int s) const { return stage_a(s) + 2 * kBox * kBox; }
+  __device__ bf16* stage_b(int s) const { return stage_a(s) + kBoxes * kBox * kBox; }
 };
 
-__device__ __forceinline__ void init_barriers(const Smem& sm) {
+template <int kDk>
+__device__ __forceinline__ void init_barriers(const Smem<kDk>& sm) {
   if (threadIdx.x == 0) {
     mbar_init(sm.own_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -156,17 +180,20 @@ __device__ __forceinline__ void init_barriers(const Smem& sm) {
 }
 
 // The producer lane: the owned rows' two operands once, then ``n_tiles``
-// streamed pairs of [64, 128] tiles (and, with stat pointers, 64 lse and
+// streamed pairs of [64, dk] tiles (and, with stat pointers, 64 lse and
 // delta values each) through the ring.
-__device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* own_a_map,
+template <int kDk>
+__device__ __forceinline__ void produce(const Smem<kDk>& sm, const CUtensorMap* own_a_map,
                                        const CUtensorMap* own_b_map, int own_row,
                                        const CUtensorMap* a_map, const CUtensorMap* b_map,
                                        int row0, int n_tiles, int col, const float* lse_bh,
                                        const float* delta_bh) {
-  mbar_expect_tx(sm.own_full, 2 * kOwnedBytes);
+  constexpr int kBoxes = Bwd<kDk>::kBoxes;
+  constexpr uint32_t kStageBytes = Bwd<kDk>::kStageBytes;
+  mbar_expect_tx(sm.own_full, 2 * Bwd<kDk>::kOwnedBytes);
   for (int c = 0; c < kConsumers; ++c)
-    for (int h = 0; h < 2; ++h) {
-      const int box = (2 * c + h) * kBox * kBox;
+    for (int h = 0; h < kBoxes; ++h) {
+      const int box = (kBoxes * c + h) * kBox * kBox;
       tma_load_box(sm.own_a + box, own_a_map, sm.own_full, col + h * kBox, own_row + c * 64);
       tma_load_box(sm.own_b + box, own_b_map, sm.own_full, col + h * kBox, own_row + c * 64);
     }
@@ -175,7 +202,7 @@ __device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* own_a
     const int s = t % kStages;
     if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
     mbar_expect_tx(&sm.full[s], bytes);
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kBoxes; ++h) {
       tma_load_box(sm.stage_a(s) + h * kBox * kBox, a_map, &sm.full[s], col + h * kBox,
                    row0 + t * kTile);
       tma_load_box(sm.stage_b(s) + h * kBox * kBox, b_map, &sm.full[s], col + h * kBox,
@@ -190,21 +217,23 @@ __device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* own_a
 }
 
 // ---- dK/dV consumers: warpgroup wg owns keys key0 + 64 wg .. + 63
-__device__ __forceinline__ void dkdv_consumer(const Smem& sm, bf16* dk, bf16* dv, int nq, int nk,
-                                              float sm_scale) {
+template <int kDk>
+__device__ __forceinline__ void dkdv_consumer(const Smem<kDk>& sm, bf16* dk, bf16* dv, int nq,
+                                              int nk, float sm_scale) {
+  constexpr int kBoxes = Bwd<kDk>::kBoxes;
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int key0 = blockIdx.x * kRows, col = head * kDk;
   const int n_tiles = (nq + kTile - 1) / kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
-  const bf16* k_w = sm.own_a + wg * 2 * kBox * kBox;
-  const bf16* v_w = sm.own_b + wg * 2 * kBox * kBox;
+  const bf16* k_w = sm.own_a + wg * kBoxes * kBox * kBox;
+  const bf16* v_w = sm.own_b + wg * kBoxes * kBox * kBox;
   const float scale_log2 = sm_scale * kLog2e;
 
-  float dk_acc[64], dv_acc[64];
+  float dk_acc[kDk / 2], dv_acc[kDk / 2];  // [64, kDk] each
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kDk / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(sm.own_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -217,9 +246,9 @@ __device__ __forceinline__ void dkdv_consumer(const Smem& sm, bf16* dk, bf16* dv
 
     float st[32], dpt[32];  // S^T and dP^T: rows = keys, columns = the tile's queries
     wgmma_fence();
-    scores_64x64(st, k_w, q_t);
+    scores_64x64<kDk>(st, k_w, q_t);
     wgmma_commit();
-    scores_64x64(dpt, v_w, do_t);
+    scores_64x64<kDk>(dpt, v_w, do_t);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
@@ -248,8 +277,8 @@ __device__ __forceinline__ void dkdv_consumer(const Smem& sm, bf16* dk, bf16* dv
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wgmma_fence();
-    accumulate_64x128(dv_acc, pa, do_t);   // dV += bf16(P^T) . dO
-    accumulate_64x128(dk_acc, dsa, q_t);   // dK += dS^T . Q
+    accumulate_64xdk(dv_acc, pa, do_t);   // dV += bf16(P^T) . dO
+    accumulate_64xdk(dk_acc, dsa, q_t);   // dK += dS^T . Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -269,8 +298,11 @@ __device__ __forceinline__ void dkdv_consumer(const Smem& sm, bf16* dk, bf16* dv
 
 // ---- dQ consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; the
 // last key tile's keys past Nk get p = 0
-__device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, const float* delta,
-                                            bf16* dq, int nq, int nk, float sm_scale) {
+template <int kDk>
+__device__ __forceinline__ void dq_consumer(const Smem<kDk>& sm, const float* lse,
+                                            const float* delta, bf16* dq, int nq, int nk,
+                                            float sm_scale) {
+  constexpr int kBoxes = Bwd<kDk>::kBoxes;
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int q0 = blockIdx.x * kRows, col = head * kDk;
   const int n_tiles = (nk + kTile - 1) / kTile;
@@ -278,8 +310,8 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
-  const bf16* q_w = sm.own_a + wg * 2 * kBox * kBox;
-  const bf16* do_w = sm.own_b + wg * 2 * kBox * kBox;
+  const bf16* q_w = sm.own_a + wg * kBoxes * kBox * kBox;
+  const bf16* do_w = sm.own_b + wg * kBoxes * kBox * kBox;
   const float scale_log2 = sm_scale * kLog2e;
   const int r_g = q0 + wg * 64 + (warp & 3) * 16 + g, r_g8 = r_g + 8;
   const size_t bh = static_cast<size_t>(b) * n_heads + head;
@@ -289,9 +321,9 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
   const float dl_g = delta[bh * ld + (r_g < nq ? r_g : 0)];
   const float dl_g8 = delta[bh * ld + (r_g8 < nq ? r_g8 : 0)];
 
-  float dq_acc[64];
+  float dq_acc[kDk / 2];  // [64, kDk]
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < kDk / 2; ++i) dq_acc[i] = 0.f;
 
   mbar_wait(sm.own_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -302,9 +334,9 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
 
     float sc[32], dp[32];
     wgmma_fence();
-    scores_64x64(sc, q_w, k_t);
+    scores_64x64<kDk>(sc, q_w, k_t);
     wgmma_commit();
-    scores_64x64(dp, do_w, v_t);
+    scores_64x64<kDk>(dp, do_w, v_t);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sc);
@@ -335,7 +367,7 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
     }
     fence_regs(dq_acc);
     wgmma_fence();
-    accumulate_64x128(dq_acc, dsa, k_t);  // dQ += dS . K
+    accumulate_64xdk(dq_acc, dsa, k_t);  // dQ += dS . K
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq_acc);
@@ -349,6 +381,7 @@ __device__ __forceinline__ void dq_consumer(const Smem& sm, const float* lse, co
                   r_g8 < nq ? dq_b + r_g8 * d_model : nullptr, dq_acc, 1.f, 1.f, qd);
 }
 
+template <int kDk>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
@@ -357,7 +390,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int nq, int nk, float sm_scale) {
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm(smem_raw);  // own_a = K, own_b = V; stage_a = Q, stage_b = dO
+  const Smem<kDk> sm(smem_raw);  // own_a = K, own_b = V; stage_a = Q, stage_b = dO
   init_barriers(sm);
   if (threadIdx.x >= 32 * kConsumerWarps) {
     setmaxnreg_dec<kProducerRegs>();
@@ -374,6 +407,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+template <int kDk>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -382,7 +416,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const float* __restrict__ delta, bf16* __restrict__ dq, int nq, int nk,
                     float sm_scale) {
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm(smem_raw);  // own_a = Q, own_b = dO; stage_a = K, stage_b = V
+  const Smem<kDk> sm(smem_raw);  // own_a = Q, own_b = dO; stage_a = K, stage_b = V
   init_barriers(sm);
   if (threadIdx.x >= 32 * kConsumerWarps) {
     setmaxnreg_dec<kProducerRegs>();
@@ -398,23 +432,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel) {
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
+                              static_cast<int>(bytes));
 }
 
-}  // namespace
-
-// q/k/v/o/do bf16 [B,N,H*128] (packed heads), lse f32 [B,H,ld] from the
-// forward, ld = Nq rounded up to 64 and +inf past Nq -> dq/dk/dv bf16
-// [B,N,H*128], with delta f32 [B,H,ld] as scratch. Any Nq, Nk > 0 with
-// B * ld * H * 32 < 2^32 (the delta pass's threads); 16-byte aligned
-// pointers. Returns the launch status.
-cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                          void* dv, int batch, int nq, int nk, int n_heads, float sm_scale,
-                          cudaStream_t stream) {
+template <int kDk>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int batch, int nq, int nk, int n_heads, float sm_scale,
+                       cudaStream_t stream) {
   using cbf = const bf16*;
+  constexpr size_t kSmemBytes = Bwd<kDk>::kSmemBytes;
   const uint64_t d_model = static_cast<uint64_t>(n_heads) * kDk;
   const uint64_t rows_q = static_cast<uint64_t>(batch) * nq, rows_k = static_cast<uint64_t>(batch) * nk;
   CUtensorMap q_map, k_map, v_map, do_map;
@@ -422,25 +451,44 @@ cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const voi
   if (err == cudaSuccess) err = make_box_map(&k_map, k, rows_k, d_model);
   if (err == cudaSuccess) err = make_box_map(&v_map, v, rows_k, d_model);
   if (err == cudaSuccess) err = make_box_map(&do_map, dout, rows_q, d_model);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkdv_kernel);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkdv_kernel<kDk>, kSmemBytes);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel<kDk>, kSmemBytes);
   if (err != cudaSuccess) return err;
 
   const int ld = (nq + kTile - 1) / kTile * kTile;
   const size_t warps = static_cast<size_t>(batch) * ld * n_heads;
   if (warps * 32 > UINT32_MAX) return cudaErrorInvalidValue;
-  flash_bwd_delta_kernel<<<static_cast<unsigned>((warps * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<cbf>(o), static_cast<cbf>(dout), delta, batch, nq, ld, n_heads);
+  flash_bwd_delta_kernel<kDk><<<static_cast<unsigned>((warps * 32 + 255) / 256), 256, 0,
+                                stream>>>(static_cast<cbf>(o), static_cast<cbf>(dout), delta,
+                                          batch, nq, ld, n_heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<<<dim3((nk + kRows - 1) / kRows, n_heads, batch), kThreads, kSmemBytes,
-                          stream>>>(q_map, k_map, v_map, do_map, lse, delta,
-                                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk,
-                                    sm_scale);
+  flash_bwd_dkdv_kernel<kDk><<<dim3((nk + kRows - 1) / kRows, n_heads, batch), kThreads,
+                               kSmemBytes, stream>>>(q_map, k_map, v_map, do_map, lse, delta,
+                                                     static_cast<bf16*>(dk),
+                                                     static_cast<bf16*>(dv), nq, nk, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<<<dim3((nq + kRows - 1) / kRows, n_heads, batch), kThreads, kSmemBytes,
-                        stream>>>(q_map, k_map, v_map, do_map, lse, delta,
-                                  static_cast<bf16*>(dq), nq, nk, sm_scale);
+  flash_bwd_dq_kernel<kDk><<<dim3((nq + kRows - 1) / kRows, n_heads, batch), kThreads,
+                             kSmemBytes, stream>>>(q_map, k_map, v_map, do_map, lse, delta,
+                                                   static_cast<bf16*>(dq), nq, nk, sm_scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// q/k/v/o/do bf16 [B,N,D] (D = n_heads * dk, dk = 64 or 128), lse f32
+// [B,H,ld] from the forward, ld = Nq rounded up to 64 and +inf past Nq ->
+// dq/dk/dv bf16 [B,N,D], with delta f32 [B,H,ld] as scratch. Any Nq, Nk > 0
+// with B * ld * H * 32 < 2^32 (the delta pass's threads); 16-byte aligned
+// pointers. Another dk is refused (cudaErrorInvalidValue) before anything
+// is launched. Returns the launch status.
+cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                          void* dv, int batch, int nq, int nk, int d_model, int n_heads,
+                          float sm_scale, cudaStream_t stream) {
+  return vcr::hopper::dispatch_head_dim(d_model, n_heads, [&](auto head_dim) {
+    return launch_bwd<decltype(head_dim)::value>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
+                                                 nq, nk, n_heads, sm_scale, stream);
+  });
 }

@@ -5,8 +5,9 @@
 //   s = (q . k^T) * sm_scale              (f32 accumulation)
 //   o = (bf16(exp(s - m)) @ v) / l,  l = sum exp(s - m)   (f32)
 //
-// for q [B, Nq, H*128], k/v [B, Nk, H*128], head h = columns
-// [h*128, (h+1)*128), output in the same packed layout. ``fwd_kernel``
+// for q [B, Nq, H*dk], k/v [B, Nk, H*dk], head h = columns
+// [h*dk, (h+1)*dk), output in the same packed layout, at dk = 128 or 64
+// (each kernel a template over dk, ``Fwd<kDk>`` its shared memory). ``fwd_kernel``
 // computes o (and, with a non-null ``lse``, each row's logsumexp);
 // ``lse_kernel`` runs the same loop without the P . V product and writes
 // only the logsumexp. The two share the layout of their shared memory
@@ -21,10 +22,12 @@
 // Time fwd_kernel against the parent's (train/attention_parts.py --csrc)
 // after any change here.
 //
-// Bound on the H100: operations (4 * N^2 * 128 flops per head with P . V,
-// half of that and one exp a score without, against 4 * N * 128 * 2 bytes
+// Bound on the H100: operations (4 * N^2 * dk flops per head with P . V,
+// half of that and one exp a score without, against 4 * N * dk * 2 bytes
 // in and out), so the design keeps the tensor cores fed and everything else
-// off their path:
+// off their path. At dk = 64 a score costs half the products and the same
+// exp, so the exps (16 a clock an SM) hold lse_kernel at about twice the
+// products' time and fwd_kernel at about their time:
 //   * a block owns 128 query rows of one head: two consumer warpgroups of
 //     64 rows each and one producer warp (warp specialisation);
 //   * the producer loads the block's Q once and streams 64-key tiles of K
@@ -38,11 +41,16 @@
 //     in base 2 with the scale folded into log2(e); the running max m and
 //     sum l stay in registers, and the O accumulator is rescaled there;
 //   * P is rounded to bf16 in registers and is wgmma's A operand against V
-//     in shared memory (m64n128k16; V is [keys, d], so B is read MN-major,
-//     trans-b = 1); O is a [64, 128] f32 accumulator in registers.
-// Nothing of S, P or O is stored to shared memory. fwd_kernel: 288
-// threads, ~97 KB of shared memory and ~160 registers a thread (O 64, S 32,
-// P 16), one block per SM. A consumer warpgroup waits for each product
+//     in shared memory (m64n128k16, or m64n64k16 at dk = 64; V is [keys, d],
+//     so B is read MN-major, trans-b = 1); O is a [64, dk] f32 accumulator
+//     in registers.
+// Nothing of S, P or O is stored to shared memory. fwd_kernel at dk = 128:
+// 288 threads, ~97 KB of shared memory and ~160 registers a thread (O 64,
+// S 32, P 16), one block per SM; at dk = 64 a head tile is one box (S = Q .
+// K^T takes 4 k16 steps, not 8), the Q block and each ring stage halve
+// (~49 KB) and O takes 32 registers; it compiles to 128 registers, so one
+// block an SM still (two need <= 96 a thread, where ptxas spills and
+// serializes the products). A consumer warpgroup waits for each product
 // before its softmax, so its own products and exps do not overlap; the two
 // warpgroups (and, for lse_kernel, the two blocks an SM holds) are
 // scheduled around each other's waits. lse_kernel's stage holds only the K
@@ -84,23 +92,30 @@ namespace {
 using namespace vcr::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kDk = 128;
 constexpr int kConsumers = 2;                 // warpgroups, 64 query rows each
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kThreads = 32 * (kConsumerWarps + 1);
 constexpr int kTileQ = 64 * kConsumers;
 constexpr int kTileK = 64;
-constexpr uint32_t kQBytes = kConsumers * kHeadTileBytes;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kStages = 2;     // fwd_kernel: K and V tiles
+constexpr int kLseStages = 4;  // lse_kernel: K tiles
 
-constexpr int kStages = 2;                               // fwd_kernel: K and V tiles
-constexpr uint32_t kStageBytes = 2 * kHeadTileBytes;
-constexpr size_t kSmemBytes = 1024 + kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
-constexpr int kLseStages = 4;                            // lse_kernel: K tiles
-constexpr uint32_t kLseStageBytes = kHeadTileBytes;
-constexpr size_t kLseSmemBytes =
-    1024 + kQBytes + kLseStages * kLseStageBytes + (2 * kLseStages + 1) * 8;
+// The shared memory of either kernel at head dim kDk: a head tile is
+// kDk / 64 boxes.
+template <int kDk>
+struct Fwd {
+  static_assert(kDk == 64 || kDk == 128, "the head dims the kernels take");
+  static constexpr int kBoxes = kDk / kBox;
+  static constexpr uint32_t kQBytes = kConsumers * head_tile_bytes(kDk);
+  static constexpr uint32_t kStageBytes = 2 * head_tile_bytes(kDk);
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+  static constexpr uint32_t kLseStageBytes = head_tile_bytes(kDk);
+  static constexpr size_t kLseSmemBytes =
+      1024 + kQBytes + kLseStages * kLseStageBytes + (2 * kLseStages + 1) * 8;
+};
 
 // The online softmax of tile t (of n_tiles) of a lane's two rows g, g + 8:
 // keys at or beyond nk_valid set to -inf in the last tile, the running maxima
@@ -157,12 +172,12 @@ struct Smem {
   uint64_t* empty;
 };
 
-template <int kRing, uint32_t kBytes>
+template <int kDk, int kRing, uint32_t kBytes>
 __device__ __forceinline__ Smem carve(uint8_t* smem_raw) {
   uint8_t* smem = align_1024(smem_raw);
   Smem m;
   m.q_s = reinterpret_cast<bf16*>(smem);
-  m.ring = smem + kQBytes;
+  m.ring = smem + Fwd<kDk>::kQBytes;
   m.q_full = reinterpret_cast<uint64_t*>(m.ring + kRing * kBytes);
   m.full = m.q_full + 1;
   m.empty = m.q_full + 1 + kRing;
@@ -178,13 +193,17 @@ __device__ __forceinline__ Smem carve(uint8_t* smem_raw) {
   return m;
 }
 
+template <int kDk>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
            float* __restrict__ lse,  // [B, H, Nq] or null
            int nq, int nk, int nk_valid, float sm_scale) {
+  using L = Fwd<kDk>;
+  constexpr int kBoxes = L::kBoxes;
+  constexpr uint32_t kQBytes = L::kQBytes, kStageBytes = L::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm = carve<kStages, kStageBytes>(smem_raw);
+  const Smem sm = carve<kDk, kStages, kStageBytes>(smem_raw);
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int q0 = blockIdx.x * kTileQ;
   const int col = head * kDk;
@@ -195,17 +214,17 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     if (lane == 0) {
       mbar_expect_tx(sm.q_full, kQBytes);
       for (int c = 0; c < kConsumers; ++c)
-        for (int h = 0; h < 2; ++h)
-          tma_load_box(sm.q_s + (2 * c + h) * kBox * kBox, &q_map, sm.q_full, col + h * kBox,
-                       b * nq + q0 + c * 64);
+        for (int h = 0; h < kBoxes; ++h)
+          tma_load_box(sm.q_s + (kBoxes * c + h) * kBox * kBox, &q_map, sm.q_full,
+                       col + h * kBox, b * nq + q0 + c * 64);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
         bf16* k_s = reinterpret_cast<bf16*>(sm.ring + s * kStageBytes);
-        bf16* v_s = k_s + 2 * kBox * kBox;
+        bf16* v_s = k_s + kBoxes * kBox * kBox;
         const int row = b * nk + t * kTileK;
         mbar_expect_tx(&sm.full[s], kStageBytes);
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < kBoxes; ++h) {
           tma_load_box(k_s + h * kBox * kBox, &k_map, &sm.full[s], col + h * kBox, row);
           tma_load_box(v_s + h * kBox * kBox, &v_map, &sm.full[s], col + h * kBox, row);
         }
@@ -217,12 +236,12 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
-  const bf16* q_tile = sm.q_s + wg * 2 * kBox * kBox;
+  const bf16* q_tile = sm.q_s + wg * kBoxes * kBox * kBox;
   const float scale_log2 = sm_scale * kLog2e;
 
-  float o[64];
+  float o[kDk / 2];  // [64, kDk] of O
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDk / 2; ++i) o[i] = 0.f;
   float m_g = -CUDART_INF_F, m_g8 = -CUDART_INF_F;  // running max of s * scale * log2(e)
   float l_g = 0.f, l_g8 = 0.f;                     // this lane's part of the row sums
 
@@ -231,11 +250,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     const int s = t % kStages;
     mbar_wait(&sm.full[s], (t / kStages) & 1);
     const bf16* k_s = reinterpret_cast<const bf16*>(sm.ring + s * kStageBytes);
-    const bf16* v_s = k_s + 2 * kBox * kBox;
+    const bf16* v_s = k_s + kBoxes * kBox * kBox;
 
     float sc[32];  // S of the tile; the first k step overwrites it
     wgmma_fence();
-    scores_64x64(sc, q_tile, k_s);
+    scores_64x64<kDk>(sc, q_tile, k_s);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -252,7 +271,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     l_g = l_g * alpha_g + sum_g;
     l_g8 = l_g8 * alpha_g8 + sum_g8;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kDk / 8; ++j) {
       o[4 * j] *= alpha_g;
       o[4 * j + 1] *= alpha_g;
       o[4 * j + 2] *= alpha_g8;
@@ -261,7 +280,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 
     fence_regs(o);
     wgmma_fence();  // the A fragments and the rescaled O are read by wgmma
-    accumulate_64x128(o, pa, v_s);
+    accumulate_64xdk(o, pa, v_s);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -284,12 +303,16 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   }
 }
 
+template <int kDk>
 __global__ void __launch_bounds__(kThreads, 2)
 lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
            float* __restrict__ lse2,  // [B, H, lse_stride >= Nq], base 2
            int nq, int nk, int nk_valid, int lse_stride, float sm_scale) {
+  using L = Fwd<kDk>;
+  constexpr int kBoxes = L::kBoxes;
+  constexpr uint32_t kQBytes = L::kQBytes, kLseStageBytes = L::kLseStageBytes;
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm = carve<kLseStages, kLseStageBytes>(smem_raw);
+  const Smem sm = carve<kDk, kLseStages, kLseStageBytes>(smem_raw);
   const int b = blockIdx.z, head = blockIdx.y, n_heads = gridDim.y;
   const int q0 = blockIdx.x * kTileQ;
   const int col = head * kDk;
@@ -300,15 +323,15 @@ lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     if (lane == 0) {
       mbar_expect_tx(sm.q_full, kQBytes);
       for (int c = 0; c < kConsumers; ++c)
-        for (int h = 0; h < 2; ++h)
-          tma_load_box(sm.q_s + (2 * c + h) * kBox * kBox, &q_map, sm.q_full, col + h * kBox,
-                       b * nq + q0 + c * 64);
+        for (int h = 0; h < kBoxes; ++h)
+          tma_load_box(sm.q_s + (kBoxes * c + h) * kBox * kBox, &q_map, sm.q_full,
+                       col + h * kBox, b * nq + q0 + c * 64);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kLseStages;
         if (t >= kLseStages) mbar_wait(&sm.empty[s], ((t / kLseStages) & 1) ^ 1);
         bf16* k_s = reinterpret_cast<bf16*>(sm.ring + s * kLseStageBytes);
         mbar_expect_tx(&sm.full[s], kLseStageBytes);
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < kBoxes; ++h)
           tma_load_box(k_s + h * kBox * kBox, &k_map, &sm.full[s], col + h * kBox,
                        b * nk + t * kTileK);
       }
@@ -318,7 +341,7 @@ lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
-  const bf16* q_tile = sm.q_s + wg * 2 * kBox * kBox;
+  const bf16* q_tile = sm.q_s + wg * kBoxes * kBox * kBox;
   const float scale_log2 = sm_scale * kLog2e;
   float m_g = -CUDART_INF_F, m_g8 = -CUDART_INF_F;
   float l_g = 0.f, l_g8 = 0.f;
@@ -329,7 +352,7 @@ lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     mbar_wait(&sm.full[s], (t / kLseStages) & 1);
     float sc[32];
     wgmma_fence();
-    scores_64x64(sc, q_tile, reinterpret_cast<const bf16*>(sm.ring + s * kLseStageBytes));
+    scores_64x64<kDk>(sc, q_tile, reinterpret_cast<const bf16*>(sm.ring + s * kLseStageBytes));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -353,32 +376,37 @@ lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   }
 }
 
-// fwd_kernel over the maps of q [batch*nq, H*128] and k, v [batch*nk,
-// H*128]. Any nq and nk.
+// fwd_kernel over the maps of q [batch*nq, H*kDk] and k, v [batch*nk,
+// H*kDk]. Any nq and nk.
+template <int kDk>
 inline cudaError_t launch_fwd(const CUtensorMap& q_map, const CUtensorMap& k_map,
                               const CUtensorMap& v_map, bf16* out, float* lse, int batch, int nq,
                               int nk, int nk_valid, int n_heads, float sm_scale,
                               cudaStream_t stream) {
+  constexpr size_t kSmemBytes = Fwd<kDk>::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+      fwd_kernel<kDk>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kTileQ - 1) / kTileQ, n_heads, batch);
-  fwd_kernel<<<grid, kThreads, kSmemBytes, stream>>>(q_map, k_map, v_map, out, lse, nq, nk,
-                                                     nk_valid, sm_scale);
+  fwd_kernel<kDk><<<grid, kThreads, kSmemBytes, stream>>>(q_map, k_map, v_map, out, lse, nq,
+                                                          nk, nk_valid, sm_scale);
   return cudaGetLastError();
 }
 
 // lse_kernel likewise (base-2 logsumexps into lse2 [batch, H, lse_stride],
 // the first nq of each row written).
+template <int kDk>
 inline cudaError_t launch_lse(const CUtensorMap& q_map, const CUtensorMap& k_map, float* lse2,
                               int batch, int nq, int nk, int nk_valid, int lse_stride,
                               int n_heads, float sm_scale, cudaStream_t stream) {
+  constexpr size_t kLseSmemBytes = Fwd<kDk>::kLseSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kLseSmemBytes));
+      lse_kernel<kDk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kLseSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kTileQ - 1) / kTileQ, n_heads, batch);
-  lse_kernel<<<grid, kThreads, kLseSmemBytes, stream>>>(q_map, k_map, lse2, nq, nk, nk_valid,
-                                                        lse_stride, sm_scale);
+  lse_kernel<kDk><<<grid, kThreads, kLseSmemBytes, stream>>>(q_map, k_map, lse2, nq, nk,
+                                                             nk_valid, lse_stride, sm_scale);
   return cudaGetLastError();
 }
 

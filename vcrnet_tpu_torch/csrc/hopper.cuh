@@ -11,8 +11,9 @@
 // an accumulator's rows and a vector reduction into device memory.
 //
 // Tiles. Every operand tile is a TMA box of [64 rows, 64 bf16 columns]
-// (128 bytes a row) loaded with the 128-byte swizzle, so one head's 128
-// columns of the packed [B*N, H*128] view are two boxes, 8 KB apart. A box
+// (128 bytes a row) loaded with the 128-byte swizzle, so one head's dk
+// columns of the packed [B*N, H*dk] view are dk / 64 boxes, 8 KB apart (two
+// at dk = 128, one at dk = 64). A box
 // starts on a 1024-byte boundary: the swizzle XORs the 16-byte chunk index
 // of a row with the row's index modulo 8, taken from address bits [7, 10),
 // and the wgmma descriptor (layout type 1, base offset 0) reads it back by
@@ -21,16 +22,18 @@
 // Operands. A box serves wgmma either way round:
 //   * K-major (the contraction runs along the 128-byte rows; trans = 0):
 //     8-row groups 1024 bytes apart (SBO), a k16 step is +32 bytes inside
-//     the row, and the second box holds k steps 4..7;
+//     the row, and a second box holds k steps 4..7;
 //   * MN-major (the contraction runs down the rows; trans = 1, for B only):
 //     a k16 step is 16 rows (+2048 bytes), 8-row groups 1024 bytes apart
 //     (SBO), and the two 64-column halves of N = 128 are the two boxes,
-//     8192 bytes apart (LBO).
+//     8192 bytes apart (LBO); at N = 64 the one box is the whole operand
+//     and LBO is never used.
 // The trans bit is easy to get wrong silently: S = Q.K^T reads K K-major,
 // O += P.V reads V MN-major, though both are [keys, 128] boxes.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -42,9 +45,24 @@ namespace hopper {
 
 constexpr int kBox = 64;                                        // rows and columns of a box
 constexpr uint32_t kBoxBytes = kBox * kBox * sizeof(__nv_bfloat16);  // 8 KB
-constexpr uint32_t kHeadTileBytes = 2 * kBoxBytes;              // [64, 128]: one head's columns
+
+// Bytes of a [64, dk] head tile: dk / 64 boxes.
+constexpr uint32_t head_tile_bytes(int dk) { return static_cast<uint32_t>(dk / kBox) * kBoxBytes; }
 
 // ---------------------------------------------------------------- host side
+
+// The head widths the attention kernels (flash_packed.cu, flash_bwd.cu,
+// colmass.cu) have instances of: calls launch(std::integral_constant<int,
+// dk>{}) with dk = d_model / n_heads when that is 64 or 128, and refuses any
+// other dk (cudaErrorInvalidValue) before anything is launched.
+template <typename Launch>
+cudaError_t dispatch_head_dim(int d_model, int n_heads, Launch&& launch) {
+  const int dk = n_heads > 0 ? d_model / n_heads : 0;
+  if (dk * n_heads != d_model) return cudaErrorInvalidValue;
+  if (dk == 64) return launch(std::integral_constant<int, 64>{});
+  if (dk == 128) return launch(std::integral_constant<int, 128>{});
+  return cudaErrorInvalidValue;
+}
 
 // cuTensorMapEncodeTiled is a driver-API function, and the extension is not
 // linked against libcuda (torch.utils.cpp_extension.load does not add it).
@@ -551,12 +569,14 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 // (pack_bf16(d[2i], d[2i + 1])), is the A fragment of the next product:
 // k16 step kk reads packed registers 4kk .. 4kk + 3.
 
-// d[64 x 64] = A . B^T over 128 columns, A and B [64, 128] K-major tiles
-// (two boxes each) in shared memory: the score tile of 64 rows by 64 rows.
+// d[64 x 64] = A . B^T over kDk columns, A and B [64, kDk] K-major tiles
+// (kDk / 64 boxes each) in shared memory: the score tile of 64 rows by 64
+// rows, kDk / 16 k steps.
+template <int kDk>
 __device__ __forceinline__ void scores_64x64(float (&d)[32], const __nv_bfloat16* a,
                                              const __nv_bfloat16* b) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < kDk / 16; ++kk)
     wgmma_m64n64_ss(d, desc_k_major(a, kk), desc_k_major(b, kk), kk > 0);
 }
 
@@ -570,6 +590,28 @@ __device__ __forceinline__ void accumulate_64x128(float (&acc)[64], const uint32
                         desc_mn_major(b, kk));
 }
 
+// acc[64 x 64] += A . B over 64: the same with B a [64, 64] tile (one box)
+// read MN-major, m64n64k16.
+__device__ __forceinline__ void accumulate_64x64(float (&acc)[32], const uint32_t (&a)[16],
+                                                 const __nv_bfloat16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64_rs<1>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                       desc_mn_major(b, kk), 1);
+}
+
+// acc[64 x dk] += A . B over 64 for a [64, dk] B tile: the product of
+// either width (the accumulator holds dk / 2 values a thread).
+template <int kN>
+__device__ __forceinline__ void accumulate_64xdk(float (&acc)[kN], const uint32_t (&a)[16],
+                                                 const __nv_bfloat16* b) {
+  static_assert(kN == 32 || kN == 64, "a [64, 64] or [64, 128] accumulator");
+  if constexpr (kN == 64)
+    accumulate_64x128(acc, a, b);
+  else
+    accumulate_64x64(acc, a, b);
+}
+
 // Row max and sum over the quad that holds a row.
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -580,14 +622,16 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// A thread's part of a [64, 128] f32 accumulator as bf16: row g, scaled by
-// scale_g, to the 128 columns at ``row_g``, and row g + 8 likewise; a null
-// row pointer skips the row (it lies past the end of the output).
+// A thread's part of a [64, 128] (kN = 64) or [64, 64] (kN = 32) f32
+// accumulator as bf16: row g, scaled by scale_g, to the 2 kN columns at
+// ``row_g``, and row g + 8 likewise; a null row pointer skips the row (it
+// lies past the end of the output).
+template <int kN>
 __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* row_g, __nv_bfloat16* row_g8,
-                                                const float (&d)[64], float scale_g,
+                                                const float (&d)[kN], float scale_g,
                                                 float scale_g8, int q) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kN / 4; ++j) {
     const int c = 8 * j + 2 * q;
     if (row_g != nullptr)
       *reinterpret_cast<uint32_t*>(row_g + c) = pack_bf16(d[4 * j] * scale_g, d[4 * j + 1] * scale_g);

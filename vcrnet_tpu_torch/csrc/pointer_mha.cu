@@ -47,7 +47,7 @@ constexpr int kDk = 128;
 // Shared memory of the sublayer's largest kernel (the products), at any
 // model width.
 size_t vcr_pointer_mha_smem(int /*d*/) {
-  const size_t flash = vcr::flash::kSmemBytes;
+  const size_t flash = vcr::flash::Fwd<kDk>::kSmemBytes;
   return vcr::gemm90::kSmemBytes > flash ? vcr::gemm90::kSmemBytes : flash;
 }
 
@@ -78,9 +78,9 @@ cudaError_t vcr_pointer_mha(const void* yq, const void* ykv, const void* wq, con
   if (err == cudaSuccess) err = make_box_map(&k_map, kscr, kv_rows, d);
   if (err == cudaSuccess) err = make_box_map(&v_map, vscr, kv_rows, d);
   if (err == cudaSuccess)
-    err = vcr::flash::launch_fwd(q_map, k_map, v_map, static_cast<bf16*>(qscr), nullptr, batch,
-                                 nq, nk, nk, n_heads, 1.0f / sqrtf(static_cast<float>(kDk)),
-                                 stream);
+    err = vcr::flash::launch_fwd<kDk>(q_map, k_map, v_map, static_cast<bf16*>(qscr), nullptr,
+                                      batch, nq, nk, nk, n_heads,
+                                      1.0f / sqrtf(static_cast<float>(kDk)), stream);
   if (err != cudaSuccess) return err;
 
   Jobs proj{};

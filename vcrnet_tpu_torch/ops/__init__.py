@@ -38,14 +38,23 @@ KERNELS = {
 }
 
 
+# the kernels with a dk = 64 instance, whose launches are also counted in
+# ``.launches_dk64``
+HEAD64_KERNELS = {"flash_packed": flash_mha_packed, "flash_bwd": flash_bwd,
+                  "softmax_colmass": softmax_colmass}
+
+
 def reset_launch_counts() -> None:
-    """Zeroes every kernel's launches, the edge kernel's f32-instance count
-    (``fused_edge_conv.launches_f32``, counted in ``.launches`` too) and its
-    split pass's (``split_planes.launches``, which ``launch_counts`` leaves
-    out: one a launch of that instance), and the pairs of the int8 launches
-    (``int8_linear.projections``)."""
+    """Zeroes every kernel's launches, the attention kernels' dk = 64
+    counts (``.launches_dk64``, counted in ``.launches`` too), the edge
+    kernel's f32-instance count (``fused_edge_conv.launches_f32``, likewise)
+    and its split pass's (``split_planes.launches``, which ``launch_counts``
+    leaves out: one a launch of that instance), and the pairs of the int8
+    launches (``int8_linear.projections``)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in HEAD64_KERNELS.values():
+        fn.launches_dk64 = 0
     fused_edge_conv.launches_f32 = 0
     split_planes.launches = 0
     int8_linear.projections = 0
@@ -53,3 +62,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def launch_counts_dk64() -> dict:
+    """The dk = 64 instances' launches, as ``flash_packed_dk64`` etc."""
+    return {f"{name}_dk64": fn.launches_dk64 for name, fn in HEAD64_KERNELS.items()}

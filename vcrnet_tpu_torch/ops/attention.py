@@ -6,8 +6,10 @@ column block [h*dk, (h+1)*dk). ``flash_bwd`` replaces the one-pass
 backward ``_bwd_fused`` (its training forward, the stock TPU flash kernel
 ``_fwd_library``, is ``flash_mha_packed`` with the row logsumexp saved).
 A CUDA tensor launches ``csrc/flash_packed.cu`` / ``csrc/flash_bwd.cu``
-(or raises); a CPU tensor runs the ``*_ref`` plain version. Each wrapper
-counts its launches in ``.launches``; ``attention`` is the differentiable
+(or raises); a CPU tensor runs the ``*_ref`` plain version. The kernels
+take the head dims of ``HEAD_DIMS`` (an instance each); any other raises on
+a CUDA tensor. Each wrapper counts its launches in ``.launches``, and those
+of the dk = 64 instances also in ``.launches_dk64``; ``attention`` is the differentiable
 entry point, which the model calls in eval and in training. The forward runs
 through the op ``vcrnet_torch::flash_packed`` (``ops/library.py``), the
 backward calls the extension directly.
@@ -31,18 +33,26 @@ import torch.nn.functional as F
 from vcrnet_tpu_torch.ops import _build, flop_meter, library
 from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route, upcast
 
-HEAD_DIM = 128  # the kernels' dk
+HEAD_DIMS = (64, 128)  # the kernels' dk: one instance of each kernel a head dim
+
+
+def head_dim_supported(d_model: int, n_heads: int) -> bool:
+    """Whether the heads of ``d_model`` split into ``n_heads`` have a dk
+    of ``HEAD_DIMS``."""
+    return n_heads > 0 and d_model % n_heads == 0 and d_model // n_heads in HEAD_DIMS
 
 
 def flash_packed_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the forward kernel takes: dk == 128 and any lengths (the TPU
-    gate, pallas_attention.py:flash_packed_supported, asked for multiples
-    of 128; every shape it accepts is accepted here)."""
-    return d_model % n_heads == 0 and d_model // n_heads == HEAD_DIM and nq > 0 and nk > 0
+    """Shapes the forward kernel takes: dk of ``HEAD_DIMS`` (64 or 128) and
+    any lengths (the TPU gate, pallas_attention.py:flash_packed_supported,
+    asked for dk and lengths in multiples of 128, and the JAX package runs
+    dk = 64 through its stock flash kernel; every shape either takes is
+    accepted here)."""
+    return head_dim_supported(d_model, n_heads) and nq > 0 and nk > 0
 
 
 def flash_bwd_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the backward kernels take: the forward's (dk == 128, any
+    """Shapes the backward kernels take: the forward's (dk 64 or 128, any
     lengths; the last tiles of each item are ragged)."""
     return flash_packed_supported(nq, nk, d_model, n_heads)
 
@@ -99,7 +109,7 @@ def flash_mha_packed(q, k, v, sm_scale: float, n_heads: int, return_lse: bool = 
         if not flash_packed_supported(nq, nk, d, n_heads):
             raise ValueError(
                 f"flash_mha_packed kernel does not take nq={nq} nk={nk} d_model={d} "
-                f"heads={n_heads}"
+                f"heads={n_heads} (flash_packed_supported: dk in {HEAD_DIMS})"
             )
         check_tensor("q", q, torch.bfloat16, (B, nq, d))
         check_tensor("k", k, torch.bfloat16, (B, nk, d))
@@ -121,6 +131,7 @@ def _flash_packed_impl(q, k, v, sm_scale: float, n_heads: int, return_lse: bool,
     nk = k.shape[1] if nk_valid is None else nk_valid  # the real keys
     _build.extension().flash_packed(q, k, v, out, lse, nk, n_heads, sm_scale)
     flash_mha_packed.launches += 1
+    flash_mha_packed.launches_dk64 += q.shape[2] == 64 * n_heads
     flop_meter.add(flop_meter.flash_fwd_flops(B, nq, nk, q.shape[2], n_heads))
     return out, lse if return_lse else library.empty_output(q, torch.float32)
 
@@ -140,6 +151,7 @@ _flash_packed_op = library.define(
 
 
 flash_mha_packed.launches = 0
+flash_mha_packed.launches_dk64 = 0  # of them, the dk = 64 instance's
 
 
 def flash_mha_packed_bwd_ref(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
@@ -172,7 +184,8 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
     nk = k.shape[1]
     if not flash_bwd_supported(nq, nk, d, n_heads):
         raise ValueError(
-            f"flash_bwd kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
+            f"flash_bwd kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads} "
+            f"(flash_bwd_supported: dk in {HEAD_DIMS})"
         )
     bf16 = torch.bfloat16
     for name, t, n in (("q", q, nq), ("k", k, nk), ("v", v, nk), ("o", o, nq), ("do", do, nq)):
@@ -186,11 +199,13 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
     _build.extension().flash_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, n_heads,
                                  float(sm_scale))
     flash_bwd.launches += 1
+    flash_bwd.launches_dk64 += d == 64 * n_heads
     flop_meter.add(flop_meter.flash_bwd_flops(B, nq, nk, d, n_heads))
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.launches_dk64 = 0  # of them, the dk = 64 instance's
 
 
 class _Attention(torch.autograd.Function):

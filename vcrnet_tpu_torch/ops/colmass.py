@@ -14,9 +14,11 @@ re-mask keeps the keys with the largest masses summed over heads
 (models/transformer.py); that sum and the ``topk`` stay outside.
 
 A CUDA tensor launches ``csrc/colmass.cu`` (or raises); a CPU tensor runs
-``softmax_colmass_ref``. The wrapper counts its launches in ``.launches``
-(one per call: the two kernels run back to back). No backward: the masses
-only feed a hard selection.
+``softmax_colmass_ref``. The kernels take the head dims of
+``ops.attention.HEAD_DIMS`` (64 and 128). The wrapper counts its launches
+in ``.launches`` (one per call: the two kernels run back to back), those at
+dk = 64 also in ``.launches_dk64``. No backward: the masses only feed a
+hard selection.
 """
 
 from __future__ import annotations
@@ -25,14 +27,14 @@ import torch
 
 from vcrnet_tpu_torch.ops import _build, flop_meter, library
 from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route
-from vcrnet_tpu_torch.ops.attention import HEAD_DIM, _scores
+from vcrnet_tpu_torch.ops.attention import HEAD_DIMS, _scores, head_dim_supported
 
 
 def colmass_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the kernels take: dk == 128 and any lengths (the last query
-    tile adds the masses of its real rows alone, by a count; the last key
-    block stores only its real keys)."""
-    return d_model % n_heads == 0 and d_model // n_heads == HEAD_DIM and nq > 0 and nk > 0
+    """Shapes the kernels take: dk of ``HEAD_DIMS`` (64 or 128) and any
+    lengths (the last query tile adds the masses of its real rows alone, by
+    a count; the last key block stores only its real keys)."""
+    return head_dim_supported(d_model, n_heads) and nq > 0 and nk > 0
 
 
 def softmax_colmass_ref(q, k, sm_scale: float, n_heads: int):
@@ -50,7 +52,7 @@ def softmax_colmass(q: torch.Tensor, k: torch.Tensor, sm_scale: float, n_heads: 
         nk = k.shape[1]
         if not colmass_supported(nq, nk, d, n_heads):
             raise ValueError(
-                f"softmax_colmass kernel takes dk == {HEAD_DIM}, "
+                f"softmax_colmass kernel takes dk in {HEAD_DIMS} (colmass_supported), "
                 f"got nq={nq} nk={nk} d_model={d} heads={n_heads}"
             )
         check_tensor("q", q, torch.bfloat16, (B, nq, d))
@@ -69,6 +71,7 @@ def _softmax_colmass_impl(q, k, sm_scale: float, n_heads: int):
     out = torch.empty((B, n_heads, nk), dtype=torch.float32, device=q.device)
     _build.extension().softmax_colmass(q, k, lse, out, n_heads, sm_scale)
     softmax_colmass.launches += 1
+    softmax_colmass.launches_dk64 += q.shape[2] == 64 * n_heads
     flop_meter.add(flop_meter.colmass_flops(B, nq, nk, q.shape[2], n_heads))
     return out
 
@@ -83,3 +86,4 @@ _softmax_colmass_op = library.define(
 
 
 softmax_colmass.launches = 0
+softmax_colmass.launches_dk64 = 0  # of them, the dk = 64 instance's

@@ -5,11 +5,15 @@
 Compiles ``flash_packed.cu``, ``colmass.cu``, ``pointer_mha.cu``,
 ``flash_bwd.cu`` and ``vcp_bwd.cu`` from ``--csrc`` (default: this
 package's sources; another checkout's ``vcrnet_tpu_torch/csrc`` times that
-checkout's kernels: the C interfaces of all but ``pointer_mha.cu`` are the
-same, and ``pointer_mha.cu`` is called with or without its Q scratch as its
-source declares it), each alone with nvcc into a shared library with a C
-shim, and times them with CUDA events (median of 25) on seeded random bf16
-inputs:
+checkout's kernels: ``flash_packed.cu``, ``colmass.cu`` and ``flash_bwd.cu``
+are called with or without the packed width ``d_model`` as their sources
+declare it (sources that take dk = 128 alone have none), ``vcp_bwd.cu``'s
+interface is the same, and ``pointer_mha.cu`` is called with or without its
+Q scratch as its source declares it), each alone with nvcc into a shared
+library with a C shim, and times them with CUDA events (median of 25) on
+seeded random bf16 inputs. The attention kernels run at each head dim the
+sources take (d_model = 512: 4 heads of 128, and 8 of 64 where the sources
+have the dk = 64 instances; those rows are named ``..._dk64``):
 
 * ``flash_packed``, whose loop the other two share, at B = 64, N = 1024
   (without and with the row logsumexp) and at B = 8, Nq = 3072 over 2368
@@ -73,27 +77,31 @@ D = H * DK
 E = 512  # the soft correspondence's embedding width
 BUILD_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "attention_parts")
 
+# the attention sources' shims take the packed width d_model in every tree
+# and pass it on where the source's interface has it (WIDE, the dk = 64
+# instances' sources) or drop it (the dk = 128 sources before them)
 _FLASH_SHIM = """
 extern "C" int shim(const void* q, const void* k, const void* v, void* out, float* lse,
-                    int batch, int nq, int nk, int nk_valid, int n_heads, float sm_scale,
-                    void* stream) {
-  return static_cast<int>(vcr_flash_packed(q, k, v, out, lse, batch, nq, nk, nk_valid, n_heads,
-                                           sm_scale, static_cast<cudaStream_t>(stream)));
+                    int batch, int nq, int nk, int nk_valid, int d_model, int n_heads,
+                    float sm_scale, void* stream) {
+  return static_cast<int>(vcr_flash_packed(q, k, v, out, lse, batch, nq, nk, nk_valid, WIDE
+                                           n_heads, sm_scale, static_cast<cudaStream_t>(stream)));
 }
 """
 _COLMASS_SHIM = """
 extern "C" int shim(const void* q, const void* k, float* lse, float* out, int batch, int nq,
-                    int nk, int n_heads, float sm_scale, void* stream) {
-  return static_cast<int>(vcr_softmax_colmass(q, k, lse, out, batch, nq, nk, n_heads, sm_scale,
-                                              static_cast<cudaStream_t>(stream)));
+                    int nk, int d_model, int n_heads, float sm_scale, void* stream) {
+  return static_cast<int>(vcr_softmax_colmass(q, k, lse, out, batch, nq, nk, WIDE n_heads,
+                                              sm_scale, static_cast<cudaStream_t>(stream)));
 }
 """
 _FLASH_BWD_SHIM = """
 extern "C" int shim(const void* q, const void* k, const void* v, const void* o, const void* dout,
                     const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
-                    int nq, int nk, int n_heads, float sm_scale, void* stream) {
+                    int nq, int nk, int d_model, int n_heads, float sm_scale, void* stream) {
   return static_cast<int>(vcr_flash_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, nq, nk,
-                                        n_heads, sm_scale, static_cast<cudaStream_t>(stream)));
+                                        WIDE n_heads, sm_scale,
+                                        static_cast<cudaStream_t>(stream)));
 }
 """
 _VCP_BWD_SHIM = """
@@ -134,6 +142,8 @@ extern "C" int shim(const void* yq, const void* ykv, const void* wq, const void*
 # cuts: (text in the source, its replacement); the first whose text the
 # source holds is made
 _COLMASS_LSE_ONLY = (
+    ("  if (err != cudaSuccess) return err;\n  colmass_kernel<kDk><<<",
+     "  return err;\n  colmass_kernel<kDk><<<"),
     ("  if (err != cudaSuccess) return err;\n  colmass_kernel<<<",
      "  return err;\n  colmass_kernel<<<"),
     ("  err = cudaGetLastError();\n  if (err != cudaSuccess) return err;\n  colmass_kernel<<<",
@@ -185,13 +195,18 @@ def main(argv=None) -> int:
     print(f"card: {smi.strip().splitlines()[0]}; sources {os.path.abspath(args.csrc)}",
           flush=True)
     texts = {}
-    for src in ("colmass.cu", "pointer_mha.cu"):
+    for src in ("colmass.cu", "pointer_mha.cu", "flash_packed.cu"):
         with open(os.path.join(args.csrc, src)) as fh:
             texts[src] = fh.read()
     three = "void* qscr" in texts["pointer_mha.cu"]
-    shims = {"flash_packed.cu": _FLASH_SHIM, "colmass.cu": _COLMASS_SHIM,
-             "pointer_mha.cu": _MHA_SHIM_Q if three else _MHA_SHIM_KV,
-             "flash_bwd.cu": _FLASH_BWD_SHIM, "vcp_bwd.cu": _VCP_BWD_SHIM}
+    wide = "int d_model" in texts["flash_packed.cu"]  # the sources take dk = 64 too
+    dks = (DK, 64) if wide else (DK,)
+    print(f"head dims {dks}", flush=True)
+    shims = {src: shim.replace("WIDE", "d_model," if wide else "")
+             for src, shim in (("flash_packed.cu", _FLASH_SHIM), ("colmass.cu", _COLMASS_SHIM),
+                               ("flash_bwd.cu", _FLASH_BWD_SHIM))}
+    shims.update({"pointer_mha.cu": _MHA_SHIM_Q if three else _MHA_SHIM_KV,
+                  "vcp_bwd.cu": _VCP_BWD_SHIM})
     cuts = {"colmass_lse_only": ("colmass.cu", _COLMASS_LSE_ONLY),
             "fused_mha_projections_only": ("pointer_mha.cu", _MHA_PROJECTIONS_ONLY),
             "fused_mha_no_out_projection": ("pointer_mha.cu", _MHA_NO_OUT_PROJECTION)}
@@ -232,48 +247,56 @@ def main(argv=None) -> int:
 
     # ---- the attention forward whose loop the other two share: at the
     # 64-pair request's shape, with the training forward's lse, and over the
-    # partial-3072 request's kept keys (2353 of 2368)
-    scale = DK ** -0.5
+    # partial-3072 request's kept keys (2353 of 2368); at each head dim
     flash = libs["flash_packed"].shim
-    for b, nq, nk, nk_valid, with_lse in ((64, 1024, 1024, 1024, False),
-                                          (64, 1024, 1024, 1024, True),
-                                          (8, 3072, 2368, 2353, False)):
-        q, k, v = randn(b, nq, D), randn(b, nk, D), randn(b, nk, D)
-        k[:, nk_valid:] = 0
-        v[:, nk_valid:] = 0
-        o = torch.empty_like(q)
-        lse = torch.empty(b, H, nq, device=dev) if with_lse else None
-        _call(flash, q, k, v, o, lse, b, nq, nk, nk_valid, H, scale)
-        torch.cuda.synchronize()
-        want = attention.flash_mha_packed_ref(q, k, v, scale, H, nk_valid=nk_valid)
-        err = (o.float() - want.float()).abs().max().item()
-        if err > 2e-2:
-            raise RuntimeError(f"flash_packed B={b} Nq={nq} through the shim: max abs err {err}")
-        report(f"flash_packed_B{b}_Nq{nq}_Nk{nk}_valid{nk_valid}{'_lse' if with_lse else ''}",
-               time_ms(lambda: _call(flash, q, k, v, o, lse, b, nq, nk, nk_valid, H, scale)),
-               max_abs_err=err)
+    for dk in dks:
+        h, scale, tag = D // dk, dk ** -0.5, "" if dk == DK else f"_dk{dk}"
+        for b, nq, nk, nk_valid, with_lse in ((64, 1024, 1024, 1024, False),
+                                              (64, 1024, 1024, 1024, True),
+                                              (8, 3072, 2368, 2353, False)):
+            q, k, v = randn(b, nq, D), randn(b, nk, D), randn(b, nk, D)
+            k[:, nk_valid:] = 0
+            v[:, nk_valid:] = 0
+            o = torch.empty_like(q)
+            lse = torch.empty(b, h, nq, device=dev) if with_lse else None
+            _call(flash, q, k, v, o, lse, b, nq, nk, nk_valid, D, h, scale)
+            torch.cuda.synchronize()
+            want = attention.flash_mha_packed_ref(q, k, v, scale, h, nk_valid=nk_valid)
+            err = (o.float() - want.float()).abs().max().item()
+            if err > 2e-2:
+                raise RuntimeError(f"flash_packed{tag} B={b} Nq={nq} through the shim: "
+                                   f"max abs err {err}")
+            report(f"flash_packed{tag}_B{b}_Nq{nq}_Nk{nk}_valid{nk_valid}"
+                   f"{'_lse' if with_lse else ''}",
+                   time_ms(lambda: _call(flash, q, k, v, o, lse, b, nq, nk, nk_valid, D, h,
+                                         scale)),
+                   max_abs_err=err)
 
     # ---- column masses: the row logsumexps and the mass pass
     n = 3072
-    for b in (8, 2):
-        q, k = randn(b, n, D), randn(b, n, D)
-        lse = torch.empty(b, H, n, device=dev)
-        cm = torch.empty(b, H, n, device=dev)
-        full = libs["colmass"].shim
-        _call(full, q, k, lse, cm, b, n, n, H, scale)
-        torch.cuda.synchronize()
-        err = rel_err(cm, colmass.softmax_colmass_ref(q, k, scale, H))
-        if err > 1e-3:
-            raise RuntimeError(f"softmax_colmass B={b} through the shim: relative err {err}")
-        report(f"softmax_colmass_B{b}",
-               time_ms(lambda: _call(full, q, k, lse, cm, b, n, n, H, scale)), rel_err=err)
-        lib = libs.get("colmass_lse_only")
-        if lib is not None:
-            report(f"softmax_colmass_lse_pass_B{b}",
-                   time_ms(lambda: _call(lib.shim, q, k, lse, cm, b, n, n, H, scale)))
-            report(f"softmax_colmass_mass_pass_B{b}",
-                   out[f"softmax_colmass_B{b}"]["ms"] - out[f"softmax_colmass_lse_pass_B{b}"]["ms"],
-                   note="the whole less the lse pass")
+    for dk in dks:
+        h, scale, tag = D // dk, dk ** -0.5, "" if dk == DK else f"_dk{dk}"
+        for b in (8, 2):
+            q, k = randn(b, n, D), randn(b, n, D)
+            lse = torch.empty(b, h, n, device=dev)
+            cm = torch.empty(b, h, n, device=dev)
+            full = libs["colmass"].shim
+            _call(full, q, k, lse, cm, b, n, n, D, h, scale)
+            torch.cuda.synchronize()
+            err = rel_err(cm, colmass.softmax_colmass_ref(q, k, scale, h))
+            if err > 1e-3:
+                raise RuntimeError(f"softmax_colmass{tag} B={b} through the shim: "
+                                   f"relative err {err}")
+            name = f"softmax_colmass{tag}_B{b}"
+            report(name, time_ms(lambda: _call(full, q, k, lse, cm, b, n, n, D, h, scale)),
+                   rel_err=err)
+            lib = libs.get("colmass_lse_only")
+            if lib is not None:
+                report(f"softmax_colmass{tag}_lse_pass_B{b}",
+                       time_ms(lambda: _call(lib.shim, q, k, lse, cm, b, n, n, D, h, scale)))
+                report(f"softmax_colmass{tag}_mass_pass_B{b}",
+                       out[name]["ms"] - out[f"softmax_colmass{tag}_lse_pass_B{b}"]["ms"],
+                       note="the whole less the lse pass")
 
     # ---- the fused attention sublayer: projections, attention, out projection
     w = [t for _ in range(4) for t in (randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))]
@@ -330,24 +353,27 @@ def main(argv=None) -> int:
     # ---- the training step's backward kernels, statistics in whole tiles
     b = 64
     for n in (int(v) for v in args.sizes.split(",")):
-        q, k, v, do = (randn(b, n, D) for _ in range(4))
-        o, lse = attention.flash_mha_packed_ref(q, k, v, scale, H, return_lse=True)
-        lse_t = F.pad(lse, (0, -n % 64), value=float("inf"))
-        delta = torch.empty_like(lse_t)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        for dk in dks:
+            h, scale, tag = D // dk, dk ** -0.5, "" if dk == DK else f"_dk{dk}"
+            q, k, v, do = (randn(b, n, D) for _ in range(4))
+            o, lse = attention.flash_mha_packed_ref(q, k, v, scale, h, return_lse=True)
+            lse_t = F.pad(lse, (0, -n % 64), value=float("inf"))
+            delta = torch.empty_like(lse_t)
+            dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
-        def flash_bwd():
-            _call(libs["flash_bwd"].shim, q, k, v, o, do, lse_t, delta, dq, dk, dv, b, n, n, H,
-                  scale)
+            def flash_bwd():
+                _call(libs["flash_bwd"].shim, q, k, v, o, do, lse_t, delta, dq, dk_, dv, b, n,
+                      n, D, h, scale)
 
-        flash_bwd()
-        torch.cuda.synchronize()
-        want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, H)
-        errs = [rel_err(gv.float(), wv.float()) for gv, wv in zip((dq, dk, dv), want)]
-        if max(errs) > 1e-2:
-            raise RuntimeError(f"flash_bwd N={n} through the shim: relative errors {errs}")
-        report(f"flash_bwd_B{b}_N{n}", time_ms(flash_bwd), rel_errs=errs)
-        del q, k, v, do, o, want
+            flash_bwd()
+            torch.cuda.synchronize()
+            want = attention.flash_mha_packed_bwd_ref(q, k, v, o, lse, do, scale, h)
+            errs = [rel_err(gv.float(), wv.float()) for gv, wv in zip((dq, dk_, dv), want)]
+            if max(errs) > 1e-2:
+                raise RuntimeError(f"flash_bwd{tag} N={n} through the shim: relative errors "
+                                   f"{errs}")
+            report(f"flash_bwd{tag}_B{b}_N{n}", time_ms(flash_bwd), rel_errs=errs)
+            del q, k, v, do, o, want
 
         se, te = randn(b, n, E, scale=E ** -0.5), randn(b, n, E, scale=E ** -0.5)
         tgt = torch.rand(b, n, 3, generator=g, device=dev) * 2 - 1

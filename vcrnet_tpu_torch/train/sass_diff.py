@@ -1,6 +1,7 @@
 """Whether two source trees compile a kernel source to the same instructions.
 
     python3 -m vcrnet_tpu_torch.train.sass_diff OLD_CSRC NEW_CSRC [SOURCE ...]
+        [--as OLD_KERNEL=NEW_KERNEL ...] [--new-ok] [--dropped SOURCE:OLD_KERNEL ...]
 
 Compiles each SOURCE (default ``pointer_mha.cu``) from both directories
 with nvcc to a cubin (``sm_90a``, the extension's flags) in parallel,
@@ -12,8 +13,16 @@ and whether the two sequences are equal, and the first differences where
 they are not. A change meant to leave a kernel's code alone (a header
 shared with another kernel, a template over an epilogue) is held by this:
 the card's timings of the same code move by several per cent from call to
-call, its instructions do not. Exits 1 when a kernel differs or is in one
-build only. Needs nvcc and cuobjdump; no card.
+call, its instructions do not. A kernel that became an instance of a
+template is matched to its old self by ``--as`` (``fwd_kernel=
+fwd_kernelILi128E``: the old name, then the new one as this script prints
+it); ``--new-ok`` lets kernels found in the new build alone (a template's
+other instances) pass, printed; ``--dropped`` names a kernel that the old
+build of one source compiled and the new one no longer does (a header's
+kernel that the source never launched, now a template it does not
+instantiate: ``--dropped colmass.cu:fwd_kernel``), which then passes,
+printed. Exits 1 when a kernel differs or is in one build only otherwise.
+Needs nvcc and cuobjdump; no card.
 """
 
 from __future__ import annotations
@@ -59,7 +68,14 @@ def main(argv=None) -> int:
     ap.add_argument("old", help="the first source directory")
     ap.add_argument("new", help="the second source directory")
     ap.add_argument("sources", nargs="*", default=["pointer_mha.cu"])
+    ap.add_argument("--as", dest="renames", action="append", default=[],
+                    metavar="OLD=NEW", help="compare the old build's OLD with the new one's NEW")
+    ap.add_argument("--new-ok", action="store_true",
+                    help="kernels in the new build only do not fail the comparison")
+    ap.add_argument("--dropped", action="append", default=[], metavar="SOURCE:OLD",
+                    help="the old build's OLD kernel of SOURCE is absent from the new build")
     args = ap.parse_args(argv)
+    renames = dict(r.split("=", 1) for r in args.renames)
     same = True
     with tempfile.TemporaryDirectory() as tmp:
         def compile_one(job):
@@ -74,12 +90,17 @@ def main(argv=None) -> int:
         with ThreadPoolExecutor(len(jobs)) as pool:
             built = dict(pool.map(compile_one, jobs))
         for src in args.sources:
-            a = kernels(built[("old", args.old, src)])
+            old = kernels(built[("old", args.old, src)])
+            a = {renames.get(name, name): code for name, code in old.items()}
             b = kernels(built[("new", args.new, src)])
+            dropped = {renames.get(name, name) for name in old
+                       if f"{src}:{name}" in args.dropped}
             for name in sorted(set(a) | set(b)):
                 if name not in a or name not in b:
-                    print(f"{src} {name}: in the {'new' if name in b else 'old'} build only")
-                    same = False
+                    print(f"{src} {name}: in the {'new' if name in b else 'old'} build only"
+                          f" ({len(b.get(name, a.get(name)))} instructions)"
+                          + (", dropped as named" if name in dropped else ""))
+                    same &= args.new_ok if name in b else name in dropped
                     continue
                 equal = a[name] == b[name]
                 same &= equal
