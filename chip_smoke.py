@@ -196,6 +196,25 @@ Phases (any failure raises and the script exits non-zero):
            launches as the dk = 128 model's, latency; --emb_dims 256 (4 heads) through the
            CLI: a fit of one epoch and an iter = 3 eval equal to
            Trainer.eval_epoch's.
+24. emb1024  --emb_dims 1024 (d 1024, ff 1024, 4 heads of 256, E 1024) on
+           the kernel route (phase_emb1024, emb1024_kernel_rows): the
+           attention forward (and its logsumexp) and the column masses at
+           dk = 256, the soft correspondence's kernel for E > 512 and the
+           fused feed-forward at D = 1024 against their plain versions at
+           the served shapes (ragged N = 885 and 1000; the masses and the
+           soft correspondence equal over two runs), timed beside the plain
+           version, the library call and the bound; VCR-Net at that width
+           from a seeded init, 20 Adam steps on the plain route (the kernel
+           route's backward takes dk <= 128 and E <= 512), then requests of
+           1 / 8 / 64 pairs at iter = 1 and 3 and partial overlap at 768
+           and 3072 points on the kernel route against the plain route (as
+           phase 23, partial mode against a d 512 model trained the same
+           way), every attention, column-mass and soft-correspondence
+           launch the wide instance's; with VCRNET_FUSED_POINTER=1 an
+           iter = 1 request through fused_ff at D = 1024; the CLI's
+           --emb_dims 1024 --eval of a checkpoint of those weights equal to
+           Trainer.eval_epoch's, and a fit at that width refused by the two
+           backward gates before it touches the card.
 
 The kernels phase also holds the four kernels of phases 9 and 10 (knn,
 dgcnn_eval, fused_mha, fused_ff) against their plain versions at B = 8 and
@@ -241,10 +260,12 @@ Nq = 885 over Nk = 1000), flash_bwd and vcp_bwd equal from run to run at
 every shape, item 0's gradients unchanged when item 1 is drawn again.
 
 Each phase prints its seconds, and the script its total. The last lines are a JSON object
-with one entry per kernel (twenty: the port's sixteen kernels, edge_split and the dk = 64
-instances of flash_packed, flash_bwd and softmax_colmass, whose launches the dk = 128
-entries leave out; edge_conv's with its f32
-instance's launches, time, plain time and bound beside; the launches of each phase's main path beside the total, the ranks' of the
+with one entry per kernel (twenty-three: the port's sixteen kernels, edge_split, the dk = 64
+instances of flash_packed, flash_bwd and softmax_colmass and the wide instances
+flash_packed_dk256, softmax_colmass_dk256 and vcp_stream_e1024, whose launches the dk = 128
+and E <= 512 entries leave out; edge_conv's with its f32
+instance's launches, time, plain time and bound beside, fused_ff's with its time, plain
+time, library sequence and bound at D = 1024; the launches of each phase's main path beside the total, the ranks' of the
 parallel phase as launches_parallel; the point_sharding phase prints its ranks' as
 launches_sp, all zero), the card's
 ``nvidia-smi`` name and power limit, and the result object
@@ -1303,12 +1324,13 @@ def _cosine(a, b) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
 
 
-def adam_trained(cfg, batch, what: str):
+def adam_trained(cfg, batch, what: str, use_kernels: bool = True):
     """A Trainer of ``cfg`` from the seeded init after TRAIN_STEPS Adam
-    steps on ``batch``, whose loss must fall."""
+    steps on ``batch``, whose loss must fall, on the kernel route or (with
+    ``use_kernels=False``) the plain one."""
     from vcrnet_tpu_torch.train import Trainer
 
-    tr = Trainer(cfg, seed=0)
+    tr = Trainer(cfg, seed=0, use_kernels=use_kernels)
     losses = []
     for _ in range(TRAIN_STEPS + 1):
         sums = tr.train_step(batch)
@@ -2238,9 +2260,9 @@ def phase_family_kernels(dev):
         "fused_mha dk = 64": lambda: pointer.fused_mha(yq, yq, *mha_w, 8),
         "fused_ff F > 4096": lambda: pointer.fused_ff(
             yq, randn(D, 8 * FF), randn(8 * FF), randn(8 * FF, D), randn(D)),
-        "fused_ff D > 512": lambda: pointer.fused_ff(
-            randn(1, 64, 2 * D, dtype=bf16), randn(2 * D, FF), randn(FF), randn(FF, 2 * D),
-            randn(2 * D)),
+        "fused_ff D > 1024": lambda: pointer.fused_ff(
+            randn(1, 64, 2 * D + 128, dtype=bf16), randn(2 * D + 128, FF), randn(FF),
+            randn(FF, 2 * D + 128), randn(2 * D + 128)),
         "dgcnn_eval k = N": lambda: dgcnn.fused_dgcnn_eval(
             x[:1, :32].contiguous(), idx[:1, :32, :1].expand(1, 32, 32).contiguous(), folded,
             emb),
@@ -3937,7 +3959,7 @@ def phase_cli():
             message = ""
         print(f"cli --n_heads 16: {message!r}", flush=True)
         check("ops/attention.py::flash_packed_supported" in message
-              and "dk = 64 or 128 (got emb_dims / n_heads = 512 / 16)" in message,
+              and "dk = 64, 128 or 256 (got emb_dims / n_heads = 512 / 16)" in message,
               "cli: --n_heads 16 was not refused by the attention gate")
     finally:
         os.chdir(cwd)
@@ -5625,7 +5647,6 @@ def phase_head_dim64():
     from vcrnet_tpu_torch.config import Config
     from vcrnet_tpu_torch.data.pipeline import make_loaders
     from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
-    from vcrnet_tpu_torch.serve import Registrar
     from vcrnet_tpu_torch.train import Trainer
     from vcrnet_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -5671,26 +5692,11 @@ def phase_head_dim64():
     del trainer
     torch.cuda.empty_cache()
 
-    def routes(scfg, w, buckets) -> tuple:
-        """Registrars of ``scfg`` on the kernel route and on the plain one."""
-        reg = Registrar(scfg, w, **buckets)
-        plain = Registrar(scfg, w, use_kernels=False, **buckets)
-        check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
-        return reg, plain
-
-    def route_gaps(reg, plain, requests) -> tuple:
-        """The two routes' results of ``requests`` and the rotation (deg)
-        and largest |dt| between them per pair."""
-        R, t = serve_all(reg, requests)
-        R_p, t_p = serve_all(plain, requests)
-        return (R, t, R_p, t_p, pair_rot_errors_deg(R, R_p.astype(np.float64)),
-                np.abs(t - t_p).max(axis=1))
-
     for name, fields, pairs, sizes, expected in serving:
         scfg = Config(**{"compute_dtype": "bfloat16", "num_points": N, "n_heads": 8, **fields})
         requests = split_requests(pairs, sizes)
         buckets = {"buckets": (8,)} if name == "partial3072" else {}
-        reg, plain = routes(scfg, weights, buckets)
+        reg, plain = serving_routes(scfg, weights, **buckets)
         serve_all(reg, requests)  # warm-up
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -5708,7 +5714,8 @@ def phase_head_dim64():
         limit = HEAD64_ROUTE_ROT_DEG
         if "partial" in fields:
             *_, between128, dt128 = route_gaps(
-                *routes(dataclasses.replace(scfg, n_heads=4), weights128, buckets), requests)
+                *serving_routes(dataclasses.replace(scfg, n_heads=4), weights128, **buckets),
+                requests)
             limit = max(limit, HEAD64_PARTIAL_GAP_RATIO * float(np.median(between128)))
             print(f"head_dim64 {name}: the dk = 128 yardstick's rotation between the routes per "
                   f"pair: median {float(np.median(between128))} max {float(between128.max())} "
@@ -5768,6 +5775,407 @@ def phase_head_dim64():
               f"{got} vs {want}")
         check_launches(launches, {k: n * len(test) for k, n in LAUNCHES_ITER3.items()},
                        "head_dim64 cli eval")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# --emb_dims 1024 (d 1024, 4 heads of dk 256, E 1024) on the kernel route:
+# the attention forward and the column masses at dk = 256, the soft
+# correspondence's kernel for E > 512 and the fused feed-forward at D = 1024
+# ---------------------------------------------------------------------------
+
+EMB1024 = dict(emb_dims=1024, ff_dims=1024, n_heads=4)
+EMB1024_RAGGED = (885, 1000)  # cloud sizes of the ragged tiles
+EMB1024_TRAIN_BATCH = 8
+# VCRNET_FUSED_POINTER=1 at iter = 1: the feed-forward sublayers fused (D =
+# 1024), the attention on flash_packed (fused_mha takes D <= 512)
+EMB1024_FUSED_LAUNCHES = dict(LAUNCHES_ITER1, fused_ff=4)
+
+
+def emb1024_kernel_rows(dev) -> dict:
+    """The wide instances against their plain versions, with the limits the
+    dk = 128 / E = 512 instances are held to: the attention forward at dk =
+    256 (B = 64, N = 1024, 4 heads) within 2e-2 absolute and its logsumexp
+    within 1e-3, ragged at N = 885 and 1000 (B = 64) and over 2368 keys of
+    which 2353 are valid (B = 8, Nq = 3072); softmax_colmass at dk = 256
+    (B = 8, N = 3072; ragged B = 8, Nq = 885 over Nk = 1000) within 1e-3
+    relative, two runs equal; vcp_stream at E = 1024 (B = 64, N = 1024;
+    ragged N = 885 and 1000, Ns != Nt) within 1e-3 absolute, two runs
+    equal; fused_ff at D = 1024, F = 1024 and 4096 over 768 x 8, 1024 x 64
+    and 3072 x 8 rows within 2^-6 of the largest output. Times (CUDA
+    events, median of 25) beside the plain version, the library call (SDPA
+    at head dim 256; SDPA with the mask -|f|^2 and scale 2 for the soft
+    correspondence; the three calls of the feed-forward) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcrnet_tpu_torch.ops import attention, colmass, pointer, vcp
+
+    rate, _ = exp_rate()
+    g = torch.Generator(device=dev).manual_seed(1024)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    # --- the attention forward, 4 heads of 256
+    B, h, d = BATCHES[-1], 4, 1024
+    scale = 256 ** -0.5
+    check(attention.flash_packed_supported(N, N, d, h), "the dk = 256 gate")
+    q, k, v = (randn(B, N, d) for _ in range(3))
+    o, lse = attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, h, return_lse=True)
+    err, lse_err = (o.float() - want.float()).abs().max().item(), (lse - want_lse).abs().max().item()
+    check(err <= 2e-2 and lse_err <= 1e-3,
+          f"flash_packed dk=256 B={B}: max abs err {err}, lse {lse_err}")
+    del want, want_lse
+    q4, k4, v4 = (t.reshape(B, N, h, 256).transpose(1, 2).contiguous() for t in (q, k, v))
+    b, by, terms = bound3_ms(nbytes(q, k, v, o), 4 * B * h * N * N * 256, B * h * N * N, rate)
+    rows["flash_packed_dk256"] = [dict(
+        B=B, N=N, H=h, d=d, max_abs_err=err, lse_err=lse_err, bound_ms=b, bound_by=by,
+        bound_terms=terms,
+        ms=cuda_time_ms(lambda: attention.flash_mha_packed(q, k, v, scale, h)),
+        lse_ms=cuda_time_ms(lambda: attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)),
+        plain_ms=cuda_time_ms(lambda: attention.flash_mha_packed_ref(q, k, v, scale, h), reps=5),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+        dk128_ms=cuda_time_ms(lambda: attention.flash_mha_packed(q, k, v, 128 ** -0.5, 8)))]
+    del q, k, v, o, lse, q4, k4, v4
+    for n in EMB1024_RAGGED:
+        q, k, v = (randn(B, n, d) for _ in range(3))
+        o, lse = attention.flash_mha_packed(q, k, v, scale, h, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = attention.flash_mha_packed_ref(q, k, v, scale, h, return_lse=True)
+        err = (o.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        check(err <= 2e-2 and lse_err <= 1e-3,
+              f"flash_packed dk=256 N={n}: max abs err {err}, lse {lse_err}")
+        rows.setdefault("flash_packed_dk256_ragged", []).append(
+            dict(B=B, N=n, max_abs_err=err, lse_err=lse_err))
+        del q, k, v, o, lse, want, want_lse
+    bl, pad = LARGE_BATCHES[-1], -KEEP_LARGE % 64
+    q = randn(bl, N_LARGE, d)
+    kk, vv = (F.pad(randn(bl, KEEP_LARGE, d), (0, 0, 0, pad)) for _ in range(2))
+    o = attention.flash_mha_packed(q, kk, vv, scale, h, nk_valid=KEEP_LARGE)
+    torch.cuda.synchronize()
+    err = (o.float() - attention.flash_mha_packed_ref(q, kk, vv, scale, h, nk_valid=KEEP_LARGE)
+           .float()).abs().max().item()
+    check(err <= 2e-2, f"flash_packed dk=256 nk_valid={KEEP_LARGE}: max abs err {err} > 2e-2")
+    rows["flash_packed_dk256_nk_valid"] = [dict(
+        B=bl, Nq=N_LARGE, Nk=KEEP_LARGE + pad, nk_valid=KEEP_LARGE, max_abs_err=err,
+        ms=cuda_time_ms(lambda: attention.flash_mha_packed(q, kk, vv, scale, h,
+                                                           nk_valid=KEEP_LARGE)))]
+    del kk, vv, o
+
+    # --- the column masses of the partial-3072 request, 4 heads of 256
+    k = randn(bl, N_LARGE, d)
+    cm = colmass.softmax_colmass(q, k, scale, h)
+    torch.cuda.synchronize()
+    want = colmass.softmax_colmass_ref(q, k, scale, h)
+    rel = rel_err(cm, want)
+    check(rel <= 1e-3, f"softmax_colmass dk=256 B={bl}: relative err {rel} > 1e-3")
+    check(torch.equal(cm, colmass.softmax_colmass(q, k, scale, h)),
+          f"softmax_colmass dk=256 B={bl}: two runs differ")
+    # what the function needs: one score product and one exp a score
+    b, by, terms = bound3_ms(nbytes(q, k, cm), 2 * bl * h * N_LARGE * N_LARGE * 256,
+                             bl * h * N_LARGE * N_LARGE, rate)
+    rows["softmax_colmass_dk256"] = [dict(
+        B=bl, N=N_LARGE, H=h, max_abs_err=(cm - want).abs().max().item(), rel_err=rel,
+        bound_ms=b, bound_by=by, bound_terms=terms,
+        ms=cuda_time_ms(lambda: colmass.softmax_colmass(q, k, scale, h)),
+        plain_ms=cuda_time_ms(lambda: colmass.softmax_colmass_ref(q, k, scale, h), reps=5),
+        library_ms=None,
+        dk128_ms=cuda_time_ms(lambda: colmass.softmax_colmass(q, k, 128 ** -0.5, 8)))]
+    del q, k, cm, want
+    q, k = randn(bl, EMB1024_RAGGED[0], d), randn(bl, EMB1024_RAGGED[1], d)
+    cm = colmass.softmax_colmass(q, k, scale, h)
+    torch.cuda.synchronize()
+    want = colmass.softmax_colmass_ref(q, k, scale, h)
+    rel = rel_err(cm, want)
+    check(rel <= 1e-3 and torch.equal(cm, colmass.softmax_colmass(q, k, scale, h)),
+          f"softmax_colmass dk=256 Nq={q.shape[1]} Nk={k.shape[1]}: relative err {rel}, "
+          f"or two runs differ")
+    rows["softmax_colmass_dk256_ragged"] = [dict(
+        B=bl, Nq=q.shape[1], Nk=k.shape[1], max_abs_err=(cm - want).abs().max().item(),
+        rel_err=rel)]
+    del q, k, cm, want
+
+    # --- the soft correspondence at E = 1024 (its kernel for E > 512)
+    e = 1024
+    check(vcp.streaming_supported(N, N, e) and not vcp.streaming_vjp_supported(N, N, e),
+          "the E = 1024 gates")
+    for ns, nt in ((N, N),) + tuple((n, n) for n in EMB1024_RAGGED) + ((EMB1024_RAGGED[0], N),):
+        se, te = randn(B, ns, e, scale=e ** -0.5), randn(B, nt, e, scale=e ** -0.5)
+        tgt = torch.rand(B, nt, 3, generator=g, device=dev) * 2 - 1
+        c, lse = vcp.streaming_soft_correspondence(se, te, tgt, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+        err = (c - want).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        check(err <= 1e-3 and lse_err <= 1e-3, f"vcp_stream E={e} B={B} Ns={ns} Nt={nt}: max "
+                                               f"abs err {err}, lse {lse_err}")
+        check(torch.equal(c, vcp.streaming_soft_correspondence(se, te, tgt)),
+              f"vcp_stream E={e} Ns={ns} Nt={nt}: two runs differ")
+        row = dict(B=B, Ns=ns, Nt=nt, E=e, max_abs_err=err, lse_err=lse_err)
+        if ns == nt == N:
+            sef, tef = se.float(), te.float()
+            mask = -(tef * tef).sum(-1)[:, None, :].expand(B, N, N).contiguous()
+            se512, te512 = se[..., :512].contiguous(), te[..., :512].contiguous()
+            b, by, terms = bound3_ms(nbytes(se, te, tgt, c), 2 * B * N * N * e, B * N * N, rate)
+            row.update(bound_ms=b, bound_by=by, bound_terms=terms,
+                       ms=cuda_time_ms(lambda: vcp.streaming_soft_correspondence(se, te, tgt)),
+                       plain_ms=cuda_time_ms(
+                           lambda: vcp.streaming_soft_correspondence_ref(se, te, tgt), reps=5),
+                       library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                           sef, tef, tgt, attn_mask=mask, scale=2.0)),
+                       e512_ms=cuda_time_ms(
+                           lambda: vcp.streaming_soft_correspondence(se512, te512, tgt)))
+            rows["vcp_stream_e1024"] = [row]
+            del sef, tef, mask, se512, te512
+        else:
+            rows.setdefault("vcp_stream_e1024_ragged", []).append(row)
+        del se, te, tgt, c, lse, want, want_lse
+    torch.cuda.empty_cache()
+
+    # --- the fused feed-forward at D = 1024 (repaired gate)
+    for bb, n, f in ((8, 768, 1024), (64, N, 1024), (8, N_LARGE, 1024), (8, 768, 4096),
+                     (64, N, 4096), (8, N_LARGE, 4096)):
+        y = randn(bb, n, d, scale=0.5)
+        w = (randn(d, f, scale=d ** -0.5), randn(f, scale=0.1), randn(f, d, scale=f ** -0.5),
+             randn(d, scale=0.1))
+        with torch.no_grad():
+            out = pointer.fused_ff(y, *w)
+            torch.cuda.synchronize()
+            want = pointer.fused_ff_ref(y, *w)
+        err, rel = (out.float() - want.float()).abs().max().item(), rel_err(out, want)
+        check(rel <= 2 ** -6, f"fused_ff B={bb} N={n} D={d} F={f}: relative err {rel} > 2^-6")
+        row = dict(B=bb, N=n, D=d, F=f, max_abs_err=err, rel_err=rel)
+        if (bb, n, f) == (64, N, 1024):
+            lib = (w[0].t().contiguous(), w[1], w[2].t().contiguous(), w[3])
+
+            def library_ff():
+                return F.linear(torch.relu(F.linear(y, lib[0], lib[1])), lib[2], lib[3])
+
+            b, by = bound_ms(nbytes(y, out) + param_bytes(*w), 4 * bb * n * d * f,
+                             BF16_TENSOR_FLOPS)
+            with torch.no_grad():
+                row.update(bound_ms=b, bound_by=by,
+                           ms=cuda_time_ms(lambda: pointer.fused_ff(y, *w)),
+                           plain_ms=cuda_time_ms(lambda: pointer.fused_ff_ref(y, *w)),
+                           library_seq_ms=cuda_time_ms(library_ff),
+                           library_seq_rel_err=rel_err(library_ff(), want))
+        rows.setdefault("fused_ff_d1024", []).append(row)
+        del y, w, out, want
+    torch.cuda.empty_cache()
+    print_rows(rows)
+    return rows
+
+
+def serving_routes(cfg, weights, **kw) -> tuple:
+    """Registrars of ``cfg`` and ``weights`` on the kernel route and on the
+    plain one."""
+    from vcrnet_tpu_torch.serve import Registrar
+
+    reg = Registrar(cfg, weights, **kw)
+    plain = Registrar(cfg, weights, use_kernels=False, **kw)
+    check(reg.model.use_kernels and not plain.model.use_kernels, "routes not as asked")
+    return reg, plain
+
+
+def route_gaps(reg, plain, requests) -> tuple:
+    """The two routes' results of ``requests`` and the rotation (deg) and
+    largest |dt| between them per pair."""
+    import numpy as np
+
+    R, t = serve_all(reg, requests)
+    R_p, t_p = serve_all(plain, requests)
+    return (R, t, R_p, t_p, pair_rot_errors_deg(R, R_p.astype(np.float64)),
+            np.abs(t - t_p).max(axis=1))
+
+
+def phase_emb1024():
+    """VCR-Net at --emb_dims 1024 (d 1024, ff 1024, 4 heads of 256, E 1024)
+    from a seeded init, trained for 20 Adam steps on the plain route (the
+    kernel route trains at dk <= 128 and E <= 512 alone), and a d 512 model
+    trained the same way as partial mode's yardstick. On those weights,
+    requests of 1 / 8 / 64 pairs at iter = 1 and iter = 3 and partial
+    overlap at 768 points and at 3072 (8 pairs, where softmax_colmass
+    launches), each on the kernel route against the plain route:
+    translations within 0.01 (median per pair), the rotation between the
+    routes per pair, median <= 0.5 deg at iter = 1 and 3 and in partial mode
+    <= the larger of 0.5 deg and HEAD64_PARTIAL_GAP_RATIO times the d 512
+    model's median; the launches of a request as the d 512 model's, every
+    attention, column-mass and soft-correspondence launch the wide
+    instance's; the latency. With VCRNET_FUSED_POINTER=1 an iter = 1
+    request launches fused_ff (D = 1024) and no fused_mha and agrees with
+    the unfused route within the fused pointer's limits. Then the port's
+    CLI: --emb_dims 1024 --eval (iter = 3) of a checkpoint of those weights
+    on the kernel route, whose summary equals Trainer.eval_epoch's, and a
+    fit at that width, which exits naming the two backward gates before it
+    touches the card. Returns the launches of the phase's paths, with the
+    wide instances' as flash_packed_dk256, softmax_colmass_dk256 and
+    vcp_stream_e1024."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vcrnet_tpu_torch import cli, ops
+    from vcrnet_tpu_torch.config import Config
+    from vcrnet_tpu_torch.data.pipeline import make_loaders
+    from vcrnet_tpu_torch.data.synthetic import shapes_eval_set
+    from vcrnet_tpu_torch.train import Trainer
+    from vcrnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    total = {}
+
+    def with_wide(launches: dict, what: str) -> dict:
+        """``launches`` and the wide instances' counts, added to the phase's
+        total; every launch of the three kernels here is theirs."""
+        out = {**ops.launch_counts_wide(), **launches}
+        for wide, (name, _) in ops.WIDE_KERNELS.items():
+            check(out[wide] == out[name],
+                  f"{what}: {out[name]} {name} launches, {out[wide]} of {wide}")
+        add_launches(total, out)
+        return out
+
+    cfg = Config(compute_dtype="bfloat16", num_points=N, **EMB1024)
+    check(cfg.emb_dims // cfg.n_heads == 256, "emb1024: 4 heads of 256")
+    batch = _train_batch(cfg, EMB1024_TRAIN_BATCH, seed=1)
+    trainer = adam_trained(cfg, batch, "emb1024 plain route", use_kernels=False)
+    weights = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    cfg512 = Config(compute_dtype="bfloat16", num_points=N)
+    yardstick = adam_trained(cfg512, batch, "emb1024 d512 yardstick", use_kernels=False)
+    weights512 = {k: v.detach().clone() for k, v in yardstick.model.state_dict().items()}
+    del yardstick
+    torch.cuda.empty_cache()
+
+    data = shapes_eval_set(sum(REQUESTS), num_points=N)
+    serving = [("iter1", dict(iter=1), data, REQUESTS, LAUNCHES_ITER1),
+               ("iter3", dict(iter=3), data, REQUESTS, LAUNCHES_ITER3),
+               ("partial768", dict(iter=3, partial=True, overlap=0.575),
+                shapes_eval_set(sum(REQUESTS), num_points=N, partial=True), REQUESTS,
+                LAUNCHES_PARTIAL),
+               ("partial3072", dict(iter=3, partial=True, overlap=0.575,
+                                    num_points=NUM_POINTS_LARGE),
+                shapes_eval_set(sum(HEAD64_PARTIAL_REQUESTS), num_points=NUM_POINTS_LARGE,
+                                cloud_points=NUM_POINTS_LARGE + 3, partial=True),
+                HEAD64_PARTIAL_REQUESTS, LAUNCHES_PARTIAL_LARGE)]
+    for name, fields, pairs, sizes, expected in serving:
+        scfg = dataclasses.replace(cfg, **fields)
+        requests = split_requests(pairs, sizes)
+        buckets = {"buckets": (8,)} if name == "partial3072" else {}
+        reg, plain = serving_routes(scfg, weights, **buckets)
+        serve_all(reg, requests)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        reg.register(*requests[0])
+        launches = with_wide(ops.launch_counts(), f"emb1024 {name}")
+        print(f"emb1024 {name}: launches of one request of {len(requests[0][0])} pairs: "
+              f"{launches}", flush=True)
+        check_launches(launches, expected, f"emb1024 {name}")
+        R, t, R_p, t_p, between, dt = route_gaps(reg, plain, requests)
+        acc, acc_p = accuracy(R, t, pairs), accuracy(R_p, t_p, pairs)
+        print(f"emb1024 {name}: rotation between the routes' results per pair: median "
+              f"{float(np.median(between))} max {float(between.max())} deg; |dt| median "
+              f"{float(np.median(dt))} max {float(dt.max())}; kernels {acc} plain {acc_p}",
+              flush=True)
+        limit = HEAD64_ROUTE_ROT_DEG
+        if "partial" in fields:
+            *_, between512, dt512 = route_gaps(*serving_routes(
+                dataclasses.replace(cfg512, **fields), weights512, **buckets), requests)
+            limit = max(limit, HEAD64_PARTIAL_GAP_RATIO * float(np.median(between512)))
+            print(f"emb1024 {name}: the d 512 yardstick's rotation between the routes per pair: "
+                  f"median {float(np.median(between512))} max {float(between512.max())} deg; "
+                  f"|dt| median {float(np.median(dt512))}; the d 1024 model's limit {limit} deg",
+                  flush=True)
+        check(float(np.median(between)) <= limit,
+              f"emb1024 {name}: routes differ by more than {limit} deg (median per pair)")
+        check(float(np.median(dt)) <= HEAD64_ROUTE_TRANS,
+              f"emb1024 {name}: translations differ by more than {HEAD64_ROUTE_TRANS}")
+        print_latency(reg, requests, f"emb1024 {name}")
+        if name == "iter1":  # the fused pointer: the feed-forward at D = 1024
+            requests1 = requests
+            R_u, t_u = R, t
+            check("VCRNET_FUSED_POINTER" not in os.environ, "VCRNET_FUSED_POINTER is set")
+            os.environ["VCRNET_FUSED_POINTER"] = "1"
+            try:
+                serve_all(reg, requests1)  # warm-up, fused
+                launches = with_wide(one_request_launches(
+                    reg, *requests1[0], EMB1024_FUSED_LAUNCHES, "emb1024 fused pointer"),
+                    "emb1024 fused pointer")
+                R_f, t_f = serve_all(reg, requests1)
+                print_latency(reg, requests1, "emb1024 fused pointer")
+            finally:
+                del os.environ["VCRNET_FUSED_POINTER"]
+            acc_f, acc_u = accuracy(R_f, t_f, pairs), accuracy(R_u, t_u, pairs)
+            between_f = pair_rot_errors_deg(R_f, R_u.astype(np.float64))
+            dt_f = float(np.abs(t_f - t_u).max())
+            print(f"emb1024 fused pointer: fused {acc_f} unfused {acc_u}; rotation between the "
+                  f"fused and unfused results per pair: median {float(np.median(between_f))} "
+                  f"max {float(between_f.max())} deg; max |dt| {dt_f}", flush=True)
+            check(abs(acc_f["rot_rmse_deg"] - acc_u["rot_rmse_deg"]) <= FUSED_AGREEMENT_DEG[1],
+                  "emb1024 fused pointer: rot RMSE moved from the unfused route")
+            check(float(np.median(between_f)) <= FUSED_PAIR_ROT_DEG["median"]
+                  and float(between_f.max()) <= FUSED_PAIR_ROT_DEG["max"]
+                  and dt_f <= FUSED_PAIR_TRANS,
+                  "emb1024 fused pointer: a pair's fused and unfused results differ")
+        del reg, plain
+        torch.cuda.empty_cache()
+
+    # the port's CLI at --emb_dims 1024: an iter = 3 eval of a checkpoint of
+    # the weights on the kernel route, and a fit it refuses
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="emb1024_cli_", dir=os.path.join(HERE, "build"))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        ckpt = save_checkpoint(tmp, "model.emb1024", trainer)
+        del trainer
+        width = ["--emb_dims", "1024", "--compute_dtype", "bfloat16", "--dataset",
+                 "synthetic_shapes", "--num_points", str(N), "--test_batch_size", "32"]
+        argv = width + ["--eval", "--iter", "3", "--model_path", ckpt]
+        ecfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        check(cli.kernel_route_refusals(ecfg) == [], "cli: --emb_dims 1024 --eval refused")
+        np.random.seed(ecfg.seed)
+        _, test = make_loaders(ecfg)
+        ref = Trainer(ecfg)
+        load_checkpoint(ckpt, ref)
+        want = ref.eval_epoch(test)
+        del ref
+        ops.reset_launch_counts()
+        got = cli.main(argv)
+        launches = with_wide(ops.launch_counts(), "emb1024 cli eval")
+        print(f"emb1024 cli --emb_dims 1024 eval (iter=3, {len(test.dataset)} pairs): "
+              f"rot_ab_RMSE {got['rot_ab_RMSE']} trans_ab_RMSE {got['trans_ab_RMSE']}; "
+              f"launches {launches}", flush=True)
+        check(json.dumps(got, indent=2, default=float)
+              == json.dumps(want, indent=2, default=float),
+              f"emb1024 cli eval: the summary differs from Trainer.eval_epoch's: {got} vs {want}")
+        check_launches(launches, {k: n * len(test) for k, n in LAUNCHES_ITER3.items()},
+                       "emb1024 cli eval")
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        runs = set(os.listdir("checkpoints")) if os.path.isdir("checkpoints") else set()
+        try:
+            cli.main(width + ["--epochs", "1", "--batch_size", "8"])
+            refusal = ""
+        except SystemExit as exit_:
+            refusal = str(exit_)
+        print(f"emb1024 cli fit: {refusal!r}", flush=True)
+        check("ops/attention.py::flash_bwd_supported" in refusal
+              and "ops/vcp.py::streaming_vjp_supported" in refusal
+              and "flash_packed_supported" not in refusal and "streaming_supported:" not in refusal,
+              f"emb1024 cli fit: not refused by the two backward gates: {refusal!r}")
+        check(torch.cuda.memory_allocated() == allocated
+              and (set(os.listdir("checkpoints")) if os.path.isdir("checkpoints") else set())
+              == runs, "emb1024 cli fit: the refused fit allocated or wrote something")
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5856,7 +6264,7 @@ def print_edge_occupancy(regs: dict) -> None:
 
 PHASES = ("kernels", "backward", "train", "serve", "refine", "partial", "ragged", "fit", "dgcnn",
           "fused_pointer", "data", "regularise", "converge", "partial_train", "icp", "lpd", "heads",
-          "cli", "export", "int8", "parallel", "point_sharding", "head_dim64")
+          "cli", "export", "int8", "parallel", "point_sharding", "head_dim64", "emb1024")
 
 
 def main() -> int:
@@ -5944,6 +6352,9 @@ def main() -> int:
         elif name == "head_dim64":
             rows.update(head64_kernel_rows(dev))
             launches[name] = phase_head_dim64()
+        elif name == "emb1024":
+            rows.update(emb1024_kernel_rows(dev))
+            launches[name] = phase_emb1024()
         print(f"phase {name}: {time.perf_counter() - t0} s", flush=True)
 
     sources = {
@@ -5990,15 +6401,26 @@ def main() -> int:
                            "vcrnet_tpu/ops/pallas_attention.py:76"),
         "softmax_colmass_dk64": ("vcrnet_tpu_torch/csrc/colmass.cu",
                                  "vcrnet_tpu/ops/pallas_colmass.py:31"),
+        # the instances that serve --emb_dims 1024: the attention forward and
+        # the column masses at dk = 256, the soft correspondence at E > 512
+        "flash_packed_dk256": ("vcrnet_tpu_torch/csrc/flash_packed.cu",
+                               "vcrnet_tpu/ops/pallas_attention.py:239"),
+        "softmax_colmass_dk256": ("vcrnet_tpu_torch/csrc/colmass.cu",
+                                  "vcrnet_tpu/ops/pallas_colmass.py:31"),
+        "vcp_stream_e1024": ("vcrnet_tpu_torch/csrc/vcp_stream.cu",
+                             "vcrnet_tpu/ops/pallas_vcp.py:29"),
     }
     dk64 = {f"{name}_dk64" for name in ops.HEAD64_KERNELS}
-    check(set(sources) == set(ops.KERNELS) | {"edge_split"} | dk64 and len(sources) == 20,
-          "the kernels line must list every kernel of the port and its dk = 64 instances")
+    wide_of = {name: wide for wide, (name, _) in ops.WIDE_KERNELS.items()}
+    check(set(sources) == set(ops.KERNELS) | {"edge_split"} | dk64 | set(ops.WIDE_KERNELS)
+          and len(sources) == 23,
+          "the kernels line must list every kernel of the port and its dk = 64 and wide instances")
     def own(per_phase: dict, name: str) -> int:
-        """A phase's launches of ``name``; of the three attention kernels,
-        those of their dk = 128 instances (the dk = 64 ones have entries of
-        their own)."""
-        return per_phase.get(name, 0) - per_phase.get(f"{name}_dk64", 0)
+        """A phase's launches of ``name``; of the three attention kernels and
+        the soft correspondence, those of their dk = 128 / E <= 512 instances
+        (the dk = 64 and wide ones have entries of their own)."""
+        return (per_phase.get(name, 0) - per_phase.get(f"{name}_dk64", 0)
+                - per_phase.get(wide_of.get(name), 0))
 
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -6011,9 +6433,14 @@ def main() -> int:
         errs += [r["max_abs_err"] for r in rows.get(name + "_edge", ())]
         errs += [r["max_abs_err"] for r in rows.get(name + "_ragged", ())]
         errs += [r["max_abs_err"] for r in rows.get(name + "_slices", ())]
-        if name in ("flash_packed", "flash_packed_dk64"):
+        if name in ("flash_packed", "flash_packed_dk64", "flash_packed_dk256"):
             errs += [r["max_abs_err"] for r in rows[name + "_nk_valid"]]
-        f32 = {}
+        f32 = {}  # the entry's other instance or width, where it has one
+        if name == "fused_ff":  # at D = 1024 (--emb_dims 1024)
+            errs += [r["max_abs_err"] for r in rows["fused_ff_d1024"]]
+            top1024 = next(r for r in rows["fused_ff_d1024"] if "ms" in r)
+            f32 = {f"d1024_{key}": top1024[key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_seq_ms")}
         if name == "edge_conv":  # its f32 instance (the kNN space after t_net_fea)
             f32_rows = rows["edge_conv_f32"] + rows["edge_conv_f32_ragged"]
             errs += [r["max_abs_err"] for r in f32_rows]
@@ -6046,13 +6473,15 @@ def main() -> int:
             "launches_int8": own(launches["int8"], name),
             "launches_parallel": own(launches["parallel"], name),
             "launches_head_dim64": own(launches["head_dim64"], name),
+            "launches_emb1024": own(launches["emb1024"], name),
             "max_abs_err": max(errs),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             **({"library_seq_ms": top["library_seq_ms"]} if "library_seq_ms" in top else {}),
-            # the dk = 64 instances: the three terms of the bound, the dk = 128
-            # instance's time on the same tensors
-            **{key: top[key] for key in ("bound_terms", "dk128_ms", "lse_ms") if key in top},
+            # the dk = 64 and wide instances: the three terms of the bound, the
+            # dk = 128 (E = 512) instance's time on the same tensors
+            **{key: top[key] for key in ("bound_terms", "dk128_ms", "lse_ms", "e512_ms")
+               if key in top},
             # int8_linear: q, k and v of one input in one call, and the bf16 yardsticks
             **{key: v for key, v in top.items() if key.startswith("qkv_") or key == "bf16_linear_ms"},
             **f32,

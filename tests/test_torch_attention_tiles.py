@@ -28,10 +28,11 @@ package's Pallas kernels in interpret mode (``_flash_packed_impl``,
   past Nq), the dQ kernel masks keys past Nk by the count, and rows past
   Nq or Nk are not stored.
 
-The kernels take dk = 128 and dk = 64 (an instance each, the same loop over
-the same tiles): the tests whose names end in ``_dk64`` run their dk = 128
-counterparts' checks at dk = 64, against the same plain versions and the
-same Pallas kernels in interpret mode, with the same tolerances.
+The forward kernel takes dk = 64, 128 and 256, the backward kernels 64 and
+128 (an instance each, the same loop over the same tiles): each check runs
+at every head dim its kernel has an instance of (the ``dk`` parameter),
+against the same plain versions and the same Pallas kernels in interpret
+mode, with the same tolerances.
 
 Tolerances, each with its reason:
 * f32: 1e-5 absolute (sums of values of order one in another order);
@@ -55,7 +56,8 @@ from vcrnet_tpu_torch.ops import attention
 TILE = 64  # the kernels' key tile (forward, dQ) and query tile (dK/dV)
 B, HEADS, DK = 2, 2, 128
 SCALE = DK ** -0.5
-DK64 = 64  # the kernels' other head dim
+FORWARD_DKS = (64, 128, 256)  # the forward kernel's instances
+BACKWARD_DKS = (64, 128)      # the backward kernels' instances
 
 
 def _scale(x):
@@ -159,16 +161,11 @@ def _check_tiled_forward(dtype, nq, nk, nk_valid, dk):
     np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dk", FORWARD_DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk,nk_valid", FORWARD_SHAPES)
-def test_tiled_forward_matches_plain_version(dtype, nq, nk, nk_valid):
-    _check_tiled_forward(dtype, nq, nk, nk_valid, DK)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk,nk_valid", FORWARD_SHAPES)
-def test_tiled_forward_matches_plain_version_dk64(dtype, nq, nk, nk_valid):
-    _check_tiled_forward(dtype, nq, nk, nk_valid, DK64)
+def test_tiled_forward_matches_plain_version(dtype, nq, nk, nk_valid, dk):
+    _check_tiled_forward(dtype, nq, nk, nk_valid, dk)
 
 
 def test_tiled_forward_with_one_tile_rounds_as_the_plain_version():
@@ -196,21 +193,16 @@ def _check_forward_against_pallas(dtype, nq, nk, nk_valid, dk):
                                atol=_forward_tol(dtype, v, torch.from_numpy(want)), rtol=0)
 
 
+@pytest.mark.parametrize("dk", FORWARD_DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk,nk_valid", PALLAS_FORWARD_SHAPES)
-def test_tiled_forward_matches_pallas(dtype, nq, nk, nk_valid):
+def test_tiled_forward_matches_pallas(dtype, nq, nk, nk_valid, dk):
     """_flash_packed_impl takes multiples of 128 and no valid-key count: with
-    one, it sees the real keys alone (nk_valid at a 128-key boundary)."""
-    _check_forward_against_pallas(dtype, nq, nk, nk_valid, DK)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk,nk_valid", PALLAS_FORWARD_SHAPES)
-def test_tiled_forward_matches_pallas_dk64(dtype, nq, nk, nk_valid):
-    """The Pallas kernel in interpret mode runs at dk = 64 too (on the TPU
-    its gate asks dk % 128, and the JAX package takes dk = 64 through its
-    stock flash kernel; the function is the same)."""
-    _check_forward_against_pallas(dtype, nq, nk, nk_valid, DK64)
+    one, it sees the real keys alone (nk_valid at a 128-key boundary). The
+    Pallas kernel in interpret mode runs at dk = 64 too (on the TPU its gate
+    asks dk % 128, and the JAX package takes dk = 64 through its stock flash
+    kernel; the function is the same)."""
+    _check_forward_against_pallas(dtype, nq, nk, nk_valid, dk)
 
 
 def _box_rows(x, r0, rows):
@@ -265,16 +257,11 @@ def _check_ragged_forward(dtype, nq, nk, dk):
     np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dk", FORWARD_DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk", RAGGED_FORWARD_SHAPES)
-def test_ragged_forward_matches_plain_version(dtype, nq, nk):
-    _check_ragged_forward(dtype, nq, nk, DK)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", RAGGED_FORWARD_SHAPES)
-def test_ragged_forward_matches_plain_version_dk64(dtype, nq, nk):
-    _check_ragged_forward(dtype, nq, nk, DK64)
+def test_ragged_forward_matches_plain_version(dtype, nq, nk, dk):
+    _check_ragged_forward(dtype, nq, nk, dk)
 
 
 def test_ragged_tiles_of_the_next_item_change_nothing():
@@ -335,16 +322,11 @@ def _check_tiled_backward(dtype, nq, nk, dk):
         np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
 
 
+@pytest.mark.parametrize("dk", BACKWARD_DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
-def test_tiled_backward_matches_plain_version(dtype, nq, nk):
-    _check_tiled_backward(dtype, nq, nk, DK)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
-def test_tiled_backward_matches_plain_version_dk64(dtype, nq, nk):
-    _check_tiled_backward(dtype, nq, nk, DK64)
+def test_tiled_backward_matches_plain_version(dtype, nq, nk, dk):
+    _check_tiled_backward(dtype, nq, nk, dk)
 
 
 def _check_backward_against_pallas(dtype, nq, nk, dk):
@@ -362,20 +344,14 @@ def _check_backward_against_pallas(dtype, nq, nk, dk):
         np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
 
 
+@pytest.mark.parametrize("dk", BACKWARD_DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
-def test_tiled_backward_matches_pallas(dtype, nq, nk):
+def test_tiled_backward_matches_pallas(dtype, nq, nk, dk):
     """The whole chain in tile order (forward, then backward from its own
     output and lse) against _bwd_fused, which derives its row statistics
-    from the whole score block."""
-    _check_backward_against_pallas(dtype, nq, nk, DK)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", BACKWARD_SHAPES)
-def test_tiled_backward_matches_pallas_dk64(dtype, nq, nk):
-    """_bwd_fused runs at any head dim: the same chain at dk = 64."""
-    _check_backward_against_pallas(dtype, nq, nk, DK64)
+    from the whole score block (at any head dim)."""
+    _check_backward_against_pallas(dtype, nq, nk, dk)
 
 
 def ragged_backward(q, k, v, o, lse_tiles, do, block=128):
@@ -452,16 +428,11 @@ def _check_ragged_backward(dtype, nq, nk, dk):
         np.testing.assert_allclose(g.float().numpy(), w, atol=_backward_tol(dtype, w), rtol=0)
 
 
+@pytest.mark.parametrize("dk", BACKWARD_DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk", RAGGED_BACKWARD_SHAPES)
-def test_ragged_backward_matches_plain_version(dtype, nq, nk):
-    _check_ragged_backward(dtype, nq, nk, DK)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", RAGGED_BACKWARD_SHAPES)
-def test_ragged_backward_matches_plain_version_dk64(dtype, nq, nk):
-    _check_ragged_backward(dtype, nq, nk, DK64)
+def test_ragged_backward_matches_plain_version(dtype, nq, nk, dk):
+    _check_ragged_backward(dtype, nq, nk, dk)
 
 
 def test_ragged_backward_tiles_of_the_next_item_change_nothing():

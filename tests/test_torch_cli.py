@@ -206,9 +206,10 @@ def test_the_kernel_route_takes_the_full_width_configurations():
 
 @pytest.mark.parametrize("kw, gate, limit", [
     (dict(emb_dims=64), "flash_packed_supported",
-     "dk = 64 or 128 (got emb_dims / n_heads = 64 / 4)"),
+     "dk = 64, 128 or 256 (got emb_dims / n_heads = 64 / 4)"),
     (dict(n_heads=16), "flash_packed_supported", "(got emb_dims / n_heads = 512 / 16)"),
-    (dict(emb_dims=1024, n_heads=8), "streaming_supported", "emb_dims <= 512 (got 1024)"),
+    (dict(emb_dims=1024, n_heads=8), "streaming_vjp_supported",
+     "emb_dims <= 512 in training (got 1024)"),
     (dict(emb_dims=64, model="dcp", emb_nn="dgcnn", pointer="identity", eval=True),
      "fused_dgcnn_supported", "emb_dims % 128 == 0 and k = 20 < N (got emb_dims = 64, N = 1024)"),
     (dict(num_points=8000), "gather_max_bwd_supported", "N <= 7264 in training (got N = 8000)"),

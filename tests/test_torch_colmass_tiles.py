@@ -24,9 +24,8 @@ probabilities sum to one, so the masses of a head sum to Nq (1e-5
 relative). The gate takes every shape a served path gives it and a CUDA
 tensor with a shape it refuses raises, with no plain version in its place.
 
-The kernels take dk = 128 and dk = 64 (an instance each): the tests whose
-names end in ``_dk64`` run their counterparts' checks at dk = 64, with the
-same tolerances.
+The kernels take dk = 64, 128 and 256 (an instance each): each check runs
+at every one of them (the ``dk`` parameter), with the same tolerances.
 """
 
 import numpy as np
@@ -40,7 +39,7 @@ from vcrnet_tpu_torch.ops import _build, colmass
 
 TILE = 64  # the key tile of the lse pass and the query tile of the mass pass
 DK = 128
-DK64 = 64  # the kernels' other head dim
+DKS = (64, 128, 256)  # the kernels' instances
 LOG2E = 1.4426950408889634
 
 
@@ -107,16 +106,12 @@ def _check_tiled_colmass(dtype, b, nq, nk, heads, dk):
     assert torch.equal(colmass.softmax_colmass(q, k, scale, heads), want)
 
 
+@pytest.mark.parametrize("dk", DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,nq,nk,heads", SHAPES)
-def test_tiled_colmass_matches_plain_version(dtype, b, nq, nk, heads):
-    _check_tiled_colmass(dtype, b, nq, nk, heads, DK)
+def test_tiled_colmass_matches_plain_version(dtype, b, nq, nk, heads, dk):
+    _check_tiled_colmass(dtype, b, nq, nk, heads, dk)
 
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,nq,nk,heads", SHAPES)
-def test_tiled_colmass_matches_plain_version_dk64(dtype, b, nq, nk, heads):
-    _check_tiled_colmass(dtype, b, nq, nk, heads, DK64)
 
 
 def _check_lse2(dtype, dk):
@@ -128,14 +123,11 @@ def _check_lse2(dtype, dk):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dk", DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tiled_lse2_is_the_base2_logsumexp(dtype):
-    _check_lse2(dtype, DK)
+def test_tiled_lse2_is_the_base2_logsumexp(dtype, dk):
+    _check_lse2(dtype, dk)
 
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tiled_lse2_is_the_base2_logsumexp_dk64(dtype):
-    _check_lse2(dtype, DK64)
 
 
 def _check_against_pallas(dtype, b, nq, nk, heads, dk):
@@ -155,16 +147,12 @@ def _check_against_pallas(dtype, b, nq, nk, heads, dk):
 PALLAS_SHAPES = [(2, 128, 256, 2), (1, 256, 128, 1)]
 
 
+@pytest.mark.parametrize("dk", DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,nq,nk,heads", PALLAS_SHAPES)
-def test_tiled_colmass_matches_pallas(dtype, b, nq, nk, heads):
-    _check_against_pallas(dtype, b, nq, nk, heads, DK)
+def test_tiled_colmass_matches_pallas(dtype, b, nq, nk, heads, dk):
+    _check_against_pallas(dtype, b, nq, nk, heads, dk)
 
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,nq,nk,heads", PALLAS_SHAPES)
-def test_tiled_colmass_matches_pallas_dk64(dtype, b, nq, nk, heads):
-    _check_against_pallas(dtype, b, nq, nk, heads, DK64)
 
 
 def _box_rows(x, r0, rows):
@@ -221,16 +209,12 @@ def _check_ragged(dtype, nq, nk, dk):
     _close(got, colmass.softmax_colmass_ref(q, k, scale, 2), nq)
 
 
+@pytest.mark.parametrize("dk", DKS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk", RAGGED_SHAPES)
-def test_ragged_colmass_matches_plain_version(dtype, nq, nk):
-    _check_ragged(dtype, nq, nk, DK)
+def test_ragged_colmass_matches_plain_version(dtype, nq, nk, dk):
+    _check_ragged(dtype, nq, nk, dk)
 
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nq,nk", RAGGED_SHAPES)
-def test_ragged_colmass_matches_plain_version_dk64(dtype, nq, nk):
-    _check_ragged(dtype, nq, nk, DK64)
 
 
 def test_ragged_tiles_of_the_next_item_change_nothing():
@@ -255,7 +239,9 @@ def test_gate_takes_every_served_shape():
         assert colmass.colmass_supported(n, n, 512, 4)
     assert colmass.colmass_supported(192, 320, 256, 2)  # lengths in 64s
     assert colmass.colmass_supported(3072, 3072, 512, 8)  # dk = 64
+    assert colmass.colmass_supported(3072, 3072, 1024, 4)  # dk = 256 (--emb_dims 1024)
     assert not colmass.colmass_supported(3072, 3072, 256, 8)  # dk = 32
+    assert not colmass.colmass_supported(3072, 3072, 2048, 4)  # dk = 512
     # ragged lengths: the last tiles mask by counts (ROADMAP C1)
     assert colmass.colmass_supported(3000, 3072, 512, 4)
     assert colmass.colmass_supported(3072, 3000, 512, 4)
@@ -276,7 +262,7 @@ def _as_if_on_the_card(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("nq,nk,d,heads", [(3072, 3072, 384, 4), (3072, 3072, 1024, 4),
+@pytest.mark.parametrize("nq,nk,d,heads", [(3072, 3072, 384, 4), (3072, 3072, 2048, 4),
                                            (3072, 3072, 256, 8)])
 def test_a_refused_shape_raises_on_the_card(monkeypatch, nq, nk, d, heads):
     calls = _as_if_on_the_card(monkeypatch)

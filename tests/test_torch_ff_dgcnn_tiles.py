@@ -242,7 +242,7 @@ def no_extension(monkeypatch):
     monkeypatch.setattr(dgcnn, "fused_dgcnn_eval_ref", None)
 
 
-@pytest.mark.parametrize("d,f", [(512, 8192), (640, 1024), (512, 1000), (100, 256)])
+@pytest.mark.parametrize("d,f", [(512, 8192), (1152, 1024), (512, 1000), (100, 256)])
 def test_refused_ff_widths_raise_on_the_card(no_extension, d, f):
     before = pointer.fused_ff.launches
     with torch.no_grad(), pytest.raises(ValueError, match="fused_ff kernel does not take"):

@@ -14,9 +14,10 @@ flax parameters (bridged by from_jax_params):
   is 0), within 1e-4 in f32;
 * one training step's loss and gradients against JAX's jitted ones (the
   tolerances of test_torch_train_step.py);
-* the gates: dk = 64 and 128 taken, 16, 32 and 256 refused with a message
-  that names the gate, and a refused shape on a CUDA tensor raises before
-  anything is built, with no plain version in its place.
+* the gates: dk = 64 and 128 taken (and 256 by the forward kernels), 16,
+  32 and 512 refused with a message that names the gate, and a refused
+  shape on a CUDA tensor raises before anything is built, with no plain
+  version in its place.
 """
 
 import numpy as np
@@ -166,9 +167,11 @@ def test_the_gates_take_dk_64_and_128(gate):
     for d, heads in ((512, 8), (256, 4), (128, 2), (512, 4), (256, 2)):
         for n in (64, 885, 1000, 1024, 3072):
             assert gate(n, n, d, heads), (d, heads, n)
-    for d, heads in ((512, 32), (512, 16), (1024, 4), (256, 8), (384, 4), (512, 3)):
+    for d, heads in ((512, 32), (512, 16), (2048, 4), (256, 8), (384, 4), (512, 3)):
         assert not gate(1024, 1024, d, heads), (d, heads)
-    assert attention.HEAD_DIMS == (64, 128)
+    # dk = 256 (--emb_dims 1024): the forward kernels take it, the backward not
+    assert gate(1024, 1024, 1024, 4) is (gate is not attention.flash_bwd_supported)
+    assert attention.HEAD_DIMS == (64, 128, 256) and attention.BWD_HEAD_DIMS == (64, 128)
 
 
 def _fake_card(monkeypatch, module):
@@ -180,7 +183,7 @@ def _fake_card(monkeypatch, module):
     monkeypatch.setattr(_build, "extension", no_build)
 
 
-@pytest.mark.parametrize("dk", [16, 32, 256])
+@pytest.mark.parametrize("dk", [16, 32, 512])
 @pytest.mark.parametrize("kernel", ["flash_packed", "flash_bwd", "softmax_colmass"])
 def test_a_refused_head_dim_raises_on_the_card(monkeypatch, kernel, dk):
     heads = 4
@@ -188,15 +191,17 @@ def test_a_refused_head_dim_raises_on_the_card(monkeypatch, kernel, dk):
     if kernel == "softmax_colmass":
         _fake_card(monkeypatch, colmass)
         monkeypatch.setattr(colmass, "softmax_colmass_ref", None)  # no plain version there
-        with pytest.raises(ValueError, match=r"takes dk in \(64, 128\) \(colmass_supported\)"):
+        with pytest.raises(ValueError,
+                           match=r"takes dk in \(64, 128, 256\) \(colmass_supported\)"):
             colmass.softmax_colmass(t, t, 0.1, heads)
         return
     _fake_card(monkeypatch, attention)
     monkeypatch.setattr(attention, "flash_mha_packed_ref", None)
     monkeypatch.setattr(attention, "flash_mha_packed_bwd_ref", None)
     name = "flash_mha_packed" if kernel == "flash_packed" else kernel
+    dims = r"\(64, 128, 256\)" if kernel == "flash_packed" else r"\(64, 128\)"
     with pytest.raises(ValueError, match=rf"{name} kernel does not take .* heads={heads} "
-                                         rf"\({kernel}_supported: dk in \(64, 128\)\)"):
+                                         rf"\({kernel}_supported: dk in {dims}\)"):
         if kernel == "flash_packed":
             attention.flash_mha_packed(t, t, t, 0.1, heads)
         else:

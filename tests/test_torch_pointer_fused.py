@@ -81,7 +81,8 @@ MHA_SHAPES = [(1024, 1024, 512, 4), (768, 768, 512, 4), (1000, 1024, 512, 4),
               (1024, 1024, 512, 8), (8192, 8192, 512, 4), (256, 256, 128, 1),
               (256, 128, 256, 2), (1024, 1024, 384, 3)]
 FF_SHAPES = [(1024, 512, 1024), (1000, 512, 1024), (8192, 512, 4096), (256, 128, 256),
-             (768, 512, 1024)]
+             (768, 512, 1024), (768, 1024, 1024), (1024, 1024, 1024), (3072, 1024, 1024),
+             (1024, 1024, 4096), (768, 1024, 2048)]
 
 
 @pytest.mark.parametrize("flag", ["1", "0", None])
@@ -123,6 +124,14 @@ def test_gates_match_jax(monkeypatch, flag):
     assert not pp.fused_ff_supported(8192, 512, 4096)
     assert pointer.fused_ff_supported(8192, 512, 4096) is on
     assert not pointer.fused_ff_supported(8192, 512, 8192)  # past the widths held on the card
+    # --emb_dims 1024: the JAX package runs its feed-forward kernel at D = F =
+    # 1024 for the clouds it serves (768, 1024 and 3072 points), and so does
+    # the port; the fused attention stays refused by both at D = 1024
+    for n in (768, 1024, 3072):
+        assert pp.fused_ff_supported(n, 1024, 1024) is on
+        assert pointer.fused_ff_supported(n, 1024, 1024) is on
+        assert not pp.fused_mha_supported(n, n, 1024, 4)
+        assert not pointer.fused_mha_supported(n, n, 1024, 4)
 
 
 def test_the_cuda_kernels_own_limits_narrow_the_gate(monkeypatch):
@@ -138,7 +147,9 @@ def test_the_cuda_kernels_own_limits_narrow_the_gate(monkeypatch):
     assert pointer.pointer_ff_smem_bytes(512, 4096) == pointer.pointer_ff_smem_bytes(128, 256)
     assert pointer.fused_ff_supported(1024, 512, 2048)
     assert not pointer.fused_ff_supported(1024, 512, 8192)  # F > 4096
-    assert not pointer.fused_ff_supported(1024, 640, 1024)  # D > 512
+    assert pointer.fused_ff_supported(1024, 1024, 1024)  # D = 1024 (--emb_dims 1024)
+    assert not pointer.fused_ff_supported(1024, 1152, 1024)  # D > 1024
+    assert not pointer.fused_mha_supported(1024, 1024, 640, 5)  # the attention: D > 512
 
 
 def test_fused_wrappers_refuse_a_gradient():

@@ -16,6 +16,12 @@ VJP of ``soft_correspondence_vjp``), on the same seeded numpy inputs:
   zeros to whole 64-column boxes, as TMA fills them); an online softmax
   in base 2 with a running max m, the sum l and the xyz sums rescaled by
   exp2(m_old - m_new); lse = m ln 2 + log l;
+* forward at E > 512 (the kernel's second instance, ``wide_kernel``):
+  blocks of 64 source rows; two streams of key tiles, the even tiles and
+  the odd ones (one consumer warpgroup each), each tile's scores summed
+  over E box by box (64 columns), each stream with its own running max,
+  sum and xyz sums in base 2; the two merged at the end, m = max(m0, m1),
+  l = l0 exp2(m0 - m) + l1 exp2(m1 - m), the xyz sums likewise;
 * backward, d_src kernel: 64-row blocks over 64-key tiles; d_tgt_emb
   kernel: 64-key blocks over 64-row source tiles, S^T computed directly.
   In both, each consumer warpgroup computes partial scores over its half
@@ -56,6 +62,7 @@ TILE = 64    # keys (forward, d_src) or source rows (d_tgt_emb) of a streamed ti
 CHUNK = 128  # columns of E of one forward ring stage
 BOX = 64
 HALF_E = 256  # columns of E a backward consumer warpgroup owns
+WIDE_ROWS = 64  # source rows of a block of the forward's kernel for E > 512
 LOG2E = 1.0 / math.log(2.0)
 B = 2
 
@@ -110,6 +117,51 @@ def tiled_forward(se, te, tgt):
             n = min(ROWS, ns - r0)
             corr[b, r0:r0 + n] = (acc / l[..., None])[0, :n]
             lse[b, r0:r0 + n] = (m * math.log(2.0) + torch.log(l))[0, :n]
+    return corr, lse
+
+
+def wide_forward(se, te, tgt):
+    """vcp_stream.cu's wide_kernel order (E > 512): (corr [B, Ns, 3], lse
+    [B, Ns]) in f32. Blocks of 64 source rows; warpgroup w takes the key
+    tiles t with t % 2 == w in ascending order, each tile's scores summed
+    over E box by box (64 columns, E padded with zeros); each warpgroup
+    keeps its own running max, sum and xyz sums (base 2), and the two are
+    merged at the end: m = max(m0, m1), a_w = exp2(m_w - m), l = l0 a0 + l1
+    a1, corr = (acc0 a0 + acc1 a1) / l."""
+    q, f = _pad_e(se), _pad_e(te)
+    ns, nt, e = q.shape[1], f.shape[1], q.shape[2]
+    ns_p, nt_p = ns + -ns % WIDE_ROWS, nt + -nt % TILE
+    nb2 = torch.nn.functional.pad(-(f * f).sum(-1) * LOG2E, (0, nt_p - nt),
+                                  value=float("-inf"))
+    xyz = torch.nn.functional.pad(tgt.float(), (0, 0, 0, nt_p - nt))
+    qb, fb = _flat_rows(q, ns_p), _flat_rows(f, nt_p)
+    corr, lse = torch.zeros(B, ns, 3), torch.zeros(B, ns)
+    for r0 in range(0, ns, WIDE_ROWS):
+        rows = qb[:, r0:r0 + WIDE_ROWS]
+        part = []
+        for w in range(2):
+            m = torch.full((B, WIDE_ROWS), float("-inf"))
+            l, acc = torch.zeros(B, WIDE_ROWS), torch.zeros(B, WIDE_ROWS, 3)
+            for t0 in range(w * TILE, nt_p, 2 * TILE):
+                keys = fb[:, t0:t0 + TILE]
+                s = torch.zeros(B, WIDE_ROWS, TILE)
+                for c0 in range(0, e, BOX):
+                    s = s + rows[..., c0:c0 + BOX] @ keys[..., c0:c0 + BOX].transpose(1, 2)
+                s2 = s * (2 * LOG2E) + nb2[:, None, t0:t0 + TILE]
+                m_new = torch.maximum(m, s2.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s2 - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + p @ xyz[:, t0:t0 + TILE]
+                m = m_new
+            part.append((m, l, acc))
+        (m0, l0, acc0), (m1, l1, acc1) = part
+        m = torch.maximum(m0, m1)
+        a0, a1 = torch.exp2(m0 - m), torch.exp2(m1 - m)
+        l = l0 * a0 + l1 * a1
+        n = min(WIDE_ROWS, ns - r0)
+        corr[:, r0:r0 + n] = ((acc0 * a0[..., None] + acc1 * a1[..., None]) / l[..., None])[:, :n]
+        lse[:, r0:r0 + n] = (m * math.log(2.0) + torch.log(l))[:, :n]
     return corr, lse
 
 
@@ -247,13 +299,17 @@ def test_ragged_tiles_of_the_next_item_change_nothing():
 
 def test_vcp_gates_take_every_served_and_trained_shape():
     """The kernels' gate (ROADMAP C, "VCP kernels' gate"): every N the
-    served and trained paths give, Ns != Nt, E = 512; never E > 512. Both
-    take any lengths (ROADMAP C1, C1b)."""
+    served and trained paths give, Ns != Nt, E = 512; the forward also E =
+    1024 (--emb_dims 1024), the backward never E > 512. Both take any
+    lengths (ROADMAP C1, C1b)."""
     for ns, nt in ((1024, 1024), (512, 512), (512, 1024), (1024, 512), (320, 320), (64, 64)):
         assert vcp.streaming_supported(ns, nt, 512)
         assert vcp.streaming_vjp_supported(ns, nt, 512)
+        assert vcp.streaming_supported(ns, nt, 1024)
+        assert not vcp.streaming_vjp_supported(ns, nt, 1024)
     assert vcp.streaming_supported(64, 64, 16) and vcp.streaming_supported(64, 64, 80)
-    for ns, nt, e in ((1024, 1024, 1024), (1024, 1024, 520)):
+    assert vcp.streaming_supported(885, 885, 1024) and vcp.streaming_supported(1000, 1000, 576)
+    for ns, nt, e in ((1024, 1024, 1040), (1024, 1024, 520), (1024, 1024, 1032)):
         assert not vcp.streaming_supported(ns, nt, e)
         assert not vcp.streaming_vjp_supported(ns, nt, e)
     for ns, nt, e in ((1024, 48, 512), (96, 64, 512), (885, 885, 512), (1000, 1000, 512)):
@@ -376,3 +432,71 @@ def test_vcp_bwd_hands_the_kernels_whole_tiles(monkeypatch):
     assert seen["keys"] == (B, 128, 4) and seen["rows"] == (B, 128, 4)
     assert seen["lse"].shape == (B, 128) and torch.equal(seen["lse"][:, :100], lse)
     assert torch.isinf(seen["lse"][:, 100:]).all() and (seen["lse"][:, 100:] > 0).all()
+
+
+# (Ns, Nt, E) of the forward's kernel for E > 512: one tile each way (the
+# second warpgroup takes no tile); an odd number of key tiles; E = 1008
+# with a box partly past it; ragged lengths both ways
+WIDE_SHAPES = [(64, 64, 1024), (130, 192, 1024), (100, 150, 1008), (70, 260, 576)]
+
+
+@pytest.mark.parametrize("ns,nt,e", WIDE_SHAPES)
+def test_wide_forward_matches_plain_version(ns, nt, e):
+    se, te, tgt, _ = _inputs(50, "bfloat16", ns, nt, e)
+    got, got_lse = wide_forward(se, te, tgt)
+    want, want_lse = vcp.streaming_soft_correspondence_ref(se, te, tgt, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(),
+                               atol=1e-5 * max(1.0, want_lse.abs().max().item()), rtol=0)
+
+
+def test_wide_forward_matches_pallas():
+    """The Pallas kernel in interpret mode at E = 1024 (the JAX package
+    serves --emb_dims 1024 through it at any E)."""
+    se, te, tgt, _ = _inputs(51, "bfloat16", 128, 192, 1024)
+    got, got_lse = wide_forward(se, te, tgt)
+    want, want_lse = _run_streaming(*(jnp.asarray(t.float().numpy(), d) for t, d in (
+        (se, jnp.bfloat16), (te, jnp.bfloat16), (tgt, jnp.float32))), 128, 1024, True, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    want_lse = np.asarray(want_lse)[..., 0]
+    np.testing.assert_allclose(got_lse.numpy(), want_lse,
+                               atol=1e-5 * max(1.0, np.abs(want_lse).max()), rtol=0)
+
+
+def test_wide_ragged_tiles_of_the_next_item_change_nothing():
+    """Item 0's last key tile and row block hold item 1's rows: redrawing
+    item 1 leaves item 0's corr and lse the same bit for bit."""
+    se, te, tgt, _ = _inputs(52, "bfloat16", 100, 150, 1024)
+    first = wide_forward(se, te, tgt)
+    rng = np.random.RandomState(53)
+    for t in (se, te, tgt):
+        t[1] = torch.from_numpy(rng.randn(*t[1].shape).astype(np.float32)).to(t.dtype)
+    second = wide_forward(se, te, tgt)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(first, second))
+
+
+def test_the_forward_hands_e_1024_to_its_kernel_and_counts_it(monkeypatch):
+    """On the kernel route E = 1024 reaches the extension (which launches
+    the wide kernel above E = 512) and counts in ``.launches`` and
+    ``.launches_e1024``; E = 512 in ``.launches`` alone. Under a gradient E
+    = 1024 raises through the backward's gate before anything runs."""
+    seen = []
+
+    class Ext:
+        @staticmethod
+        def vcp_stream(se, te, tgt, keys, out, lse):
+            seen.append((se.shape[-1], tuple(keys.shape)))
+
+    monkeypatch.setattr(vcp, "kernel_route", lambda *t: True)
+    monkeypatch.setattr(vcp._build, "extension", lambda: Ext)
+    fn = vcp.streaming_soft_correspondence
+    fn.launches = fn.launches_e1024 = 0
+    for e in (1024, 512):
+        se, te, tgt, _ = (t.clone() for t in _inputs(54, "bfloat16", 100, 70, e))
+        fn(se, te, tgt)
+    assert seen == [(1024, (B, 128, 4)), (512, (B, 128, 4))]
+    assert fn.launches == 2 and fn.launches_e1024 == 1
+    se, te, tgt, _ = _inputs(55, "bfloat16", 100, 70, 1024)
+    with pytest.raises(ValueError, match=r"streaming_vjp_supported: E % 16 == 0, E <= 512"):
+        vcp.soft_correspondence_vjp(se.requires_grad_(), te, tgt)
+    assert fn.launches == 2

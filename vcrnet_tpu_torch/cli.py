@@ -60,7 +60,9 @@ from vcrnet_tpu_torch.ops.edgeconv import (
     edge_conv_bwd_supported, edge_conv_from_idx_supported, edge_conv_supported,
     gather_max_bwd_supported, gather_max_from_idx_supported, knn_gather_max_supported,
 )
-from vcrnet_tpu_torch.ops.vcp import MAX_E, streaming_supported, streaming_vjp_supported
+from vcrnet_tpu_torch.ops.vcp import (
+    MAX_E, MAX_VJP_E, streaming_supported, streaming_vjp_supported,
+)
 from vcrnet_tpu_torch.parallel.mesh import make_mesh
 from vcrnet_tpu_torch.parallel.multihost import initialize, launched_world_size
 from vcrnet_tpu_torch.utils.device import resolve_device
@@ -205,18 +207,24 @@ def kernel_route_refusals(cfg: Config) -> list:
 
     if cfg.model != "lpd" and cfg.pointer == "transformer":
         dk = f"emb_dims / n_heads = {e} / {h}"
-        need(flash_packed_supported(n, n, e, h) and (not train or flash_bwd_supported(n, n, e, h)),
-             "ops/attention.py::flash_packed_supported, flash_bwd_supported",
-             f"the attention kernels take dk = 64 or 128 (got {dk})")
+        forward = flash_packed_supported(n, n, e, h)
+        need(forward, "ops/attention.py::flash_packed_supported",
+             f"the attention kernels take dk = 64, 128 or 256 (got {dk})")
+        if forward and train:
+            need(flash_bwd_supported(n, n, e, h), "ops/attention.py::flash_bwd_supported",
+                 f"the attention backward kernel takes dk = 64 or 128 in training (got {dk})")
         if cfg.partial:
             need(colmass_supported(n, n, e, h), "ops/colmass.py::colmass_supported",
-                 f"the column-mass kernels take dk = 64 or 128 (got {dk})")
+                 f"the column-mass kernels take dk = 64, 128 or 256 (got {dk})")
     if cfg.model == "vcrnet" and cfg.vcp_nn == "topK" and not cfg.partial:
-        need(streaming_supported(n, n, e) and not (
-            train and cfg.streaming_vcp_train and not streaming_vjp_supported(n, n, e)),
-             "ops/vcp.py::streaming_supported, streaming_vjp_supported",
+        forward = streaming_supported(n, n, e)
+        need(forward, "ops/vcp.py::streaming_supported",
              f"the soft-correspondence kernels take emb_dims % 16 == 0 and emb_dims <= {MAX_E} "
              f"(got {e})")
+        if forward and train and cfg.streaming_vcp_train:
+            need(streaming_vjp_supported(n, n, e), "ops/vcp.py::streaming_vjp_supported",
+                 f"the soft-correspondence backward kernel takes emb_dims <= {MAX_VJP_E} in "
+                 f"training (got {e})")
     if cfg.emb_nn == "lpdnet":
         need(edge_conv_supported(n, LPDNET_DG_WIDTH, K) and knn_gather_max_supported(
             n, LPDNET_SN_WIDTH, K),

@@ -3,7 +3,8 @@
 //   out[b, h, j] = sum_i softmax_j'(q_i . k_j' * sm_scale)[j]
 //
 // for q [B, Nq, H*dk], k [B, Nk, H*dk], head h = columns [h*dk, (h+1)*dk), at
-// dk = 128 or 64 (both kernels templates over dk, chosen by d_model / n_heads).
+// dk = 128, 64 or 256 (both kernels templates over dk, chosen by d_model /
+// n_heads).
 //
 // Replaces vcrnet_tpu/ops/pallas_colmass.py:softmax_colmass (two
 // pallas_calls: _stats_kernel, _colmass_kernel). The partial-overlap
@@ -38,8 +39,13 @@
 // 100 KB of shared memory and few registers each), overlap one's products
 // with another's exps. At dk = 64 a score costs half the products and the
 // same exp: both passes are held by the exps, at about twice the products'
-// time, and each block's shared memory halves (a head tile is one box). exp2f with the scale folded into log2(e) costs one
-// fma a score before the exp, as in FA3.
+// time, and each block's shared memory halves (a head tile is one box). At
+// dk = 256 a score costs twice the products of dk = 128 and the same exp,
+// so both passes are held by the products; the K block (64 KB) and four
+// stages of 32 KB take ~194 KB, one block an SM (the instance's launch
+// bounds ask for one, so that ptxas does not hold it to the registers of
+// two). exp2f with the scale folded into log2(e) costs one fma a score
+// before the exp, as in FA3.
 //
 // Any Nk: the last key block of an item owns keys past Nk (all of its
 // second warpgroup's where Nk % 128 <= 64). They run the same loop on
@@ -71,17 +77,19 @@ constexpr float kLog2e = 1.4426950408889634f;
 // colmass_kernel's shared memory at head dim kDk: a head tile is kDk / 64 boxes.
 template <int kDk>
 struct Mass {
-  static_assert(kDk == 64 || kDk == 128, "the head dims the kernels take");
+  static_assert(kDk == 64 || kDk == 128 || kDk == 256, "the head dims the kernels take");
   static constexpr int kBoxes = kDk / kBox;
   static constexpr uint32_t kHeadBytes = head_tile_bytes(kDk);
   static constexpr uint32_t kKBytes = kConsumers * kHeadBytes;
   static constexpr uint32_t kStageBytes = kHeadBytes + kLseBytes;  // a stage's copies deliver
   static constexpr size_t kSmemBytes =
       1024 + kKBytes + kStages * (kHeadBytes + kLseBytes) + (2 * kStages + 1) * 8;
+  // blocks an SM: two where their shared memory fits twice
+  static constexpr int kBlocks = 2 * kSmemBytes + 2048 <= 233472 ? 2 : 1;
 };
 
 template <int kDk>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Mass<kDk>::kBlocks)
 colmass_kernel(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const float* __restrict__ lse2,  // [B, H, n_tiles * 64], base 2
@@ -215,7 +223,7 @@ cudaError_t launch_colmass(const CUtensorMap& q_map, const CUtensorMap& k_map, f
 
 }  // namespace
 
-// q bf16 [B,Nq,D], k bf16 [B,Nk,D] (D = n_heads * dk, dk = 64 or 128) -> out
+// q bf16 [B,Nq,D], k bf16 [B,Nk,D] (D = n_heads * dk, dk = 64, 128 or 256) -> out
 // f32 [B,H,Nk]; lse f32 [B,H,Nq'] (Nq' = Nq rounded up to 64) is scratch
 // that the first kernel writes (base 2) and the second reads. Any Nq, Nk;
 // 16-byte aligned pointers. Another dk is refused (cudaErrorInvalidValue)
@@ -223,7 +231,7 @@ cudaError_t launch_colmass(const CUtensorMap& q_map, const CUtensorMap& k_map, f
 cudaError_t vcr_softmax_colmass(const void* q, const void* k, float* lse, float* out,
                                 int batch, int nq, int nk, int d_model, int n_heads,
                                 float sm_scale, cudaStream_t stream) {
-  return dispatch_head_dim(d_model, n_heads, [&](auto dk) {
+  return dispatch_head_dim<256>(d_model, n_heads, [&](auto dk) {
     CUtensorMap q_map, k_map;
     cudaError_t err = make_box_map(&q_map, q, static_cast<uint64_t>(batch) * nq, d_model);
     if (err == cudaSuccess)

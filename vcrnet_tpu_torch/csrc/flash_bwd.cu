@@ -487,7 +487,7 @@ cudaError_t vcr_flash_bwd(const void* q, const void* k, const void* v, const voi
                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
                           void* dv, int batch, int nq, int nk, int d_model, int n_heads,
                           float sm_scale, cudaStream_t stream) {
-  return vcr::hopper::dispatch_head_dim(d_model, n_heads, [&](auto head_dim) {
+  return vcr::hopper::dispatch_head_dim<128>(d_model, n_heads, [&](auto head_dim) {
     return launch_bwd<decltype(head_dim)::value>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
                                                  nq, nk, n_heads, sm_scale, stream);
   });

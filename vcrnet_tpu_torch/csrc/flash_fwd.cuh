@@ -6,8 +6,8 @@
 //   o = (bf16(exp(s - m)) @ v) / l,  l = sum exp(s - m)   (f32)
 //
 // for q [B, Nq, H*dk], k/v [B, Nk, H*dk], head h = columns
-// [h*dk, (h+1)*dk), output in the same packed layout, at dk = 128 or 64
-// (each kernel a template over dk, ``Fwd<kDk>`` its shared memory). ``fwd_kernel``
+// [h*dk, (h+1)*dk), output in the same packed layout, at dk = 128, 64 or
+// 256 (each kernel a template over dk, ``Fwd<kDk>`` its shared memory). ``fwd_kernel``
 // computes o (and, with a non-null ``lse``, each row's logsumexp);
 // ``lse_kernel`` runs the same loop without the P . V product and writes
 // only the logsumexp. The two share the layout of their shared memory
@@ -50,7 +50,21 @@
 // K^T takes 4 k16 steps, not 8), the Q block and each ring stage halve
 // (~49 KB) and O takes 32 registers; it compiles to 128 registers, so one
 // block an SM still (two need <= 96 a thread, where ptxas spills and
-// serializes the products). A consumer warpgroup waits for each product
+// serializes the products). At dk = 256 a head tile is four boxes (S = Q .
+// K^T takes 16 k16 steps), P . V is m64n256k16 and O a [64, 256] f32
+// accumulator of 128 registers a thread, beside S (32) and P (16). A block
+// of 288 threads gets 168 registers a thread (ptxas counts the nine warps
+// as three on one of the SM's four register quarters), where that instance
+// spilled 312 bytes and ptxas serialized its products (C7512). So at dk =
+// 256 the producer is a whole warpgroup (384 threads, one lane of which
+// issues the copies) that drops to 24 registers while the two consumer
+// warpgroups rise to 240 (setmaxnreg), as in vcp_stream.cu and
+// flash_bwd.cu; O stays whole in one warpgroup's registers (no split of
+// its columns between the warpgroups, which would need P twice). Its
+// shared memory is Q 64 KB and two stages of K and V, 64 KB each (~193 KB);
+// lse_kernel's Q and four K stages of 32 KB take as much, so its dk = 256
+// instance is launched for one block an SM, not two, with the 288 threads
+// of the others (it holds no O). A consumer warpgroup waits for each product
 // before its softmax, so its own products and exps do not overlap; the two
 // warpgroups (and, for lse_kernel, the two blocks an SM holds) are
 // scheduled around each other's waits. lse_kernel's stage holds only the K
@@ -101,12 +115,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kStages = 2;     // fwd_kernel: K and V tiles
 constexpr int kLseStages = 4;  // lse_kernel: K tiles
+// fwd_kernel at dk = 256: registers a thread of its producer warpgroup and
+// of its consumers (the 384 threads start with 168)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
 // The shared memory of either kernel at head dim kDk: a head tile is
 // kDk / 64 boxes.
 template <int kDk>
 struct Fwd {
-  static_assert(kDk == 64 || kDk == 128, "the head dims the kernels take");
+  static_assert(kDk == 64 || kDk == 128 || kDk == 256, "the head dims the kernels take");
   static constexpr int kBoxes = kDk / kBox;
   static constexpr uint32_t kQBytes = kConsumers * head_tile_bytes(kDk);
   static constexpr uint32_t kStageBytes = 2 * head_tile_bytes(kDk);
@@ -115,6 +133,12 @@ struct Fwd {
   static constexpr uint32_t kLseStageBytes = head_tile_bytes(kDk);
   static constexpr size_t kLseSmemBytes =
       1024 + kQBytes + kLseStages * kLseStageBytes + (2 * kLseStages + 1) * 8;
+  // lse_kernel's blocks an SM: two where their shared memory fits twice
+  static constexpr int kLseBlocks = 2 * kLseSmemBytes + 2048 <= 233472 ? 2 : 1;
+  // fwd_kernel: a producer warpgroup that hands its registers to the
+  // consumers (dk = 256), or a producer warp
+  static constexpr bool kRebalance = kDk == 256;
+  static constexpr int kFwdThreads = kRebalance ? 32 * kConsumerWarps + 128 : kThreads;
 };
 
 // The online softmax of tile t (of n_tiles) of a lane's two rows g, g + 8:
@@ -194,7 +218,7 @@ __device__ __forceinline__ Smem carve(uint8_t* smem_raw) {
 }
 
 template <int kDk>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Fwd<kDk>::kFwdThreads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
            float* __restrict__ lse,  // [B, H, Nq] or null
@@ -210,8 +234,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   const int n_tiles = (nk_valid + kTileK - 1) / kTileK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (warp == kConsumerWarps) {  // ---- producer: one lane issues every copy
-    if (lane == 0) {
+  // ---- producer: one lane issues every copy; the roles split once, and
+  // the producer returns (setmaxnreg)
+  if (L::kRebalance ? warp >= kConsumerWarps : warp == kConsumerWarps) {
+    if constexpr (L::kRebalance) setmaxnreg_dec<kProducerRegs>();
+    if (lane == 0 && (!L::kRebalance || warp == kConsumerWarps)) {
       mbar_expect_tx(sm.q_full, kQBytes);
       for (int c = 0; c < kConsumers; ++c)
         for (int h = 0; h < kBoxes; ++h)
@@ -234,6 +261,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   }
 
   // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  if constexpr (L::kRebalance) setmaxnreg_inc<kConsumerRegs>();
   const int wg = warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
   const bf16* q_tile = sm.q_s + wg * kBoxes * kBox * kBox;
@@ -304,7 +332,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 }
 
 template <int kDk>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Fwd<kDk>::kLseBlocks)
 lse_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
            float* __restrict__ lse2,  // [B, H, lse_stride >= Nq], base 2
            int nq, int nk, int nk_valid, int lse_stride, float sm_scale) {
@@ -388,8 +416,8 @@ inline cudaError_t launch_fwd(const CUtensorMap& q_map, const CUtensorMap& k_map
       fwd_kernel<kDk>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kTileQ - 1) / kTileQ, n_heads, batch);
-  fwd_kernel<kDk><<<grid, kThreads, kSmemBytes, stream>>>(q_map, k_map, v_map, out, lse, nq,
-                                                          nk, nk_valid, sm_scale);
+  fwd_kernel<kDk><<<grid, Fwd<kDk>::kFwdThreads, kSmemBytes, stream>>>(
+      q_map, k_map, v_map, out, lse, nq, nk, nk_valid, sm_scale);
   return cudaGetLastError();
 }
 

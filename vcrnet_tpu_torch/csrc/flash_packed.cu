@@ -1,6 +1,6 @@
 // Attention over packed heads: q/k/v [B, N, H*dk], head h = columns
-// [h*dk, (h+1)*dk), output in the same packed layout, at dk = 128 or 64 (the
-// instance of fwd_kernel is chosen by d_model / n_heads).
+// [h*dk, (h+1)*dk), output in the same packed layout, at dk = 128, 64 or 256
+// (the instance of fwd_kernel is chosen by d_model / n_heads).
 //
 // Replaces vcrnet_tpu/ops/pallas_attention.py:flash_mha_packed
 // (_flash_packed_impl -> _fwd_packed_kernel, :239) and, with the row
@@ -16,7 +16,7 @@
 // flash_bwd.cu recomputes the probabilities.
 #include "flash_fwd.cuh"
 
-// q bf16 [B,Nq,D], k/v bf16 [B,Nk,D] (D = n_heads * dk, dk = 64 or 128) ->
+// q bf16 [B,Nq,D], k/v bf16 [B,Nk,D] (D = n_heads * dk, dk = 64, 128 or 256) ->
 // out bf16 [B,Nq,D], and with a non-null lse the row logsumexp f32
 // [B,H,Nq], over the first nk_valid keys (1 <= nk_valid <= Nk; finite K and
 // V rows beyond it). Any Nq, Nk (rows past them in a last tile:
@@ -26,7 +26,7 @@ cudaError_t vcr_flash_packed(const void* q, const void* k, const void* v, void* 
                              float* lse, int batch, int nq, int nk, int nk_valid, int d_model,
                              int n_heads, float sm_scale, cudaStream_t stream) {
   using namespace vcr::hopper;
-  return dispatch_head_dim(d_model, n_heads, [&](auto dk) {
+  return dispatch_head_dim<256>(d_model, n_heads, [&](auto dk) {
     CUtensorMap q_map, k_map, v_map;
     cudaError_t err = make_box_map(&q_map, q, static_cast<uint64_t>(batch) * nq, d_model);
     if (err == cudaSuccess)

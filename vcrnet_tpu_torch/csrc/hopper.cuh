@@ -13,7 +13,7 @@
 // Tiles. Every operand tile is a TMA box of [64 rows, 64 bf16 columns]
 // (128 bytes a row) loaded with the 128-byte swizzle, so one head's dk
 // columns of the packed [B*N, H*dk] view are dk / 64 boxes, 8 KB apart (two
-// at dk = 128, one at dk = 64). A box
+// at dk = 128, one at dk = 64, four at dk = 256). A box
 // starts on a 1024-byte boundary: the swizzle XORs the 16-byte chunk index
 // of a row with the row's index modulo 8, taken from address bits [7, 10),
 // and the wgmma descriptor (layout type 1, base offset 0) reads it back by
@@ -25,9 +25,9 @@
 //     the row, and a second box holds k steps 4..7;
 //   * MN-major (the contraction runs down the rows; trans = 1, for B only):
 //     a k16 step is 16 rows (+2048 bytes), 8-row groups 1024 bytes apart
-//     (SBO), and the two 64-column halves of N = 128 are the two boxes,
-//     8192 bytes apart (LBO); at N = 64 the one box is the whole operand
-//     and LBO is never used.
+//     (SBO), and the 64-column parts of N = 128 or 256 are the two or four
+//     boxes, 8192 bytes apart (LBO); at N = 64 the one box is the whole
+//     operand and LBO is never used.
 // The trans bit is easy to get wrong silently: S = Q.K^T reads K K-major,
 // O += P.V reads V MN-major, though both are [keys, 128] boxes.
 #pragma once
@@ -51,16 +51,22 @@ constexpr uint32_t head_tile_bytes(int dk) { return static_cast<uint32_t>(dk / k
 
 // ---------------------------------------------------------------- host side
 
-// The head widths the attention kernels (flash_packed.cu, flash_bwd.cu,
-// colmass.cu) have instances of: calls launch(std::integral_constant<int,
-// dk>{}) with dk = d_model / n_heads when that is 64 or 128, and refuses any
-// other dk (cudaErrorInvalidValue) before anything is launched.
-template <typename Launch>
+// The head widths the attention kernels have instances of: calls
+// launch(std::integral_constant<int, dk>{}) with dk = d_model / n_heads when
+// that is 64, 128 or (up to kMaxDk) 256, and refuses any other dk
+// (cudaErrorInvalidValue) before anything is launched. The forward kernels
+// (flash_packed.cu, colmass.cu) take kMaxDk = 256, the backward
+// (flash_bwd.cu) 128.
+template <int kMaxDk, typename Launch>
 cudaError_t dispatch_head_dim(int d_model, int n_heads, Launch&& launch) {
+  static_assert(kMaxDk == 128 || kMaxDk == 256, "the widest head dim of a kernel");
   const int dk = n_heads > 0 ? d_model / n_heads : 0;
   if (dk * n_heads != d_model) return cudaErrorInvalidValue;
   if (dk == 64) return launch(std::integral_constant<int, 64>{});
   if (dk == 128) return launch(std::integral_constant<int, 128>{});
+  if constexpr (kMaxDk == 256) {
+    if (dk == 256) return launch(std::integral_constant<int, 256>{});
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -314,8 +320,9 @@ __device__ __forceinline__ uint64_t desc_k_major_rows(const __nv_bfloat16* tile,
   return desc_sw128(tile + (kk >> 2) * rows * kBox + (kk & 3) * 16, 0, 1024);
 }
 
-// k16 step ``kk`` (0..3) of an MN-major [64 (k), 128 (n)] B operand held as
-// two boxes: 16 rows a step, the halves of n one box apart.
+// k16 step ``kk`` (0..3) of an MN-major [64 (k), 128 or 256 (n)] B operand
+// held as two or four boxes: 16 rows a step, the 64-column parts of n one
+// box apart.
 __device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* tile, int kk) {
   return desc_sw128(tile + kk * 16 * kBox, kBoxBytes, 1024);
 }
@@ -503,6 +510,56 @@ __device__ __forceinline__ void wgmma_m64n256_ss_mn(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 256] (+)= A[64 x 16] . B[16 x 256]: A from registers (a bf16x2
+// fragment, as in wgmma_m64n128_rs), B from shared memory read MN-major
+// (kTransB = 1: B's 256 columns run along the 128-byte rows of four boxes 8
+// KB apart, as desc_mn_major reads them); f32 accumulate; ``accumulate`` =
+// 0 overwrites d. The accumulator layout is the m64nN one below, with j =
+// 0..31.
+template <int kTransB = 1>
+__device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                 int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, "
+      "%131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
 // d[64 x 256] (+)= A[64 x 32] . B[32 x 256] in s8 -> s32, both from shared
 // memory and both K-major (the only layout wgmma takes for 8-bit types): A a
 // [64, 128] int8 box, B 256 rows of 128 bytes one after the other (four such
@@ -600,13 +657,26 @@ __device__ __forceinline__ void accumulate_64x64(float (&acc)[32], const uint32_
                        desc_mn_major(b, kk), 1);
 }
 
+// acc[64 x 256] += A . B over 64: the same with B a [64, 256] tile (four
+// boxes) read MN-major, m64n256k16.
+__device__ __forceinline__ void accumulate_64x256(float (&acc)[128], const uint32_t (&a)[16],
+                                                  const __nv_bfloat16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n256_rs(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                     desc_mn_major(b, kk));
+}
+
 // acc[64 x dk] += A . B over 64 for a [64, dk] B tile: the product of
-// either width (the accumulator holds dk / 2 values a thread).
+// any of the three widths (the accumulator holds dk / 2 values a thread).
 template <int kN>
 __device__ __forceinline__ void accumulate_64xdk(float (&acc)[kN], const uint32_t (&a)[16],
                                                  const __nv_bfloat16* b) {
-  static_assert(kN == 32 || kN == 64, "a [64, 64] or [64, 128] accumulator");
-  if constexpr (kN == 64)
+  static_assert(kN == 32 || kN == 64 || kN == 128,
+                "a [64, 64], [64, 128] or [64, 256] accumulator");
+  if constexpr (kN == 128)
+    accumulate_64x256(acc, a, b);
+  else if constexpr (kN == 64)
     accumulate_64x128(acc, a, b);
   else
     accumulate_64x64(acc, a, b);
@@ -622,8 +692,8 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// A thread's part of a [64, 128] (kN = 64) or [64, 64] (kN = 32) f32
-// accumulator as bf16: row g, scaled by scale_g, to the 2 kN columns at
+// A thread's part of a [64, 2 kN] f32 accumulator (kN = 32, 64 or 128)
+// as bf16: row g, scaled by scale_g, to the 2 kN columns at
 // ``row_g``, and row g + 8 likewise; a null row pointer skips the row (it
 // lies past the end of the output).
 template <int kN>

@@ -16,6 +16,9 @@ namespace vcp {
 constexpr int kTile = 64;      // rows of a streamed tile, and of an owned block
 constexpr int kMaxBoxes = 8;   // [64, 64] bf16 boxes across E: E <= 512
 constexpr int kMaxE = 64 * kMaxBoxes;
+// vcp_stream.cu's kernel for 512 < E <= 1024 (the backward keeps kMaxE)
+constexpr int kMaxWideBoxes = 16;
+constexpr int kMaxWideE = 64 * kMaxWideBoxes;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 

@@ -43,10 +43,18 @@ KERNELS = {
 HEAD64_KERNELS = {"flash_packed": flash_mha_packed, "flash_bwd": flash_bwd,
                   "softmax_colmass": softmax_colmass}
 
+# the instances that serve --emb_dims 1024 (the forward attention kernels at
+# dk = 256, the soft correspondence's kernel for E > 512): their kernel's
+# name in ``KERNELS`` and the attribute that also counts their launches
+WIDE_KERNELS = {"flash_packed_dk256": ("flash_packed", "launches_dk256"),
+                "softmax_colmass_dk256": ("softmax_colmass", "launches_dk256"),
+                "vcp_stream_e1024": ("vcp_stream", "launches_e1024")}
+
 
 def reset_launch_counts() -> None:
     """Zeroes every kernel's launches, the attention kernels' dk = 64
-    counts (``.launches_dk64``, counted in ``.launches`` too), the edge
+    counts (``.launches_dk64``, counted in ``.launches`` too), the wide
+    instances' (``WIDE_KERNELS``, likewise), the edge
     kernel's f32-instance count (``fused_edge_conv.launches_f32``, likewise)
     and its split pass's (``split_planes.launches``, which ``launch_counts``
     leaves out: one a launch of that instance), and the pairs of the int8
@@ -55,6 +63,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in HEAD64_KERNELS.values():
         fn.launches_dk64 = 0
+    for name, attr in WIDE_KERNELS.values():
+        setattr(KERNELS[name], attr, 0)
     fused_edge_conv.launches_f32 = 0
     split_planes.launches = 0
     int8_linear.projections = 0
@@ -67,3 +77,8 @@ def launch_counts() -> dict:
 def launch_counts_dk64() -> dict:
     """The dk = 64 instances' launches, as ``flash_packed_dk64`` etc."""
     return {f"{name}_dk64": fn.launches_dk64 for name, fn in HEAD64_KERNELS.items()}
+
+
+def launch_counts_wide() -> dict:
+    """The wide instances' launches, as ``flash_packed_dk256`` etc."""
+    return {wide: getattr(KERNELS[name], attr) for wide, (name, attr) in WIDE_KERNELS.items()}

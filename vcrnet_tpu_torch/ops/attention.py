@@ -6,11 +6,13 @@ column block [h*dk, (h+1)*dk). ``flash_bwd`` replaces the one-pass
 backward ``_bwd_fused`` (its training forward, the stock TPU flash kernel
 ``_fwd_library``, is ``flash_mha_packed`` with the row logsumexp saved).
 A CUDA tensor launches ``csrc/flash_packed.cu`` / ``csrc/flash_bwd.cu``
-(or raises); a CPU tensor runs the ``*_ref`` plain version. The kernels
-take the head dims of ``HEAD_DIMS`` (an instance each); any other raises on
-a CUDA tensor. Each wrapper counts its launches in ``.launches``, and those
-of the dk = 64 instances also in ``.launches_dk64``; ``attention`` is the differentiable
-entry point, which the model calls in eval and in training. The forward runs
+(or raises); a CPU tensor runs the ``*_ref`` plain version. The forward
+kernel takes the head dims of ``HEAD_DIMS`` (an instance each), the backward
+those of ``BWD_HEAD_DIMS``; any other raises on a CUDA tensor. Each wrapper
+counts its launches in ``.launches``, and those of the dk = 64 instances
+also in ``.launches_dk64``, of the forward's dk = 256 instance in
+``.launches_dk256``; ``attention`` is the differentiable entry point, which
+the model calls in eval and in training. The forward runs
 through the op ``vcrnet_torch::flash_packed`` (``ops/library.py``), the
 backward calls the extension directly.
 
@@ -33,28 +35,29 @@ import torch.nn.functional as F
 from vcrnet_tpu_torch.ops import _build, flop_meter, library
 from vcrnet_tpu_torch.ops._common import check_aligned, check_tensor, kernel_route, upcast
 
-HEAD_DIMS = (64, 128)  # the kernels' dk: one instance of each kernel a head dim
+HEAD_DIMS = (64, 128, 256)  # the forward kernels' dk: one instance each
+BWD_HEAD_DIMS = (64, 128)    # the backward kernels' (dk = 256 is not yet ported)
 
 
-def head_dim_supported(d_model: int, n_heads: int) -> bool:
+def head_dim_supported(d_model: int, n_heads: int, dims=HEAD_DIMS) -> bool:
     """Whether the heads of ``d_model`` split into ``n_heads`` have a dk
-    of ``HEAD_DIMS``."""
-    return n_heads > 0 and d_model % n_heads == 0 and d_model // n_heads in HEAD_DIMS
+    of ``dims``."""
+    return n_heads > 0 and d_model % n_heads == 0 and d_model // n_heads in dims
 
 
 def flash_packed_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the forward kernel takes: dk of ``HEAD_DIMS`` (64 or 128) and
-    any lengths (the TPU gate, pallas_attention.py:flash_packed_supported,
-    asked for dk and lengths in multiples of 128, and the JAX package runs
+    """Shapes the forward kernel takes: dk of ``HEAD_DIMS`` (64, 128 or 256)
+    and any lengths (the TPU gate, pallas_attention.py:flash_packed_supported,
+    asks for dk and lengths in multiples of 128, and the JAX package runs
     dk = 64 through its stock flash kernel; every shape either takes is
     accepted here)."""
     return head_dim_supported(d_model, n_heads) and nq > 0 and nk > 0
 
 
 def flash_bwd_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the backward kernels take: the forward's (dk 64 or 128, any
-    lengths; the last tiles of each item are ragged)."""
-    return flash_packed_supported(nq, nk, d_model, n_heads)
+    """Shapes the backward kernels take: dk of ``BWD_HEAD_DIMS`` (64 or
+    128) and any lengths (the last tiles of each item are ragged)."""
+    return head_dim_supported(d_model, n_heads, BWD_HEAD_DIMS) and nq > 0 and nk > 0
 
 
 def _split(x, n_heads):
@@ -132,6 +135,7 @@ def _flash_packed_impl(q, k, v, sm_scale: float, n_heads: int, return_lse: bool,
     _build.extension().flash_packed(q, k, v, out, lse, nk, n_heads, sm_scale)
     flash_mha_packed.launches += 1
     flash_mha_packed.launches_dk64 += q.shape[2] == 64 * n_heads
+    flash_mha_packed.launches_dk256 += q.shape[2] == 256 * n_heads
     flop_meter.add(flop_meter.flash_fwd_flops(B, nq, nk, q.shape[2], n_heads))
     return out, lse if return_lse else library.empty_output(q, torch.float32)
 
@@ -152,6 +156,7 @@ _flash_packed_op = library.define(
 
 flash_mha_packed.launches = 0
 flash_mha_packed.launches_dk64 = 0  # of them, the dk = 64 instance's
+flash_mha_packed.launches_dk256 = 0  # and the dk = 256 instance's
 
 
 def flash_mha_packed_bwd_ref(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
@@ -185,7 +190,7 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale: float, n_heads: int):
     if not flash_bwd_supported(nq, nk, d, n_heads):
         raise ValueError(
             f"flash_bwd kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads} "
-            f"(flash_bwd_supported: dk in {HEAD_DIMS})"
+            f"(flash_bwd_supported: dk in {BWD_HEAD_DIMS})"
         )
     bf16 = torch.bfloat16
     for name, t, n in (("q", q, nq), ("k", k, nk), ("v", v, nk), ("o", o, nq), ("do", do, nq)):
@@ -228,5 +233,16 @@ class _Attention(torch.autograd.Function):
 def attention(q, k, v, sm_scale: float, n_heads: int):
     """Differentiable :func:`flash_mha_packed`, for eval and training: the
     forward saves its logsumexp only when a gradient is wanted, and the
-    backward is :func:`flash_bwd`. Any lengths run, with a gradient too."""
-    return _Attention.apply(q, k, v, sm_scale, n_heads, torch.is_grad_enabled())
+    backward is :func:`flash_bwd`. Any lengths run, with a gradient too.
+    On a CUDA tensor a gradient at a head dim the backward kernels do not
+    take (dk = 256) raises before the forward runs."""
+    grad = torch.is_grad_enabled()
+    if grad and any(t.requires_grad for t in (q, k, v)) and kernel_route(q, k, v):
+        nq, d = q.shape[1], q.shape[2]
+        if not flash_bwd_supported(nq, k.shape[1], d, n_heads):
+            raise ValueError(
+                f"attention: no backward kernel for nq={nq} nk={k.shape[1]} d_model={d} "
+                f"heads={n_heads} (flash_bwd_supported: dk in {BWD_HEAD_DIMS}); evaluate "
+                f"under torch.no_grad() or train on the plain route"
+            )
+    return _Attention.apply(q, k, v, sm_scale, n_heads, grad)

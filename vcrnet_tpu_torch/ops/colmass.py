@@ -15,10 +15,10 @@ re-mask keeps the keys with the largest masses summed over heads
 
 A CUDA tensor launches ``csrc/colmass.cu`` (or raises); a CPU tensor runs
 ``softmax_colmass_ref``. The kernels take the head dims of
-``ops.attention.HEAD_DIMS`` (64 and 128). The wrapper counts its launches
-in ``.launches`` (one per call: the two kernels run back to back), those at
-dk = 64 also in ``.launches_dk64``. No backward: the masses only feed a
-hard selection.
+``ops.attention.HEAD_DIMS`` (64, 128 and 256). The wrapper counts its
+launches in ``.launches`` (one per call: the two kernels run back to back),
+those at dk = 64 also in ``.launches_dk64``, at dk = 256 in
+``.launches_dk256``. No backward: the masses only feed a hard selection.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from vcrnet_tpu_torch.ops.attention import HEAD_DIMS, _scores, head_dim_supporte
 
 
 def colmass_supported(nq: int, nk: int, d_model: int, n_heads: int) -> bool:
-    """Shapes the kernels take: dk of ``HEAD_DIMS`` (64 or 128) and any
+    """Shapes the kernels take: dk of ``HEAD_DIMS`` (64, 128 or 256) and any
     lengths (the last query tile adds the masses of its real rows alone, by
     a count; the last key block stores only its real keys)."""
     return head_dim_supported(d_model, n_heads) and nq > 0 and nk > 0
@@ -72,6 +72,7 @@ def _softmax_colmass_impl(q, k, sm_scale: float, n_heads: int):
     _build.extension().softmax_colmass(q, k, lse, out, n_heads, sm_scale)
     softmax_colmass.launches += 1
     softmax_colmass.launches_dk64 += q.shape[2] == 64 * n_heads
+    softmax_colmass.launches_dk256 += q.shape[2] == 256 * n_heads
     flop_meter.add(flop_meter.colmass_flops(B, nq, nk, q.shape[2], n_heads))
     return out
 
@@ -87,3 +88,4 @@ _softmax_colmass_op = library.define(
 
 softmax_colmass.launches = 0
 softmax_colmass.launches_dk64 = 0  # of them, the dk = 64 instance's
+softmax_colmass.launches_dk256 = 0  # and the dk = 256 instance's

@@ -31,7 +31,9 @@ from vcrnet_tpu_torch.ops import _build, library
 from vcrnet_tpu_torch.ops._common import SMEM_LIMIT, check_aligned, check_tensor, kernel_route
 
 HEAD_DIM = 128  # the attention kernel's dk
-MAX_D_MODEL = 512  # the widest sublayer whose kernels are held to the plain version on the card
+# the widest sublayers whose kernels are held to the plain version on the card
+MHA_MAX_D_MODEL = 512  # the attention sublayer
+FF_MAX_D_MODEL = 1024  # the feed-forward sublayer (--emb_dims 1024)
 MAX_D_FF = 4096  # the widest feed-forward hidden layer held on the card
 
 
@@ -76,22 +78,25 @@ def fused_mha_supported(nq: int, nk: int, d: int, n_heads: int) -> bool:
     they live in device memory."""
     if not fused_pointer_enabled():
         return False
-    return (d % n_heads == 0 and d // n_heads == HEAD_DIM and d <= MAX_D_MODEL
+    return (d % n_heads == 0 and d // n_heads == HEAD_DIM and d <= MHA_MAX_D_MODEL
             and nq > 0 and nk > 0 and pointer_mha_smem_bytes(d) <= SMEM_LIMIT)
 
 
 def fused_ff_supported(n: int, d: int, f: int) -> bool:
     """Whether the model takes the fused feed-forward branch: the
     environment variable, then the widths the CUDA kernels are held to on
-    the card (D in 128s up to 512, F in 128s up to 4096; any number of
-    rows). Their shared memory depends on neither width."""
+    the card (D in 128s up to 1024, F in 128s up to 4096; any number of
+    rows). Their shared memory depends on neither width. This takes every
+    shape the JAX gate takes (pallas_pointer.py:fused_ff_supported: rows,
+    D and F in 128s within its VMEM budget, D = F = 1024 at 768, 1024 and
+    3072 rows among them)."""
     if not fused_pointer_enabled():
         return False
     return _ff_widths_held(d, f)
 
 
 def _ff_widths_held(d: int, f: int) -> bool:
-    return d % 128 == 0 and f % 128 == 0 and d <= MAX_D_MODEL and f <= MAX_D_FF
+    return d % 128 == 0 and f % 128 == 0 and d <= FF_MAX_D_MODEL and f <= MAX_D_FF
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -134,7 +139,7 @@ def fused_mha(yq, ykv, wq, bq, wk, bk, wv, bv, wo, bo, n_heads: int) -> torch.Te
     if kernel_route(*tensors):
         B, nq, d = yq.shape
         nk = ykv.shape[1]
-        if (d % n_heads or d // n_heads != HEAD_DIM or d > MAX_D_MODEL
+        if (d % n_heads or d // n_heads != HEAD_DIM or d > MHA_MAX_D_MODEL
                 or pointer_mha_smem_bytes(d) > SMEM_LIMIT):
             raise ValueError(
                 f"fused_mha kernel does not take nq={nq} nk={nk} d_model={d} heads={n_heads}"
@@ -188,7 +193,7 @@ def fused_ff_ref(y, w1, b1, w2, b2) -> torch.Tensor:
 def fused_ff(y, w1, b1, w2, b2) -> torch.Tensor:
     """y [B, N, D], w1 [D, F], b1 [F], w2 [F, D], b2 [D] in any float dtype
     -> [B, N, D] bf16. The kernels take D % 128 == 0, F % 128 == 0,
-    D <= 512 and F <= 4096, any number of rows. Runs the op
+    D <= 1024 and F <= 4096, any number of rows. Runs the op
     ``vcrnet_torch::fused_ff``."""
     tensors = (y, w1, b1, w2, b2)
     _refuse_grad("fused_ff", tensors)

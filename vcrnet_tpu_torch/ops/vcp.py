@@ -10,7 +10,8 @@ vcrnet_tpu/ops/pallas_vcp.py:streaming_soft_correspondence:
 ``vcp_bwd`` its backward ``_vcp_bwd``. A CUDA tensor launches
 ``csrc/vcp_stream.cu`` / ``csrc/vcp_bwd.cu`` (or raises); a CPU tensor runs
 the ``*_ref`` plain version. Each wrapper counts its launches in
-``.launches``; ``soft_correspondence_vjp`` is the differentiable entry
+``.launches``, and the forward those of its kernel for E > 512 also in
+``.launches_e1024``; ``soft_correspondence_vjp`` is the differentiable entry
 point, which the model calls in eval and in training. The forward runs
 through the op ``vcrnet_torch::vcp_stream`` (``ops/library.py``), the
 backward calls the extension directly.
@@ -37,14 +38,18 @@ def streaming_soft_correspondence_ref(src_emb, tgt_emb, tgt, return_lse: bool = 
     return (corr, torch.logsumexp(s, dim=-1)) if return_lse else corr
 
 
-# Both kernels cut their rows and tiles into eight [64, 64] boxes at most,
-# and the backward splits its [64, E] f32 accumulator between two
-# warpgroups' registers: E <= 512 (ROADMAP C, "VCP kernels' gate").
-MAX_E = 512
+# The forward runs E <= 512 on its first kernel and 512 < E <= 1024 on a
+# second, which holds 64 source rows of 16 boxes in shared memory; the
+# backward cuts its rows and tiles into eight [64, 64] boxes at most and
+# splits its [64, E] f32 accumulator between two warpgroups' registers:
+# E <= 512 (ROADMAP C, "VCP kernels' gate").
+MAX_E = 1024
+MAX_NARROW_E = 512  # above it the forward launches its second kernel
+MAX_VJP_E = 512
 
 
 def streaming_supported(ns: int, nt: int, e: int) -> bool:
-    """Shapes the forward kernel takes: whole k16 steps, E <= 512, any
+    """Shapes the forward kernels take: whole k16 steps, E <= 1024, any
     lengths (the last block stores only its real rows; the keys past Nt
     of the last tile have an infinite norm and score -inf)."""
     return ns > 0 and nt > 0 and e % 16 == 0 and e <= MAX_E
@@ -59,7 +64,8 @@ def streaming_soft_correspondence(src_emb, tgt_emb, tgt, return_lse: bool = Fals
         B, ns, e = src_emb.shape
         nt = tgt_emb.shape[1]
         if not streaming_supported(ns, nt, e):
-            raise ValueError(f"vcp kernel does not take Ns={ns} Nt={nt} E={e}")
+            raise ValueError(f"vcp kernel does not take Ns={ns} Nt={nt} E={e} "
+                             f"(streaming_supported: E % 16 == 0, E <= {MAX_E})")
         check_tensor("src_emb", src_emb, torch.bfloat16, (B, ns, e))
         check_tensor("tgt_emb", tgt_emb, torch.bfloat16, (B, nt, e))
         check_tensor("tgt", tgt, torch.float32, (B, nt, 3))
@@ -82,6 +88,7 @@ def _vcp_stream_impl(src_emb, tgt_emb, tgt, return_lse: bool):
     lse = torch.empty((B, ns), dtype=f32, device=tgt.device) if return_lse else None
     _build.extension().vcp_stream(src_emb, tgt_emb, tgt, keys, out, lse)
     streaming_soft_correspondence.launches += 1
+    streaming_soft_correspondence.launches_e1024 += src_emb.shape[2] > MAX_NARROW_E
     return out, lse if return_lse else library.empty_output(out, f32)
 
 
@@ -98,15 +105,16 @@ _vcp_stream_op = library.define(
 
 
 streaming_soft_correspondence.launches = 0
+streaming_soft_correspondence.launches_e1024 = 0  # of them, the E > 512 kernel's
 
 
 def streaming_vjp_supported(ns: int, nt: int, e: int) -> bool:
     """Shapes the backward kernels take (the counterpart of the TPU's VMEM
-    gate pallas_vcp.py:streaming_vjp_supported): the forward's, at any
-    lengths (the last tiles of each item are ragged: keys past Nt have an
-    infinite norm, source rows past Ns a zero gradient and an lse of +inf,
-    so both give p = 0)."""
-    return streaming_supported(ns, nt, e)
+    gate pallas_vcp.py:streaming_vjp_supported): whole k16 steps, E <= 512,
+    at any lengths (the last tiles of each item are ragged: keys past Nt
+    have an infinite norm, source rows past Ns a zero gradient and an lse of
+    +inf, so both give p = 0)."""
+    return streaming_supported(ns, nt, e) and e <= MAX_VJP_E
 
 
 def vcp_bwd_ref(src_emb, tgt_emb, tgt, corr, lse, dcorr):
@@ -135,7 +143,8 @@ def vcp_bwd(src_emb, tgt_emb, tgt, corr, lse, dcorr):
     B, ns, e = src_emb.shape
     nt = tgt_emb.shape[1]
     if not streaming_vjp_supported(ns, nt, e):
-        raise ValueError(f"vcp_bwd kernel does not take Ns={ns} Nt={nt} E={e}")
+        raise ValueError(f"vcp_bwd kernel does not take Ns={ns} Nt={nt} E={e} "
+                         f"(streaming_vjp_supported: E % 16 == 0, E <= {MAX_VJP_E})")
     check_tensor("src_emb", src_emb, torch.bfloat16, (B, ns, e))
     check_tensor("tgt_emb", tgt_emb, torch.bfloat16, (B, nt, e))
     check_tensor("tgt", tgt, torch.float32, (B, nt, 3))
@@ -185,12 +194,15 @@ def soft_correspondence_vjp(src_emb, tgt_emb, tgt):
     soft_correspondence_vjp), for eval and training: where a gradient is
     wanted the forward saves its logsumexp and the backward is
     :func:`vcp_bwd`, and shapes :func:`streaming_vjp_supported` refuses
-    (E > 512, E % 16) raise, on any device."""
+    (E > 512, E % 16) raise, on any device; without a gradient the forward
+    kernels take E <= 1024."""
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (src_emb, tgt_emb, tgt))
     B, ns, e = src_emb.shape
     if wants_grad and not streaming_vjp_supported(ns, tgt_emb.shape[1], e):
         raise ValueError(
-            f"soft_correspondence_vjp does not take Ns={ns} Nt={tgt_emb.shape[1]} E={e}"
+            f"soft_correspondence_vjp does not take Ns={ns} Nt={tgt_emb.shape[1]} E={e} "
+            f"with a gradient (streaming_vjp_supported: E % 16 == 0, E <= {MAX_VJP_E}); "
+            f"evaluate under torch.no_grad() or train on the plain route"
         )
     return _SoftCorrespondence.apply(src_emb, tgt_emb, tgt, wants_grad)

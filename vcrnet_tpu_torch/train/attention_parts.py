@@ -12,8 +12,10 @@ interface is the same, and ``pointer_mha.cu`` is called with or without its
 Q scratch as its source declares it), each alone with nvcc into a shared
 library with a C shim, and times them with CUDA events (median of 25) on
 seeded random bf16 inputs. The attention kernels run at each head dim the
-sources take (d_model = 512: 4 heads of 128, and 8 of 64 where the sources
-have the dk = 64 instances; those rows are named ``..._dk64``):
+sources take (d_model = 512: 4 heads of 128, 8 of 64 where the sources
+have the dk = 64 instances, and for the forward and the column masses 2 of
+256 where they have the dk = 256 ones; those rows are named ``..._dk64``
+and ``..._dk256``):
 
 * ``flash_packed``, whose loop the other two share, at B = 64, N = 1024
   (without and with the row logsumexp) and at B = 8, Nq = 3072 over 2368
@@ -201,7 +203,10 @@ def main(argv=None) -> int:
     three = "void* qscr" in texts["pointer_mha.cu"]
     wide = "int d_model" in texts["flash_packed.cu"]  # the sources take dk = 64 too
     dks = (DK, 64) if wide else (DK,)
-    print(f"head dims {dks}", flush=True)
+    fwd_path = os.path.join(args.csrc, "flash_fwd.cuh")
+    fwd_text = open(fwd_path).read() if os.path.exists(fwd_path) else ""
+    fwd_dks = dks + ((256,) if "kDk == 256" in fwd_text else ())  # the forward kernels' too
+    print(f"head dims {fwd_dks} (the backward {dks})", flush=True)
     shims = {src: shim.replace("WIDE", "d_model," if wide else "")
              for src, shim in (("flash_packed.cu", _FLASH_SHIM), ("colmass.cu", _COLMASS_SHIM),
                                ("flash_bwd.cu", _FLASH_BWD_SHIM))}
@@ -249,7 +254,7 @@ def main(argv=None) -> int:
     # 64-pair request's shape, with the training forward's lse, and over the
     # partial-3072 request's kept keys (2353 of 2368); at each head dim
     flash = libs["flash_packed"].shim
-    for dk in dks:
+    for dk in fwd_dks:
         h, scale, tag = D // dk, dk ** -0.5, "" if dk == DK else f"_dk{dk}"
         for b, nq, nk, nk_valid, with_lse in ((64, 1024, 1024, 1024, False),
                                               (64, 1024, 1024, 1024, True),
@@ -274,7 +279,7 @@ def main(argv=None) -> int:
 
     # ---- column masses: the row logsumexps and the mass pass
     n = 3072
-    for dk in dks:
+    for dk in fwd_dks:
         h, scale, tag = D // dk, dk ** -0.5, "" if dk == DK else f"_dk{dk}"
         for b in (8, 2):
             q, k = randn(b, n, D), randn(b, n, D)
